@@ -1,0 +1,247 @@
+"""The neural field as an nn.Module.
+
+Counterpart of autolabel_tpu/models/field.py. The module's parameters keep
+the JAX param tree's keys and (in, out) matrix layouts: 'sigma_net.0' is
+params['sigma_net'][0], 'encoder.grid' is params['encoder']['grid'] (L, T,
+F), 'proposal.i' the proposal MLP (bridge.py converts both ways). Methods
+keep the JAX names; the params are the module's own.
+
+Head layout:
+  encoder:   'freq' | 'hg' | 'hg+freq' positional encoding
+  sigma_net: enc_dim -> 128 x2 -> 1 + geo_feat_dim     (trunc_exp density)
+  color_net: sh16 + geo -> 128 x2 -> 3                 (sigmoid rgb)
+  semantic_features: geo -> S x2 -> S
+  semantic_out: relu(feat) + geo -> 64 x1 -> n_classes
+"""
+import dataclasses
+
+import torch
+from torch import nn
+
+from autolabel_tpu_torch.device import resolve_device
+from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
+from autolabel_tpu_torch.ops.activation import trunc_exp
+from autolabel_tpu_torch.ops.encoders import (HashGridConfig,
+                                              frequency_encode,
+                                              hashgrid_encode, hashgrid_init,
+                                              sh_encode)
+from autolabel_tpu_torch.ops.mlp import mlp_apply, mlp_init
+
+HEAD_KEYS = ('sigma_net', 'color_net', 'semantic_features', 'semantic_out')
+
+
+@dataclasses.dataclass(frozen=True)
+class FieldConfig:
+    encoding: str = 'hg+freq'
+    num_layers: int = 2
+    hidden_dim: int = 128
+    geo_feat_dim: int = 15
+    num_layers_color: int = 2
+    hidden_dim_color: int = 128
+    hidden_dim_semantic: int = 64
+    semantic_classes: int = 2
+    bound: float = 1.0
+    # Optional override of the hash-grid hyperparameters; None = the
+    # reference-parity defaults per encoding.
+    grid: HashGridConfig = None
+    # Hash-grid implementation: 'xla' (plain PyTorch gathers) or 'pallas'
+    # (the CUDA encode kernel, ops/hashgrid_cuda.py). The names are the
+    # JAX package's, so configs and flags carry over unchanged.
+    grid_impl: str = 'xla'
+    # Head-stack implementation: 'xla' (mlp_apply chains) or 'pallas' (the
+    # fused CUDA head and proposal kernels, ops/heads_cuda.py). Same math.
+    heads_impl: str = 'xla'
+    grid_interp: str = 'trilinear'
+    proposal: bool = False
+    proposal_hidden_dim: int = 64
+    # Relu the geometric features before the heads (imported reference
+    # checkpoints).
+    geo_relu: bool = False
+
+    @property
+    def grid_config(self):
+        if self.grid is not None and self.encoding in ('hg', 'hg+freq'):
+            return self.grid
+        if self.encoding == 'hg':
+            return HashGridConfig.from_desired_resolution(2 ** 18)
+        if self.encoding == 'hg+freq':
+            return HashGridConfig()
+        return None
+
+    @property
+    def encoder_dim(self):
+        if self.encoding == 'freq':
+            return 3 * 10 * 2
+        if self.encoding == 'hg':
+            return self.grid_config.out_dim
+        if self.encoding == 'hg+freq':
+            return 3 * 2 * 2 + self.grid_config.out_dim
+        raise NotImplementedError(f"Unknown input encoding {self.encoding}")
+
+
+def _params(tensors, device):
+    return nn.ParameterList(
+        [nn.Parameter(t.to(device), requires_grad=False) for t in tensors])
+
+
+class Field(nn.Module):
+    """Config + parameters. Parameters are drawn on the CPU from
+    `generator` (a fresh torch.Generator seeded 0 when None), with the JAX
+    package's init distributions, then moved to `device`."""
+
+    def __init__(self, config: FieldConfig, device=None, generator=None):
+        super().__init__()
+        self.config = c = config
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self._packs = {}  # name -> (weights, stamp, packed): _kernel_pack
+        self.sigma_net = _params(
+            mlp_init(generator, c.encoder_dim, c.hidden_dim,
+                     1 + c.geo_feat_dim, c.num_layers), device)
+        self.color_net = _params(
+            mlp_init(generator, 16 + c.geo_feat_dim, c.hidden_dim_color, 3,
+                     c.num_layers_color), device)
+        self.semantic_features = _params(
+            mlp_init(generator, c.geo_feat_dim, c.hidden_dim_semantic,
+                     c.hidden_dim_semantic, 2), device)
+        self.semantic_out = _params(
+            mlp_init(generator, c.hidden_dim_semantic + c.geo_feat_dim, 64,
+                     c.semantic_classes, 1), device)
+        self.encoder = nn.ParameterDict()
+        if c.grid_config is not None:
+            self.encoder['grid'] = nn.Parameter(
+                hashgrid_init(generator, c.grid_config).to(device),
+                requires_grad=False)
+        if c.proposal:
+            # freq(n=6) on normalized coords -> 3*6*2 = 36 input dims.
+            self.proposal = _params(
+                mlp_init(generator, 36, c.proposal_hidden_dim, 1, 2), device)
+
+    @property
+    def device(self):
+        return self.sigma_net[0].device
+
+    def head_params(self):
+        """The head matrices as the JAX tree's lists."""
+        return {k: list(getattr(self, k)) for k in HEAD_KEYS}
+
+    def _kernel_pack(self, name, weights, pack):
+        """pack(), the kernels' packing of `weights`: bf16 on the card (the
+        kernels' operand type), fp32 on the CPU (where the plain version
+        runs). Built once and rebuilt only when a weight is replaced,
+        moved or written in place (load_params, load_state_dict, .to),
+        since the weights never change while serving."""
+        stamp = [(w.data_ptr(), w._version) for w in weights]
+        cached = self._packs.get(name)
+        if (cached is None or cached[1] != stamp
+                or any(a is not b for a, b in zip(cached[0], weights))):
+            packed = pack()
+            if self.device.type == 'cuda':
+                packed = tuple(w.to(torch.bfloat16) for w in packed)
+            cached = self._packs[name] = (list(weights), stamp, packed)
+        return cached[2]
+
+    # -- encodings ---------------------------------------------------------
+
+    def _normalized(self, x):
+        bound = self.config.bound
+        return torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+
+    def _grid_encode(self, normalized):
+        c = self.config
+        table = self.encoder['grid']
+        if c.grid_impl == 'pallas' and c.grid_interp == 'trilinear':
+            return hashgrid_cuda.hashgrid_encode(table, normalized,
+                                                 c.grid_config)
+        return hashgrid_encode(table, normalized, c.grid_config,
+                               interp=c.grid_interp)
+
+    def encode(self, x):
+        """Positional encoding of (N, 3) points in [-bound, bound] (exact
+        interpolation, the eval form)."""
+        return torch.cat(self._encode_segments(x), dim=-1)
+
+    def _encode_segments(self, x):
+        """The encoding as a list of segments (same values and column order
+        as encode(); mlp_apply consumes them as split products)."""
+        c = self.config
+        if c.encoding == 'freq':
+            return [frequency_encode(self._normalized(x), 10)]
+        if c.encoding == 'hg':
+            return [self._grid_encode(self._normalized(x))]
+        if c.encoding == 'hg+freq':
+            # Frequency part on the raw coordinates, grid on the
+            # normalized ones.
+            return [frequency_encode(x, 2),
+                    self._grid_encode(self._normalized(x))]
+        raise NotImplementedError(f"Unknown input encoding {c.encoding}")
+
+    # -- heads --------------------------------------------------------------
+
+    def density(self, x):
+        """(N, 3) points -> (sigma (N,), geo_feat (N, G))."""
+        h = mlp_apply(list(self.sigma_net), self._encode_segments(x))
+        return trunc_exp(h[..., 0]), h[..., 1:]
+
+    def fused_heads_available(self):
+        """True when the fused head kernel covers this config."""
+        c = self.config
+        if c.heads_impl != 'pallas' or c.encoding not in ('hg', 'hg+freq'):
+            return False
+        if c.geo_relu:
+            return False
+        return heads_cuda.supported(self.head_params(),
+                                    12 if c.encoding == 'hg+freq' else 0)
+
+    def all_heads(self, x, d):
+        """Every head in one fused kernel: (N, 3) points + (N, 3) view dirs
+        -> (sigma (N,), rgb (N, 3), logits (N, C), features (N, S))."""
+        c = self.config
+        A = self._grid_encode(self._normalized(x))
+        freq_dim = 12 if c.encoding == 'hg+freq' else 0
+        B = torch.zeros((x.shape[0], 32), dtype=torch.float32,
+                        device=x.device)
+        if freq_dim:
+            B[:, :freq_dim] = frequency_encode(x, 2)
+        B[:, 16:32] = sh_encode(d)
+        weights = [w for k in HEAD_KEYS for w in getattr(self, k)]
+        packed = self._kernel_pack(
+            'heads', weights, lambda: heads_cuda.pack_head_weights(
+                self.head_params(), freq_dim))
+        out1, feats, logits = heads_cuda.fused_heads(packed, A, B)
+        n_classes = self.semantic_out[1].shape[1]
+        feat_dim = self.semantic_features[2].shape[1]
+        return (out1[:, 0], out1[:, 1:4], logits[:, :n_classes],
+                feats[:, :feat_dim])
+
+    def color(self, d, geo_feat):
+        """Unit view dirs (N, 3) + geo features -> rgb (N, 3) in [0, 1]."""
+        geo_feat = geo_feat.float()
+        if self.config.geo_relu:
+            geo_feat = torch.relu(geo_feat)
+        return torch.sigmoid(mlp_apply(list(self.color_net),
+                                       [sh_encode(d), geo_feat]))
+
+    def proposal_sigma(self, x):
+        """Cheap proposal density: (N, 3) -> (N,)."""
+        c = self.config
+        freq = frequency_encode(self._normalized(x), 6)
+        weights = list(self.proposal)
+        if c.heads_impl == 'pallas' and len(weights) == 3:
+            packed = self._kernel_pack(
+                'proposal', weights, lambda: heads_cuda.pack_mlp3(weights))
+            h = heads_cuda.fused_mlp3(packed, freq)
+            return trunc_exp(h[:, 0])
+        h = mlp_apply(weights, freq)
+        return trunc_exp(h[..., 0])
+
+    def semantic(self, geo_feat):
+        """Geo features -> (class logits (N, C), features (N, S))."""
+        geo_feat = geo_feat.float()
+        if self.config.geo_relu:
+            geo_feat = torch.relu(geo_feat)
+        sem_features = mlp_apply(list(self.semantic_features), geo_feat)
+        logits = mlp_apply(list(self.semantic_out),
+                           [torch.relu(sem_features), geo_feat])
+        return logits, sem_features

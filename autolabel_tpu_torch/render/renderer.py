@@ -1,0 +1,241 @@
+"""Volumetric rendering with dense, static-shape sampling (eval form).
+
+Counterpart of autolabel_tpu/render/renderer.py: every ray carries a fixed
+sample grid, placed uniformly or by the proposal net, and compositing is
+closed-form exp/cumsum. This slice ports the eval path (key=None,
+perturb=False) with its proposal, fused-head and non-fused branches, and
+the upsample branch; perturbation, occupancy masking and the interlevel
+loss belong to the training slice.
+
+Output contract: image, depth, semantic, semantic_features,
+depth_variance, coordinates_map, weights_sum.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+MIN_NEAR = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    """The JAX package's RenderOptions, defaults mirrored exactly. The
+    training-only fields are carried so configs transfer; this slice
+    renders with key=None, where none of them applies."""
+    num_steps: int = 128
+    upsample_steps: int = 0
+    perturb: bool = False
+    bg_color: float = 1.0
+    proposal_steps: int = 0
+    stochastic_corners: int = 2
+    stochastic_exact_levels: int = 0
+    stochastic_residual: bool = False
+    sampled_backward: int = 0
+    backward_points: float = 1.0
+    occupancy_near_far: bool = False
+    occupancy_probes: int = 32
+    level_window: tuple = None
+
+
+def ray_aabb_intersect(rays_o, rays_d, bound, min_near=MIN_NEAR):
+    """Entry/exit distances of rays against the [-bound, bound]^3 cube,
+    each (N, 1)."""
+    safe_d = torch.where(rays_d.abs() < 1e-9,
+                         torch.full_like(rays_d, 1e-9), rays_d)
+    inv_d = 1.0 / safe_d
+    t0 = (-bound - rays_o) * inv_d
+    t1 = (bound - rays_o) * inv_d
+    near = torch.minimum(t0, t1).amax(dim=-1)
+    far = torch.maximum(t0, t1).amin(dim=-1)
+    near = torch.clamp(near, min=min_near)
+    far = torch.maximum(far, near + 1e-4)
+    return near[..., None], far[..., None]
+
+
+def sample_pdf(z_mid, weights, n_samples, u=None):
+    """Nearest-atom inverse-CDF sampling over coarse weights.
+
+    z_mid: (N, S-1) bin centers; weights: (N, S-1). u: (N, n_samples)
+    uniforms, or None for the deterministic eval grid
+    linspace(0, 1, n + 2)[1:-1]. Returns (N, n_samples) depths: the z of
+    the atom whose cumulative-mass interval holds u, as a masked max.
+    """
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    if u is None:
+        u = torch.linspace(0.0, 1.0, n_samples + 2,
+                           device=z_mid.device)[1:-1]
+        u = u.expand(*cdf.shape[:-1], n_samples)
+    selectable = cdf[..., None, :-1] <= u[..., :, None]  # (N, n, S-1)
+    neg_inf = torch.tensor(-torch.inf, device=z_mid.device)
+    return torch.where(selectable, z_mid[..., None, :], neg_inf).amax(dim=-1)
+
+
+def _composite_weights(sigma, deltas):
+    """w_i = (1 - exp(-sigma_i d_i)) * exp(-sum_{j<i} sigma_j d_j)."""
+    tau = sigma * deltas
+    accum = torch.cumsum(tau, dim=-1) - tau  # exclusive prefix sum
+    transmittance = torch.exp(-accum)
+    alpha = 1.0 - torch.exp(-tau)
+    return alpha * transmittance
+
+
+def _deltas(z, last):
+    """Sample spacings with the last one set to `last` (N, 1)."""
+    return torch.cat([torch.diff(z, dim=-1), last.expand(z.shape[0], 1)],
+                     dim=-1)
+
+
+def _points(rays_o, rays_d, z, bound):
+    xyz = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
+    return torch.clamp(xyz, -bound, bound)
+
+
+def render_rays(field, rays_o, rays_d, direction_norms, key=None,
+                options=RenderOptions(), occupancy=None):
+    """Render a flat batch of rays (eval form).
+
+    rays_o, rays_d: (N, 3); direction_norms: (N, 1), the z-depth factor
+    |(u, v, 1)| from the ray generator.
+    """
+    if key is not None or options.perturb:
+        raise NotImplementedError(
+            'perturbed (training) rendering is not ported yet')
+    if occupancy is not None:
+        raise NotImplementedError('occupancy masking is not ported yet')
+    if options.level_window is not None:
+        raise NotImplementedError('level windows are not ported yet')
+    c = field.config
+    bound = c.bound
+    n_rays = rays_o.shape[0]
+    num_steps = options.num_steps
+    dev = rays_o.device
+
+    near, far = ray_aabb_intersect(rays_o, rays_d, bound)
+    sample_dist = (far - near) / num_steps  # (N, 1)
+
+    if options.proposal_steps > 0:
+        sp = options.proposal_steps
+        dist_p = (far - near) / sp
+        z_p = near + (far - near) * torch.linspace(0.0, 1.0, sp,
+                                                   device=dev)[None, :]
+        xyz_p = _points(rays_o, rays_d, z_p, bound)
+        sigma_p = field.proposal_sigma(xyz_p.reshape(-1, 3))
+        sigma_p = sigma_p.reshape(n_rays, sp)
+        w_p = _composite_weights(sigma_p, _deltas(z_p, dist_p))
+        z_mid = 0.5 * (z_p[..., 1:] + z_p[..., :-1])
+        z = sample_pdf(z_mid, w_p[..., :-1], num_steps)
+        z = torch.sort(z, dim=-1).values
+    else:
+        z = near + (far - near) * torch.linspace(0.0, 1.0, num_steps,
+                                                 device=dev)[None, :]
+
+    def query_density(z_vals):
+        xyz = _points(rays_o, rays_d, z_vals, bound)
+        sigma, geo = field.density(xyz.reshape(-1, 3))
+        s = z_vals.shape[1]
+        return xyz, sigma.reshape(n_rays, s), geo.reshape(n_rays, s, -1)
+
+    use_fused = (c.heads_impl == 'pallas' and options.upsample_steps == 0
+                 and field.fused_heads_available())
+    if use_fused:
+        xyz = _points(rays_o, rays_d, z, bound)
+        flat = xyz.reshape(-1, 3)
+        dirs_flat = rays_d[:, None, :].expand(n_rays, num_steps,
+                                              3).reshape(-1, 3)
+        sigma_f, rgb_f, logits_f, feats_f = field.all_heads(flat, dirs_flat)
+        sigma = sigma_f.reshape(n_rays, num_steps)
+    else:
+        xyz, sigma, geo = query_density(z)
+
+    if not use_fused and options.upsample_steps > 0:
+        w_coarse = _composite_weights(sigma, _deltas(z, sample_dist))
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        z_new = sample_pdf(z_mid, w_coarse[..., :-1], options.upsample_steps)
+        xyz_new, sigma_new, geo_new = query_density(z_new)
+        z_all = torch.cat([z, z_new], dim=-1)
+        z, order = torch.sort(z_all, dim=-1, stable=True)
+        sigma = torch.gather(torch.cat([sigma, sigma_new], dim=-1), 1, order)
+        geo_all = torch.cat([geo, geo_new], dim=1)
+        geo = torch.gather(geo_all, 1,
+                           order[..., None].expand(-1, -1, geo_all.shape[-1]))
+        xyz = torch.gather(torch.cat([xyz, xyz_new], dim=1), 1,
+                           order[..., None].expand(-1, -1, 3))
+
+    total_steps = z.shape[1]
+    weights = _composite_weights(sigma, _deltas(z, sample_dist))
+    weights_sum = weights.sum(dim=-1)
+
+    if use_fused:
+        rgb = rgb_f.reshape(n_rays, total_steps, 3)
+        sem_logits = logits_f.float().reshape(n_rays, total_steps, -1)
+        sem_features = feats_f.reshape(n_rays, total_steps, -1)
+    else:
+        geo_flat = geo.reshape(-1, geo.shape[-1])
+        dirs = rays_d[:, None, :].expand(n_rays, total_steps, 3)
+        rgb = field.color(dirs.reshape(-1, 3), geo_flat)
+        rgb = rgb.reshape(n_rays, total_steps, 3)
+        logits, sem_features = field.semantic(geo_flat)
+        sem_logits = logits.float().reshape(n_rays, total_steps, -1)
+        sem_features = sem_features.reshape(n_rays, total_steps, -1)
+
+    w = weights[..., None]
+    image = (w * rgb).sum(dim=1) + (1.0 - weights_sum[:, None]) * \
+        options.bg_color
+    t_exp = (weights * z).sum(dim=-1)
+    depth = t_exp / direction_norms[:, 0]
+    z_depth = z / direction_norms
+    depth_variance = (weights * (z_depth - depth[:, None]) ** 2).sum(dim=-1)
+    return {
+        'image': image,
+        'depth': depth,
+        'depth_variance': depth_variance,
+        'semantic': (w * sem_logits).sum(dim=1),
+        'semantic_features': (w * sem_features).sum(dim=1),
+        'coordinates_map': (w * xyz).sum(dim=1),
+        'weights_sum': weights_sum,
+    }
+
+
+class StagedRenderer:
+    """Memory-bounded full-frame rendering: rays in chunks of
+    max_ray_batch, the last chunk padded by repeating the last ray."""
+
+    def __init__(self, field, options=None, max_ray_batch=4096):
+        self.field = field
+        self.options = options or RenderOptions()
+        self.max_ray_batch = max_ray_batch
+
+    @torch.inference_mode()
+    def render(self, rays_o, rays_d, direction_norms):
+        """rays_*: (..., 3) arrays of any leading shape; returns a dict of
+        tensors on the field's device with the same leading shape."""
+        dev = self.field.device
+        lead_shape = tuple(np.shape(rays_o)[:-1])
+
+        def flat(a, width):
+            return torch.as_tensor(np.asarray(a, np.float32).reshape(-1,
+                                                                     width))
+
+        o, d, dn = flat(rays_o, 3), flat(rays_d, 3), flat(direction_norms, 1)
+        n = o.shape[0]
+        chunk = self.max_ray_batch
+        padded = ((n + chunk - 1) // chunk) * chunk
+        if padded != n:
+            pad = padded - n
+            o = torch.cat([o, o[-1:].expand(pad, 3)])
+            d = torch.cat([d, d[-1:].expand(pad, 3)])
+            dn = torch.cat([dn, dn[-1:].expand(pad, 1)])
+        o, d, dn = o.to(dev), d.to(dev), dn.to(dev)
+        outs = []
+        for start in range(0, padded, chunk):
+            sl = slice(start, start + chunk)
+            outs.append(render_rays(self.field, o[sl], d[sl], dn[sl],
+                                    options=self.options))
+        merged = {k: torch.cat([out[k] for out in outs])[:n]
+                  for k in outs[0]}
+        return {k: v.reshape(*lead_shape, *v.shape[1:])
+                for k, v in merged.items()}

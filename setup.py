@@ -14,7 +14,10 @@ setup(
     version='0.1.0',
     description=('TPU-native interactive neural-field scene labeling '
                  '(capabilities of ethz-asl/autolabel)'),
-    packages=find_packages(include=['autolabel_tpu', 'autolabel_tpu.*']),
+    packages=find_packages(include=['autolabel_tpu', 'autolabel_tpu.*',
+                                    'autolabel_tpu_torch',
+                                    'autolabel_tpu_torch.*']),
+    package_data={'autolabel_tpu_torch': ['csrc/*.cu']},
     ext_modules=[
         Extension('autolabel_tpu._raybatch',
                   sources=['native/raybatch.c'],
