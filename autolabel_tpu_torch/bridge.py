@@ -5,7 +5,8 @@ numpy arrays: 'sigma_net', 'color_net', 'semantic_features',
 'semantic_out' and optionally 'proposal' are lists of (in, out) matrices,
 'encoder' is {'grid': (L, T, F)} or {}. The Field's state_dict uses the
 same keys flattened ('sigma_net.0', 'encoder.grid', ...), shapes and
-layouts, so the conversion is a renaming.
+layouts, so the conversion is a renaming. The same conversion carries any
+tree of that layout, the trainer's EMA copy of the params included.
 """
 import numpy as np
 import torch
@@ -39,10 +40,11 @@ def params_from_numpy(tree, device):
     return state
 
 
-def params_to_numpy(field):
-    """Field -> JAX params tree of numpy arrays."""
+def state_to_numpy(state):
+    """Field state dict (name -> tensor, e.g. the trainer's EMA copy) ->
+    JAX params tree of numpy arrays."""
     tree = {}
-    for name, p in field.state_dict().items():
+    for name, p in state.items():
         group, _, index = name.partition('.')
         value = p.detach().cpu().numpy()
         if group == 'encoder':
@@ -54,6 +56,11 @@ def params_to_numpy(field):
         if key in tree:
             tree[key] = [v for _, v in sorted(tree[key])]
     return tree
+
+
+def params_to_numpy(field):
+    """Field -> JAX params tree of numpy arrays."""
+    return state_to_numpy(field.state_dict())
 
 
 def load_params(field, tree):

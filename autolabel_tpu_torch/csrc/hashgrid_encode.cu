@@ -23,61 +23,7 @@
 // use one thread per (point, level). The arithmetic uses explicitly
 // rounded fp32 operations (no FMA contraction) in the plain version's
 // order, so kernel and plain version agree to the last bits.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MAX_LEVELS 32
-
-struct Geometry {
-  float scale[MAX_LEVELS];
-  int stride[MAX_LEVELS];
-  unsigned int size[MAX_LEVELS];
-  int dense[MAX_LEVELS];
-};
-
-__device__ __forceinline__ unsigned int corner_index(int cx, int cy, int cz,
-                                                     int stride,
-                                                     unsigned int size,
-                                                     int dense) {
-  if (dense) {
-    // Floor-mod in int64, as the plain version computes it: a point outside
-    // [0, 1] gives negative cell coordinates, and C's % would then give a
-    // negative index.
-    long long v = (long long)cx +
-                  (long long)stride * ((long long)cy + (long long)stride * cz);
-    long long m = v % (long long)size;
-    return (unsigned int)(m < 0 ? m + size : m);
-  }
-  unsigned int h = (unsigned int)cx * 1u ^ (unsigned int)cy * 2654435761u ^
-                   (unsigned int)cz * 805459861u;
-  return h % size;
-}
-
-struct Cell {
-  int c[3];
-  float f[3];
-};
-
-__device__ __forceinline__ Cell cell_of(const float* __restrict__ x,
-                                        long long p, float scale,
-                                        float offset) {
-  Cell cell;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float pos = __fadd_rn(__fmul_rn(scale, x[p * 3 + a]), offset);
-    float fl = floorf(pos);
-    cell.c[a] = (int)fl;
-    cell.f[a] = __fsub_rn(pos, fl);
-  }
-  return cell;
-}
-
-__device__ __forceinline__ float corner_weight(const Cell& cell, int c) {
-  float wx = (c >> 2) & 1 ? cell.f[0] : __fsub_rn(1.0f, cell.f[0]);
-  float wy = (c >> 1) & 1 ? cell.f[1] : __fsub_rn(1.0f, cell.f[1]);
-  float wz = c & 1 ? cell.f[2] : __fsub_rn(1.0f, cell.f[2]);
-  return __fmul_rn(__fmul_rn(wx, wy), wz);
-}
+#include "hashgrid_common.cuh"
 
 // One warp per (point, level); lanes over features, float4 wide.
 __global__ void encode_rows_kernel(const float* __restrict__ x,
@@ -152,14 +98,9 @@ extern "C" int hashgrid_encode_fwd(const float* x, const float* table,
                                    long long n, int levels,
                                    long long table_size, int features,
                                    void* stream) {
-  if (levels < 1 || levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Geometry g;
-  for (int l = 0; l < levels; ++l) {
-    g.scale[l] = scale[l];
-    g.stride[l] = stride[l];
-    g.size[l] = (unsigned int)size[l];
-    g.dense[l] = dense[l];
-  }
+  if (!make_geometry(&g, scale, stride, size, dense, levels))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int threads = 256;
   cudaStream_t s = (cudaStream_t)stream;

@@ -80,8 +80,7 @@ class FieldConfig:
 
 
 def _params(tensors, device):
-    return nn.ParameterList(
-        [nn.Parameter(t.to(device), requires_grad=False) for t in tensors])
+    return nn.ParameterList([nn.Parameter(t.to(device)) for t in tensors])
 
 
 class Field(nn.Module):
@@ -111,8 +110,7 @@ class Field(nn.Module):
         self.encoder = nn.ParameterDict()
         if c.grid_config is not None:
             self.encoder['grid'] = nn.Parameter(
-                hashgrid_init(generator, c.grid_config).to(device),
-                requires_grad=False)
+                hashgrid_init(generator, c.grid_config).to(device))
         if c.proposal:
             # freq(n=6) on normalized coords -> 3*6*2 = 36 input dims.
             self.proposal = _params(
@@ -127,18 +125,28 @@ class Field(nn.Module):
         return {k: list(getattr(self, k)) for k in HEAD_KEYS}
 
     def _kernel_pack(self, name, weights, pack):
-        """pack(), the kernels' packing of `weights`: bf16 on the card (the
-        kernels' operand type), fp32 on the CPU (where the plain version
-        runs). Built once and rebuilt only when a weight is replaced,
-        moved or written in place (load_params, load_state_dict, .to),
-        since the weights never change while serving."""
+        """pack(), the kernels' packing of `weights`.
+
+        While autograd records (training), the packing is built anew on
+        every call, in fp32 and inside the graph, so the gradients of the
+        padded blocks flow back to the raw weights (as the JAX package's
+        differentiable pack_head_weights) and the kernels return fp32
+        weight gradients. Otherwise (serving, under no_grad or
+        inference_mode) it is built once, without a graph, in bf16 on the
+        card (the kernels' operand type) and fp32 on the CPU, and rebuilt
+        only when a weight is replaced, moved or written in place
+        (load_params, load_state_dict, .to, an optimizer step).
+        """
+        if torch.is_grad_enabled() and any(w.requires_grad for w in weights):
+            return pack()
         stamp = [(w.data_ptr(), w._version) for w in weights]
         cached = self._packs.get(name)
         if (cached is None or cached[1] != stamp
                 or any(a is not b for a, b in zip(cached[0], weights))):
-            packed = pack()
-            if self.device.type == 'cuda':
-                packed = tuple(w.to(torch.bfloat16) for w in packed)
+            with torch.no_grad():
+                packed = pack()
+                if self.device.type == 'cuda':
+                    packed = tuple(w.to(torch.bfloat16) for w in packed)
             cached = self._packs[name] = (list(weights), stamp, packed)
         return cached[2]
 
@@ -235,6 +243,13 @@ class Field(nn.Module):
             return trunc_exp(h[:, 0])
         h = mlp_apply(weights, freq)
         return trunc_exp(h[..., 0])
+
+    def param_labels(self):
+        """Optimizer group of every parameter, by state_dict name: the
+        hash table is 'encoding' (no weight decay), the MLPs are 'net'
+        (JAX Field.param_labels; the 'pose' group is not Field state)."""
+        return {name: 'encoding' if name.startswith('encoder.') else 'net'
+                for name, _ in self.named_parameters()}
 
     def semantic(self, geo_feat):
         """Geo features -> (class logits (N, C), features (N, S))."""

@@ -4,7 +4,8 @@ Every source under csrc/ is compiled by nvcc for sm_90a into a shared
 library with a plain C interface, loaded with ctypes. Builds happen on
 first use on a CUDA device, never at import, into build/torch_kernels/
 beside the package; all sources compile in parallel, one nvcc process
-each. A library whose source and flags are unchanged is reused.
+each. A library whose source, shared headers (csrc/*.cuh) and flags are
+unchanged is reused.
 
 `launches` counts kernel launches by name. A wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its path
@@ -21,7 +22,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
-SOURCES = ('hashgrid_encode.cu', 'heads_fwd.cu')
+SOURCES = ('hashgrid_encode.cu', 'hashgrid_bwd.cu', 'heads_fwd.cu',
+           'heads_bwd.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -43,8 +45,11 @@ def _nvcc():
 
 
 def _target(source):
-    with open(os.path.join(CSRC, source), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith('.cuh'))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), 'rb') as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f'lib{stem}-{digest.hexdigest()[:12]}.so')
 

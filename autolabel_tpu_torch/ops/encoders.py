@@ -2,10 +2,11 @@
 
 Counterpart of autolabel_tpu/ops/encoders.py, exact paths only. The exact
 trilinear encode here (_encode_rows for wide rows, _encode_lanes for
-narrow ones) is the plain PyTorch version of the CUDA hash-grid kernel
-(ops/hashgrid_cuda.py). The simplex, stochastic, residual and
-sampled-backward modes of the JAX package are training-slice work and
-raise NotImplementedError.
+narrow ones) is the plain PyTorch version of the CUDA hash-grid encode
+kernel, and hashgrid_encode_backward_plain (its exact table gradient) that
+of the scatter kernel (ops/hashgrid_cuda.py). The simplex, stochastic,
+residual and sampled-backward modes of the JAX package are not ported yet
+and raise NotImplementedError.
 """
 import dataclasses
 import math
@@ -248,19 +249,39 @@ def _encode_lanes(table, x, config):
     return out.reshape(config.out_dim, n).T
 
 
+def hashgrid_encode_backward_plain(g, x, config):
+    """The exact table gradient of the trilinear encode: the plain version
+    of the CUDA backward scatter (ops/hashgrid_cuda.py). g: (N, L * F)
+    cotangent of the encode, x: (N, 3). Per level and corner, one
+    index_add_ of g * w_corner into the corner's rows, with the forward's
+    cells, fractions and corner indices. Returns (L, T, F) fp32."""
+    cell, frac, stride, use_dense, size = _grid_geometry(x, config)
+    f = config.n_features
+    out = torch.zeros((config.n_levels, config.table_size, f),
+                      dtype=torch.float32, device=x.device)
+    for l in range(config.n_levels):
+        gl = g[:, l * f:(l + 1) * f].float()
+        for corner in _CORNERS:
+            idx = _corner_index(cell[:, l], corner, stride[l], use_dense[l],
+                                size[l])
+            weight = _corner_weight(frac[:, l], corner)
+            out[l].index_add_(0, idx, gl * weight[:, None])
+    return out
+
+
 def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
                     interp='trilinear', residual=False, sampled_backward=0,
                     backward_points=1.0):
     """Encode (N, 3) points in [0, 1] -> (N, n_levels * n_features).
 
     The exact trilinear interpolation (key=None), as in
-    autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch. The
-    other modes belong to the training slice.
+    autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch
+    (differentiable by autograd). The other modes are not ported yet.
     """
     if key is not None or sampled_backward or residual:
         raise NotImplementedError(
             "stochastic, residual and sampled-backward encodes are not "
-            "ported yet (training slice)")
+            "ported yet")
     if interp != 'trilinear':
         raise NotImplementedError(
             f"{interp!r} interpolation is not ported yet")

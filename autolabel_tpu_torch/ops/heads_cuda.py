@@ -1,8 +1,9 @@
-"""The fused head-stack and 3-matrix MLP kernels (csrc/heads_fwd.cu).
+"""The fused head-stack and 3-matrix MLP kernels: csrc/heads_fwd.cu (K3f,
+K4f) and csrc/heads_bwd.cu (K3b, K4b).
 
-Counterpart of autolabel_tpu/ops/heads_pallas.py, forward only. The
-packing contract is the JAX package's: `pack_head_weights` zero-pads the
-14 head matrices and `fused_heads(packed, A, B)` takes A (N, Dg), the
+Counterpart of autolabel_tpu/ops/heads_pallas.py, forward and backward.
+The packing contract is the JAX package's: `pack_head_weights` zero-pads
+the 14 head matrices and `fused_heads(packed, A, B)` takes A (N, Dg), the
 hash-grid encode, and B (N, Bw) with the frequency encode in columns
 [0:freq) and the SH encode in columns [16:32), and returns
   out1 (N, Rw): col 0 sigma (trunc_exp applied), cols 1..3 rgb, rest 0,
@@ -12,8 +13,11 @@ the TPU's 128 lanes, so no MMA runs on padding; every real block sits
 where the JAX packing puts it. Every padded weight is zero outside its
 real block, so padding columns of every activation stay exactly zero.
 
-On CPU tensors the wrappers compute the plain PyTorch versions; on CUDA
-tensors they launch the kernels or raise.
+Both ops are differentiable (autograd.Functions whose backward is the
+backward kernel, as the JAX package's custom VJPs run `_bwd_kernel` and
+`_mlp3_bwd_kernel`). On CPU tensors the wrappers compute the plain PyTorch
+versions, forward and backward; on CUDA tensors they launch the kernels or
+raise.
 """
 import ctypes
 
@@ -24,10 +28,12 @@ from autolabel_tpu_torch.ops.activation import trunc_exp
 from autolabel_tpu_torch.ops.mlp import dot, mlp_apply
 
 HEADS = 'fused_heads'
+HEADS_BWD = 'fused_heads_bwd'
 MLP3 = 'fused_mlp3'
+MLP3_BWD = 'fused_mlp3_bwd'
 _SOURCE = 'heads_fwd.cu'
+_BWD_SOURCE = 'heads_bwd.cu'
 _SH_OFFSET = 16  # SH block starts at col 16 of B (freq occupies < 16)
-_MAX_WIDTH = 128  # MAX_FRAGS * 16 in the kernel source
 _LANE = 16  # the padding granule: the kernels' MMA tile
 
 
@@ -99,14 +105,12 @@ def _pad_cols(m, cols):
     return torch.nn.functional.pad(m, (0, cols - m.shape[1]))
 
 
-def fused_heads_plain(packed, A, B, compute_dtype=torch.float32):
-    """The plain PyTorch version of the fused head kernel, on any device:
-    the same stack, with operands rounded to compute_dtype and fp32
-    accumulation (bf16 mirrors the kernel on the card)."""
+def _forward_blocks(packed, A, B, compute_dtype):
+    """The stack on (N, .) blocks with A and B padded to the packing;
+    returns every activation the backward needs (heads_pallas
+    _forward_blocks)."""
     (WA, WBs, W1s, W2s, WBc, WSc, W1c, W2c, WSf, W1f, W2f, WFo, WSo,
      W1o) = packed
-    A = _pad_cols(A, WA.shape[0])
-    B = _pad_cols(B, WBs.shape[0])
 
     def d(a, b):
         return dot(a, b, compute_dtype)
@@ -122,11 +126,82 @@ def fused_heads_plain(packed, A, B, compute_dtype=torch.float32):
     F = d(f2, W2f)
     o1 = torch.relu(d(torch.relu(F), WFo) + d(S, WSo))
     L = d(o1, W1o)
-    out1 = torch.zeros((A.shape[0], W2c.shape[1]), dtype=torch.float32,
+    return h1s, h2s, S, c1, c2, R, f1, f2, F, o1, L
+
+
+def fused_heads_plain(packed, A, B, compute_dtype=torch.float32):
+    """The plain PyTorch version of the fused head kernel, on any device:
+    the same stack, with operands rounded to compute_dtype and fp32
+    accumulation (bf16 mirrors the kernel on the card)."""
+    A = _pad_cols(A, packed[0].shape[0])
+    B = _pad_cols(B, packed[1].shape[0])
+    _, _, S, _, _, R, _, _, F, _, L = _forward_blocks(packed, A, B,
+                                                      compute_dtype)
+    out1 = torch.zeros((A.shape[0], packed[7].shape[1]), dtype=torch.float32,
                        device=A.device)
     out1[:, 0] = torch.exp(torch.clamp(S[:, 0], max=15.0))
     out1[:, 1:4] = torch.sigmoid(R[:, :3])
     return out1, F, L
+
+
+def fused_heads_backward_plain(packed, A, B, g1, gf, gl,
+                               compute_dtype=torch.float32):
+    """The plain PyTorch version of the fused head backward kernel, on any
+    device: recomputes the activations and returns (dA, dB, 14 dW) for the
+    cotangents g1 (N, Rw), gf (N, Sp), gl (N, Cp) of the three outputs,
+    as heads_pallas._bwd_kernel computes them (the trunc_exp VJP
+    g * exp(clip(S0, -15, 15)), the sigmoid VJP on rgb, operands rounded to
+    compute_dtype, fp32 accumulation)."""
+    (WA, WBs, W1s, W2s, WBc, WSc, W1c, W2c, WSf, W1f, W2f, WFo, WSo,
+     W1o) = packed
+    a_cols, b_cols = A.shape[1], B.shape[1]
+    A = _pad_cols(A, WA.shape[0])
+    B = _pad_cols(B, WBs.shape[0])
+    h1s, h2s, S, c1, c2, R, f1, f2, F, o1, _ = _forward_blocks(
+        packed, A, B, compute_dtype)
+
+    def nt(a, b):  # a @ b.T
+        return dot(a, b.T, compute_dtype)
+
+    def tn(a, b):  # a.T @ b
+        return dot(a.T, b, compute_dtype)
+
+    dsig = g1[:, :1] * torch.exp(torch.clamp(S[:, :1], -15.0, 15.0))
+    rgb = torch.sigmoid(R[:, :3])
+    dR = torch.zeros_like(R)
+    dR[:, :3] = g1[:, 1:4] * rgb * (1.0 - rgb)
+    # logits head
+    do1 = nt(gl, W1o) * (o1 > 0)
+    dW1o = tn(o1, gl)
+    dWFo = tn(torch.relu(F), do1)
+    dWSo = tn(S, do1)
+    # feature head (+ the relu(F) branch into the logits head)
+    dF = gf + nt(do1, WFo) * (F > 0)
+    df2 = nt(dF, W2f) * (f2 > 0)
+    dW2f = tn(f2, dF)
+    df1 = nt(df2, W1f) * (f1 > 0)
+    dW1f = tn(f1, df2)
+    dWSf = tn(S, df1)
+    # color head
+    dc2 = nt(dR, W2c) * (c2 > 0)
+    dW2c = tn(c2, dR)
+    dc1 = nt(dc2, W1c) * (c1 > 0)
+    dW1c = tn(c1, dc2)
+    dWBc = tn(B, dc1)
+    dWSc = tn(S, dc1)
+    # every path into dS, then the sigma trunk
+    dS = nt(dc1, WSc) + nt(df1, WSf) + nt(do1, WSo)
+    dS[:, :1] = dS[:, :1] + dsig
+    dh2s = nt(dS, W2s) * (h2s > 0)
+    dW2s = tn(h2s, dS)
+    dh1s = nt(dh2s, W1s) * (h1s > 0)
+    dW1s = tn(h1s, dh2s)
+    dWA = tn(A, dh1s)
+    dWBs = tn(B, dh1s)
+    dA = nt(dh1s, WA)[:, :a_cols]
+    dB = (nt(dh1s, WBs) + nt(dc1, WBc))[:, :b_cols]
+    return dA, dB, (dWA, dWBs, dW1s, dW2s, dWBc, dWSc, dW1c, dW2c, dWSf,
+                    dW1f, dW2f, dWFo, dWSo, dW1o)
 
 
 def heads_reference(params, freq_dim, A, B):
@@ -162,25 +237,21 @@ def _check_points(name, device, *tensors):
 
 
 def _kernel_weights(name, packed, device):
-    """The packed weights in bf16 (no copy when the caller packed and cast
-    them once, as Field does); every layer width must be a multiple of 16
-    and at most 128 (the kernel's tile and fragment limits), and input
-    widths multiples of 16."""
+    """The packed weights in bf16, the kernels' operand type (no copy when
+    the caller packed and cast them once, as Field does for serving); every
+    width must be a multiple of 16, the kernels' tile."""
     for w in packed:
         if w.device != device or w.dim() != 2:
             raise ValueError(f'{name}: weights must be 2-D on {device}')
-        if w.shape[0] % 16 or w.shape[1] % 16 or w.shape[1] > _MAX_WIDTH:
+        if w.shape[0] % _LANE or w.shape[1] % _LANE:
             raise ValueError(
                 f'{name}: weight of shape {tuple(w.shape)} is outside the '
-                'kernel (widths must be multiples of 16, outputs at most '
-                f'{_MAX_WIDTH})')
-    return [w.to(torch.bfloat16).contiguous() for w in packed]
+                f'kernel (widths must be multiples of {_LANE})')
+    return [w.detach().to(torch.bfloat16).contiguous() for w in packed]
 
 
-def _heads_launch(packed, A, B):
-    device = A.device
-    _check_points(HEADS, device, A, B)
-    ws = _kernel_weights(HEADS, packed, device)
+def _heads_dims(ws, A, B):
+    """The kernels' 12 dims, checked against the packing contract."""
     dims = (ws[0].shape[0], ws[1].shape[0], ws[2].shape[1], ws[3].shape[1],
             ws[6].shape[1], ws[7].shape[1], ws[9].shape[1], ws[10].shape[1],
             ws[13].shape[0], ws[13].shape[1], A.shape[1], B.shape[1])
@@ -193,6 +264,15 @@ def _heads_launch(packed, A, B):
     if A.shape[1] > Ap or B.shape[1] > Bw or A.shape[0] != B.shape[0] \
             or Rw < 4:
         raise ValueError(f'{HEADS}: A/B widths do not fit the packing')
+    return dims
+
+
+def _heads_launch(ws, A, B):
+    """K3f on bf16 packed weights ws."""
+    device = A.device
+    _check_points(HEADS, device, A, B)
+    dims = _heads_dims(ws, A, B)
+    Rw, Sp, Cp = dims[5], dims[7], dims[9]
     n = A.shape[0]
     out1 = torch.empty((n, Rw), dtype=torch.float32, device=device)
     outf = torch.empty((n, Sp), dtype=torch.float32, device=device)
@@ -210,25 +290,121 @@ def _heads_launch(packed, A, B):
     return out1, outf, outl
 
 
+_WORKSPACE_OUT = [ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_longlong)]
+
+
+def _workspace(name, fn, args):
+    """(blocks, total floats) of a persistent backward kernel's per-block
+    weight-gradient partials, from its workspace query."""
+    blocks, total = ctypes.c_int(0), ctypes.c_longlong(0)
+    fn.restype = ctypes.c_int
+    _kernels.check(fn(*args, ctypes.byref(blocks), ctypes.byref(total)), name)
+    return blocks.value, total.value
+
+
+def _split(flat, shapes):
+    out, o = [], 0
+    for r, c in shapes:
+        out.append(flat[o:o + r * c].view(r, c))
+        o += r * c
+    return out
+
+
+def _grads(name, n, widths, device, *grads):
+    """Cotangents as contiguous fp32 (N, width) tensors."""
+    out = []
+    for g, width in zip(grads, widths):
+        if g.shape != (n, width):
+            raise ValueError(f'{name}: cotangent of shape {tuple(g.shape)}, '
+                             f'expected {(n, width)}')
+        out.append(g.to(device=device, dtype=torch.float32).contiguous())
+    return out
+
+
+def _heads_backward_launch(ws, A, B, g1, gf, gl, need_dB=True):
+    """K3b on bf16 packed weights ws: (dA, dB or None, 14 fp32 dW)."""
+    device = A.device
+    _check_points(HEADS_BWD, device, A, B)
+    dims = _heads_dims(ws, A, B)
+    n = A.shape[0]
+    g1, gf, gl = _grads(HEADS_BWD, n, (dims[5], dims[7], dims[9]), device,
+                        g1, gf, gl)
+    lib = _kernels.library(_BWD_SOURCE)
+    c_dims = (ctypes.c_int * 12)(*dims)
+    query = lib.heads_bwd_workspace
+    query.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_WORKSPACE_OUT]
+    blocks, total = _workspace(HEADS_BWD, query, (c_dims, n))
+    part = torch.empty(blocks * total, dtype=torch.float32, device=device)
+    dW = torch.empty(total, dtype=torch.float32, device=device)
+    dA = torch.empty((n, A.shape[1]), dtype=torch.float32, device=device)
+    dB = (torch.empty((n, B.shape[1]), dtype=torch.float32, device=device)
+          if need_dB else None)
+    fn = lib.heads_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong,
+                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = fn(A.data_ptr(), B.data_ptr(), _ptr_array(ws), c_dims,
+                g1.data_ptr(), gf.data_ptr(), gl.data_ptr(), dA.data_ptr(),
+                None if dB is None else dB.data_ptr(), dW.data_ptr(),
+                part.data_ptr(), blocks, n, stream)
+    _kernels.check(status, HEADS_BWD)
+    _kernels.launches[HEADS_BWD] += 1
+    return dA, dB, _split(dW, [tuple(w.shape) for w in ws])
+
+
+def _in_dtypes(dws, dtypes):
+    """Weight gradients in the dtypes of the weights the caller passed:
+    fp32 for the fp32 weights of the training path, as the JAX package
+    keeps dW in the weights' dtype."""
+    return [d if d.dtype == t else d.to(t) for d, t in zip(dws, dtypes)]
+
+
+def fused_heads_backward(packed, A, B, g1, gf, gl, need_dB=True):
+    """(dA, dB, 14 fp32 dW) of the head stack for the cotangents of its
+    three outputs: the plain version on the CPU, K3b on the card (dB None
+    when not needed)."""
+    if A.device.type == 'cpu':
+        return fused_heads_backward_plain(packed, A, B, g1, gf, gl)
+    return _heads_backward_launch(_kernel_weights(HEADS_BWD, packed,
+                                                  A.device),
+                                  A, B, g1, gf, gl, need_dB)
+
+
 class _FusedHeads(torch.autograd.Function):
-    """The head kernel's forward; its backward kernel belongs to the
-    training slice."""
+    """The head stack with its backward: the plain versions on the CPU,
+    K3f and K3b on the card. Takes the packed weights in their own dtype
+    (fp32 while training) and casts to bf16 inside, so the weight
+    gradients come back in fp32."""
 
     @staticmethod
     def forward(ctx, A, B, *packed):
-        return _heads_launch(packed, A, B)
+        if A.device.type == 'cpu':
+            ws = packed
+            out = fused_heads_plain(ws, A, B)
+        else:
+            ws = _kernel_weights(HEADS, packed, A.device)
+            out = _heads_launch(ws, A, B)
+        ctx.save_for_backward(A, B, *ws)
+        ctx.weight_dtypes = [w.dtype for w in packed]
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError('the fused head backward is not ported yet')
+    def backward(ctx, g1, gf, gl):
+        A, B, *ws = ctx.saved_tensors
+        dA, dB, dws = fused_heads_backward(ws, A, B, g1, gf, gl,
+                                           ctx.needs_input_grad[1])
+        dws = _in_dtypes(dws, ctx.weight_dtypes)
+        return (dA if ctx.needs_input_grad[0] else None,
+                dB if ctx.needs_input_grad[1] else None, *dws)
 
 
 def fused_heads(packed, A, B):
     """(out1, features, logits) of the head stack: the plain version on
-    the CPU (fp32, the JAX package's CPU rule), the CUDA kernel (bf16
-    operands, fp32 accumulation) on the card."""
-    if A.device.type == 'cpu':
-        return fused_heads_plain(packed, A, B)
+    the CPU (fp32, the JAX package's CPU rule), the CUDA kernels (bf16
+    operands, fp32 accumulation) on the card; differentiable in A, B and
+    the packed weights."""
     return _FusedHeads.apply(A, B, *packed)
 
 
@@ -255,15 +431,36 @@ def fused_mlp3_plain(packed, X, compute_dtype=torch.float32):
     return dot(h2, W2, compute_dtype)
 
 
-def _mlp3_launch(packed, X):
-    device = X.device
-    _check_points(MLP3, device, X)
-    W0, W1, W2 = _kernel_weights(MLP3, packed, device)
+def fused_mlp3_backward_plain(packed, X, g, compute_dtype=torch.float32):
+    """The plain PyTorch version of the mlp3 backward kernel, on any
+    device: (dX, (dW0, dW1, dW2)) for the cotangent g (N, Dout), as
+    heads_pallas._mlp3_bwd_kernel computes them."""
+    W0, W1, W2 = packed
+    x_cols = X.shape[1]
+    X = _pad_cols(X, W0.shape[0])
+    h1 = torch.relu(dot(X, W0, compute_dtype))
+    h2 = torch.relu(dot(h1, W1, compute_dtype))
+    dh2 = dot(g, W2.T, compute_dtype) * (h2 > 0)
+    dh1 = dot(dh2, W1.T, compute_dtype) * (h1 > 0)
+    dX = dot(dh1, W0.T, compute_dtype)[:, :x_cols]
+    return dX, (dot(X.T, dh1, compute_dtype), dot(h1.T, dh2, compute_dtype),
+                dot(h2.T, g, compute_dtype))
+
+
+def _mlp3_dims(ws, X):
+    W0, W1, W2 = ws
     d_in, hidden = W0.shape
-    d_out = W2.shape[1]
     if W1.shape != (hidden, hidden) or W2.shape[0] != hidden \
             or X.shape[1] > d_in:
         raise ValueError(f'{MLP3}: weights and X are inconsistent')
+    return d_in, hidden, W2.shape[1]
+
+
+def _mlp3_launch(ws, X):
+    """K4f on bf16 packed weights ws."""
+    device = X.device
+    _check_points(MLP3, device, X)
+    d_in, hidden, d_out = _mlp3_dims(ws, X)
     n = X.shape[0]
     out = torch.empty((n, d_out), dtype=torch.float32, device=device)
     fn = _kernels.library(_SOURCE).mlp3_fwd
@@ -272,30 +469,78 @@ def _mlp3_launch(packed, X):
                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
-    status = fn(X.data_ptr(), X.shape[1], W0.data_ptr(), W1.data_ptr(),
-                W2.data_ptr(), d_in, hidden, d_out, out.data_ptr(), n,
-                stream)
+    status = fn(X.data_ptr(), X.shape[1], *[w.data_ptr() for w in ws],
+                d_in, hidden, d_out, out.data_ptr(), n, stream)
     _kernels.check(status, MLP3)
     _kernels.launches[MLP3] += 1
     return out
 
 
+def _mlp3_backward_launch(ws, X, g, need_dX=True):
+    """K4b on bf16 packed weights ws: (dX or None, 3 fp32 dW)."""
+    device = X.device
+    _check_points(MLP3_BWD, device, X)
+    d_in, hidden, d_out = _mlp3_dims(ws, X)
+    n = X.shape[0]
+    (g,) = _grads(MLP3_BWD, n, (d_out,), device, g)
+    lib = _kernels.library(_BWD_SOURCE)
+    query = lib.mlp3_bwd_workspace
+    query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong,
+                                           *_WORKSPACE_OUT]
+    blocks, total = _workspace(MLP3_BWD, query, (d_in, hidden, d_out, n))
+    part = torch.empty(blocks * total, dtype=torch.float32, device=device)
+    dW = torch.empty(total, dtype=torch.float32, device=device)
+    dX = (torch.empty((n, X.shape[1]), dtype=torch.float32, device=device)
+          if need_dX else None)
+    fn = lib.mlp3_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = fn(X.data_ptr(), X.shape[1], *[w.data_ptr() for w in ws],
+                d_in, hidden, d_out, g.data_ptr(),
+                None if dX is None else dX.data_ptr(), dW.data_ptr(),
+                part.data_ptr(), blocks, n, stream)
+    _kernels.check(status, MLP3_BWD)
+    _kernels.launches[MLP3_BWD] += 1
+    return dX, _split(dW, [tuple(w.shape) for w in ws])
+
+
+def fused_mlp3_backward(packed, X, g, need_dX=True):
+    """(dX, (dW0, dW1, dW2) fp32) of the mlp3 for the cotangent g: the
+    plain version on the CPU, K4b on the card (dX None when not needed)."""
+    if X.device.type == 'cpu':
+        return fused_mlp3_backward_plain(packed, X, g)
+    return _mlp3_backward_launch(_kernel_weights(MLP3_BWD, packed, X.device),
+                                 X, g, need_dX)
+
+
 class _FusedMLP3(torch.autograd.Function):
-    """The mlp3 kernel's forward; its backward kernel belongs to the
-    training slice."""
+    """The mlp3 with its backward: the plain versions on the CPU, K4f and
+    K4b on the card; weights cast to bf16 inside, as _FusedHeads."""
 
     @staticmethod
     def forward(ctx, X, *packed):
-        return _mlp3_launch(packed, X)
+        if X.device.type == 'cpu':
+            ws = packed
+            out = fused_mlp3_plain(ws, X)
+        else:
+            ws = _kernel_weights(MLP3, packed, X.device)
+            out = _mlp3_launch(ws, X)
+        ctx.save_for_backward(X, *ws)
+        ctx.weight_dtypes = [w.dtype for w in packed]
+        return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError('the fused mlp3 backward is not ported yet')
+    def backward(ctx, g):
+        X, *ws = ctx.saved_tensors
+        dX, dws = fused_mlp3_backward(ws, X, g, ctx.needs_input_grad[0])
+        dws = _in_dtypes(dws, ctx.weight_dtypes)
+        return (dX if ctx.needs_input_grad[0] else None, *dws)
 
 
 def fused_mlp3(packed, X):
     """relu(relu(X.W0).W1).W2: the plain version on the CPU, the CUDA
-    kernel on the card."""
-    if X.device.type == 'cpu':
-        return fused_mlp3_plain(packed, X)
+    kernels on the card; differentiable in X and the packed weights."""
     return _FusedMLP3.apply(X, *packed)

@@ -1,14 +1,19 @@
-"""Volumetric rendering with dense, static-shape sampling (eval form).
+"""Volumetric rendering with dense, static-shape sampling.
 
 Counterpart of autolabel_tpu/render/renderer.py: every ray carries a fixed
 sample grid, placed uniformly or by the proposal net, and compositing is
-closed-form exp/cumsum. This slice ports the eval path (key=None,
-perturb=False) with its proposal, fused-head and non-fused branches, and
-the upsample branch; perturbation, occupancy masking and the interlevel
-loss belong to the training slice.
+closed-form exp/cumsum. Ported: the eval form (no perturbation) and the
+training form (perturbed sample positions, the proposal net's interlevel
+loss, the JAX package's stop-gradients), with the proposal, fused-head,
+non-fused and upsample branches, all with the exact trilinear encode.
+JAX draws its perturbations from a PRNG key; here they come in as tensors
+(`draws`) or from a torch.Generator (`key`), so tests can feed JAX's own
+draws. Occupancy masking, level windows and the stochastic or
+sampled-backward encodes are not ported and raise.
 
 Output contract: image, depth, semantic, semantic_features,
-depth_variance, coordinates_map, weights_sum.
+depth_variance, coordinates_map, weights_sum, and interlevel (a scalar)
+with a proposal net while autograd records.
 """
 import dataclasses
 
@@ -21,8 +26,9 @@ MIN_NEAR = 0.05
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
     """The JAX package's RenderOptions, defaults mirrored exactly. The
-    training-only fields are carried so configs transfer; this slice
-    renders with key=None, where none of them applies."""
+    fields of estimators that are not ported (stochastic corners, the
+    sampled backward, occupancy, level windows) are carried so configs
+    transfer; a perturbed render that would use them raises."""
     num_steps: int = 128
     upsample_steps: int = 0
     perturb: bool = False
@@ -94,16 +100,49 @@ def _points(rays_o, rays_d, z, bound):
     return torch.clamp(xyz, -bound, bound)
 
 
+def _interlevel_loss(z_main, d_main, w_main, z_prop, d_prop, w_prop):
+    """mip-NeRF-360 proposal supervision: each main interval's weight must
+    be covered by the proposal weights overlapping it (dense (S_m, S_p)
+    overlap matrix per ray). z_*: sample starts (N, S); d_*: interval
+    lengths; w_*: weights."""
+    m0 = z_main[..., :, None]
+    m1 = (z_main + d_main)[..., :, None]
+    p0 = z_prop[..., None, :]
+    p1 = (z_prop + d_prop)[..., None, :]
+    overlap = (torch.minimum(m1, p1) - torch.maximum(m0, p0)) > 0
+    bound = (overlap * w_prop[..., None, :]).sum(dim=-1)  # (N, S_m)
+    excess = torch.relu(w_main - bound)
+    return (excess ** 2 / (bound + 1e-4)).mean()
+
+
+def draw_perturbations(generator, n_rays, options):
+    """The uniforms a perturbed render consumes, drawn from `generator` on
+    its device: 'u_coarse' jitters the first sample grid (the proposal
+    samples, or the uniform samples when there is no proposal net) and
+    'u_fine' places the importance samples (proposal or upsample)."""
+    first = options.proposal_steps or options.num_steps
+    fine = options.num_steps if options.proposal_steps \
+        else options.upsample_steps
+    dev = generator.device
+    draws = {'u_coarse': torch.rand((n_rays, first), generator=generator,
+                                    device=dev)}
+    if fine:
+        draws['u_fine'] = torch.rand((n_rays, fine), generator=generator,
+                                     device=dev)
+    return draws
+
+
 def render_rays(field, rays_o, rays_d, direction_norms, key=None,
-                options=RenderOptions(), occupancy=None):
-    """Render a flat batch of rays (eval form).
+                options=RenderOptions(), occupancy=None, draws=None):
+    """Render a flat batch of rays.
 
     rays_o, rays_d: (N, 3); direction_norms: (N, 1), the z-depth factor
-    |(u, v, 1)| from the ray generator.
+    |(u, v, 1)| from the ray generator. With options.perturb the render
+    takes its training form: the uniforms come from `draws` (see
+    draw_perturbations) or, when it is None, are drawn from `key`, a
+    torch.Generator on the rays' device; with neither, or without
+    perturb, the render is the eval form.
     """
-    if key is not None or options.perturb:
-        raise NotImplementedError(
-            'perturbed (training) rendering is not ported yet')
     if occupancy is not None:
         raise NotImplementedError('occupancy masking is not ported yet')
     if options.level_window is not None:
@@ -113,25 +152,43 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     n_rays = rays_o.shape[0]
     num_steps = options.num_steps
     dev = rays_o.device
+    if options.perturb and draws is None and key is not None:
+        draws = draw_perturbations(key, n_rays, options)
+    if not options.perturb:
+        draws = None
+    if draws is not None and (options.stochastic_corners
+                              or options.sampled_backward):
+        raise NotImplementedError(
+            'stochastic-corner and sampled-backward encodes are not ported '
+            'yet: train with stochastic_corners=0, sampled_backward=0')
+    u_coarse = None if draws is None else draws['u_coarse']
+    u_fine = None if draws is None else draws.get('u_fine')
 
     near, far = ray_aabb_intersect(rays_o, rays_d, bound)
     sample_dist = (far - near) / num_steps  # (N, 1)
 
+    proposal_info = None
     if options.proposal_steps > 0:
         sp = options.proposal_steps
         dist_p = (far - near) / sp
         z_p = near + (far - near) * torch.linspace(0.0, 1.0, sp,
                                                    device=dev)[None, :]
+        if u_coarse is not None:
+            z_p = z_p + (u_coarse - 0.5) * dist_p
         xyz_p = _points(rays_o, rays_d, z_p, bound)
         sigma_p = field.proposal_sigma(xyz_p.reshape(-1, 3))
         sigma_p = sigma_p.reshape(n_rays, sp)
-        w_p = _composite_weights(sigma_p, _deltas(z_p, dist_p))
+        deltas_p = _deltas(z_p, dist_p)
+        w_p = _composite_weights(sigma_p, deltas_p)
+        proposal_info = (z_p, deltas_p, w_p)
         z_mid = 0.5 * (z_p[..., 1:] + z_p[..., :-1])
-        z = sample_pdf(z_mid, w_p[..., :-1], num_steps)
+        z = sample_pdf(z_mid, w_p[..., :-1].detach(), num_steps, u=u_fine)
         z = torch.sort(z, dim=-1).values
     else:
         z = near + (far - near) * torch.linspace(0.0, 1.0, num_steps,
                                                  device=dev)[None, :]
+        if u_coarse is not None:
+            z = z + (u_coarse - 0.5) * sample_dist
 
     def query_density(z_vals):
         xyz = _points(rays_o, rays_d, z_vals, bound)
@@ -152,9 +209,10 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
         xyz, sigma, geo = query_density(z)
 
     if not use_fused and options.upsample_steps > 0:
-        w_coarse = _composite_weights(sigma, _deltas(z, sample_dist))
+        w_coarse = _composite_weights(sigma.detach(), _deltas(z, sample_dist))
         z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-        z_new = sample_pdf(z_mid, w_coarse[..., :-1], options.upsample_steps)
+        z_new = sample_pdf(z_mid, w_coarse[..., :-1], options.upsample_steps,
+                           u=u_fine).detach()
         xyz_new, sigma_new, geo_new = query_density(z_new)
         z_all = torch.cat([z, z_new], dim=-1)
         z, order = torch.sort(z_all, dim=-1, stable=True)
@@ -166,8 +224,19 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
                            order[..., None].expand(-1, -1, 3))
 
     total_steps = z.shape[1]
-    weights = _composite_weights(sigma, _deltas(z, sample_dist))
+    deltas = _deltas(z, sample_dist)
+    weights = _composite_weights(sigma, deltas)
     weights_sum = weights.sum(dim=-1)
+
+    interlevel = None
+    if proposal_info is not None and torch.is_grad_enabled():
+        # The proposal learns to cover the main field's weights; the main
+        # field is not influenced (stop-gradient on the main side). Only a
+        # step that records a graph consumes it (the JAX package's eval
+        # renderer drops it too), so renders under no_grad or
+        # inference_mode skip its (N, S, S_p) overlap matrix.
+        interlevel = _interlevel_loss(z.detach(), deltas.detach(),
+                                      weights.detach(), *proposal_info)
 
     if use_fused:
         rgb = rgb_f.reshape(n_rays, total_steps, 3)
@@ -189,7 +258,7 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     depth = t_exp / direction_norms[:, 0]
     z_depth = z / direction_norms
     depth_variance = (weights * (z_depth - depth[:, None]) ** 2).sum(dim=-1)
-    return {
+    out = {
         'image': image,
         'depth': depth,
         'depth_variance': depth_variance,
@@ -198,6 +267,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
         'coordinates_map': (w * xyz).sum(dim=1),
         'weights_sum': weights_sum,
     }
+    if interlevel is not None:
+        out['interlevel'] = interlevel
+    return out
 
 
 class StagedRenderer:

@@ -1,1 +1,2 @@
-"""Training-side modules of the PyTorch port (checkpoint I/O so far)."""
+"""Training-side modules of the PyTorch port: losses, the optimizer,
+metrics, SimpleTrainer and checkpoint I/O."""

@@ -1,0 +1,66 @@
+"""Loss composition over rendered ray batches.
+
+Counterpart of autolabel_tpu/train/losses.py:
+  - MSE rgb (weight 1.0 default)
+  - masked L1 depth where gt depth > DEPTH_EPSILON (weight 0.1)
+  - L1 feature distillation on the shared leading feature channels (0.5)
+  - masked cross-entropy over labeled rays (semantic >= 0) (1.0)
+  - the proposal net's interlevel loss when the render returns one (1.0)
+Masked means are sum / clamped count, as in the JAX package.
+"""
+import dataclasses
+
+import torch
+
+DEPTH_EPSILON = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class LossOptions:
+    rgb_weight: float = 1.0
+    depth_weight: float = 0.1
+    semantic_weight: float = 1.0
+    feature_weight: float = 0.5
+    feature_loss: bool = False
+    interlevel_weight: float = 1.0
+
+
+def _masked_mean(values, mask):
+    count = torch.clamp(mask.sum(), min=1.0)
+    return (values * mask).sum() / count
+
+
+def compute_losses(outputs, batch, options: LossOptions):
+    """Returns (total_loss, dict of unweighted per-term losses)."""
+    losses = {}
+    losses['rgb'] = torch.mean((outputs['image'] - batch['pixels']) ** 2)
+
+    gt_depth = batch['depth']
+    has_depth = (gt_depth > DEPTH_EPSILON).float()
+    losses['depth'] = _masked_mean(torch.abs(outputs['depth'] - gt_depth),
+                                   has_depth)
+    total = (options.rgb_weight * losses['rgb'] +
+             options.depth_weight * losses['depth'])
+
+    if options.feature_loss:
+        # Distill on the shared leading channels (a teacher wider or
+        # narrower than the head).
+        gt_features = batch['features']
+        pred = outputs['semantic_features']
+        dim = min(pred.shape[-1], gt_features.shape[-1])
+        losses['feature'] = torch.mean(
+            torch.abs(pred[:, :dim] - gt_features[:, :dim]))
+        total = total + options.feature_weight * losses['feature']
+
+    if 'interlevel' in outputs:
+        losses['interlevel'] = outputs['interlevel']
+        total = total + options.interlevel_weight * losses['interlevel']
+
+    gt_semantic = batch['semantic']
+    has_semantic = (gt_semantic >= 0).float()
+    ce = torch.nn.functional.cross_entropy(
+        outputs['semantic'], torch.clamp(gt_semantic, min=0).long(),
+        reduction='none')
+    losses['semantic'] = _masked_mean(ce, has_semantic)
+    total = total + options.semantic_weight * losses['semantic']
+    return total, losses

@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render (serving) path on one CUDA card.
+"""Drive the PyTorch port's render (serving) path and its training step on
+one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each failing loudly:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel of the path from csrc/ (nvcc, sm_90a);
+  2. build every kernel of both paths from csrc/ (nvcc, sm_90a, one
+     process per source, in parallel);
   3. hold the hash-grid encode kernel (K1) against its plain version at
      TPU_GRID (N = 524,288, x including 0 and 1) and at the reference
      preset (16 x 2 x 2^19, N = 65,536);
   4. hold the fused head kernel (K3f, N = 524,288) and the proposal MLP
      kernel (K4f, N = 1,048,576) against their plain versions;
-  5. the slice: a full-width model (TPU_GRID trilinear encode through K1,
-     fused heads through K3f, the 36-64-64-1 proposal net through K4f,
-     hidden 128, geo 15, 64 semantic features, 6 classes, bound 2) with
-     seeded random weights is written as a numpy checkpoint, loaded
-     through InferenceModel.from_checkpoint, and renders 2 frames of
+  5. the render slice: a full-width model (TPU_GRID trilinear encode
+     through K1, fused heads through K3f, the 36-64-64-1 proposal net
+     through K4f, hidden 128, geo 15, 64 semantic features, 6 classes,
+     bound 2) with seeded random weights is written as a numpy checkpoint,
+     loaded through InferenceModel.from_checkpoint, and renders 2 frames of
      480 x 360 (num_steps 32, proposal_steps 64, max_ray_batch 16384: 11
      chunks a frame), with every launch count set to 0 just before and read
      just after; the same render with the plain versions swapped in is the
@@ -23,7 +25,28 @@ Phases, each failing loudly:
   6. ms per frame, rays/s and each kernel's time from CUDA events; the
      steady state, frames rendered in turns (plain, kernels, kernels,
      plain) with their median and quartiles; one frame under
-     torch.profiler for device time by kernel and the device's busy share.
+     torch.profiler for device time by kernel and the device's busy share;
+  7. the backward kernels alone at the training step's shapes: the
+     hash-grid table gradient (K2) at TPU_GRID (N = 131,072, x including 0
+     and 1) and at the reference preset, the fused head backward (K3b,
+     N = 131,072) and the proposal-MLP backward (K4b, N = 262,144) against
+     their plain versions (K3b's dA and dB also against the fp32 plain
+     version, no further from it than the bf16 plain version is), with
+     their times, bounds and the autograd backward of the bf16
+     torch.matmul chains as the library yardstick;
+  8. the training slice: SimpleTrainer on the same full-width model (all
+     six kernels: K1, K2, K3f, K3b, K4f, K4b), batch 4096, proposal 64 ->
+     32, perturbed, exact trilinear gathers, on ray batches of a procedural
+     scene (a sphere coloured and labelled by its normal, seen from 8
+     cameras). (a) one step with the kernels against one with the plain
+     versions, same params and draws: loss parts and every parameter's
+     gradient; (b) 200 steps through train_iterations, every launch count
+     set to 0 just before and read just after: each kernel launched once a
+     step, every loss finite, the held-out rgb loss falling; (c) ms per
+     step and rays/s in turns (plain, kernels, kernels, plain); (d) one
+     step under torch.profiler; (e) the trained model's checkpoint served
+     through InferenceModel.from_checkpoint, equal to the trainer's own
+     render.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -51,6 +74,12 @@ FRAME_W, FRAME_H = 480, 360
 NUM_STEPS, PROPOSAL_STEPS, MAX_RAY_BATCH = 32, 64, 16384
 N_FRAMES = 2
 TIMED_ROUNDS = 4  # each round renders plain, kernels, kernels, plain
+
+# The training slice: bench.py's batch and sample counts.
+TRAIN_BATCH, TRAIN_STEPS = 4096, 200
+TRAIN_CHUNK = 20  # steps per train_iterations call (one EMA tick each)
+TRAIN_ROUNDS, STEPS_PER_TURN = 4, 5
+SPHERE_RADIUS = 0.8
 
 
 def _fail_early(msg):
@@ -143,6 +172,54 @@ class Checks:
             self.failures.append(name)
         return max_abs
 
+    def rel_norm(self, name, got, want, tol):
+        """|got - want| / |want| in the Frobenius norm, at most tol."""
+        import torch
+        got, want = got.float(), want.float()
+        err = float((got - want).norm() / want.norm().clamp(min=1e-30))
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        print(f'check {name}: rel_err={err:.3e} |want|={float(want.norm()):.3e}'
+              f' (tol {tol}) {"ok" if ok else "FAILED"}')
+        if not ok:
+            self.failures.append(name)
+        return err
+
+    def flips(self, name, got, want, atol, max_share):
+        """At most max_share of the elements differ by more than atol
+        (the rest may not: see the callers for why some can)."""
+        import torch
+        err = (got.float() - want.float()).abs()
+        share = float((err > atol).float().mean())
+        ok = bool(torch.isfinite(got).all()) and share <= max_share
+        print(f'check {name}: {share:.3e} of the elements beyond '
+              f'{atol:.3e} (at most {max_share}); max_abs_err '
+              f'{float(err.max()):.3e} {"ok" if ok else "FAILED"}')
+        if not ok:
+            self.failures.append(name)
+        return float(err.max())
+
+    def no_worse(self, name, got, ref, want, atol, room):
+        """got is no further from want than ref is, up to the factor room:
+        in the Frobenius norm and in the share of elements beyond atol."""
+        import torch
+        want = want.float()
+
+        def errors(x):
+            d = x.float() - want
+            return (float(d.norm() / want.norm().clamp(min=1e-30)),
+                    float((d.abs() > atol).float().mean()))
+
+        (norm_got, share_got), (norm_ref, share_ref) = errors(got), errors(ref)
+        ok = bool(torch.isfinite(got).all()) \
+            and norm_got <= room * norm_ref and share_got <= room * share_ref
+        print(f'check {name}: rel_err {norm_got:.4e} against {norm_ref:.4e}, '
+              f'share beyond {atol:.3e} {share_got:.4e} against '
+              f'{share_ref:.4e} (room {room}) {"ok" if ok else "FAILED"}')
+        if not ok:
+            self.failures.append(name)
+        return dict(rel_err=norm_got, ref_rel_err=norm_ref, share=share_got,
+                    ref_share=share_ref)
+
     def true(self, name, cond, detail=''):
         print(f'check {name}: {"ok" if cond else "FAILED"} {detail}')
         if not cond:
@@ -173,6 +250,65 @@ def _frame(rays, pos):
         'rays_d': dirs.reshape(FRAME_H, FRAME_W, 3),
         'direction_norms': norms.reshape(FRAME_H, FRAME_W, 1),
     }
+
+
+def _scene_frame(rays, pos):
+    """A frame of the procedural training scene: _frame's rays and the
+    ground truth of a sphere of radius SPHERE_RADIUS at the origin, its
+    colour and class (the dominant axis of the normal and its sign: 6
+    classes) taken from the normal; the background is white (the
+    renderer's bg_color), unlabelled (-1) and has no depth."""
+    import numpy as np
+    frame = _frame(rays, pos)
+    o = frame['rays_o'].reshape(-1, 3).astype(np.float64)
+    d = frame['rays_d'].reshape(-1, 3).astype(np.float64)
+    norms = frame['direction_norms'].reshape(-1)
+    b = (o * d).sum(-1)
+    disc = b * b - ((o * o).sum(-1) - SPHERE_RADIUS ** 2)
+    t = -b - np.sqrt(np.maximum(disc, 0.0))
+    hit = (disc > 0) & (t > 0)
+    normal = (o + t[:, None] * d) / SPHERE_RADIUS
+    axis = np.abs(normal).argmax(-1)
+    cls = 2 * axis + (normal[np.arange(len(axis)), axis] < 0)
+    frame['pixels'] = np.where(hit[:, None], 0.2 + 0.3 * (normal + 1.0),
+                               1.0).astype(np.float32).reshape(
+                                   FRAME_H, FRAME_W, 3)
+    frame['depth'] = np.where(hit, t / norms, 0.0).astype(
+        np.float32).reshape(FRAME_H, FRAME_W)
+    frame['semantic'] = np.where(hit, cls, -1).reshape(FRAME_H, FRAME_W)
+    return frame
+
+
+class _RayBatches:
+    """Endless batches of rays drawn uniformly, on the card, from a pool
+    of frames held on the card."""
+
+    def __init__(self, frames, batch, device, seed):
+        import numpy as np
+        import torch
+        keys = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
+                'semantic')
+        self.pool = {k: torch.as_tensor(np.concatenate(
+            [np.asarray(f[k]).reshape(FRAME_W * FRAME_H, -1)
+             for f in frames])).squeeze(-1).to(device) for k in keys}
+        self.n = self.pool['rays_o'].shape[0]
+        self.batch = batch
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import torch
+        idx = torch.randint(0, self.n, (self.batch,),
+                            generator=self.generator,
+                            device=self.generator.device)
+        return {k: v[idx] for k, v in self.pool.items()}
+
+
+def _psnr(mse):
+    import math
+    return -10.0 * math.log10(max(mse, 1e-12))
 
 
 @contextlib.contextmanager
@@ -213,13 +349,17 @@ def main():
     from autolabel_tpu_torch.models.field import Field
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
     from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
+    from autolabel_tpu_torch.render.renderer import (RenderOptions,
+                                                     draw_perturbations)
     from autolabel_tpu_torch.train import checkpoints
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
 
     # fp32 products in the plain versions stay full fp32 (PyTorch's
     # default, stated here).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
+    t_start = time.perf_counter()
     checks = Checks()
     gpu = _gpu_line()
     print(f'gpu: {gpu}')
@@ -287,7 +427,8 @@ def main():
     with torch.no_grad():
         field.encoder['grid'].copy_(
             torch.randn(field.encoder['grid'].shape, generator=g) * 0.5)
-    params = field.head_params()
+    params = {k: [w.detach() for w in ws]
+              for k, ws in field.head_params().items()}
 
     # ---- 4. K3f: fused heads; K4f: proposal MLP
     n3 = 524288
@@ -340,8 +481,8 @@ def main():
 
     n4 = 1048576
     X = torch.rand((n4, 36), generator=g).to(dev) * 2 - 1
-    packed3 = [w.to(torch.bfloat16)
-               for w in heads_cuda.pack_mlp3(list(field.proposal))]
+    packed3 = [w.to(torch.bfloat16) for w in heads_cuda.pack_mlp3(
+        [w.detach() for w in field.proposal])]
     got4 = heads_cuda.fused_mlp3(packed3, X)
     want4 = heads_cuda.fused_mlp3_plain(packed3, X, torch.bfloat16)
     k4_err = checks.close('K4f mlp3 N=1048576', got4, want4, atol=2e-2,
@@ -469,23 +610,316 @@ def main():
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
               f'{r["bound"][0]:.4f} ms ({r["bound"][1]})')
 
+    # ---- 7. the backward kernels at the training step's shapes
+    n_tr = TRAIN_BATCH * NUM_STEPS  # main samples per step: 131,072
+    x2 = x[:n_tr].contiguous()  # holds the points at 0 and 1
+    g2 = torch.randn((n_tr, TPU_GRID.out_dim), generator=g).to(dev)
+    got2 = hashgrid_cuda.hashgrid_encode_backward(g2, x2, TPU_GRID)
+    want2 = hashgrid_cuda.hashgrid_encode_backward_plain(g2, x2, TPU_GRID)
+    # fp32 atomic adds in an order that changes from run to run against
+    # index_add_'s: each row sums up to a few hundred terms of O(1).
+    k2_err = checks.close(f'K2 table gradient TPU_GRID N={n_tr}', got2,
+                          want2, atol=5e-4, rtol=1e-5)
+    g_ref = torch.randn((65536, ref_grid.out_dim), generator=g).to(dev)
+    checks.close('K2 table gradient reference 16x2x2^19 N=65536',
+                 hashgrid_cuda.hashgrid_encode_backward(g_ref, x_ref,
+                                                        ref_grid),
+                 hashgrid_cuda.hashgrid_encode_backward_plain(g_ref, x_ref,
+                                                              ref_grid),
+                 atol=5e-4, rtol=1e-5)
+    del want2, got2
+    k2_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward(
+        g2, x2, TPU_GRID), 20)
+    k2_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward_plain(
+        g2, x2, TPU_GRID), 3)
+    # x and g read once, the 64 MiB table gradient written once; a mul and
+    # an add per corner per element in fp32.
+    k2_bound = _bound(_nbytes(x2, g2, table), 16 * n_tr * TPU_GRID.out_dim,
+                      PEAK_FP32)
+    results['K2'] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                         bound=k2_bound, library_ms=None)
+
+    A3 = hashgrid_cuda.hashgrid_encode(table, x2, TPU_GRID)
+    B3 = torch.zeros((n_tr, 32), device=dev)
+    B3[:, :12] = torch.rand((n_tr, 12), generator=g).to(dev) * 2 - 1
+    B3[:, 16:32] = torch.randn((n_tr, 16), generator=g).to(dev) * 0.3
+    g1 = torch.randn((n_tr, packed[7].shape[1]), generator=g).to(dev)
+    gf = torch.randn((n_tr, packed[10].shape[1]), generator=g).to(dev)
+    gl = torch.randn((n_tr, packed[13].shape[1]), generator=g).to(dev)
+    dA, dB, dws = heads_cuda.fused_heads_backward(packed, A3, B3, g1, gf, gl)
+    wA, wB, wws = heads_cuda.fused_heads_backward_plain(
+        packed, A3, B3, g1, gf, gl, torch.bfloat16)
+    # bf16 operands on both sides, sums in another order (as K3f). That
+    # order can round an activation that sits at 0 to either side, and the
+    # ReLU mask of that (point, unit) then flips: the point's cotangents
+    # differ by O(their size) there. So dA and dB are held within 1e-2 of
+    # their norm, with at most 3e-4 of their elements beyond 2e-2 of the
+    # largest magnitude (the seeded inputs gave 9.0e-5 and 5.0e-5 on the
+    # H100); each weight gradient, a sum over 131,072 points, within 1e-2
+    # of its norm.
+    checks.rel_norm(f'K3b dA N={n_tr}', dA, wA, 1e-2)
+    k3b_err = checks.flips(f'K3b dA N={n_tr} elements', dA, wA,
+                           2e-2 * float(wA.abs().max()), 3e-4)
+    checks.rel_norm(f'K3b dB N={n_tr}', dB, wB, 1e-2)
+    checks.flips(f'K3b dB N={n_tr} elements', dB, wB,
+                 2e-2 * float(wB.abs().max()), 3e-4)
+    # The second witness, for the cause: against the fp32 plain version,
+    # the kernel is no less accurate than the bf16 plain version. Both
+    # round at the same places, so where the kernel departs from the bf16
+    # plain version by mask flips alone, its distance from fp32 (bf16's own
+    # error, mask flips included) grows by a small share; a fault (a wrong
+    # index, a dropped term or mask) adds errors of the values' own size.
+    fA, fB, _ = heads_cuda.fused_heads_backward_plain(packed, A3, B3, g1, gf,
+                                                      gl, torch.float32)
+    k3b_witness = {
+        key: checks.no_worse(f'K3b {key} N={n_tr} against fp32', got, ref,
+                             want, 2e-2 * float(want.abs().max()), 1.1)
+        for key, got, ref, want in (('dA', dA, wA, fA), ('dB', dB, wB, fB))}
+    del fA, fB
+    weight_names = ('WA', 'WBs', 'W1s', 'W2s', 'WBc', 'WSc', 'W1c', 'W2c',
+                    'WSf', 'W1f', 'W2f', 'WFo', 'WSo', 'W1o')
+    for name, a, b in zip(weight_names, dws, wws):
+        checks.rel_norm(f'K3b d{name}', a, b, 1e-2)
+    del dA, dB, dws, wA, wB, wws
+    k3b_ms = _cuda_ms(lambda: heads_cuda.fused_heads_backward(
+        packed, A3, B3, g1, gf, gl, need_dB=False), 10)
+    k3b_plain = _cuda_ms(lambda: heads_cuda.fused_heads_backward_plain(
+        packed, A3, B3, g1, gf, gl, torch.bfloat16), 3)
+
+    def heads_library_backward():
+        # The yardstick: autograd's backward of the bf16 torch.matmul chain
+        # (heads_library's products), graph built once.
+        ws = [w.detach().clone().requires_grad_(True) for w in packed]
+        (WA, WBs, W1s, W2s, WBc, WSc, W1c, W2c, WSf, W1f, W2f, WFo, WSo,
+         W1o) = ws
+        a = A3.to(torch.bfloat16).requires_grad_(True)
+        b = B3.to(torch.bfloat16)
+        h = torch.relu(a @ WA + b @ WBs)
+        S = torch.relu(h @ W1s) @ W2s
+        c = torch.relu(torch.relu(b @ WBc + S @ WSc) @ W1c) @ W2c
+        F = torch.relu(torch.relu(S @ WSf) @ W1f) @ W2f
+        L = torch.relu(torch.relu(F) @ WFo + S @ WSo) @ W1o
+        outs = (torch.exp(torch.clamp(S[:, :1].float(), max=15.0)),
+                torch.sigmoid(c[:, :3].float()), F, L)
+        cots = (g1[:, :1], g1[:, 1:4], gf.to(torch.bfloat16),
+                gl.to(torch.bfloat16))
+        return lambda: torch.autograd.grad(outs, [a, *ws], cots,
+                                           retain_graph=True)
+
+    k3b_lib = _cuda_ms(heads_library_backward(), 10)
+    # Real widths: A, B's 28 columns and the cotangents of the 4 + S + C
+    # real outputs read, dA and the fp32 weight gradients written; the
+    # forward recomputed (all but the logits layer), the cotangents of
+    # every layer but those of B, and every weight gradient.
+    s_dim = params['semantic_features'][2].shape[1]
+    c_dim = params['semantic_out'][1].shape[1]
+    macs_fwd = head_macs - params['semantic_out'][1].numel()
+    macs_data = head_macs - 12 * params['sigma_net'][0].shape[1] \
+        - 16 * params['color_net'][0].shape[1]
+    k3b_bound = _bound(
+        2 * _nbytes(A3) + n_tr * (28 + 4 + s_dim + c_dim) * 4
+        + head_macs * (2 + 4),
+        2 * n_tr * (macs_fwd + macs_data + head_macs), PEAK_BF16)
+    results['K3b'] = dict(max_abs_err=k3b_err, ms=k3b_ms,
+                          plain_ms=k3b_plain, bound=k3b_bound,
+                          library_ms=k3b_lib)
+    del A3, B3, g1, gf, gl, g2
+
+    n4b = TRAIN_BATCH * PROPOSAL_STEPS  # proposal samples per step: 262,144
+    X4 = (torch.rand((n4b, 36), generator=g) * 2 - 1).to(dev)
+    g4 = torch.zeros((n4b, packed3[2].shape[1]), device=dev)
+    g4[:, 0] = torch.randn(n4b, generator=g).to(dev)  # density's column
+    dX, dws = heads_cuda.fused_mlp3_backward(packed3, X4, g4)
+    wX, wws = heads_cuda.fused_mlp3_backward_plain(packed3, X4, g4,
+                                                   torch.bfloat16)
+    k4b_err = checks.close(f'K4b dX N={n4b}', dX, wX, rtol=0.0,
+                           atol=2e-2 * float(wX.abs().max()))
+    for name, a, b in zip(('W0', 'W1', 'W2'), dws, wws):
+        checks.rel_norm(f'K4b d{name}', a, b, 1e-2)
+    del dX, dws, wX, wws
+    k4b_ms = _cuda_ms(lambda: heads_cuda.fused_mlp3_backward(
+        packed3, X4, g4, need_dX=False), 20)
+    k4b_plain = _cuda_ms(lambda: heads_cuda.fused_mlp3_backward_plain(
+        packed3, X4, g4, torch.bfloat16), 5)
+
+    def mlp3_library_backward():
+        ws = [w.detach().clone().requires_grad_(True) for w in packed3]
+        Xp = torch.nn.functional.pad(X4, (0, packed3[0].shape[0] - 36))
+        out = torch.relu(torch.relu(Xp.to(torch.bfloat16) @ ws[0]) @ ws[1]) \
+            @ ws[2]
+        cot = g4.to(torch.bfloat16)
+        return lambda: torch.autograd.grad(out, ws, cot, retain_graph=True)
+
+    k4b_lib = _cuda_ms(mlp3_library_backward(), 20)
+    # X and the one real cotangent column read, the fp32 weight gradients
+    # written; the forward recomputed without the output layer, the
+    # hidden cotangents, and the three weight gradients (36-64-64-1).
+    k4b_bound = _bound(
+        _nbytes(X4) + n4b * 4 + mlp3_macs * (2 + 4),
+        2 * n4b * ((mlp3_macs - 64) + (mlp3_macs - 36 * 64) + mlp3_macs),
+        PEAK_BF16)
+    results['K4b'] = dict(max_abs_err=k4b_err, ms=k4b_ms,
+                          plain_ms=k4b_plain, bound=k4b_bound,
+                          library_ms=k4b_lib)
+    del X4, g4, x2, table, enc, x
+    torch.cuda.empty_cache()
+
+    # ---- 8. the training slice through SimpleTrainer
+    positions = [(3.2 * np.cos(a), 3.2 * np.sin(a), 0.9 * (-1) ** k)
+                 for k, a in enumerate(np.linspace(0, 2 * np.pi, 9)[:-1])]
+    loader = _RayBatches([_scene_frame(rays, pos) for pos in positions],
+                         TRAIN_BATCH, dev, args.seed + 4)
+    held_out = _scene_frame(rays, (2.2, 2.6, -0.4))
+    train_options = RenderOptions(perturb=True, stochastic_corners=0,
+                                  sampled_backward=0, num_steps=NUM_STEPS,
+                                  proposal_steps=PROPOSAL_STEPS)
+    train_field = Field(config, device=dev,
+                        generator=torch.Generator().manual_seed(args.seed + 2))
+    workspace = os.path.join(WORK_DIR, 'train')
+    trainer = SimpleTrainer('chip_smoke', train_field, lr=5e-3, iters=10000,
+                            render_options=train_options,
+                            workspace=workspace, use_checkpoint=None,
+                            max_ray_batch=MAX_RAY_BATCH, metrics=False,
+                            seed=args.seed)
+
+    # (a) one step, kernels against plain versions: same params and draws.
+    step_batch = next(loader)
+    draws = draw_perturbations(trainer.generator, TRAIN_BATCH, train_options)
+    parts_k, grads_k = trainer.loss_and_grads(step_batch, draws)
+    with _plain_kernels(hashgrid_cuda, heads_cuda):
+        parts_p, grads_p = trainer.loss_and_grads(step_batch, draws)
+    # bf16 operands in the heads on both sides, rounded at other places
+    # (the kernels round every cotangent to bf16, autograd of the plain
+    # version keeps them fp32): loss parts within 2e-2, each gradient
+    # within 5e-2 of its norm.
+    for key in parts_k:
+        checks.close(f'train step loss {key}', parts_k[key], parts_p[key],
+                     atol=1e-6, rtol=2e-2)
+    grad_errors = {name: checks.rel_norm(f'train step grad {name}',
+                                         grads_k[name], grads_p[name], 5e-2)
+                   for name in grads_k}
+    del grads_k, grads_p
+
+    # (b) the main path: TRAIN_STEPS steps through train_iterations.
+    _, mse_before = trainer.eval_step(held_out)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    chunk_losses = [trainer.train_iterations(loader, TRAIN_CHUNK)
+                    for _ in range(TRAIN_STEPS // TRAIN_CHUNK)]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_kernels.launches)
+    kernel_names = {'K1': hashgrid_cuda.NAME, 'K2': hashgrid_cuda.BWD_NAME,
+                    'K3f': heads_cuda.HEADS, 'K3b': heads_cuda.HEADS_BWD,
+                    'K4f': heads_cuda.MLP3, 'K4b': heads_cuda.MLP3_BWD}
+    for name in kernel_names.values():
+        checks.true(f'train launches {name}',
+                    train_launches.get(name, 0) == TRAIN_STEPS,
+                    f'{train_launches.get(name, 0)} (expected {TRAIN_STEPS})')
+    loss_curve = [{k: float(v) for k, v in losses.items()}
+                  for losses in chunk_losses]
+    checks.true('train losses finite', all(
+        np.isfinite(v) for losses in loss_curve for v in losses.values()))
+    _, mse_after = trainer.eval_step(held_out)
+    # A held-out view of the sphere after 200 steps: its rgb loss (MSE)
+    # falls at least 4-fold from the untrained field's.
+    checks.true('train held-out rgb loss falls', mse_after * 4 < mse_before,
+                f'{mse_before:.5f} -> {mse_after:.5f} (PSNR '
+                f'{_psnr(mse_before):.2f} -> {_psnr(mse_after):.2f} dB)')
+
+    # (c) steady state, kernels against plain versions in turns.
+    def step_ms():
+        batches = [next(loader) for _ in range(STEPS_PER_TURN)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / STEPS_PER_TURN
+
+    train_steady = {'kernels': [], 'plain': []}
+    for _ in range(TRAIN_ROUNDS):
+        for side in ('plain', 'kernels', 'kernels', 'plain'):
+            if side == 'plain':
+                with _plain_kernels(hashgrid_cuda, heads_cuda):
+                    train_steady[side].append(step_ms())
+            else:
+                train_steady[side].append(step_ms())
+    train_stats = {k: _quartiles(v) for k, v in train_steady.items()}
+
+    # (d) one step under the profiler.
+    train_profile, train_busy = _device_profile(
+        lambda: trainer.train_step(next(loader)))
+
+    # (e) the trained checkpoint, served.
+    trainer.save_checkpoint('best', include_optimizer=False)
+    served_train = InferenceModel.from_checkpoint(
+        Field(config, device=dev,
+              generator=torch.Generator().manual_seed(args.seed + 3)),
+        workspace, num_steps=NUM_STEPS, proposal_steps=PROPOSAL_STEPS,
+        max_ray_batch=MAX_RAY_BATCH)
+    served_out = served_train.render(held_out)
+    own_image = trainer.test_step(held_out)[0].cpu().numpy()
+    checks.true('trained checkpoint serves', served_out['image'].shape == (
+        FRAME_H, FRAME_W, 3) and bool(np.isfinite(served_out['image']).all())
+        and float(np.abs(served_out['image'] - own_image).max()) < 1e-5,
+        f'max |served - trainer render| = '
+        f'{float(np.abs(served_out["image"] - own_image).max()):.3e}')
+
+    print(f'train [{gpu}]: {TRAIN_STEPS} steps in {train_s:.3f} s '
+          f'({train_s * 1e3 / TRAIN_STEPS:.3f} ms per step incl. '
+          f'{TRAIN_STEPS // TRAIN_CHUNK} EMA ticks); loss at chunk ends '
+          f'{[round(c["total"], 5) for c in loss_curve]}')
+    print(f'train step grads: worst relative error '
+          f'{max(grad_errors.values()):.3e} '
+          f'({max(grad_errors, key=grad_errors.get)})')
+    for side, st in train_stats.items():
+        print(f'train steady [{gpu}] {side}: ms per step median '
+              f'{st["median"]:.3f} (q1 {st["q1"]:.3f}, q3 {st["q3"]:.3f}, '
+              f'n {st["n"]}); rays/s '
+              f'{TRAIN_BATCH / st["median"] * 1e3:.1f}')
+    if train_profile is None:
+        print('train profile: the trace holds no device time: not measured')
+    else:
+        wall = train_stats['kernels']['median']
+        print(f'train profile [{gpu}]: device busy {train_busy:.3f} ms of a '
+              f'{wall:.3f} ms step (median wall, unprofiled): busy share '
+              f'{train_busy / wall:.4f}')
+        for name, ms, count in train_profile[:16]:
+            print(f'  {ms:9.3f} ms {ms / train_busy:7.2%} x{count:<5d} '
+                  f'{name[:90]}')
+    for key in ('K2', 'K3b', 'K4b'):
+        r = results[key]
+        print(f'kernel {key} [{gpu}]: {r["ms"]:.4f} ms, plain '
+              f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
+              f'{r["bound"][0]:.4f} ms ({r["bound"][1]})')
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
-         'autolabel_tpu/ops/hashgrid_pallas.py:33', hashgrid_cuda.NAME, 'K1'),
+         'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
+        ('K2 hashgrid_encode_bwd', 'autolabel_tpu_torch/csrc/hashgrid_bwd.cu',
+         'autolabel_tpu/ops/hashgrid_pallas.py:141', 'K2'),
         ('K3f fused_heads', 'autolabel_tpu_torch/csrc/heads_fwd.cu',
-         'autolabel_tpu/ops/heads_pallas.py:182', heads_cuda.HEADS, 'K3f'),
+         'autolabel_tpu/ops/heads_pallas.py:182', 'K3f'),
+        ('K3b fused_heads_bwd', 'autolabel_tpu_torch/csrc/heads_bwd.cu',
+         'autolabel_tpu/ops/heads_pallas.py:196', 'K3b'),
         ('K4f fused_mlp3', 'autolabel_tpu_torch/csrc/heads_fwd.cu',
-         'autolabel_tpu/ops/heads_pallas.py:407', heads_cuda.MLP3, 'K4f'),
+         'autolabel_tpu/ops/heads_pallas.py:407', 'K4f'),
+        ('K4b fused_mlp3_bwd', 'autolabel_tpu_torch/csrc/heads_bwd.cu',
+         'autolabel_tpu/ops/heads_pallas.py:414', 'K4b'),
     ]
     kernels = [{
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-        'launches': launches.get(counter, 0),
+        'launches': train_launches.get(kernel_names[key], 0),
+        'launches_train': train_launches.get(kernel_names[key], 0),
+        'launches_render': launches.get(kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
         'bound_by': results[key]['bound'][1],
         'library_ms': results[key]['library_ms'],
-    } for name, source, replaces, counter, key in table_rows]
+    } for name, source, replaces, key in table_rows]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
@@ -496,8 +930,18 @@ def main():
                    'profile_busy_ms': busy_ms,
                    'profile': profile_rows,
                    'render_errors': render_errors,
+                   'train_s': train_s, 'train_launches': train_launches,
+                   'train_loss_curve': loss_curve,
+                   'train_heldout_mse': [mse_before, mse_after],
+                   'train_grad_rel_errors': grad_errors,
+                   'k3b_against_fp32': k3b_witness,
+                   'train_steady_step_ms': train_steady,
+                   'train_steady_stats': train_stats,
+                   'train_profile_busy_ms': train_busy,
+                   'train_profile': train_profile,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
+    print(f'total: {time.perf_counter() - t_start:.1f} s')
     if checks.failures:
         print(f'FAILED: {checks.failures}', file=sys.stderr)
         return 1

@@ -40,6 +40,7 @@ def test_bridge_round_trip():
         bridge.params_from_numpy({'bogus': []}, 'cpu')
 
 
+@torch.no_grad()  # the serving form: no graph
 def test_field_heads_match_jax():
     params = _params()
     jf, pf = _jax_field(), _port_field(params)
@@ -72,6 +73,7 @@ def test_field_heads_match_jax():
                                rtol=RTOL, atol=ATOL)
 
 
+@torch.no_grad()  # the serving form: no graph
 def test_kernel_packing_is_built_once_and_rebuilt_on_load():
     """The packed head and proposal weights are reused across chunks and
     rebuilt when new params are loaded, so the heads follow the new
@@ -182,9 +184,14 @@ bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')
              or m == 'autolabel_tpu' or m.startswith('autolabel_tpu.'))
 print('BAD', bad)
 print('BUILT', len(_kernels._libs))
+print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
 '''
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
     assert 'BAD []' in out, out
     assert 'BUILT 0' in out, out  # importing compiles nothing
+    for module in ('ops.hashgrid_cuda', 'ops.heads_cuda', 'render.renderer',
+                   'train.losses', 'train.optim', 'train.metrics',
+                   'train.trainer', 'train.checkpoints', 'bridge'):
+        assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)

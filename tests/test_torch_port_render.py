@@ -90,6 +90,7 @@ def _assert_outputs_close(ours, ref, keys=OUT_KEYS):
                                    rtol=RTOL, atol=ATOL, err_msg=k)
 
 
+@torch.no_grad()  # the eval form: no graph, no interlevel loss
 @pytest.mark.parametrize('branch', ['proposal_fused', 'uniform_unfused',
                                     'upsample'])
 def test_render_rays_matches_jax(branch):
