@@ -1,559 +1,864 @@
-// Fused field head stack and fused 3-matrix MLP (backward) for Hopper.
+// Fused field head stack (backward), K3b, for Hopper.
 //
-// heads_bwd replaces the TPU kernel autolabel_tpu/ops/heads_pallas.py
-// `_bwd_kernel` (launched by `_fused_heads_vjp_bwd`): per point it
-// recomputes the forward of heads_fwd.cu, then runs the backward chain of
-// `_bwd_kernel` (the trunc_exp VJP g * exp(clip(S0, -15, 15)), the sigmoid
-// VJP on rgb, ReLU masks from the recomputed activations) and writes dA
-// and dB per point; the 14 weight gradients are summed over all points.
-// mlp3_bwd replaces `_mlp3_bwd_kernel` (`_mlp3_vjp_bwd`): dX and the three
-// weight gradients of relu(relu(X.W0).W1).W2.
+// Replaces the TPU kernel autolabel_tpu/ops/heads_pallas.py `_bwd_kernel`
+// (launched by `_fused_heads_vjp_bwd`): per point it recomputes the
+// forward of heads_fwd.cu, runs the backward chain of `_bwd_kernel` (the
+// trunc_exp VJP g * exp(clip(S0, -15, 15)), the sigmoid VJP on rgb, ReLU
+// masks from the recomputed activations) and writes dA and dB; the 14
+// weight gradients are summed over all points. Numerics as the TPU
+// kernel: bf16 operands (activations, cotangents, weights) with fp32
+// accumulation, fp32 weight gradients.
 //
-// Numerics, as the TPU kernel: bf16 operands (activations, cotangents and
-// weights) with fp32 accumulation, masks taken from the recomputed
-// activations, fp32 weight gradients.
+// What bounds it on the H100: bytes. At the training step's 131,072
+// points it reads A (256 MiB fp32) and writes dA (256 MiB), plus B's 28
+// real columns, the cotangents of the 74 real outputs and the fp32 weight
+// gradients: 0.176 ms at 3.35 TB/s, against about 0.7 MFLOP of bf16
+// products per point (0.09 ms at 989 TFLOP/s). The earlier design took 10.47
+// ms on an NVIDIA H100 80GB HBM3 at 700.00 W; clock64 stamps per phase
+// put 41% of it in the recompute, 33% in the backward chain (dA alone
+// 16%), 10% in the small weight gradients and 16% in dWA: weight
+// fragments read from L2 for every 16 points by one 4-warp block per SM.
 //
-// What bounds it on the H100: bytes at the training slice's widths (A is
-// read once, 2 KiB per point, and dA written once, another 2 KiB, against
-// about 0.7 MFLOP of bf16 products per point). The trap is the weight
-// gradients: about 128 k fp32 values (WA alone is 512 x 128), which a
-// per-warp atomic flush would add 128 k atomics per 16 points. Design:
-// persistent blocks walk the points in steps of (warps x 16); each warp
-// recomputes and back-propagates its own 16 points with every activation
-// and cotangent kept in its shared memory (bf16 tiles, 9 hidden-width
-// slots reused as lifetimes end); then, at four block-wide phases per
-// step, the block's warps share the weight-gradient tiles among them and
-// add the step's whole block of points (K = warps x 16) into a per-block
-// fp32 partial in device memory with MMAs. Each block's partial is thus
-// read and written once per step rather than per warp. A second kernel
-// sums the per-block partials in a fixed order. So dW is deterministic for
-// a given launch shape; dA and dB are per point.
-#include "heads_common.cuh"
+// Design: four kernels in order, each a hand-written tensor-core kernel.
+// 1. heads_bwd_kernel, the heads_tile.cuh machinery of heads_fwd.cu with
+//    tiles of 64 points: the recompute, the backward chain down to dh1s,
+//    and dB. The heads are back-propagated one at a time right after
+//    their forward (color, then features and logits), so a cotangent
+//    overwrites its own activation in place and five hidden-width tiles
+//    suffice; dS and the color head's share of dB gather in fp32 tiles.
+//    It takes no weight gradient: five times a tile, once every warp has
+//    written them, it copies the gradients' operand tiles (X and dY of
+//    X^T @ dY, 21 tiles, 1,720 bf16 columns per point at the flagship
+//    widths) to a workspace, 16 bytes a thread; the DH1 epilogue writes
+//    dh1s there too. Adding each tile's small gradients into a per-block
+//    fp32 partial instead (250 KB of read-modify-write per 64 points)
+//    took a third of K3b's time (PERF.md).
+// 2. da_kernel: dA = dh1s @ WA^T, 128 points x 128 columns a block. In
+//    the fused kernel its eight steps a tile took 0.38 ms (NVIDIA H100
+//    80GB HBM3, 700.00 W; PERF.md), nearly five times what its 256 MiB of
+//    writes take at 3.35 TB/s.
+// 3. dw_kernel, twice: every weight gradient as a split-K product X^T @
+//    dY over the points, X from A (dWA, rounded to bf16 in shared memory)
+//    or from the workspace; each split stores its partial.
+// 4. sum_partials_kernel: the splits added in order, so dW is the same
+//    for a launch shape every run, with no atomics.
+// The price of leaving the partials: A is read twice, and the workspace
+// (1,720 bf16 values, 3,440 B a point: 451 MB at 131,072 points, growing
+// with N and not capped) is written and read once, about 13 KB of traffic
+// a point against the bound's 4 KB.
+//
+// Shared memory at the flagship widths, for 64 points: weight stages 3 x
+// 18,432 B, A stages 2 x 18,432, five hidden tiles 4 x 17,408 + 9,216, xb
+// 5,120, S, dS, dR and the logits' cotangent 4 x 3,072, relu(F) / dF
+// 9,216, the fp32 dS and dB tiles 4,096 + 8,192, the schedule 512 (35
+// steps) and the weight table 128: 210,560 B, one block of 8 warps per
+// SM. da_kernel: 2 x (18,432 + 18,432) = 73,728 B, two blocks per SM.
+// dw_kernel: for dWA 2 x (18,432 fp32 A + 17,408 dY) + 9,216 bf16 A =
+// 80,896 B, two blocks per SM; for the others 2 x (9,216 + 17,408) =
+// 53,248 B, four blocks per SM.
+#include "heads_tile.cuh"
+#include "partials.cuh"
 
-#define BWD_HIDDEN_SLOTS 9  // hidden-width activation / cotangent tiles
+#define BWD_SLOT (128 * (64 + 8))  // bf16 elements of a weight stage
 
-// One term of a weight-gradient phase: part[in x out] += X^T @ dY, where
-// X (16 x in) and dY (16 x out) are bf16 tiles at byte offsets x_off and
-// y_off of every warp's shared memory (leading dims ldx, ldy).
-struct DwTerm {
-  float* part;
-  int in, out;
-  size_t x_off, y_off;
-  int ldx, ldy;
+// The layers of the recompute and the backward chain, in the order they
+// run: the sigma trunk, the color head and its cotangents (with their
+// share of dS and dB), the feature and logits heads and their cotangents,
+// dS, then the trunk's cotangents down to dh1s, and dB (dA = dh1s @ WA^T
+// is da_kernel's).
+enum {
+  B_H1, B_H2, B_S, B_C1, B_C2, B_R, B_DC2, B_DC1, B_DSC, B_DBC,
+  B_F1, B_F2, B_F, B_O1, B_DO1, B_DSO, B_DF, B_DF2, B_DF1, B_DS,
+  B_DH2, B_DH1, B_DB
 };
 
-__device__ __forceinline__ void dw_term(const DwTerm& t,
-                                        const unsigned char* smem,
-                                        size_t warp_bytes, int nwarps,
-                                        int warp) {
-  const int tiles_n = t.out >> 4;
-  const int tiles = (t.in >> 4) * tiles_n;
-  for (int i = warp; i < tiles; i += nwarps) {
-    const int mi = i / tiles_n, nj = i - mi * tiles_n;
-    float* dst = t.part + (size_t)mi * 16 * t.out + nj * 16;
-    Acc c;
-    wmma::load_matrix_sync(c, dst, t.out, wmma::mem_row_major);
-    for (int w2 = 0; w2 < nwarps; ++w2) {
-      const unsigned char* wb = smem + w2 * warp_bytes;
-      FragAT a;  // X^T (in x 16): X's columns as rows
-      wmma::load_matrix_sync(a, (const bf16*)(wb + t.x_off) + mi * 16,
-                             t.ldx);
-      FragB b;
-      wmma::load_matrix_sync(b, (const bf16*)(wb + t.y_off) + nj * 16,
-                             t.ldy);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(dst, c, t.out, wmma::mem_row_major);
-  }
+// The order in which those layers take their weight chunks (the two dB
+// layers' only where wanted).
+__host__ __device__ inline int heads_bwd_schedule(const HeadsDims& d,
+                                                  bool need_dB, Step* out) {
+  Sched s = {out, 0, BWD_SLOT, d};
+  sched_layer(s, B_H1, WBs, WA, false, true);
+  sched_layer(s, B_H2, W1s, -1, false, false);
+  sched_layer(s, B_S, W2s, -1, false, false);
+  sched_layer(s, B_C1, WBc, WSc, false, false);
+  sched_layer(s, B_C2, W1c, -1, false, false);
+  sched_layer(s, B_R, W2c, -1, false, false);
+  sched_layer(s, B_DC2, W2c, -1, true, false);
+  sched_layer(s, B_DC1, W1c, -1, true, false);
+  sched_layer(s, B_DSC, WSc, -1, true, false);
+  if (need_dB) sched_layer(s, B_DBC, WBc, -1, true, false);
+  sched_layer(s, B_F1, WSf, -1, false, false);
+  sched_layer(s, B_F2, W1f, -1, false, false);
+  sched_layer(s, B_F, W2f, -1, false, false);
+  sched_layer(s, B_O1, WFo, WSo, false, false);
+  sched_layer(s, B_DO1, W1o, -1, true, false);
+  sched_layer(s, B_DSO, WSo, -1, true, false);
+  sched_layer(s, B_DF, WFo, -1, true, false);
+  sched_layer(s, B_DF2, W2f, -1, true, false);
+  sched_layer(s, B_DF1, W1f, -1, true, false);
+  sched_layer(s, B_DS, WSf, -1, true, false);
+  sched_layer(s, B_DH2, W2s, -1, true, false);
+  sched_layer(s, B_DH1, W1s, -1, true, false);
+  if (need_dB) sched_layer(s, B_DB, WBs, -1, true, false);
+  return s.n;
 }
 
-// Per-warp shared-memory layout of heads_bwd_kernel (byte offsets).
-struct BwdLayout {
-  size_t xa, xb, s, ds, fr, dr, gl, slot0, scratch, dsig, warp_bytes;
-  int pq;
+#define N_HIDDEN 5
+
+// The tiles the fused kernel hands to dw_kernel, the operands of the 14
+// weight gradients: per point, bf16, each a region of n rows x its width
+// in the workspace. X^T @ dY of a weight takes its X and dY from here (or
+// X from A, for dWA).
+enum {
+  D_XB, D_S, D_H1, D_DH1, D_H2, D_DH2, D_DS, D_C1, D_DC1, D_C2, D_DC2,
+  D_DR, D_F1, D_DF1, D_F2, D_DF2, D_RF, D_DF, D_O1, D_DO1, D_GL, N_DUMP
 };
 
-__host__ __device__ __forceinline__ BwdLayout bwd_layout(const HeadsDims& d) {
+__host__ __device__ inline int dump_width(const HeadsDims& d, int k) {
+  const int w[N_DUMP] = {d.Bw, d.Sw, d.H,  d.H,  d.H,  d.H,  d.Sw,
+                         d.Hc, d.Hc, d.Hc, d.Hc, d.Rw, d.Hf, d.Hf,
+                         d.Hf, d.Hf, d.Sp, d.Sp, d.Ho, d.Ho, d.Cp};
+  return w[k];
+}
+
+// X's and dY's regions of each weight's gradient (X of WA: A itself).
+static const int DW_X[N_WEIGHTS] = {-1,   D_XB, D_H1, D_H2, D_XB, D_S, D_C1,
+                                    D_C2, D_S,  D_F1, D_F2, D_RF, D_S, D_O1};
+static const int DW_Y[N_WEIGHTS] = {D_DH1, D_DH1, D_DH2, D_DS,  D_DC1,
+                                    D_DC1, D_DC2, D_DR,  D_DF1, D_DF2,
+                                    D_DF,  D_DO1, D_DO1, D_GL};
+
+// Byte offsets of the block's shared-memory regions, and the element
+// offsets of the workspace's regions.
+struct BwdLayout {
+  size_t sched, wtab, w, w_bytes, x, x_bytes, xb, s, ds, dr, gl, fr,
+      h[N_HIDDEN], ds32, db32, bytes;
+  long long reg[N_DUMP], ws_elems;
+  int m, nsteps;
+  bool g_staged;  // the cotangents fit the A stages once the trunk is in
+};
+
+// Tiles of m points; h[0..1] hold the sigma trunk (H wide), h[2..3] the
+// color, then the feature head (Hc or Hf wide), h[4] the logits head.
+static BwdLayout bwd_layout(const HeadsDims& d, int m, bool need_dB,
+                            long long n) {
   BwdLayout L;
-  L.pq = heads_hidden(d);
+  L.m = m;
+  L.nsteps = heads_bwd_schedule(d, need_dB, nullptr);
+  L.w_bytes = round128((size_t)BWD_SLOT * sizeof(bf16));
+  L.x_bytes = round128((size_t)m * X_LD * sizeof(float));
   size_t o = 0;
-  L.xa = o; o += tile_bytes(A_CHUNK);
-  L.xb = o; o += tile_bytes(d.Bw);
-  L.s = o; o += tile_bytes(d.Sw);
-  L.ds = o; o += tile_bytes(d.Sw);
-  L.fr = o; o += tile_bytes(d.Sp);
-  L.dr = o; o += tile_bytes(d.Rw);
-  L.gl = o; o += tile_bytes(d.Cp);
-  L.slot0 = o; o += BWD_HIDDEN_SLOTS * tile_bytes(L.pq);
-  L.scratch = o; o += scratch_bytes();
-  L.dsig = o; o += round128(16 * sizeof(float));
-  L.warp_bytes = o;
+  L.w = o; o += W_STAGES * L.w_bytes;
+  L.x = o; o += 2 * L.x_bytes;
+  L.g_staged = (size_t)m * (d.Rw + d.Sp + d.Cp) * sizeof(float) <=
+               2 * L.x_bytes;
+  const int widths[N_HIDDEN] = {d.H, d.H, d.Hc > d.Hf ? d.Hc : d.Hf,
+                                d.Hc > d.Hf ? d.Hc : d.Hf, d.Ho};
+  for (int i = 0; i < N_HIDDEN; ++i) {
+    L.h[i] = o;
+    o += tile_bytes(m, widths[i]);
+  }
+  L.xb = o; o += tile_bytes(m, d.Bw);
+  L.s = o; o += tile_bytes(m, d.Sw);
+  L.ds = o; o += tile_bytes(m, d.Sw);
+  L.dr = o; o += tile_bytes(m, d.Rw);
+  L.gl = o; o += tile_bytes(m, d.Cp);
+  L.fr = o; o += tile_bytes(m, d.Sp);
+  L.ds32 = o; o += round128((size_t)m * d.Sw * sizeof(float));
+  L.db32 = o; o += round128((size_t)m * d.Bw * sizeof(float));
+  L.sched = o; o += round128((size_t)L.nsteps * sizeof(Step));
+  L.wtab = o; o += round128(N_WEIGHTS * sizeof(bf16*));
+  L.bytes = o;
+  L.ws_elems = 0;
+  for (int k = 0; k < N_DUMP; ++k) {
+    L.reg[k] = L.ws_elems;
+    L.ws_elems += n * dump_width(d, k);
+  }
   return L;
 }
 
-// Offsets (in floats) of the 14 weight gradients in one block's partial.
-struct DwOffsets {
-  size_t o[N_WEIGHTS + 1];  // o[N_WEIGHTS] = total
-};
-
-__host__ __device__ __forceinline__ DwOffsets dw_offsets(const HeadsDims& d) {
-  const int shape[N_WEIGHTS][2] = {
-      {d.Ap, d.H},  {d.Bw, d.H},  {d.H, d.H},   {d.H, d.Sw},  {d.Bw, d.Hc},
-      {d.Sw, d.Hc}, {d.Hc, d.Hc}, {d.Hc, d.Rw}, {d.Sw, d.Hf}, {d.Hf, d.Hf},
-      {d.Hf, d.Sp}, {d.Sp, d.Ho}, {d.Sw, d.Ho}, {d.Ho, d.Cp}};
-  DwOffsets r;
-  size_t o = 0;
-  for (int i = 0; i < N_WEIGHTS; ++i) {
-    r.o[i] = o;
-    o += (size_t)shape[i][0] * shape[i][1];
-  }
-  r.o[N_WEIGHTS] = o;
-  return r;
+// Copy a tile (bf16, pitch ld) of the block's points to its workspace
+// region, 16 bytes a thread at a time; rows past n are left out.
+__device__ __forceinline__ void dump(bf16* ws, const BwdLayout& L,
+                                     const HeadsDims& d, int k,
+                                     const bf16* tile, int ld,
+                                     long long row0, long long n) {
+  const int w = dump_width(d, k);
+  bf16* dst = ws + L.reg[k] + row0 * w;
+  block_copy(L.m, w >> 3, [&](int r, int c8) {
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * w + c8 * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * ld + c8 * 8);
+  });
 }
 
-__global__ void __launch_bounds__(MAX_WARPS * 32)
+// dB may be null (not wanted). ws takes dh1s (for da_kernel and
+// dw_kernel) and the other weight gradients' operands.
+__global__ void __launch_bounds__(HEAD_THREADS)
     heads_bwd_kernel(const float* __restrict__ A,
                      const float* __restrict__ B, HeadsWeights w,
-                     HeadsDims d, const float* __restrict__ g1,
+                     HeadsDims d, BwdLayout L, bool a_vec, bool b_vec,
+                     const float* __restrict__ g1,
                      const float* __restrict__ gf,
-                     const float* __restrict__ gl, float* __restrict__ dA,
-                     float* __restrict__ dB, float* __restrict__ part,
-                     long long n) {
+                     const float* __restrict__ gl, float* __restrict__ dB,
+                     bf16* __restrict__ ws, long long n) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const BwdLayout L = bwd_layout(d);
-  const DwOffsets off = dw_offsets(d);
-  float* dw = part + (size_t)blockIdx.x * off.o[N_WEIGHTS];
-  unsigned char* mine = smem + warp * L.warp_bytes;
-  bf16* xa = (bf16*)(mine + L.xa);
-  bf16* xb = (bf16*)(mine + L.xb);
-  bf16* s = (bf16*)(mine + L.s);
-  bf16* ds = (bf16*)(mine + L.ds);
-  bf16* fr = (bf16*)(mine + L.fr);
-  bf16* dr = (bf16*)(mine + L.dr);
-  bf16* glb = (bf16*)(mine + L.gl);
-  float* scratch = (float*)(mine + L.scratch);
-  float* dsig = (float*)(mine + L.dsig);
-  const size_t slot_bytes = tile_bytes(L.pq);
-  auto slot_off = [&](int i) { return L.slot0 + i * slot_bytes; };
-  auto slot = [&](int i) { return (bf16*)(mine + slot_off(i)); };
-  // Slot use, reused as lifetimes end (phases P1..P4 below):
-  bf16 *h1s = slot(0), *h2s = slot(1), *c1 = slot(2), *c2 = slot(3),
-       *f1 = slot(4), *f2 = slot(5), *o1 = slot(6), *do1 = slot(7),
-       *df2 = slot(6), *df1 = slot(8), *dc2 = slot(4), *dc1 = slot(5),
-       *dh2s = slot(2), *dh1s = slot(3);
-  const int lda = A_CHUNK + 8, ldb = d.Bw + 8, ldp = L.pq + 8,
-            lds = d.Sw + 8, ldf = d.Sp + 8, ldr = d.Rw + 8,
-            ldl = d.Cp + 8;
-  auto term = [&](int m, int in, int out, size_t x_off, int ldx,
-                  size_t y_off, int ldy) {
-    DwTerm t = {dw + off.o[m], in, out, x_off, y_off, ldx, ldy};
-    dw_term(t, smem, L.warp_bytes, nwarps, warp);
+  if (threadIdx.x == 0)
+    heads_bwd_schedule(d, dB != nullptr, (Step*)(smem + L.sched));
+  Stream s = stream_start(smem, L.sched, L.wtab, L.w, L.w_bytes, L.x,
+                          L.x_bytes, L.nsteps, w, d, A, B, a_vec, b_vec, n,
+                          L.m);
+  const WarpTile wt = warp_tile(L.m);
+  bf16* xb = (bf16*)(smem + L.xb);
+  bf16* st = (bf16*)(smem + L.s);
+  bf16* dst = (bf16*)(smem + L.ds);
+  bf16* dr = (bf16*)(smem + L.dr);
+  bf16* glt = (bf16*)(smem + L.gl);
+  bf16* fr = (bf16*)(smem + L.fr);
+  float* ds32 = (float*)(smem + L.ds32);
+  float* db32 = (float*)(smem + L.db32);
+  // The cotangents of the tile's outputs: staged (fp32, rows past n
+  // zero) in the A stages once the first layer is done with them, or read
+  // from device memory.
+  float* g1s = (float*)(smem + L.x);
+  float* gfs = g1s + L.m * d.Rw;
+  float* gls = gfs + L.m * d.Sp;
+  const int ldh = d.H + 8, ldc = (d.Hc > d.Hf ? d.Hc : d.Hf) + 8,
+            ldo = d.Ho + 8, ldb = d.Bw + 8, lds = d.Sw + 8, ldr = d.Rw + 8,
+            ldl = d.Cp + 8, ldf = d.Sp + 8;
+  bf16* const h0 = (bf16*)(smem + L.h[0]);
+  bf16* const h1 = (bf16*)(smem + L.h[1]);
+  bf16* const h2 = (bf16*)(smem + L.h[2]);
+  bf16* const h3 = (bf16*)(smem + L.h[3]);
+  bf16* const h4 = (bf16*)(smem + L.h[4]);
+  // Each layer's input (h0 = h1s, h1 = h2s; h2, h3 = c1, c2, then f1, f2;
+  // h4 = o1; each cotangent in place of its activation).
+  auto src = [=](const Step& k) {
+    switch (k.layer) {
+      case B_H2: case B_DB: return Src{h0, ldh};
+      case B_S: case B_DH1: return Src{h1, ldh};
+      case B_C2: case B_DSC: case B_DBC: case B_F2: case B_DS:
+        return Src{h2, ldc};
+      case B_R: case B_DC1: case B_F: case B_DF1: return Src{h3, ldc};
+      case B_DSO: case B_DF: return Src{h4, ldo};
+      case B_DC2: return Src{dr, ldr};
+      case B_DO1: return Src{glt, ldl};
+      case B_DF2: return Src{fr, ldf};
+      case B_DH2: return Src{dst, lds};
+      case B_C1: return k.m == WBc ? Src{xb, ldb} : Src{st, lds};
+      case B_O1: return k.m == WFo ? Src{fr, ldf} : Src{st, lds};
+      default: return Src{st, lds};  // B_F1 (B_H1 comes staged)
+    }
   };
-  // act(dst) stores relu(v); grad(dst, mask) stores v where mask > 0.
-  auto act = [&](bf16* dst) {
-    return [=](int r, int c, float v) {
-      dst[r * ldp + c] = __float2bfloat16(fmaxf(v, 0.0f));
+  auto relu_to = [=](bf16* dst_, int ld) {
+    return [=](int r, int c, float v0, float v1) {
+      store_pair(dst_ + r * ld + c, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
     };
   };
-  auto grad = [&](bf16* dst, const bf16* mask) {
-    return [=](int r, int c, float v) {
-      bool on = __bfloat162float(mask[r * ldp + c]) > 0.0f;
-      dst[r * ldp + c] = __float2bfloat16(on ? v : 0.0f);
+  // The cotangent v where the activation held in place is positive.
+  auto grad_to = [=](bf16* act, int ld) {
+    return [=](int r, int c, float v0, float v1) {
+      const float2 m = load_pair(act + r * ld + c);
+      store_pair(act + r * ld + c, m.x > 0.0f ? v0 : 0.0f,
+                 m.y > 0.0f ? v1 : 0.0f);
     };
   };
-  Acc acc[MAX_FRAGS];
+  auto ds_add = [=](int r, int c, float v0, float v1) {
+    ds32[r * d.Sw + c] += v0;
+    ds32[r * d.Sw + c + 1] += v1;
+  };
 
-  const long long step = (long long)nwarps * 16;
-  for (long long base = (long long)blockIdx.x * step; base < n;
-       base += (long long)gridDim.x * step) {
-    const long long r0 = base + warp * 16;
-    const int rows = (int)max(0LL, min(16LL, n - r0));
-    const float* Ar = A + (r0 < n ? r0 : 0) * d.a_cols;
-
-    // ---- recompute the forward (heads_fwd.cu) into the warp's tiles
-    load_rows(xb, ldb, B + (r0 < n ? r0 : 0) * d.b_cols, d.b_cols, 0, d.Bw,
-              rows, lane);
-    layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-      for (int k0 = 0; k0 < d.Ap; k0 += A_CHUNK) {
-        int kw = min(A_CHUNK, d.Ap - k0);
-        load_rows(xa, lda, Ar, d.a_cols, k0, kw, rows, lane);
-        mma_rows(acc, xa, lda, kw, w.m[WA] + (size_t)k0 * d.H, d.H, c0, nc);
-        __syncwarp();
+  Acc acc;
+  for (long long tile = blockIdx.x; tile * L.m < n; tile += gridDim.x) {
+    const long long row0 = tile * L.m;
+    const float* g1t = L.g_staged ? g1s : g1 + row0 * d.Rw;
+    const float* gft = L.g_staged ? gfs : gf + row0 * d.Sp;
+    const float* glt_src = L.g_staged ? gls : gl + row0 * d.Cp;
+    for (int k = 0; k < L.nsteps; ++k) {
+      const bf16* wst;
+      const float* xst;
+      const Step step = stream_next(s, &wst, &xst);
+      step_mma(acc, step, src(step), wst, xst, xb, ldb, L.m, wt);
+      if (step.flags & STEP_LAST) {
+        switch (step.layer) {
+          case B_H1: epilogue(acc, step, wt, relu_to(h0, ldh)); break;
+          case B_H2: epilogue(acc, step, wt, relu_to(h1, ldh)); break;
+          case B_C1: case B_F1: epilogue(acc, step, wt, relu_to(h2, ldc)); break;
+          case B_C2: case B_F2: epilogue(acc, step, wt, relu_to(h3, ldc)); break;
+          case B_F: epilogue(acc, step, wt, relu_to(fr, ldf)); break;
+          case B_O1: epilogue(acc, step, wt, relu_to(h4, ldo)); break;
+          case B_DC2: case B_DF2: epilogue(acc, step, wt, grad_to(h3, ldc)); break;
+          case B_DC1: case B_DF1: epilogue(acc, step, wt, grad_to(h2, ldc)); break;
+          case B_DO1: epilogue(acc, step, wt, grad_to(h4, ldo)); break;
+          case B_DH2: epilogue(acc, step, wt, grad_to(h1, ldh)); break;
+          case B_DSC: case B_DSO: epilogue(acc, step, wt, ds_add); break;
+          case B_S:  // S; dS starts as the trunc_exp VJP in column 0
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              store_pair(st + r * lds + c, v0, v1);
+              ds32[r * d.Sw + c] =
+                  c == 0 && row0 + r < n
+                      ? g1t[r * d.Rw] * expf(fminf(fmaxf(v0, -15.0f), 15.0f))
+                      : 0.0f;
+              ds32[r * d.Sw + c + 1] = 0.0f;
+            });
+            break;
+          case B_R:  // the sigmoid VJP on rgb
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              const float v[2] = {v0, v1};
+              float dv[2] = {0.0f, 0.0f};
+              for (int e = 0; e < 2; ++e) {
+                if (c + e < 3 && row0 + r < n) {
+                  const float rgb = 1.0f / (1.0f + expf(-v[e]));
+                  dv[e] = g1t[r * d.Rw + 1 + c + e] * rgb * (1.0f - rgb);
+                }
+              }
+              store_pair(dr + r * ldr + c, dv[0], dv[1]);
+            });
+            break;
+          case B_DBC:  // the color head's share of dB
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              db32[r * d.Bw + c] = v0;
+              db32[r * d.Bw + c + 1] = v1;
+            });
+            break;
+          case B_DF:  // dF = gf + the relu(F) branch, over relu(F)
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              const float2 m = load_pair(fr + r * ldf + c);
+              const float2 g =
+                  row0 + r < n
+                      ? *reinterpret_cast<const float2*>(gft + r * d.Sp + c)
+                      : make_float2(0.0f, 0.0f);
+              store_pair(fr + r * ldf + c, g.x + (m.x > 0.0f ? v0 : 0.0f),
+                         g.y + (m.y > 0.0f ? v1 : 0.0f));
+            });
+            break;
+          case B_DS:  // dS complete
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              store_pair(dst + r * lds + c, ds32[r * d.Sw + c] + v0,
+                         ds32[r * d.Sw + c + 1] + v1);
+            });
+            break;
+          case B_DH1:  // dh1s, also to the workspace
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              const float2 m = load_pair(h0 + r * ldh + c);
+              const float a = m.x > 0.0f ? v0 : 0.0f;
+              const float b = m.y > 0.0f ? v1 : 0.0f;
+              store_pair(h0 + r * ldh + c, a, b);
+              if (row0 + r < n)
+                store_pair(ws + L.reg[D_DH1] + (row0 + r) * d.H + c, a, b);
+            });
+            break;
+          default:  // B_DB: both heads' shares of dB
+            epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+              if (row0 + r >= n) return;
+              float* o = dB + (row0 + r) * d.b_cols;
+              if (c < d.b_cols) o[c] = v0 + db32[r * d.Bw + c];
+              if (c + 1 < d.b_cols) o[c + 1] = v1 + db32[r * d.Bw + c + 1];
+            });
+        }
       }
-      mma_rows(acc, xb, ldb, d.Bw, w.m[WBs], d.H, c0, nc);
-    }, act(h1s));
-    layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, h1s, ldp, d.H, w.m[W1s], d.H, c0, nc);
-    }, act(h2s));
-    layer(d.Sw, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, h2s, ldp, d.H, w.m[W2s], d.Sw, c0, nc);
-    }, [&](int r, int c, float v) {
-      s[r * lds + c] = __float2bfloat16(v);
-      if (c == 0)  // trunc_exp VJP
-        dsig[r] = r < rows ? g1[(r0 + r) * d.Rw] *
-                                 expf(fminf(fmaxf(v, -15.0f), 15.0f))
-                           : 0.0f;
-    });
-    layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, xb, ldb, d.Bw, w.m[WBc], d.Hc, c0, nc);
-      mma_rows(acc, s, lds, d.Sw, w.m[WSc], d.Hc, c0, nc);
-    }, act(c1));
-    layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, c1, ldp, d.Hc, w.m[W1c], d.Hc, c0, nc);
-    }, act(c2));
-    layer(d.Rw, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, c2, ldp, d.Hc, w.m[W2c], d.Rw, c0, nc);
-    }, [&](int r, int c, float v) {  // sigmoid VJP on rgb
-      float dv = 0.0f;
-      if (r < rows && c < 3) {
-        float rgb = 1.0f / (1.0f + expf(-v));
-        dv = g1[(r0 + r) * d.Rw + 1 + c] * rgb * (1.0f - rgb);
+      if (!(step.flags & STEP_END)) continue;
+      // After a layer, once every warp's rows are written: the cotangents
+      // into the A stages; and the weight gradients' operands into the
+      // workspace, five times a tile, each tile between the layer that
+      // writes it and the one that overwrites it.
+      auto put = [&](int k, const bf16* tile, int ld) {
+        dump(ws, L, d, k, tile, ld, row0, n);
+      };
+      switch (step.layer) {
+        case B_H1:  // the A stages are free: stage the cotangents
+          if (L.g_staged) {
+            __syncthreads();
+            stage_rows(g1s, g1, d.Rw, row0, L.m, n);
+            stage_rows(gfs, gf, d.Sp, row0, L.m, n);
+            stage_rows(gls, gl, d.Cp, row0, L.m, n);
+          }
+          break;
+        case B_R:
+          __syncthreads();
+          put(D_H1, h0, ldh);
+          put(D_H2, h1, ldh);
+          put(D_C1, h2, ldc);
+          put(D_C2, h3, ldc);
+          put(D_DR, dr, ldr);
+          break;
+        case B_DC1:
+          __syncthreads();
+          put(D_DC2, h3, ldc);
+          put(D_DC1, h2, ldc);
+          put(D_XB, xb, ldb);
+          put(D_S, st, lds);
+          break;
+        case B_O1:  // the logits' cotangent as a bf16 tile
+          block_copy(L.m, d.Cp >> 1, [&](int r, int c2) {
+            const float2 v =
+                row0 + r < n ? *reinterpret_cast<const float2*>(
+                                   glt_src + r * d.Cp + 2 * c2)
+                             : make_float2(0.0f, 0.0f);
+            store_pair(glt + r * ldl + 2 * c2, v.x, v.y);
+          });
+          __syncthreads();
+          put(D_F1, h2, ldc);
+          put(D_F2, h3, ldc);
+          put(D_RF, fr, ldf);
+          put(D_O1, h4, ldo);
+          put(D_GL, glt, ldl);
+          break;
+        case B_DF1:
+          __syncthreads();
+          put(D_DO1, h4, ldo);
+          put(D_DF, fr, ldf);
+          put(D_DF2, h3, ldc);
+          put(D_DF1, h2, ldc);
+          break;
+        case B_DH1:
+          __syncthreads();
+          put(D_DS, dst, lds);
+          put(D_DH2, h1, ldh);
+          break;
+        default:
+          break;
       }
-      dr[r * ldr + c] = __float2bfloat16(dv);
-    });
-    layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, s, lds, d.Sw, w.m[WSf], d.Hf, c0, nc);
-    }, act(f1));
-    layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, f1, ldp, d.Hf, w.m[W1f], d.Hf, c0, nc);
-    }, act(f2));
-    layer(d.Sp, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, f2, ldp, d.Hf, w.m[W2f], d.Sp, c0, nc);
-    }, [&](int r, int c, float v) {
-      fr[r * ldf + c] = __float2bfloat16(fmaxf(v, 0.0f));
-    });
-    layer(d.Ho, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, fr, ldf, d.Sp, w.m[WFo], d.Ho, c0, nc);
-      mma_rows(acc, s, lds, d.Sw, w.m[WSo], d.Ho, c0, nc);
-    }, act(o1));
-
-    // ---- logits head
-    load_rows(glb, ldl, gl + (r0 < n ? r0 : 0) * d.Cp, d.Cp, 0, d.Cp, rows,
-              lane);
-    layer(d.Ho, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, glb, ldl, d.Cp, w.m[W1o], d.Cp, c0, nc);
-    }, grad(do1, o1));
-    __syncthreads();  // P1
-    term(W1o, d.Ho, d.Cp, slot_off(6), ldp, L.gl, ldl);
-    term(WFo, d.Sp, d.Ho, L.fr, ldf, slot_off(7), ldp);
-    term(WSo, d.Sw, d.Ho, L.s, lds, slot_off(7), ldp);
-    __syncthreads();
-
-    // ---- feature head (+ the relu(F) branch into the logits head)
-    layer(d.Sp, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, do1, ldp, d.Ho, w.m[WFo], d.Ho, c0, nc);
-    }, [&](int r, int c, float v) {  // dF, in place of relu(F)
-      bool on = __bfloat162float(fr[r * ldf + c]) > 0.0f;
-      float g = r < rows ? gf[(r0 + r) * d.Sp + c] : 0.0f;
-      fr[r * ldf + c] = __float2bfloat16(g + (on ? v : 0.0f));
-    });
-    layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, fr, ldf, d.Sp, w.m[W2f], d.Sp, c0, nc);
-    }, grad(df2, f2));
-    layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, df2, ldp, d.Hf, w.m[W1f], d.Hf, c0, nc);
-    }, grad(df1, f1));
-    __syncthreads();  // P2
-    term(W2f, d.Hf, d.Sp, slot_off(5), ldp, L.fr, ldf);
-    term(W1f, d.Hf, d.Hf, slot_off(4), ldp, slot_off(6), ldp);
-    term(WSf, d.Sw, d.Hf, L.s, lds, slot_off(8), ldp);
-    __syncthreads();
-
-    // ---- color head
-    layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dr, ldr, d.Rw, w.m[W2c], d.Rw, c0, nc);
-    }, grad(dc2, c2));
-    layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dc2, ldp, d.Hc, w.m[W1c], d.Hc, c0, nc);
-    }, grad(dc1, c1));
-    __syncthreads();  // P3
-    term(W2c, d.Hc, d.Rw, slot_off(3), ldp, L.dr, ldr);
-    term(W1c, d.Hc, d.Hc, slot_off(2), ldp, slot_off(4), ldp);
-    term(WBc, d.Bw, d.Hc, L.xb, ldb, slot_off(5), ldp);
-    term(WSc, d.Sw, d.Hc, L.s, lds, slot_off(5), ldp);
-    __syncthreads();
-
-    // ---- every path into dS, then the sigma trunk
-    layer(d.Sw, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dc1, ldp, d.Hc, w.m[WSc], d.Hc, c0, nc);
-      mma_rows_t(acc, df1, ldp, d.Hf, w.m[WSf], d.Hf, c0, nc);
-      mma_rows_t(acc, do1, ldp, d.Ho, w.m[WSo], d.Ho, c0, nc);
-    }, [&](int r, int c, float v) {
-      ds[r * lds + c] = __float2bfloat16(c == 0 ? v + dsig[r] : v);
-    });
-    layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, ds, lds, d.Sw, w.m[W2s], d.Sw, c0, nc);
-    }, grad(dh2s, h2s));
-    layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dh2s, ldp, d.H, w.m[W1s], d.H, c0, nc);
-    }, grad(dh1s, h1s));
-    layer(d.Ap, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dh1s, ldp, d.H, w.m[WA], d.H, c0, nc);
-    }, [&](int r, int c, float v) {
-      if (r < rows && c < d.a_cols) dA[(r0 + r) * d.a_cols + c] = v;
-    });
-    if (dB != nullptr) {
-      layer(d.Bw, acc, scratch, lane, [&](int c0, int nc) {
-        mma_rows_t(acc, dh1s, ldp, d.H, w.m[WBs], d.H, c0, nc);
-        mma_rows_t(acc, dc1, ldp, d.Hc, w.m[WBc], d.Hc, c0, nc);
-      }, [&](int r, int c, float v) {
-        if (r < rows && c < d.b_cols) dB[(r0 + r) * d.b_cols + c] = v;
-      });
     }
-    __syncthreads();  // P4
-    term(W2s, d.H, d.Sw, slot_off(1), ldp, L.ds, lds);
-    term(W1s, d.H, d.H, slot_off(0), ldp, slot_off(2), ldp);
-    term(WBs, d.Bw, d.H, L.xb, ldb, slot_off(3), ldp);
-    // dWA, A staged again in 64-column chunks.
-    for (int k0 = 0; k0 < d.Ap; k0 += A_CHUNK) {
-      int kw = min(A_CHUNK, d.Ap - k0);
-      __syncthreads();
-      load_rows(xa, lda, Ar, d.a_cols, k0, kw, rows, lane);
-      __syncthreads();
-      DwTerm t = {dw + off.o[WA] + (size_t)k0 * d.H, kw, d.H, L.xa,
-                  slot_off(3), lda, ldp};
-      dw_term(t, smem, L.warp_bytes, nwarps, warp);
-    }
-    __syncthreads();
   }
+  cp_async_wait_all();
 }
 
-// ---------------------------------------------------------------- mlp3
+// ----------------------------------------------------------------- dW
 
-struct Mlp3Layout {
-  size_t x, h1, h2, g, dh2, dh1, scratch, warp_bytes;
+// dW = X^T @ dY over all points, for each weight: a split-K tensor-core
+// product. A block takes one 64-row x 128-column tile of one weight's
+// gradient (rows: X's columns, one 16-row slice per warp) over one split
+// of the points, in chunks of 64 points staged one ahead with cp.async,
+// and stores it to its split's partial; sum_partials_kernel then adds the
+// splits in order. X comes from A (fp32, rounded to bf16 in shared
+// memory: dWA) or from a workspace region (bf16); dY from a region.
+#define DW_N 128  // output columns per block
+#define DW_K 64   // output rows per block: 4 warps x 16
+
+struct DwTerm {
+  long long x, y;   // element offsets of X's (unless from A) and dY's region
+  long long part;   // float offset of the gradient in a split's partial
+  int x_ld, in, out;
+  int unit0;        // the term's first block (blockIdx.y)
 };
 
-__host__ __device__ __forceinline__ Mlp3Layout mlp3_layout(int d_in,
-                                                           int hidden,
-                                                           int d_out) {
-  Mlp3Layout L;
+struct DwTerms {
+  DwTerm t[N_WEIGHTS];
+  int n, units;
+};
+
+struct DwLayout {
+  size_t xs[2], hb[2], abf, bytes;
+};
+
+// X's stages hold fp32 A (pitch X_LD floats, then rounded into abf) or a
+// region's bf16 (pitch DW_K + 8); dY's stages bf16 (pitch DW_N + 8).
+template <bool XF32>
+__host__ __device__ inline DwLayout dw_layout() {
+  DwLayout L;
   size_t o = 0;
-  L.x = o; o += tile_bytes(d_in);
-  L.h1 = o; o += tile_bytes(hidden);
-  L.h2 = o; o += tile_bytes(hidden);
-  L.g = o; o += tile_bytes(d_out);
-  L.dh2 = o; o += tile_bytes(hidden);
-  L.dh1 = o; o += tile_bytes(hidden);
-  L.scratch = o; o += scratch_bytes();
-  L.warp_bytes = o;
+  for (int i = 0; i < 2; ++i) {
+    L.xs[i] = o;
+    o += XF32 ? round128((size_t)TILE_M * X_LD * sizeof(float))
+              : tile_bytes(TILE_M, DW_K);
+    L.hb[i] = o;
+    o += tile_bytes(TILE_M, DW_N);
+  }
+  L.abf = o;
+  if (XF32) o += tile_bytes(TILE_M, DW_K);
+  L.bytes = o;
   return L;
 }
 
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-    mlp3_bwd_kernel(const float* __restrict__ X, int x_cols,
-                    const bf16* __restrict__ W0,
-                    const bf16* __restrict__ W1,
-                    const bf16* __restrict__ W2, int d_in, int hidden,
-                    int d_out, const float* __restrict__ g,
-                    float* __restrict__ dX, float* __restrict__ part,
-                    long long n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const Mlp3Layout L = mlp3_layout(d_in, hidden, d_out);
-  const size_t total = (size_t)d_in * hidden + (size_t)hidden * hidden +
-                       (size_t)hidden * d_out;
-  float* dw0 = part + (size_t)blockIdx.x * total;
-  float* dw1 = dw0 + (size_t)d_in * hidden;
-  float* dw2 = dw1 + (size_t)hidden * hidden;
-  unsigned char* mine = smem + warp * L.warp_bytes;
-  bf16* x = (bf16*)(mine + L.x);
-  bf16* h1 = (bf16*)(mine + L.h1);
-  bf16* h2 = (bf16*)(mine + L.h2);
-  bf16* gb = (bf16*)(mine + L.g);
-  bf16* dh2 = (bf16*)(mine + L.dh2);
-  bf16* dh1 = (bf16*)(mine + L.dh1);
-  float* scratch = (float*)(mine + L.scratch);
-  const int ldx = d_in + 8, ldh = hidden + 8, ldg = d_out + 8;
-  auto act = [&](bf16* dst) {
-    return [=](int r, int c, float v) {
-      dst[r * ldh + c] = __float2bfloat16(fmaxf(v, 0.0f));
-    };
-  };
-  auto grad = [&](bf16* dst, const bf16* mask) {
-    return [=](int r, int c, float v) {
-      bool on = __bfloat162float(mask[r * ldh + c]) > 0.0f;
-      dst[r * ldh + c] = __float2bfloat16(on ? v : 0.0f);
-    };
-  };
-  Acc acc[MAX_FRAGS];
+// acc (16 rows of this warp x NS 16-column slices) += xs^T @ hb over one
+// chunk of 64 points: xs the chunk's X columns (bf16, pitch DW_K + 8), hb
+// its dY (pitch DW_N + 8).
+template <int NS>
+__device__ __forceinline__ void dw_chunk(float (&acc)[DW_N / 8][4],
+                                         const bf16* xs, const bf16* hb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < TILE_M; k += 16) {
+    uint32_t a[4], b[NS][4];  // a: X^T, the chunk's columns as rows
+    ldsm_x4_t(a, xs + (k + (lane & 7) + (lane >> 4) * 8) * (DW_K + 8) +
+                     warp * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NS; ++jp)
+      ldsm_x4_t(b[jp], hb + (k + (lane & 15)) * (DW_N + 8) + jp * 16 +
+                           (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NS; ++jp) {
+      mma16816(acc[2 * jp], a, b[jp][0], b[jp][1]);
+      mma16816(acc[2 * jp + 1], a, b[jp][2], b[jp][3]);
+    }
+  }
+}
 
-  const long long step = (long long)nwarps * 16;
-  for (long long base = (long long)blockIdx.x * step; base < n;
-       base += (long long)gridDim.x * step) {
-    const long long r0 = base + warp * 16;
-    const int rows = (int)max(0LL, min(16LL, n - r0));
-    const long long rs = r0 < n ? r0 : 0;
-    load_rows(x, ldx, X + rs * x_cols, x_cols, 0, d_in, rows, lane);
-    load_rows(gb, ldg, g + rs * d_out, d_out, 0, d_out, rows, lane);
-    layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, x, ldx, d_in, W0, hidden, c0, nc);
-    }, act(h1));
-    layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows(acc, h1, ldh, hidden, W1, hidden, c0, nc);
-    }, act(h2));
-    layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, gb, ldg, d_out, W2, d_out, c0, nc);
-    }, grad(dh2, h2));
-    layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-      mma_rows_t(acc, dh2, ldh, hidden, W1, hidden, c0, nc);
-    }, grad(dh1, h1));
-    if (dX != nullptr) {
-      layer(d_in, acc, scratch, lane, [&](int c0, int nc) {
-        mma_rows_t(acc, dh1, ldh, hidden, W0, hidden, c0, nc);
-      }, [&](int r, int c, float v) {
-        if (r < rows && c < x_cols) dX[(r0 + r) * x_cols + c] = v;
+// blockIdx = (split, tile of some term's gradient).
+template <bool XF32>
+__global__ void __launch_bounds__(TILE_THREADS)
+    dw_kernel(const float* __restrict__ A, const bf16* __restrict__ ws,
+              DwTerms T, bool a_vec, long long n, long long pts,
+              long long part_stride, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DwLayout L = dw_layout<XF32>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int ti = 0;
+  while (ti + 1 < T.n && (int)blockIdx.y >= T.t[ti + 1].unit0) ++ti;
+  const DwTerm tm = T.t[ti];
+  const int ctiles = (tm.out + DW_N - 1) / DW_N;
+  const int u = blockIdx.y - tm.unit0;
+  const int k0 = (u / ctiles) * DW_K, c0 = (u % ctiles) * DW_N;
+  const int nc = min(DW_N, tm.out - c0);
+  const long long p0 = blockIdx.x * pts;
+  const long long p1 = min(n, p0 + pts);
+  const long long chunks = (p1 - p0 + TILE_M - 1) / TILE_M;
+  const int ldx = DW_K + 8, ldh = DW_N + 8;
+  auto issue = [&](long long c) {
+    if (c < chunks) {
+      const long long r0 = p0 + c * TILE_M;
+      if (XF32) {
+        stage_x((float*)(smem + L.xs[c & 1]), A, tm.x_ld, a_vec, r0, TILE_M,
+                n, k0, DW_K);
+      } else {
+        bf16* xs = (bf16*)(smem + L.xs[c & 1]);
+        block_copy(TILE_M, DW_K >> 3, [&](int r, int c8) {
+          const int col = k0 + c8 * 8;
+          const bool ok = r0 + r < n && col < tm.in;
+          cp_async16(xs + r * ldx + c8 * 8,
+                     ok ? ws + tm.x + (r0 + r) * tm.x_ld + col : ws, ok);
+        });
+      }
+      bf16* hb = (bf16*)(smem + L.hb[c & 1]);
+      block_copy(TILE_M, nc >> 3, [&](int r, int c8) {
+        const bool ok = r0 + r < n;
+        cp_async16(hb + r * ldh + c8 * 8,
+                   ok ? ws + tm.y + (r0 + r) * tm.out + c0 + c8 * 8 : ws,
+                   ok);
       });
     }
+    cp_async_commit();
+  };
+  float acc[DW_N / 8][4];
+#pragma unroll
+  for (int j = 0; j < DW_N / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  issue(0);
+  for (long long c = 0; c < chunks; ++c) {
+    cp_async_wait_all();
     __syncthreads();
-    DwTerm t0 = {dw0, d_in, hidden, L.x, L.dh1, ldx, ldh};
-    DwTerm t1 = {dw1, hidden, hidden, L.h1, L.dh2, ldh, ldh};
-    DwTerm t2 = {dw2, hidden, d_out, L.h2, L.g, ldh, ldg};
-    dw_term(t0, smem, L.warp_bytes, nwarps, warp);
-    dw_term(t1, smem, L.warp_bytes, nwarps, warp);
-    dw_term(t2, smem, L.warp_bytes, nwarps, warp);
-    __syncthreads();
+    issue(c + 1);
+    const bf16* xs = (const bf16*)(smem + L.xs[c & 1]);
+    if (XF32) {  // round the chunk's A to bf16
+      const float* af = (const float*)xs;
+      bf16* abf = (bf16*)(smem + L.abf);
+      for (int e = threadIdx.x; e < TILE_M * (DW_K / 4); e += TILE_THREADS) {
+        const int r = e / (DW_K / 4), c4 = (e % (DW_K / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(af + r * X_LD + c4);
+        store_pair(abf + r * ldx + c4, v.x, v.y);
+        store_pair(abf + r * ldx + c4 + 2, v.z, v.w);
+      }
+      __syncthreads();
+      xs = abf;
+    }
+    const bf16* hb = (const bf16*)(smem + L.hb[c & 1]);
+    switch (nc >> 4) {
+      case 1: dw_chunk<1>(acc, xs, hb); break;
+      case 2: dw_chunk<2>(acc, xs, hb); break;
+      case 3: dw_chunk<3>(acc, xs, hb); break;
+      case 4: dw_chunk<4>(acc, xs, hb); break;
+      case 5: dw_chunk<5>(acc, xs, hb); break;
+      case 6: dw_chunk<6>(acc, xs, hb); break;
+      case 7: dw_chunk<7>(acc, xs, hb); break;
+      default: dw_chunk<8>(acc, xs, hb);
+    }
+  }
+  if (k0 + warp * 16 >= tm.in) return;  // past the gradient's rows
+  float* out = part + (size_t)blockIdx.x * part_stride + tm.part +
+               (size_t)(k0 + warp * 16 + g) * tm.out + c0 + 2 * t;
+#pragma unroll
+  for (int j = 0; j < DW_N / 8; ++j) {
+    if (j * 8 < nc) {
+      *reinterpret_cast<float2*>(out + j * 8) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + 8 * tm.out + j * 8) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
   }
 }
 
-// out[i] = sum over blocks b of part[b * total + i], in block order.
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    int blocks, long long total,
-                                    float* __restrict__ out) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int b = 0; b < blocks; ++b) s += part[(size_t)b * total + i];
-    out[i] = s;
-  }
-}
+// One dw_kernel launch: its terms, their gradients' floats (one split's
+// partial), and the splits of the points that fill the card.
+struct DwLaunch {
+  DwTerms T;
+  long long total, split_pts;
+  int splits, per_sm;
+};
 
-// The launch shape of a persistent backward kernel: warps per block (as
-// many as shared memory allows, at most MAX_WARPS) and blocks (as many as
-// stay resident on the card, at most one per step of points).
-static cudaError_t persistent_shape(const void* kernel, size_t warp_bytes,
-                                    long long n, int* warps, int* blocks) {
-  cudaError_t err;
-  *warps = fit_warps(kernel, warp_bytes, MAX_WARPS, &err);
-  if (!*warps) return err;
-  int dev = 0, sms = 0, per_sm = 0;
+template <bool XF32>
+static cudaError_t dw_plan(const HeadsDims& d, const BwdLayout& L,
+                           long long n, DwLaunch* P) {
+  DwTerms& T = P->T;
+  T.n = 0;
+  T.units = 0;
+  P->total = 0;
+  for (int m = 0; m < N_WEIGHTS; ++m) {
+    if ((m == WA) != XF32) continue;
+    int rows, cols;
+    weight_shape(d, m, &rows, &cols);
+    DwTerm& tm = T.t[T.n++];
+    tm.x = XF32 ? 0 : L.reg[DW_X[m]];
+    tm.y = L.reg[DW_Y[m]];
+    tm.part = P->total;
+    tm.x_ld = XF32 ? d.a_cols : rows;
+    tm.in = rows;
+    tm.out = cols;
+    tm.unit0 = T.units;
+    T.units += ((rows + DW_K - 1) / DW_K) * ((cols + DW_N - 1) / DW_N);
+    P->total += (long long)rows * cols;
+  }
+  int capacity = 0;
+  cudaError_t err = tile_shape((const void*)dw_kernel<XF32>,
+                               dw_layout<XF32>().bytes, TILE_M, TILE_THREADS,
+                               n, &capacity, &P->per_sm);
+  if (err != cudaSuccess) return err;
+  // tile_shape caps the blocks at one per tile of points; take the card's.
+  int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, *warps * 32, *warps * warp_bytes)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  long long steps = (n + *warps * 16 - 1) / (*warps * 16);
-  long long b = (long long)sms * per_sm;
-  *blocks = (int)(steps < b ? (steps > 0 ? steps : 1) : b);
+  capacity = sms * P->per_sm;
+  const long long chunks = (n + TILE_M - 1) / TILE_M;
+  long long splits = capacity / T.units;
+  if (splits < 1) splits = 1;
+  if (splits > chunks) splits = chunks > 0 ? chunks : 1;
+  P->split_pts = (chunks + splits - 1) / splits * TILE_M;
+  P->splits = (int)(n > 0 ? (n + P->split_pts - 1) / P->split_pts : 1);
   return cudaSuccess;
 }
 
-static cudaError_t sum_partials(const float* part, int blocks,
-                                long long total, float* out,
-                                cudaStream_t s) {
-  const int threads = 256;
-  long long grid = (total + threads - 1) / threads;
-  if (grid > 4096) grid = 4096;
-  sum_partials_kernel<<<(unsigned int)grid, threads, 0, s>>>(part, blocks,
-                                                              total, out);
-  return cudaGetLastError();
+template <bool XF32>
+static cudaError_t dw_launch(const DwLaunch& P, const float* A,
+                             const bf16* ws, bool a_vec, long long n,
+                             float* part, float* dW, cudaStream_t s) {
+  dw_kernel<XF32><<<dim3((unsigned)P.splits, (unsigned)P.T.units),
+                    TILE_THREADS, dw_layout<XF32>().bytes, s>>>(
+      A, ws, P.T, a_vec, n, P.split_pts, P.total, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(part, P.splits, P.total, dW, s);
 }
 
-// The scratch the wrapper allocates for heads_bwd: blocks x (sum of the 14
-// packed weight sizes) floats; *total_out is that sum. Returns a CUDA
-// error code.
+// ----------------------------------------------------------------- dA
+
+// dA = dh1s @ WA^T: (n x H) bf16 from the workspace times WA (Ap x H,
+// bf16), fp32 out (n x a_cols). A block computes 128 points x 128 columns
+// of dA, its 8 warps 32 x 64 each, over K = H in chunks of 64 staged one
+// ahead with cp.async; the MMAs and the epilogue are the fused kernels'.
+#define DA_M 128
+#define DA_N 128
+#define DA_K 64
+
+struct DaLayout {
+  size_t x[2], w[2], bytes;
+};
+
+__host__ __device__ inline DaLayout da_layout() {
+  DaLayout L;
+  size_t o = 0;
+  for (int i = 0; i < 2; ++i) {
+    L.x[i] = o;
+    o += tile_bytes(DA_M, DA_K);
+    L.w[i] = o;
+    o += tile_bytes(DA_N, DA_K);
+  }
+  L.bytes = o;
+  return L;
+}
+
+__global__ void __launch_bounds__(HEAD_THREADS)
+    da_kernel(const bf16* __restrict__ dh, const bf16* __restrict__ wa,
+              HeadsDims d, long long n, float* __restrict__ dA) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DaLayout L = da_layout();
+  const long long p0 = (long long)blockIdx.x * DA_M;
+  const int a0 = blockIdx.y * DA_N;
+  const int nc = min(DA_N, d.Ap - a0), ld = DA_K + 8;
+  const int chunks = (d.H + DA_K - 1) / DA_K;
+  auto issue = [&](int c) {
+    if (c < chunks) {
+      const int k0 = c * DA_K, kr = min(DA_K, d.H - k0);
+      bf16* xs = (bf16*)(smem + L.x[c & 1]);
+      bf16* ws = (bf16*)(smem + L.w[c & 1]);
+      block_copy(DA_M, kr >> 3, [&](int r, int c8) {
+        const bool ok = p0 + r < n;
+        cp_async16(xs + r * ld + c8 * 8,
+                   ok ? dh + (p0 + r) * d.H + k0 + c8 * 8 : dh, ok);
+      });
+      block_copy(nc, kr >> 3, [&](int r, int c8) {
+        cp_async16(ws + r * ld + c8 * 8,
+                   wa + (size_t)(a0 + r) * d.H + k0 + c8 * 8, true);
+      });
+    }
+    cp_async_commit();
+  };
+  const WarpTile wt = warp_tile(DA_M);
+  Acc acc;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < COL_TILE / 16; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.0f;
+  issue(0);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait_all();
+    __syncthreads();
+    issue(c + 1);
+    mma_ns<true, false>(acc, (const bf16*)(smem + L.x[c & 1]), ld, nullptr,
+                        min(DA_K, d.H - c * DA_K),
+                        (const bf16*)(smem + L.w[c & 1]), ld, nc, wt);
+  }
+  Step st = {};
+  st.cols = (uint16_t)nc;
+  epilogue(acc, st, wt, [&](int r, int c, float v0, float v1) {
+    const int a = a0 + c;
+    if (p0 + r >= n) return;
+    float* o = dA + (p0 + r) * d.a_cols + a;
+    if (a + 1 < d.a_cols && d.a_cols % 2 == 0) {
+      *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+    } else if (a < d.a_cols) {
+      o[0] = v0;
+      if (a + 1 < d.a_cols) o[1] = v1;
+    }
+  });
+}
+
+// The launch plan of one backward: the fused kernel's layout and blocks,
+// da_kernel's grid, and the two dw_kernel launches (dWA from A; the other
+// 13 from the workspace).
+struct BwdPlan {
+  BwdLayout L;
+  int blocks, per_sm, da_per_sm;
+  dim3 da_grid;
+  DwLaunch wa, rest;
+};
+
+static cudaError_t bwd_plan(const HeadsDims& d, long long n, bool need_dB,
+                            BwdPlan* P) {
+  cudaError_t err;
+  int optin = 0;
+  if ((err = smem_optin(&optin)) != cudaSuccess) return err;
+  // Tiles of 64 points, or of 32 where the widest heads' tiles need it.
+  P->L = bwd_layout(d, TILE_M, need_dB, n);
+  if (P->L.bytes > (size_t)optin)
+    P->L = bwd_layout(d, TILE_M / 2, need_dB, n);
+  if (P->L.nsteps > MAX_STEPS) return cudaErrorInvalidValue;
+  if ((err = tile_shape((const void*)heads_bwd_kernel, P->L.bytes, P->L.m,
+                        HEAD_THREADS, n, &P->blocks, &P->per_sm)) !=
+      cudaSuccess)
+    return err;
+  int da_blocks = 0;
+  if ((err = tile_shape((const void*)da_kernel, da_layout().bytes, DA_M,
+                        HEAD_THREADS, n, &da_blocks, &P->da_per_sm)) !=
+      cudaSuccess)
+    return err;
+  P->da_grid = dim3((unsigned)((n + DA_M - 1) / DA_M),
+                    (unsigned)((d.Ap + DA_N - 1) / DA_N));
+  if ((err = dw_plan<true>(d, P->L, n, &P->wa)) != cudaSuccess) return err;
+  return dw_plan<false>(d, P->L, n, &P->rest);
+}
+
+// The scratch the wrapper allocates for heads_bwd, whether or not dB is
+// wanted: *ws_elems bf16 (dh1s and the other weight gradients' operands,
+// 1,720 values a point at the flagship widths) and *part_floats fp32 (the
+// dw_kernel launches' per-split partials).
 extern "C" int heads_bwd_workspace(const int* dims, long long n,
-                                   int* blocks_out, long long* total_out) {
+                                   long long* part_floats,
+                                   long long* ws_elems) {
   HeadsDims d = heads_dims(dims);
   if (!heads_dims_ok(d)) return (int)cudaErrorInvalidValue;
-  int warps = 0;
-  cudaError_t err = persistent_shape((const void*)heads_bwd_kernel,
-                                     bwd_layout(d).warp_bytes, n, &warps,
-                                     blocks_out);
-  *total_out = (long long)dw_offsets(d).o[N_WEIGHTS];
-  return (int)err;
+  BwdPlan P;
+  cudaError_t err = bwd_plan(d, n, true, &P);
+  if (err != cudaSuccess) return (int)err;
+  *part_floats = (long long)P.wa.splits * P.wa.total +
+                 (long long)P.rest.splits * P.rest.total;
+  *ws_elems = P.L.ws_elems;
+  return 0;
 }
 
-// dW (the 14 gradients, packed back to back in pack order, fp32) must have
-// room for the total of heads_bwd_workspace; part for blocks x total. dB
-// may be null (no gradient for B is wanted).
+// dB may be null (not wanted). dW (the 14 gradients, packed back to back
+// in pack order, fp32) needs part and ws of heads_bwd_workspace's sizes.
 extern "C" int heads_bwd(const float* A, const float* B,
                          const void* const* weights, const int* dims,
                          const float* g1, const float* gf, const float* gl,
                          float* dA, float* dB, float* dW, float* part,
-                         int blocks, long long n, void* stream) {
+                         void* ws, long long n, void* stream) {
   HeadsDims d = heads_dims(dims);
   if (!heads_dims_ok(d)) return (int)cudaErrorInvalidValue;
   HeadsWeights w;
-  for (int i = 0; i < N_WEIGHTS; ++i) w.m[i] = (const bf16*)weights[i];
-  const size_t warp_bytes = bwd_layout(d).warp_bytes;
-  const long long total = (long long)dw_offsets(d).o[N_WEIGHTS];
-  int warps = 0, max_blocks = 0;
-  cudaError_t err = persistent_shape((const void*)heads_bwd_kernel,
-                                     warp_bytes, n, &warps, &max_blocks);
-  if (err != cudaSuccess) return (int)err;
-  if (blocks < 1 || blocks > max_blocks) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((err = cudaMemsetAsync(part, 0, (size_t)blocks * total * sizeof(float),
-                             s)) != cudaSuccess)
-    return (int)err;
-  if (n > 0) {
-    heads_bwd_kernel<<<blocks, warps * 32, warps * warp_bytes, s>>>(
-        A, B, w, d, g1, gf, gl, dA, dB, part, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  for (int i = 0; i < N_WEIGHTS; ++i) {
+    w.m[i] = (const bf16*)weights[i];
+    if (!aligned16(w.m[i])) return (int)cudaErrorInvalidValue;
   }
-  return (int)sum_partials(part, blocks, total, dW, s);
+  if (!dW || !part || (n > 0 && (!dA || !ws)))
+    return (int)cudaErrorInvalidValue;
+  BwdPlan P;
+  cudaError_t err = bwd_plan(d, n, dB != nullptr, &P);
+  if (err != cudaSuccess) return (int)err;
+  P.L.g_staged = P.L.g_staged && aligned16(g1) && aligned16(gf) &&
+                 aligned16(gl);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 0)
+    return (int)cudaMemsetAsync(
+        dW, 0, (P.wa.total + P.rest.total) * sizeof(float), s);
+  const bool a_vec = aligned16(A) && d.a_cols % 4 == 0;
+  bf16* wsb = (bf16*)ws;
+  heads_bwd_kernel<<<P.blocks, HEAD_THREADS, P.L.bytes, s>>>(
+      A, B, w, d, P.L, a_vec, aligned16(B) && d.b_cols % 4 == 0, g1, gf, gl,
+      dB, wsb, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  da_kernel<<<P.da_grid, HEAD_THREADS, da_layout().bytes, s>>>(
+      wsb + P.L.reg[D_DH1], w.m[WA], d, n, dA);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = dw_launch<true>(P.wa, A, wsb, a_vec, n, part, dW, s)) !=
+      cudaSuccess)
+    return (int)err;
+  return (int)dw_launch<false>(
+      P.rest, A, wsb, a_vec, n, part + (size_t)P.wa.splits * P.wa.total,
+      dW + P.wa.total, s);
 }
 
-extern "C" int mlp3_bwd_workspace(int d_in, int hidden, int d_out,
-                                  long long n, int* blocks_out,
-                                  long long* total_out) {
-  if (!tile_width(d_in) || !tile_width(hidden) || !tile_width(d_out))
-    return (int)cudaErrorInvalidValue;
-  int warps = 0;
-  cudaError_t err = persistent_shape(
-      (const void*)mlp3_bwd_kernel,
-      mlp3_layout(d_in, hidden, d_out).warp_bytes, n, &warps, blocks_out);
-  *total_out = (long long)d_in * hidden + (long long)hidden * hidden +
-               (long long)hidden * d_out;
-  return (int)err;
-}
-
-// dW holds dW0, dW1, dW2 back to back (fp32); dX may be null.
-extern "C" int mlp3_bwd(const float* X, int x_cols, const void* W0,
-                        const void* W1, const void* W2, int d_in, int hidden,
-                        int d_out, const float* g, float* dX, float* dW,
-                        float* part, int blocks, long long n, void* stream) {
-  if (!tile_width(d_in) || !tile_width(hidden) || !tile_width(d_out) ||
-      x_cols > d_in)
-    return (int)cudaErrorInvalidValue;
-  const size_t warp_bytes = mlp3_layout(d_in, hidden, d_out).warp_bytes;
-  const long long total = (long long)d_in * hidden +
-                          (long long)hidden * hidden +
-                          (long long)hidden * d_out;
-  int warps = 0, max_blocks = 0;
-  cudaError_t err = persistent_shape((const void*)mlp3_bwd_kernel,
-                                     warp_bytes, n, &warps, &max_blocks);
+// out[0..6): the fused kernel's blocks, threads, dynamic shared bytes,
+// blocks per SM, registers per thread and schedule steps; out[6..12):
+// the same for da_kernel (its last field: the chunks of K); out[12..18)
+// and out[18..24): for the dw_kernel launches of dWA and of the other 13
+// gradients (their last field: the splits of the points).
+extern "C" int heads_bwd_shape(const int* dims, long long n, int need_dB,
+                               int* out) {
+  HeadsDims d = heads_dims(dims);
+  if (!heads_dims_ok(d)) return (int)cudaErrorInvalidValue;
+  BwdPlan P;
+  cudaError_t err = bwd_plan(d, n, need_dB, &P);
   if (err != cudaSuccess) return (int)err;
-  if (blocks < 1 || blocks > max_blocks) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if ((err = cudaMemsetAsync(part, 0, (size_t)blocks * total * sizeof(float),
-                             s)) != cudaSuccess)
+  if ((err = shape_report((const void*)heads_bwd_kernel, P.blocks,
+                          HEAD_THREADS, P.L.bytes, P.per_sm, P.L.nsteps,
+                          out)) != cudaSuccess)
     return (int)err;
-  if (n > 0) {
-    mlp3_bwd_kernel<<<blocks, warps * 32, warps * warp_bytes, s>>>(
-        X, x_cols, (const bf16*)W0, (const bf16*)W1, (const bf16*)W2, d_in,
-        hidden, d_out, g, dX, part, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)sum_partials(part, blocks, total, dW, s);
+  if ((err = shape_report((const void*)da_kernel,
+                          (int)(P.da_grid.x * P.da_grid.y), HEAD_THREADS,
+                          da_layout().bytes, P.da_per_sm,
+                          (d.H + DA_K - 1) / DA_K, out + 6)) != cudaSuccess)
+    return (int)err;
+  if ((err = shape_report((const void*)dw_kernel<true>,
+                          P.wa.splits * P.wa.T.units, TILE_THREADS,
+                          dw_layout<true>().bytes, P.wa.per_sm, P.wa.splits,
+                          out + 12)) != cudaSuccess)
+    return (int)err;
+  return (int)shape_report((const void*)dw_kernel<false>,
+                           P.rest.splits * P.rest.T.units, TILE_THREADS,
+                           dw_layout<false>().bytes, P.rest.per_sm,
+                           P.rest.splits, out + 18);
 }

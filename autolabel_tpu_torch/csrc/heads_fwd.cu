@@ -1,199 +1,193 @@
-// Fused field head stack and fused 3-matrix MLP (forward) for Hopper.
+// Fused field head stack (forward), K3f, for Hopper.
 //
-// heads_fwd replaces the TPU kernel autolabel_tpu/ops/heads_pallas.py
-// `_fwd_kernel` (launched by `_fused_heads_fwd_impl`): per point,
+// Replaces the TPU kernel autolabel_tpu/ops/heads_pallas.py `_fwd_kernel`
+// (launched by `_fused_heads_fwd_impl`): per point,
 //   sigma net  h1 = relu(A.WA + B.WBs), h2 = relu(h1.W1s), S = h2.W2s
 //   color net  c1 = relu(B.WBc + S.WSc), c2 = relu(c1.W1c), R = c2.W2c
 //   features   f1 = relu(S.WSf), f2 = relu(f1.W1f), F = f2.W2f
 //   logits     o1 = relu(relu(F).WFo + S.WSo), L = o1.W1o
 // and writes out1 = [exp(min(S0, 15)), sigmoid(R0..2), 0...], F and L.
-// mlp3_fwd replaces `_mlp3_fwd_kernel` (`_mlp3_fwd_impl`): the proposal
-// density net, out = relu(relu(X.W0).W1).W2.
+// Numerics: bf16 operands with fp32 accumulation, as heads_pallas._dot
+// does on its accelerator; ReLU in fp32 before the next layer's operand is
+// rounded to bf16; S enters the heads unrectified; sigma and rgb in fp32
+// from the fp32 accumulators.
 //
-// Numerics: bf16 operands with fp32 accumulation (warp-level bf16 tensor
-// core MMAs, nvcuda::wmma 16x16x16), as heads_pallas._dot does on its
-// accelerator; ReLU is applied in fp32 before rounding the next layer's
-// operand to bf16; S enters the heads unrectified; sigma and rgb are
-// computed in fp32 from the fp32 accumulators.
+// What bounds it on the H100: bytes. Per point it reads 2,048 B of fp32 A
+// (512 columns), 112 B of B's 28 real columns and writes 296 B (74 real
+// output columns): 2,456 B, so 1.29 GB at the render's 524,288 points, or
+// 0.384 ms at 3.35 TB/s; its 241,664 FLOP per point take 0.128 ms at the
+// bf16 tensor-core peak of 989 TFLOP/s. The earlier design (one warp per 16
+// points, every weight fragment read from L2 for every 16 points: 16 KiB
+// of L2 reads per point) took 6.1856 ms on an NVIDIA H100 80GB HBM3 at
+// 700.00 W, 53% of it in the first layer.
 //
-// What bounds it on the H100: at the render slice's widths the head stack
-// does about 0.2 MFLOP per point against 2 KiB of fp32 A read, about 100
-// FLOP per byte, so at bf16 tensor-core rates it is bound by the bytes of
-// A; the proposal MLP is byte-bound likewise. Design: one warp owns 16
-// points and runs the whole stack on them; every activation stays in that
-// warp's shared memory (bf16) between layers and never touches device
-// memory. Each layer's output is produced in 128-column tiles
-// (heads_common.cuh `layer`), so every width that is a multiple of 16 is
-// covered (the lseg-shaped 512-wide semantic head included); the launch
-// takes as many warps per block as the widest layer's tiles leave room
-// for. A is streamed through shared memory in 64-column chunks, so the
-// wide first layer needs no staging of its 128 KiB weight. Weight
-// fragments are read straight from device memory, where the ~250 KiB of
-// bf16 weights stay resident in L2; a later version can stage them in
-// shared memory per block and feed wgmma.
-#include "heads_common.cuh"
+// Design (heads_tile.cuh): a block of 8 warps owns a tile of 128 points;
+// activations stay in shared memory (bf16, padded rows) for the whole
+// stack; mma.sync m16n8k16 with operands from ldmatrix; every epilogue
+// works on the accumulator registers. The packed weights (250 KiB at the
+// flagship widths) stream through three shared-memory stages of 64 x 128
+// in the order the layers take them, so L2 serves 2,000 B of weights per
+// point, no more than A's HBM bytes; A's 64-column fp32 chunks are staged
+// beside them, one step ahead. Persistent blocks walk the tiles.
+//
+// Shared memory at the flagship widths (Ap 512, Bw 32, H = Hc = 128, Sw =
+// Rw = Cp = 16, Hf = Sp = Ho = 64), for 128 points: weight stages 3 x
+// 17,408 B, A stages 2 x 36,864 B (128 x 72 fp32), xb 10,240, the
+// ping-pong hidden tiles p and q 2 x 34,816, S 6,144, the schedule 384 (23
+// steps) and the weight table 128: 212,480 B, one block per SM. Wider
+// heads take tiles of 64 or 32 points.
+#include "heads_tile.cuh"
 
-#define FWD_WARPS 4  // warps per block where shared memory allows
+#define FWD_SLOT (64 * (COL_TILE + 8))  // bf16 elements of a weight stage
 
-// pq: the widest hidden layer, the width of the two ping-pong tiles.
-__host__ __device__ __forceinline__ size_t heads_warp_bytes(
-    const HeadsDims& d, int pq) {
-  return tile_bytes(A_CHUNK) + tile_bytes(d.Bw) + 2 * tile_bytes(pq) +
-         tile_bytes(d.Sw) + tile_bytes(d.Sp) + scratch_bytes() +
-         round128(16 * sizeof(float));
+// The stack's layers, in the order they run.
+enum { F_H1, F_H2, F_S, F_C1, F_C2, F_R, F_F1, F_F2, F_F, F_O1, F_L };
+
+// The order in which the stack takes its weight chunks.
+__host__ __device__ inline int heads_fwd_schedule(const HeadsDims& d,
+                                                  Step* out) {
+  Sched s = {out, 0, FWD_SLOT, d};
+  sched_layer(s, F_H1, WBs, WA, false, true);
+  sched_layer(s, F_H2, W1s, -1, false, false);
+  sched_layer(s, F_S, W2s, -1, false, false);
+  sched_layer(s, F_C1, WBc, WSc, false, false);
+  sched_layer(s, F_C2, W1c, -1, false, false);
+  sched_layer(s, F_R, W2c, -1, false, false);
+  sched_layer(s, F_F1, WSf, -1, false, false);
+  sched_layer(s, F_F2, W1f, -1, false, false);
+  sched_layer(s, F_F, W2f, -1, false, false);
+  sched_layer(s, F_O1, WFo, WSo, false, false);
+  sched_layer(s, F_L, W1o, -1, false, false);
+  return s.n;
 }
 
-__host__ __device__ __forceinline__ size_t mlp3_warp_bytes(int d_in,
-                                                           int hidden) {
-  return tile_bytes(d_in) + 2 * tile_bytes(hidden) + scratch_bytes();
+// Byte offsets of the block's shared-memory regions, for tiles of m
+// points.
+struct FwdLayout {
+  size_t sched, wtab, w, w_bytes, x, x_bytes, xb, p, q, s, bytes;
+  int m, pq, nsteps;
+};
+
+static FwdLayout fwd_layout(const HeadsDims& d, int m) {
+  FwdLayout L;
+  L.m = m;
+  L.pq = heads_hidden(d);
+  L.nsteps = heads_fwd_schedule(d, nullptr);
+  L.w_bytes = round128((size_t)FWD_SLOT * sizeof(bf16));
+  L.x_bytes = round128((size_t)m * X_LD * sizeof(float));
+  size_t o = 0;
+  L.w = o; o += W_STAGES * L.w_bytes;
+  L.x = o; o += 2 * L.x_bytes;
+  L.xb = o; o += tile_bytes(m, d.Bw);
+  L.p = o; o += tile_bytes(m, L.pq);
+  L.q = o; o += tile_bytes(m, L.pq);
+  L.s = o; o += tile_bytes(m, d.Sw);
+  L.sched = o; o += round128((size_t)L.nsteps * sizeof(Step));
+  L.wtab = o; o += round128(N_WEIGHTS * sizeof(bf16*));
+  L.bytes = o;
+  return L;
 }
 
-__global__ void __launch_bounds__(FWD_WARPS * 32)
+__global__ void __launch_bounds__(HEAD_THREADS)
     heads_fwd_kernel(const float* __restrict__ A,
                      const float* __restrict__ B, HeadsWeights w,
-                     HeadsDims d, int pq, float* __restrict__ out1,
-                     float* __restrict__ outf, float* __restrict__ outl,
-                     long long n) {
+                     HeadsDims d, FwdLayout L, bool a_vec, bool b_vec,
+                     float* __restrict__ out1, float* __restrict__ outf,
+                     float* __restrict__ outl, long long n) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long r0 = ((long long)blockIdx.x * warps + warp) * 16;
-  if (r0 >= n) return;  // no block-level synchronisation below
-  const int rows = (int)min((long long)16, n - r0);
-
-  unsigned char* base = smem + warp * heads_warp_bytes(d, pq);
-  bf16* xa = (bf16*)base;
-  base += tile_bytes(A_CHUNK);
-  bf16* xb = (bf16*)base;
-  base += tile_bytes(d.Bw);
-  bf16* p = (bf16*)base;
-  base += tile_bytes(pq);
-  bf16* q = (bf16*)base;
-  base += tile_bytes(pq);
-  bf16* s = (bf16*)base;
-  base += tile_bytes(d.Sw);
-  bf16* fr = (bf16*)base;
-  base += tile_bytes(d.Sp);
-  float* scratch = (float*)base;
-  base += scratch_bytes();
-  float* sig = (float*)base;
-
-  const int lda = A_CHUNK + 8, ldb = d.Bw + 8, ldp = pq + 8,
-            lds = d.Sw + 8, ldf = d.Sp + 8;
-  auto relu_into = [&](bf16* dst) {
-    return [=](int r, int c, float v) {
-      dst[r * ldp + c] = __float2bfloat16(fmaxf(v, 0.0f));
+  if (threadIdx.x == 0) heads_fwd_schedule(d, (Step*)(smem + L.sched));
+  Stream s = stream_start(smem, L.sched, L.wtab, L.w, L.w_bytes, L.x,
+                          L.x_bytes, L.nsteps, w, d, A, B, a_vec, b_vec, n,
+                          L.m);
+  const WarpTile wt = warp_tile(L.m);
+  bf16* xb = (bf16*)(smem + L.xb);
+  bf16* p = (bf16*)(smem + L.p);
+  bf16* q = (bf16*)(smem + L.q);
+  bf16* st = (bf16*)(smem + L.s);
+  const int ldb = d.Bw + 8, ldp = L.pq + 8, lds = d.Sw + 8;
+  // Each layer's input: p and q alternate as hidden tiles; relu(F) lands
+  // in p, free once W1f has read it.
+  auto src = [=](const Step& k) {
+    switch (k.layer) {
+      case F_H2: case F_C2: case F_F2: return Src{p, ldp};
+      case F_S: case F_R: case F_F: case F_L: return Src{q, ldp};
+      case F_C1: return k.m == WBc ? Src{xb, ldb} : Src{st, lds};
+      case F_O1: return k.m == WFo ? Src{p, ldp} : Src{st, lds};
+      default: return Src{st, lds};  // F_F1 (F_H1 comes staged)
+    }
+  };
+  auto relu_to = [=](bf16* dst) {
+    return [=](int r, int c, float v0, float v1) {
+      store_pair(dst + r * ldp + c, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
     };
   };
 
-  Acc acc[MAX_FRAGS];
-  load_rows(xb, ldb, B + r0 * d.b_cols, d.b_cols, 0, d.Bw, rows, lane);
-
-  // sigma net
-  layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-    for (int k0 = 0; k0 < d.Ap; k0 += A_CHUNK) {
-      int kw = min(A_CHUNK, d.Ap - k0);
-      load_rows(xa, lda, A + r0 * d.a_cols, d.a_cols, k0, kw, rows, lane);
-      mma_rows(acc, xa, lda, kw, w.m[WA] + (size_t)k0 * d.H, d.H, c0, nc);
-      __syncwarp();
+  Acc acc;
+  for (long long tile = blockIdx.x; tile * L.m < n; tile += gridDim.x) {
+    const long long row0 = tile * L.m;
+    for (int k = 0; k < L.nsteps; ++k) {
+      const bf16* wst;
+      const float* xst;
+      const Step step = stream_next(s, &wst, &xst);
+      step_mma(acc, step, src(step), wst, xst, xb, ldb, L.m, wt);
+      if (!(step.flags & STEP_LAST)) continue;
+      switch (step.layer) {
+        case F_H1: case F_C1: case F_F1:
+          epilogue(acc, step, wt, relu_to(p));
+          break;
+        case F_H2: case F_C2: case F_F2: case F_O1:
+          epilogue(acc, step, wt, relu_to(q));
+          break;
+        case F_S:  // S, and sigma = exp(min(S0, 15)) into out1[:, 0]
+          epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+            store_pair(st + r * lds + c, v0, v1);
+            if (c == 0 && row0 + r < n)
+              out1[(row0 + r) * d.Rw] = expf(fminf(v0, 15.0f));
+          });
+          break;
+        case F_R:  // rgb = sigmoid(R0..2) into out1[:, 1..3], zeros after
+          epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+            if (row0 + r >= n) return;
+            float* o = out1 + (row0 + r) * d.Rw + 1;
+            const float v[2] = {v0, v1};
+            for (int e = 0; e < 2; ++e)
+              if (c + e + 1 < d.Rw)
+                o[c + e] = c + e < 3 ? 1.0f / (1.0f + expf(-v[e])) : 0.0f;
+          });
+          break;
+        case F_F:  // the features out, relu(F) into p
+          epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+            if (row0 + r < n)
+              *reinterpret_cast<float2*>(outf + (row0 + r) * d.Sp + c) =
+                  make_float2(v0, v1);
+            store_pair(p + r * ldp + c, fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+          });
+          break;
+        default:  // F_L: the logits out
+          epilogue(acc, step, wt, [&](int r, int c, float v0, float v1) {
+            if (row0 + r < n)
+              *reinterpret_cast<float2*>(outl + (row0 + r) * d.Cp + c) =
+                  make_float2(v0, v1);
+          });
+      }
     }
-    mma_rows(acc, xb, ldb, d.Bw, w.m[WBs], d.H, c0, nc);
-  }, relu_into(p));
-  layer(d.H, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, p, ldp, d.H, w.m[W1s], d.H, c0, nc);
-  }, relu_into(q));
-  layer(d.Sw, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, q, ldp, d.H, w.m[W2s], d.Sw, c0, nc);
-  }, [&](int r, int c, float v) {
-    s[r * lds + c] = __float2bfloat16(v);
-    if (c == 0) sig[r] = expf(fminf(v, 15.0f));
-  });
-
-  // color net -> out1 = [sigma, rgb, 0...]
-  layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, xb, ldb, d.Bw, w.m[WBc], d.Hc, c0, nc);
-    mma_rows(acc, s, lds, d.Sw, w.m[WSc], d.Hc, c0, nc);
-  }, relu_into(p));
-  layer(d.Hc, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, p, ldp, d.Hc, w.m[W1c], d.Hc, c0, nc);
-  }, relu_into(q));
-  layer(d.Rw, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, q, ldp, d.Hc, w.m[W2c], d.Rw, c0, nc);
-  }, [&](int r, int c, float v) {
-    if (r < rows && c + 1 < d.Rw)
-      out1[(r0 + r) * d.Rw + c + 1] = c < 3 ? 1.0f / (1.0f + expf(-v))
-                                            : 0.0f;
-  });
-  if (lane < rows) out1[(r0 + lane) * d.Rw] = sig[lane];
-
-  // semantic features
-  layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, s, lds, d.Sw, w.m[WSf], d.Hf, c0, nc);
-  }, relu_into(p));
-  layer(d.Hf, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, p, ldp, d.Hf, w.m[W1f], d.Hf, c0, nc);
-  }, relu_into(q));
-  layer(d.Sp, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, q, ldp, d.Hf, w.m[W2f], d.Sp, c0, nc);
-  }, [&](int r, int c, float v) {
-    if (r < rows) outf[(r0 + r) * d.Sp + c] = v;
-    fr[r * ldf + c] = __float2bfloat16(fmaxf(v, 0.0f));
-  });
-
-  // class logits
-  layer(d.Ho, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, fr, ldf, d.Sp, w.m[WFo], d.Ho, c0, nc);
-    mma_rows(acc, s, lds, d.Sw, w.m[WSo], d.Ho, c0, nc);
-  }, relu_into(p));
-  layer(d.Cp, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, p, ldp, d.Ho, w.m[W1o], d.Cp, c0, nc);
-  }, [&](int r, int c, float v) {
-    if (r < rows) outl[(r0 + r) * d.Cp + c] = v;
-  });
+  }
+  cp_async_wait_all();
 }
 
-__global__ void __launch_bounds__(FWD_WARPS * 32)
-    mlp3_fwd_kernel(const float* __restrict__ X, int x_cols,
-                    const bf16* __restrict__ W0,
-                    const bf16* __restrict__ W1,
-                    const bf16* __restrict__ W2, int d_in, int hidden,
-                    int d_out, float* __restrict__ out, long long n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const long long r0 = ((long long)blockIdx.x * warps + warp) * 16;
-  if (r0 >= n) return;
-  const int rows = (int)min((long long)16, n - r0);
-
-  unsigned char* base = smem + warp * mlp3_warp_bytes(d_in, hidden);
-  bf16* xa = (bf16*)base;
-  base += tile_bytes(d_in);
-  bf16* p = (bf16*)base;
-  base += tile_bytes(hidden);
-  bf16* q = (bf16*)base;
-  base += tile_bytes(hidden);
-  float* scratch = (float*)base;
-  const int ldx = d_in + 8, ldh = hidden + 8;
-
-  Acc acc[MAX_FRAGS];
-  load_rows(xa, ldx, X + r0 * x_cols, x_cols, 0, d_in, rows, lane);
-  layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, xa, ldx, d_in, W0, hidden, c0, nc);
-  }, [&](int r, int c, float v) {
-    p[r * ldh + c] = __float2bfloat16(fmaxf(v, 0.0f));
-  });
-  layer(hidden, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, p, ldh, hidden, W1, hidden, c0, nc);
-  }, [&](int r, int c, float v) {
-    q[r * ldh + c] = __float2bfloat16(fmaxf(v, 0.0f));
-  });
-  layer(d_out, acc, scratch, lane, [&](int c0, int nc) {
-    mma_rows(acc, q, ldh, hidden, W2, d_out, c0, nc);
-  }, [&](int r, int c, float v) {
-    if (r < rows) out[(r0 + r) * d_out + c] = v;
-  });
+// Tiles of 128 points where the widths let them fit, else 64 or 32.
+static cudaError_t fwd_plan(const HeadsDims& d, long long n, FwdLayout* L,
+                            int* blocks, int* per_sm) {
+  int optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  for (int m = 128; m >= 32; m /= 2) {
+    *L = fwd_layout(d, m);
+    if (L->bytes <= (size_t)optin) break;
+  }
+  if (L->nsteps > MAX_STEPS) return cudaErrorInvalidValue;
+  return tile_shape((const void*)heads_fwd_kernel, L->bytes, L->m,
+                    HEAD_THREADS, n, blocks, per_sm);
 }
 
 extern "C" int heads_fwd(const float* A, const float* B,
@@ -203,37 +197,31 @@ extern "C" int heads_fwd(const float* A, const float* B,
   HeadsDims d = heads_dims(dims);
   if (!heads_dims_ok(d)) return (int)cudaErrorInvalidValue;
   HeadsWeights w;
-  for (int i = 0; i < N_WEIGHTS; ++i) w.m[i] = (const bf16*)weights[i];
-  const int pq = heads_hidden(d);
-  const size_t warp_bytes = heads_warp_bytes(d, pq);
-  cudaError_t err;
-  const int warps = fit_warps((const void*)heads_fwd_kernel, warp_bytes,
-                              FWD_WARPS, &err);
-  if (!warps) return (int)err;
+  for (int i = 0; i < N_WEIGHTS; ++i) {
+    w.m[i] = (const bf16*)weights[i];
+    if (!aligned16(w.m[i])) return (int)cudaErrorInvalidValue;
+  }
+  FwdLayout L;
+  int blocks = 0, per_sm = 0;
+  cudaError_t err = fwd_plan(d, n, &L, &blocks, &per_sm);
+  if (err != cudaSuccess) return (int)err;
   if (n == 0) return 0;
-  unsigned int blocks = (unsigned int)((n + warps * 16 - 1) / (warps * 16));
-  heads_fwd_kernel<<<blocks, warps * 32, warps * warp_bytes,
-                     (cudaStream_t)stream>>>(A, B, w, d, pq, out1, outf,
-                                             outl, n);
+  heads_fwd_kernel<<<blocks, HEAD_THREADS, L.bytes,
+                     (cudaStream_t)stream>>>(
+      A, B, w, d, L, aligned16(A) && d.a_cols % 4 == 0,
+      aligned16(B) && d.b_cols % 4 == 0, out1, outf, outl, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int mlp3_fwd(const float* X, int x_cols, const void* W0,
-                        const void* W1, const void* W2, int d_in, int hidden,
-                        int d_out, float* out, long long n, void* stream) {
-  if (!tile_width(d_in) || !tile_width(hidden) || !tile_width(d_out) ||
-      x_cols > d_in)
-    return (int)cudaErrorInvalidValue;
-  const size_t warp_bytes = mlp3_warp_bytes(d_in, hidden);
-  cudaError_t err;
-  const int warps = fit_warps((const void*)mlp3_fwd_kernel, warp_bytes,
-                              FWD_WARPS, &err);
-  if (!warps) return (int)err;
-  if (n == 0) return 0;
-  unsigned int blocks = (unsigned int)((n + warps * 16 - 1) / (warps * 16));
-  mlp3_fwd_kernel<<<blocks, warps * 32, warps * warp_bytes,
-                    (cudaStream_t)stream>>>(X, x_cols, (const bf16*)W0,
-                                            (const bf16*)W1, (const bf16*)W2,
-                                            d_in, hidden, d_out, out, n);
-  return (int)cudaGetLastError();
+// out[0..6): blocks, threads, dynamic shared bytes, blocks per SM,
+// registers per thread and schedule steps of the launch for n points.
+extern "C" int heads_fwd_shape(const int* dims, long long n, int* out) {
+  HeadsDims d = heads_dims(dims);
+  if (!heads_dims_ok(d)) return (int)cudaErrorInvalidValue;
+  FwdLayout L;
+  int blocks = 0, per_sm = 0;
+  cudaError_t err = fwd_plan(d, n, &L, &blocks, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  return (int)shape_report((const void*)heads_fwd_kernel, blocks,
+                           HEAD_THREADS, L.bytes, per_sm, L.nsteps, out);
 }

@@ -1,5 +1,5 @@
-"""The fused head-stack and 3-matrix MLP kernels: csrc/heads_fwd.cu (K3f,
-K4f) and csrc/heads_bwd.cu (K3b, K4b).
+"""The fused head-stack and 3-matrix MLP kernels: csrc/heads_fwd.cu (K3f),
+csrc/heads_bwd.cu (K3b) and csrc/mlp3.cu (K4f, K4b).
 
 Counterpart of autolabel_tpu/ops/heads_pallas.py, forward and backward.
 The packing contract is the JAX package's: `pack_head_weights` zero-pads
@@ -33,6 +33,7 @@ MLP3 = 'fused_mlp3'
 MLP3_BWD = 'fused_mlp3_bwd'
 _SOURCE = 'heads_fwd.cu'
 _BWD_SOURCE = 'heads_bwd.cu'
+_MLP3_SOURCE = 'mlp3.cu'
 _SH_OFFSET = 16  # SH block starts at col 16 of B (freq occupies < 16)
 _LANE = 16  # the padding granule: the kernels' MMA tile
 
@@ -152,13 +153,22 @@ def fused_heads_backward_plain(packed, A, B, g1, gf, gl,
     as heads_pallas._bwd_kernel computes them (the trunc_exp VJP
     g * exp(clip(S0, -15, 15)), the sigmoid VJP on rgb, operands rounded to
     compute_dtype, fp32 accumulation)."""
+    a_cols, b_cols = A.shape[1], B.shape[1]
+    A = _pad_cols(A, packed[0].shape[0])
+    B = _pad_cols(B, packed[1].shape[0])
+    dA, dB, dws = _backward_blocks(
+        packed, A, B, _forward_blocks(packed, A, B, compute_dtype), g1, gf,
+        gl, compute_dtype)
+    return dA[:, :a_cols], dB[:, :b_cols], dws
+
+
+def _backward_blocks(packed, A, B, acts, g1, gf, gl, compute_dtype):
+    """The stack's backward on A and B padded to the packing, from the
+    activations acts that _forward_blocks returns (its ReLU masks are
+    theirs): (dA, dB, 14 dW), dA and dB as wide as the padding."""
     (WA, WBs, W1s, W2s, WBc, WSc, W1c, W2c, WSf, W1f, W2f, WFo, WSo,
      W1o) = packed
-    a_cols, b_cols = A.shape[1], B.shape[1]
-    A = _pad_cols(A, WA.shape[0])
-    B = _pad_cols(B, WBs.shape[0])
-    h1s, h2s, S, c1, c2, R, f1, f2, F, o1, _ = _forward_blocks(
-        packed, A, B, compute_dtype)
+    h1s, h2s, S, c1, c2, R, f1, f2, F, o1, _ = acts
 
     def nt(a, b):  # a @ b.T
         return dot(a, b.T, compute_dtype)
@@ -198,8 +208,8 @@ def fused_heads_backward_plain(packed, A, B, g1, gf, gl,
     dW1s = tn(h1s, dh2s)
     dWA = tn(A, dh1s)
     dWBs = tn(B, dh1s)
-    dA = nt(dh1s, WA)[:, :a_cols]
-    dB = (nt(dh1s, WBs) + nt(dc1, WBc))[:, :b_cols]
+    dA = nt(dh1s, WA)
+    dB = nt(dh1s, WBs) + nt(dc1, WBc)
     return dA, dB, (dWA, dWBs, dW1s, dW2s, dWBc, dWSc, dW1c, dW2c, dWSf,
                     dW1f, dW2f, dWFo, dWSo, dW1o)
 
@@ -332,26 +342,63 @@ def _heads_backward_launch(ws, A, B, g1, gf, gl, need_dB=True):
                         g1, gf, gl)
     lib = _kernels.library(_BWD_SOURCE)
     c_dims = (ctypes.c_int * 12)(*dims)
+    part_floats, work_elems = ctypes.c_longlong(0), ctypes.c_longlong(0)
     query = lib.heads_bwd_workspace
-    query.argtypes = [ctypes.c_void_p, ctypes.c_longlong, *_WORKSPACE_OUT]
-    blocks, total = _workspace(HEADS_BWD, query, (c_dims, n))
-    part = torch.empty(blocks * total, dtype=torch.float32, device=device)
-    dW = torch.empty(total, dtype=torch.float32, device=device)
+    query.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    _kernels.check(query(c_dims, n, ctypes.byref(part_floats),
+                         ctypes.byref(work_elems)), HEADS_BWD)
+    work = torch.empty(work_elems.value, dtype=torch.bfloat16, device=device)
+    part = torch.empty(part_floats.value, dtype=torch.float32, device=device)
+    dW = torch.empty(sum(w.numel() for w in ws), dtype=torch.float32,
+                     device=device)
     dA = torch.empty((n, A.shape[1]), dtype=torch.float32, device=device)
     dB = (torch.empty((n, B.shape[1]), dtype=torch.float32, device=device)
           if need_dB else None)
     fn = lib.heads_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_longlong,
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     status = fn(A.data_ptr(), B.data_ptr(), _ptr_array(ws), c_dims,
                 g1.data_ptr(), gf.data_ptr(), gl.data_ptr(), dA.data_ptr(),
                 None if dB is None else dB.data_ptr(), dW.data_ptr(),
-                part.data_ptr(), blocks, n, stream)
+                part.data_ptr(), work.data_ptr(), n, stream)
     _kernels.check(status, HEADS_BWD)
     _kernels.launches[HEADS_BWD] += 1
     return dA, dB, _split(dW, [tuple(w.shape) for w in ws])
+
+
+def heads_launch_shapes(packed, A, B, need_dB=True):
+    """The launch shapes of K3f and K3b (its fused kernel, da_kernel and
+    its two dw_kernel launches: dWA, and the other 13 weight gradients)
+    for these inputs, as the C library plans them: blocks, threads,
+    dynamic shared bytes, blocks per SM, registers per thread and schedule
+    steps (for da_kernel: chunks of K; for dw_kernel: splits of the
+    points)."""
+    ws = _kernel_weights(HEADS, packed, A.device)
+    dims = (ctypes.c_int * 12)(*_heads_dims(ws, A, B))
+    n = A.shape[0]
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'steps')
+    out = (ctypes.c_int * 24)()
+    fwd = _kernels.library(_SOURCE).heads_fwd_shape
+    fwd.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    _kernels.check(fwd(dims, n, out), HEADS)
+    shapes = {'heads_fwd_kernel': dict(zip(keys, out[:6]))}
+    bwd = _kernels.library(_BWD_SOURCE).heads_bwd_shape
+    bwd.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    _kernels.check(bwd(dims, n, need_dB, out), HEADS_BWD)
+    shapes['heads_bwd_kernel'] = dict(zip(keys, out[:6]))
+    shapes['da_kernel'] = dict(zip(keys[:5] + ('chunks',), out[6:12]))
+    split = keys[:5] + ('splits',)
+    shapes['dw_kernel dWA'] = dict(zip(split, out[12:18]))
+    shapes['dw_kernel others'] = dict(zip(split, out[18:24]))
+    return shapes
 
 
 def _in_dtypes(dws, dtypes):
@@ -463,7 +510,7 @@ def _mlp3_launch(ws, X):
     d_in, hidden, d_out = _mlp3_dims(ws, X)
     n = X.shape[0]
     out = torch.empty((n, d_out), dtype=torch.float32, device=device)
-    fn = _kernels.library(_SOURCE).mlp3_fwd
+    fn = _kernels.library(_MLP3_SOURCE).mlp3_fwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong,
                                 ctypes.c_void_p]
@@ -483,7 +530,7 @@ def _mlp3_backward_launch(ws, X, g, need_dX=True):
     d_in, hidden, d_out = _mlp3_dims(ws, X)
     n = X.shape[0]
     (g,) = _grads(MLP3_BWD, n, (d_out,), device, g)
-    lib = _kernels.library(_BWD_SOURCE)
+    lib = _kernels.library(_MLP3_SOURCE)
     query = lib.mlp3_bwd_workspace
     query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong,
                                            *_WORKSPACE_OUT]

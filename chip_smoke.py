@@ -12,7 +12,9 @@ Phases, each failing loudly:
      TPU_GRID (N = 524,288, x including 0 and 1) and at the reference
      preset (16 x 2 x 2^19, N = 65,536);
   4. hold the fused head kernel (K3f, N = 524,288) and the proposal MLP
-     kernel (K4f, N = 1,048,576) against their plain versions;
+     kernel (K4f, N = 1,048,576) against their plain versions; print
+     K3f's launch shape (blocks, threads, dynamic shared bytes, blocks per
+     SM, registers) as the C library plans it;
   5. the render slice: a full-width model (TPU_GRID trilinear encode
      through K1, fused heads through K3f, the 36-64-64-1 proposal net
      through K4f, hidden 128, geo 15, 64 semantic features, 6 classes,
@@ -31,9 +33,12 @@ Phases, each failing loudly:
      and 1) and at the reference preset, the fused head backward (K3b,
      N = 131,072) and the proposal-MLP backward (K4b, N = 262,144) against
      their plain versions (K3b's dA and dB also against the fp32 plain
-     version, no further from it than the bf16 plain version is), with
-     their times, bounds and the autograd backward of the bf16
-     torch.matmul chains as the library yardstick;
+     version, no further from it than the bf16 plain version is; its
+     weight gradients bit-equal across two launches), with their times,
+     bounds and the autograd backward of the bf16 torch.matmul chains as
+     the library yardstick; K3b's launch shapes, its peak memory and its
+     breakdown: device time by kernel from torch.profiler, beside K3f at
+     the same N (the recompute alone);
   8. the training slice: SimpleTrainer on the same full-width model (all
      six kernels: K1, K2, K3f, K3b, K4f, K4b), batch 4096, proposal 64 ->
      32, perturbed, exact trilinear gathers, on ray batches of a procedural
@@ -44,7 +49,7 @@ Phases, each failing loudly:
      set to 0 just before and read just after: each kernel launched once a
      step, every loss finite, the held-out rgb loss falling; (c) ms per
      step and rays/s in turns (plain, kernels, kernels, plain); (d) one
-     step under torch.profiler; (e) the trained model's checkpoint served
+     step's peak memory, and one step under torch.profiler; (e) the trained model's checkpoint served
      through InferenceModel.from_checkpoint, equal to the trainer's own
      render.
 The last lines are the kernel table as JSON and
@@ -136,6 +141,25 @@ def _device_profile(fn):
         return None, None
     rows.sort(key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows)
+
+
+def _kernel_ms(fn, reps=5):
+    """Device ms per call of fn by kernel name, from torch.profiler over
+    reps calls (after one warm-up), or None when the trace holds no device
+    time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    rows, _ = _device_profile(lambda: [fn() for _ in range(reps)])
+    if rows is None:
+        return None
+    return {name: ms / reps for name, ms, _ in rows}
+
+
+def _print_shapes(gpu, shapes):
+    for kernel, sh in shapes.items():
+        print(f'launch shape [{gpu}] {kernel}: ' + ', '.join(
+            f'{k} {v}' for k, v in sh.items()))
 
 
 def _bound(nbytes, flops, peak_flops):
@@ -449,6 +473,9 @@ def main():
                               rtol=2e-2)
                  for name, a, b in zip(('out1', 'features', 'logits'),
                                        got, want))
+    shapes = {'K3f': heads_cuda.heads_launch_shapes(packed, A, B)}
+    _print_shapes(gpu, {'K3f N=524288 heads_fwd_kernel':
+                        shapes['K3f']['heads_fwd_kernel']})
     k3_ms = _cuda_ms(lambda: heads_cuda.fused_heads(packed, A, B), 10)
     k3_plain = _cuda_ms(lambda: heads_cuda.fused_heads_plain(
         packed, A, B, torch.bfloat16), 3)
@@ -680,11 +707,59 @@ def main():
                     'WSf', 'W1f', 'W2f', 'WFo', 'WSo', 'W1o')
     for name, a, b in zip(weight_names, dws, wws):
         checks.rel_norm(f'K3b d{name}', a, b, 1e-2)
-    del dA, dB, dws, wA, wB, wws
+    # Per-block partials summed in a fixed order: a second launch on the
+    # same inputs gives the same bits.
+    _, _, again = heads_cuda.fused_heads_backward(packed, A3, B3, g1, gf, gl)
+    checks.true('K3b dW bit-equal across two launches',
+                all(torch.equal(a, b) for a, b in zip(dws, again)))
+    del dA, dB, dws, wA, wB, wws, again
     k3b_ms = _cuda_ms(lambda: heads_cuda.fused_heads_backward(
         packed, A3, B3, g1, gf, gl, need_dB=False), 10)
     k3b_plain = _cuda_ms(lambda: heads_cuda.fused_heads_backward_plain(
         packed, A3, B3, g1, gf, gl, torch.bfloat16), 3)
+    shapes['K3b'] = heads_cuda.heads_launch_shapes(packed, A3, B3,
+                                                   need_dB=False)
+    _print_shapes(gpu, {f'K3b N={n_tr} {k}': v for k, v in
+                        shapes['K3b'].items() if k != 'heads_fwd_kernel'})
+
+    # K3b's peak memory above its inputs in the training step's call (the
+    # workspace, the partials, dA and dW), and its kernels' device times by
+    # name from torch.profiler: heads_bwd_kernel (recompute, backward chain
+    # and the weight gradients' operands to the workspace), da_kernel,
+    # dw_kernel for dWA and for the other 13, sum_partials_kernel; and K3f
+    # at the same N, the recompute's own code alone.
+    def k3b_train():
+        return heads_cuda.fused_heads_backward(packed, A3, B3, g1, gf, gl,
+                                               need_dB=False)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k3b_train()
+    torch.cuda.synchronize()
+    k3b_mem = torch.cuda.max_memory_allocated() - base
+    print(f'K3b memory [{gpu}] N={n_tr}: peak {k3b_mem / 1e6:.1f} MB above '
+          f'its inputs ({k3b_mem / n_tr:.0f} B a point)')
+    phase_ms = {'K3b': _kernel_ms(k3b_train),
+                'K3f': _kernel_ms(lambda: heads_cuda.fused_heads(packed, A3,
+                                                                 B3))}
+    k3b_breakdown = None
+    if all(v is not None for v in phase_ms.values()):
+        def kernel(key, name):
+            return sum(ms for k, ms in phase_ms[key].items() if name in k)
+
+        k3b_breakdown = {
+            'recompute (K3f alone)': kernel('K3f', 'heads_fwd_kernel'),
+            'heads_bwd_kernel': kernel('K3b', 'heads_bwd_kernel'),
+            'da_kernel': kernel('K3b', 'da_kernel'),
+            'dw_kernel dWA': kernel('K3b', 'dw_kernel<true>'),
+            'dw_kernel others': kernel('K3b', 'dw_kernel<false>'),
+            'sum_partials_kernel': kernel('K3b', 'sum_partials'),
+        }
+        print(f'K3b phases [{gpu}] N={n_tr}, device ms per call: ' + ', '.join(
+            f'{k} {v:.4f}' for k, v in k3b_breakdown.items()))
+    else:
+        print('K3b phases: the trace holds no device time: not measured')
 
     def heads_library_backward():
         # The yardstick: autograd's backward of the bf16 torch.matmul chain
@@ -848,7 +923,12 @@ def main():
                 train_steady[side].append(step_ms())
     train_stats = {k: _quartiles(v) for k, v in train_steady.items()}
 
-    # (d) one step under the profiler.
+    # (d) one step's peak memory, then one step under the profiler.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(next(loader))
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
     train_profile, train_busy = _device_profile(
         lambda: trainer.train_step(next(loader)))
 
@@ -879,6 +959,8 @@ def main():
               f'{st["median"]:.3f} (q1 {st["q1"]:.3f}, q3 {st["q3"]:.3f}, '
               f'n {st["n"]}); rays/s '
               f'{TRAIN_BATCH / st["median"] * 1e3:.1f}')
+    print(f'train step peak memory [{gpu}]: {train_peak / 1e9:.3f} GB '
+          f'allocated at {TRAIN_BATCH} rays')
     if train_profile is None:
         print('train profile: the trace holds no device time: not measured')
     else:
@@ -904,9 +986,9 @@ def main():
          'autolabel_tpu/ops/heads_pallas.py:182', 'K3f'),
         ('K3b fused_heads_bwd', 'autolabel_tpu_torch/csrc/heads_bwd.cu',
          'autolabel_tpu/ops/heads_pallas.py:196', 'K3b'),
-        ('K4f fused_mlp3', 'autolabel_tpu_torch/csrc/heads_fwd.cu',
+        ('K4f fused_mlp3', 'autolabel_tpu_torch/csrc/mlp3.cu',
          'autolabel_tpu/ops/heads_pallas.py:407', 'K4f'),
-        ('K4b fused_mlp3_bwd', 'autolabel_tpu_torch/csrc/heads_bwd.cu',
+        ('K4b fused_mlp3_bwd', 'autolabel_tpu_torch/csrc/mlp3.cu',
          'autolabel_tpu/ops/heads_pallas.py:414', 'K4b'),
     ]
     kernels = [{
@@ -935,6 +1017,9 @@ def main():
                    'train_heldout_mse': [mse_before, mse_after],
                    'train_grad_rel_errors': grad_errors,
                    'k3b_against_fp32': k3b_witness,
+                   'launch_shapes': shapes, 'k3b_phases': k3b_breakdown,
+                   'k3b_phase_profiles': phase_ms, 'k3b_peak_bytes': k3b_mem,
+                   'train_peak_bytes': train_peak,
                    'train_steady_step_ms': train_steady,
                    'train_steady_stats': train_stats,
                    'train_profile_busy_ms': train_busy,

@@ -86,13 +86,16 @@ def _head_blocks(rng, n, scale):
     return A, B
 
 
-@pytest.mark.parametrize('semantic_classes,scale', [(5, 0.1), (2, 30.0)])
+@pytest.mark.parametrize('semantic_classes,scale,semantic_dim',
+                         [(5, 0.1, 64), (2, 30.0, 64), (5, 0.1, 256)])
 def test_fused_heads_backward_plain_matches_jax_vjp(semantic_classes,
-                                                    scale):
+                                                    scale, semantic_dim):
     """dA, dB and all 14 dW. scale 30 drives some raw densities S0 past
     15, where the trunc_exp VJP g * exp(clip(S0, -15, 15)) differs from
-    the derivative of the forward's clamp."""
-    params = _params(semantic_classes=semantic_classes)
+    the derivative of the forward's clamp. semantic_dim 256: the feature
+    head spans two of the kernels' 128-column passes."""
+    params = _params(semantic_classes=semantic_classes,
+                     semantic_dim=semantic_dim)
     rng = np.random.default_rng(8)
     A, B = _head_blocks(rng, 300, scale)
     ours_packed = heads_cuda.pack_head_weights(_torch_tree(params), 12)

@@ -5,13 +5,15 @@ imports neither JAX nor the JAX package, so on a machine without JAX it
 runs alone with
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
 from autolabel_tpu_torch.ops.encoders import HashGridConfig
-from autolabel_tpu_torch.ops.mlp import mlp_init
+from autolabel_tpu_torch.ops.mlp import dot, mlp_init
 
 pytestmark = pytest.mark.cuda
 
@@ -88,14 +90,26 @@ def _head_params(generator, device, semantic=64, classes=6):
     return {k: [w.to(device) for w in v] for k, v in params.items()}
 
 
-@pytest.mark.parametrize('classes,n,weight_dtype', [
-    (6, 1000, torch.float32), (2, 333, torch.bfloat16)])
-def test_head_kernels_match_plain(cuda, classes, n, weight_dtype):
+# The head kernels' tiles of points at the flagship widths: K3f's and
+# K3b's.
+FWD_TILE = 128
+BWD_TILE = 64
+
+
+@pytest.mark.parametrize('classes,n,weight_dtype,semantic', [
+    (6, 1000, torch.float32, 64), (2, 333, torch.bfloat16, 64),
+    (6, 0, torch.bfloat16, 64), (6, 1, torch.bfloat16, 64),
+    (6, FWD_TILE - 1, torch.bfloat16, 64),
+    (6, FWD_TILE + 1, torch.bfloat16, 64),
+    (6, 5000, torch.bfloat16, 64), (6, 300, torch.bfloat16, 512)])
+def test_head_kernels_match_plain(cuda, classes, n, weight_dtype, semantic):
     """fp32 weights are cast by the wrapper; bf16 ones (packed and cast
-    once, as Field does) go to the kernel as they are. n = 333 leaves a
-    partial tile of points."""
+    once, as Field does) go to the kernel as they are. n = 333, 1, 127
+    and 129 leave a partial tile of points, 0 none; 5000 points are fewer than
+    one tile per SM; semantic 512 takes the widest feature head the field
+    admits (four 128-column passes a layer)."""
     g = torch.Generator().manual_seed(1)
-    params = _head_params(g, cuda, classes=classes)
+    params = _head_params(g, cuda, semantic=semantic, classes=classes)
     A = torch.randn((n, 128), generator=g).to(cuda) * 0.5
     B = torch.zeros((n, 32), device=cuda)
     B[:, :12] = torch.rand((n, 12), generator=g).to(cuda) * 2 - 1
@@ -154,6 +168,88 @@ def _rel_err(got, want):
     return float((got - want).norm() / want.norm().clamp(min=1e-12))
 
 
+def _relu_margins(ws, A, B, acts):
+    """Each ReLU mask of the head stack, keyed by its activation's index in
+    _forward_blocks' tuple acts: |pre-activation| over the sum of its
+    terms' magnitudes, per point and unit, from bf16 operands as the
+    kernels' (inf where the unit is padding)."""
+    (WA, WBs, W1s, W2s, WBc, WSc, W1c, W2c, WSf, W1f, W2f, WFo, WSo,
+     W1o) = ws
+    h1s, h2s, S, c1, c2, R, f1, f2, F, o1, L = acts
+    terms = {0: ((A, WA), (B, WBs)), 1: ((h1s, W1s),),
+             3: ((B, WBc), (S, WSc)), 4: ((c1, W1c),), 6: ((S, WSf),),
+             7: ((f1, W1f),), 8: ((f2, W2f),),
+             9: ((torch.relu(F), WFo), (S, WSo))}
+    margins = {}
+    for i, pairs in terms.items():
+        pre = sum(dot(x, w, torch.bfloat16) for x, w in pairs)
+        mag = sum(dot(x.abs(), w.abs(), torch.bfloat16) for x, w in pairs)
+        margins[i] = torch.where(mag > 0, pre.abs() / mag, float('inf'))
+    return margins
+
+
+def _flipped(acts, p, units):
+    """Point p's activations with the ReLU masks of units ((index in acts,
+    column) pairs) inverted: a unit at 0 made 1e-30, a positive one 0 (F,
+    read through relu(F), made -1e-30)."""
+    acts = [a[p:p + 1].clone() for a in acts]
+    for i, j in units:
+        on = bool(acts[i][0, j] > 0)
+        acts[i][0, j] = (-1e-30 if i == 8 else 0.0) if on else 1e-30
+    return acts
+
+
+def _check_point_gradients(got, ws, A, B, cots):
+    """K3b's per-point gradients got ({0: dA, 1: dB}, those asked for)
+    against the bf16 plain version, element by element within 2e-2 of the
+    largest magnitude. Both round to bf16 at the same places but sum in
+    another order, which can round a pre-activation at 0 to either side
+    and flip its ReLU mask: that point's cotangents then differ by their
+    own size. So a point off is taken only where inverting some of its
+    masks whose pre-activation lies within bf16 rounding of 0 (under 2^-8
+    of its terms' magnitudes; any subset of the eight nearest) makes the
+    plain version agree with the kernel at that point, element by
+    element."""
+    A = heads_cuda._pad_cols(A, ws[0].shape[0])
+    B = heads_cuda._pad_cols(B, ws[1].shape[0])
+    acts = heads_cuda._forward_blocks(ws, A, B, torch.bfloat16)
+    want = heads_cuda._backward_blocks(ws, A, B, acts, *cots,
+                                       torch.bfloat16)[:2]
+    atol = {k: 2e-2 * float(want[k].abs().max()) for k in got}
+
+    def off(k, g, w):
+        return ((g - w[:, :g.shape[1]]).abs() > atol[k]).any(1)
+
+    bad = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    for k, g in got.items():
+        bad |= off(k, g, want[k])
+    margins = None
+    for p in bad.nonzero().flatten().tolist():
+        if margins is None:
+            margins = _relu_margins(ws, A, B, acts)
+        near = sorted((float(m[p, j]), i, j) for i, m in margins.items()
+                      for j in (m[p] < 2 ** -8).nonzero().flatten().tolist())
+        near = [(i, j) for _, i, j in near[:8]]
+        tries = [units for k in range(1, len(near) + 1)
+                 for units in itertools.combinations(near, k)]
+
+        def explains(units):
+            flip = heads_cuda._backward_blocks(
+                ws, A[p:p + 1], B[p:p + 1], _flipped(acts, p, units),
+                *[c[p:p + 1] for c in cots], torch.bfloat16)
+            return not any(bool(off(k, g[p:p + 1], flip[k]).any())
+                           for k, g in got.items())
+
+        found = next((units for units in tries if explains(units)), None)
+        assert found is not None, (
+            f'point {p} of {A.shape[0]} is off, and no ReLU mask near 0 '
+            f'accounts for it (nearest: {near})')
+        print(f'point {p} of {A.shape[0]} off: masks inverted at '
+              + ', '.join(f'(activation {i}, unit {j}, margin '
+                          f'{float(margins[i][p, j]):.2e})'
+                          for i, j in found))
+
+
 @pytest.mark.parametrize('variant,features,domain', [
     ('native', 128, 'unit'), ('native', 128, 'outside'), ('tcnn', 2, 'unit'),
     ('torch_ngp', 8, 'outside')])
@@ -187,37 +283,72 @@ def test_encode_backward_refuses_the_point_gradient(cuda):
         out.sum().backward()
 
 
-@pytest.mark.parametrize('semantic,n', [(64, 1000), (256, 333)])
-def test_head_backward_kernel_matches_plain(cuda, semantic, n):
+def _head_inputs(g, n, device):
+    A = (torch.randn((n, 128), generator=g) * 0.5).to(device)
+    B = torch.zeros((n, 32), device=device)
+    B[:, :12] = torch.rand((n, 12), generator=g).to(device) * 2 - 1
+    B[:, 16:32] = torch.randn((n, 16), generator=g).to(device) * 0.3
+    return A, B
+
+
+@pytest.mark.parametrize('semantic,n,need_dA,need_dB', [
+    (64, 1000, True, True), (256, 333, True, True), (64, 0, True, True),
+    (64, 1, True, True), (64, BWD_TILE - 1, True, True),
+    (64, BWD_TILE + 1, True, True), (64, 5000, True, True),
+    (512, 200, True, True), (64, 1000, True, False),
+    (64, 1000, False, True), (64, 1000, False, False)])
+def test_head_backward_kernel_matches_plain(cuda, semantic, n, need_dA,
+                                            need_dB):
     """K3b through autograd of the head stack, on fp32 packed weights
     (cast to bf16 inside; fp32 weight gradients come back), against the
-    plain backward with the same bf16 operands. dA and dB per point at the
-    forward's bf16 tolerance, relative to the largest magnitude; each
-    summed dW within 1e-2 of its norm."""
+    plain backward with the same bf16 operands: dA and dB per element as
+    _check_point_gradients holds them; each summed dW within 1e-2 of its
+    norm. need_dA or need_dB False: that input takes no gradient (the
+    kernel leaves dB out; dA it computes all the same)."""
     g = torch.Generator().manual_seed(3)
     params = _head_params(g, cuda, semantic=semantic)
-    A = (torch.randn((n, 128), generator=g) * 0.5).to(cuda)
-    B = torch.zeros((n, 32), device=cuda)
-    B[:, :12] = torch.rand((n, 12), generator=g).to(cuda) * 2 - 1
-    B[:, 16:32] = torch.randn((n, 16), generator=g).to(cuda) * 0.3
-    A.requires_grad_(True)
-    B.requires_grad_(True)
+    A, B = _head_inputs(g, n, cuda)
+    A.requires_grad_(need_dA)
+    B.requires_grad_(need_dB)
     packed = [w.requires_grad_(True)
               for w in heads_cuda.pack_head_weights(params, 12)]
+    inputs = [A] * need_dA + [B] * need_dB + packed
     _kernels.reset_launches()
     outs = heads_cuda.fused_heads(packed, A, B)
     cot = [torch.randn(o.shape, generator=g).to(cuda) for o in outs]
-    got = torch.autograd.grad(outs, [A, B, *packed], cot)
+    got = torch.autograd.grad(outs, inputs, cot)
     assert _kernels.launches[heads_cuda.HEADS_BWD] == 1
     assert all(d.dtype == torch.float32 for d in got)
     bf = [w.detach().to(torch.bfloat16) for w in packed]
     dA, dB, dws = heads_cuda.fused_heads_backward_plain(
         bf, A.detach(), B.detach(), *cot, compute_dtype=torch.bfloat16)
-    for a, b in ((got[0], dA), (got[1], dB)):
-        scale = float(b.abs().max())
-        torch.testing.assert_close(a, b, rtol=0, atol=2e-2 * scale)
-    for a, b in zip(got[2:], dws):
+    points = dict(zip([k for k, need in ((0, need_dA), (1, need_dB))
+                       if need], got))
+    for k, a in points.items():
+        assert a.shape == (dA, dB)[k].shape
+    if n:
+        _check_point_gradients(points, bf, A.detach(), B.detach(), cot)
+    for a, b in zip(got[len(points):], dws):
+        assert a.shape == b.shape
         assert _rel_err(a, b) < 1e-2
+
+
+def test_head_backward_weight_gradients_are_deterministic(cuda):
+    """Two K3b launches on the same inputs give bit-equal weight gradients
+    (split-K partials summed in a fixed order; no float atomics)."""
+    g = torch.Generator().manual_seed(6)
+    params = _head_params(g, cuda)
+    n = 20000
+    A, B = _head_inputs(g, n, cuda)
+    packed = [w.to(torch.bfloat16)
+              for w in heads_cuda.pack_head_weights(params, 12)]
+    cot = [torch.randn((n, w), generator=g).to(cuda)
+           for w in (packed[7].shape[1], packed[10].shape[1],
+                     packed[13].shape[1])]
+    _, _, first = heads_cuda.fused_heads_backward(packed, A, B, *cot)
+    _, _, second = heads_cuda.fused_heads_backward(packed, A, B, *cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_mlp3_backward_kernel_matches_plain(cuda):

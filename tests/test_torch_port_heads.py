@@ -22,10 +22,10 @@ GRID = dict(n_levels=4, n_features=8, log2_hashmap_size=10,
             base_resolution=8, per_level_scale=1.6)
 
 
-def _params(seed=0, semantic_classes=5, proposal=True):
+def _params(seed=0, semantic_classes=5, proposal=True, semantic_dim=64):
     field = JaxField(JaxFieldConfig(encoding='hg+freq', hidden_dim=64,
                                     hidden_dim_color=64,
-                                    hidden_dim_semantic=64,
+                                    hidden_dim_semantic=semantic_dim,
                                     semantic_classes=semantic_classes,
                                     grid=JaxGridConfig(**GRID),
                                     proposal=proposal))
@@ -68,9 +68,13 @@ def test_pack_head_weights_matches_jax():
         assert not b[a.shape[0]:].any() and not b[:, a.shape[1]:].any()
 
 
-@pytest.mark.parametrize('semantic_classes', [5, 2])
-def test_fused_heads_plain_matches_jax(semantic_classes):
-    params = _params(semantic_classes=semantic_classes)
+@pytest.mark.parametrize('semantic_classes,semantic_dim',
+                         [(5, 64), (2, 64), (5, 256)])
+def test_fused_heads_plain_matches_jax(semantic_classes, semantic_dim):
+    """semantic_dim 256: the feature head spans two of the kernels'
+    128-column passes."""
+    params = _params(semantic_classes=semantic_classes,
+                     semantic_dim=semantic_dim)
     A, B = _blocks(300)
     packed = heads_cuda.pack_head_weights(_torch_tree(params), 12)
     out1, feats, logits = heads_cuda.fused_heads(
