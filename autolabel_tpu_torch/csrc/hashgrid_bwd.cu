@@ -6,9 +6,10 @@
 // point p, level l and cell corner c it adds g[p, l*F:(l+1)*F] * w_c(p, l)
 // to row idx_c(p, l) of the level's table, with the cell, fraction, corner
 // index and weight computed exactly as the forward kernel computes them
-// (hashgrid_common.cuh): dense indices wrap floor-mod the level size, so a
-// point at x = 1, whose upper corner has weight 0, still adds inside the
-// table. The gradient for x (pose refinement) is not computed here.
+// (hashgrid_common.cuh: level_corner_index, with the sizes' divisor
+// constants from the host): dense indices wrap floor-mod the level size,
+// so a point at x = 1, whose upper corner has weight 0, still adds inside
+// the table. The gradient for x (pose refinement) is not computed here.
 //
 // What bounds it on the H100: bytes. It reads g (N * L * F fp32, 256 MiB
 // at the training slice's 131,072 points x 512) and x once, and writes the
@@ -28,7 +29,7 @@
 // One warp per (point, level); lanes over features, four at a time.
 __global__ void scatter_rows_kernel(const float* __restrict__ x,
                                     const float* __restrict__ g,
-                                    float* __restrict__ dtable, Geometry geo,
+                                    float* __restrict__ dtable, Levels geo,
                                     float offset, long long n, int levels,
                                     long long table_size, int features) {
   long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -36,16 +37,17 @@ __global__ void scatter_rows_kernel(const float* __restrict__ x,
   if (warp >= n * levels) return;
   long long p = warp / levels;
   int l = (int)(warp - p * levels);
-  Cell cell = cell_of(x, p, geo.scale[l], offset);
+  const Level L = geo.l[l];
+  Cell cell = cell_of(x, p, L.scale, offset);
   float* level = dtable + (long long)l * table_size * features;
   const float* src = g + (p * levels + l) * (long long)features;
   for (int f = lane * 4; f < features; f += 128) {
     float4 gv = __ldg(reinterpret_cast<const float4*>(src + f));
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      unsigned int idx = corner_index(
-          cell.c[0] + ((c >> 2) & 1), cell.c[1] + ((c >> 1) & 1),
-          cell.c[2] + (c & 1), geo.stride[l], geo.size[l], geo.dense[l]);
+      unsigned int idx = level_corner_index(cell.c[0] + ((c >> 2) & 1),
+                                            cell.c[1] + ((c >> 1) & 1),
+                                            cell.c[2] + (c & 1), L);
       float w = corner_weight(cell, c);
       atomicAdd(reinterpret_cast<float4*>(level + (long long)idx * features +
                                           f),
@@ -59,22 +61,22 @@ __global__ void scatter_rows_kernel(const float* __restrict__ x,
 __global__ void scatter_lanes_kernel(const float* __restrict__ x,
                                      const float* __restrict__ g,
                                      float* __restrict__ dtable,
-                                     Geometry geo, float offset, long long n,
+                                     Levels geo, float offset, long long n,
                                      int levels, long long table_size,
                                      int features) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n * levels) return;
   long long p = t / levels;
   int l = (int)(t - p * levels);
-  Cell cell = cell_of(x, p, geo.scale[l], offset);
+  const Level L = geo.l[l];
+  Cell cell = cell_of(x, p, L.scale, offset);
   float* level = dtable + (long long)l * table_size * features;
   const float* src = g + (p * levels + l) * (long long)features;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    unsigned int idx = corner_index(cell.c[0] + ((c >> 2) & 1),
-                                    cell.c[1] + ((c >> 1) & 1),
-                                    cell.c[2] + (c & 1), geo.stride[l],
-                                    geo.size[l], geo.dense[l]);
+    unsigned int idx = level_corner_index(cell.c[0] + ((c >> 2) & 1),
+                                          cell.c[1] + ((c >> 1) & 1),
+                                          cell.c[2] + (c & 1), L);
     float w = corner_weight(cell, c);
     float* row = level + (long long)idx * features;
     for (int f = 0; f < features; ++f)
@@ -85,12 +87,14 @@ __global__ void scatter_lanes_kernel(const float* __restrict__ x,
 extern "C" int hashgrid_encode_bwd(const float* x, const float* g,
                                    float* dtable, const float* scale,
                                    const int* stride, const int* size,
-                                   const int* dense, float offset,
+                                   const int* dense,
+                                   const unsigned int* magic,
+                                   const int* shift, float offset,
                                    long long n, int levels,
                                    long long table_size, int features,
                                    void* stream) {
-  Geometry geo;
-  if (!make_geometry(&geo, scale, stride, size, dense, levels))
+  Levels geo;
+  if (!make_levels(&geo, scale, stride, size, dense, magic, shift, levels))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(

@@ -35,10 +35,11 @@ def hashgrid_encode_backward_plain(g, x, config):
 
 
 def _entry(source, symbol):
+    """A C entry point taking x, src, dst and the six per-level arrays."""
     fn = getattr(_kernels.library(source), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 9
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,18 +71,42 @@ def _table_shape(config):
     return (config.n_levels, config.table_size, config.n_features)
 
 
+def level_divisors(sizes):
+    """Per level size d, the constants (magic, shift) with which the
+    kernels take h % d without a division (hashgrid_common.cuh
+    level_mod): magic 0 where d is a power of two (h & (d - 1)), else
+    Granlund and Montgomery's multiplier for shift = ceil(log2 d),
+    magic = floor(2^32 (2^shift - d) / d) + 1, with which
+    q = (t + ((h - t) >> 1)) >> (shift - 1), t = (h * magic) >> 32, is
+    h // d for every uint32 h."""
+    magic, shift = [], []
+    for d in (int(v) for v in sizes):
+        if d < 1 or d >= 1 << 31:
+            raise ValueError(f'level size {d} is outside the kernel')
+        s = (d - 1).bit_length()  # ceil(log2 d)
+        magic.append(0 if d & (d - 1) == 0 else
+                     ((1 << 32) * ((1 << s) - d)) // d + 1)
+        shift.append(s)
+    return np.asarray(magic, np.uint32), np.asarray(shift, np.int32)
+
+
 def _geometry(config):
     """The per-level arrays the kernels take (kept alive by the caller
-    until the launch returns: the launcher copies them)."""
+    until the launch returns: the launcher copies them): scales, dense
+    strides, sizes, use_dense and the sizes' divisor constants."""
     scales, strides, sizes, use_dense = encoders.level_geometry(config)
+    magic, shift = level_divisors(sizes)
     return (np.ascontiguousarray(scales, np.float32),
             np.ascontiguousarray(strides, np.int32),
             np.ascontiguousarray(sizes, np.int32),
-            np.ascontiguousarray(use_dense, np.int32))
+            np.ascontiguousarray(use_dense, np.int32), magic, shift)
 
 
-def _call(fn, name, x, src, dst, config):
+def _call(source, symbol, name, x, src, dst, config):
+    """Launch symbol of source on x, src, dst and the per-level arrays;
+    count the launch."""
     geometry = _geometry(config)
+    fn = _entry(source, symbol)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(),
                 *[a.ctypes.data for a in geometry],
@@ -95,9 +120,25 @@ def _launch(table, x, config):
     _check_inputs(NAME, x, config, table, _table_shape(config))
     out = torch.empty((x.shape[0], config.out_dim), dtype=torch.float32,
                       device=x.device)
-    _call(_entry(_SOURCE, 'hashgrid_encode_fwd'), NAME, x, table, out,
-          config)
+    _call(_SOURCE, 'hashgrid_encode_fwd', NAME, x, table, out, config)
     return out
+
+
+def encode_launch_shapes(config, n):
+    """K1's launch shape for n points, as the C library plans it: blocks,
+    threads, static shared bytes, blocks per SM, registers per thread and
+    points per warp, keyed by the kernel the feature width selects."""
+    fn = _kernels.library(_SOURCE).hashgrid_encode_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _kernels.check(fn(config.n_levels, config.n_features, n, out), NAME)
+    wide = config.n_features % 4 == 0 and config.n_features >= 32
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'points_per_warp')
+    return {'encode_rows_kernel' if wide else 'encode_lanes_kernel':
+            dict(zip(keys, out))}
 
 
 def _launch_backward(g, x, config):
@@ -106,8 +147,7 @@ def _launch_backward(g, x, config):
     _check_inputs(BWD_NAME, x, config, g, (x.shape[0], config.out_dim))
     dtable = torch.empty(_table_shape(config), dtype=torch.float32,
                          device=x.device)
-    _call(_entry(_BWD_SOURCE, 'hashgrid_encode_bwd'), BWD_NAME, x, g, dtable,
-          config)
+    _call(_BWD_SOURCE, 'hashgrid_encode_bwd', BWD_NAME, x, g, dtable, config)
     return dtable
 
 

@@ -503,6 +503,31 @@ def _mlp3_dims(ws, X):
     return d_in, hidden, W2.shape[1]
 
 
+_MLP3_SHAPE_KEYS = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm',
+                    'registers', 'tile_points', 'smem_limit', 'max_hidden')
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: the C library refuses the widths
+
+
+def _mlp3_shape(d_in, hidden, d_out, n):
+    """K4f's launch shape for these widths and n points, as the C library
+    plans it; raises ValueError for widths the kernel does not take."""
+    fn = _kernels.library(_MLP3_SOURCE).mlp3_fwd_shape
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_MLP3_SHAPE_KEYS))()
+    status = fn(d_in, hidden, d_out, n, out)
+    shape = dict(zip(_MLP3_SHAPE_KEYS, out))
+    if status == _INVALID_VALUE:
+        raise ValueError(
+            f'{MLP3}: widths {d_in}-{hidden}-{hidden}-{d_out} are outside the '
+            f'kernel: multiples of 16, hidden at most {shape["max_hidden"]}, '
+            f'and weights and X stages within the shared memory per block '
+            f'({shape["smem_bytes"]} bytes needed, the card allows '
+            f'{shape["smem_limit"]})')
+    _kernels.check(status, MLP3)
+    return shape
+
+
 def _mlp3_launch(ws, X):
     """K4f on bf16 packed weights ws."""
     device = X.device
@@ -518,9 +543,20 @@ def _mlp3_launch(ws, X):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = fn(X.data_ptr(), X.shape[1], *[w.data_ptr() for w in ws],
                 d_in, hidden, d_out, out.data_ptr(), n, stream)
+    if status == _INVALID_VALUE:
+        _mlp3_shape(d_in, hidden, d_out, n)  # raises with the reason
     _kernels.check(status, MLP3)
     _kernels.launches[MLP3] += 1
     return out
+
+
+def mlp3_launch_shapes(packed, X):
+    """K4f's launch shape for these inputs, as the C library plans it:
+    blocks, threads, dynamic shared bytes, blocks per SM, registers per
+    thread, points per warp tile, the card's shared-memory limit and the
+    widest hidden layer."""
+    ws = _kernel_weights(MLP3, packed, X.device)
+    return {'mlp3_fwd_kernel': _mlp3_shape(*_mlp3_dims(ws, X), X.shape[0])}
 
 
 def _mlp3_backward_launch(ws, X, g, need_dX=True):

@@ -10,11 +10,13 @@ Phases, each failing loudly:
      process per source, in parallel);
   3. hold the hash-grid encode kernel (K1) against its plain version at
      TPU_GRID (N = 524,288, x including 0 and 1) and at the reference
-     preset (16 x 2 x 2^19, N = 65,536);
+     preset (16 x 2 x 2^19, N = 65,536); time it at both (the reference
+     preset's narrow rows at N = 524,288 too), with the bytes its gathers
+     read beside its bound, and print its launch shapes (blocks, threads,
+     shared bytes, blocks per SM, registers) as the C library plans them;
   4. hold the fused head kernel (K3f, N = 524,288) and the proposal MLP
      kernel (K4f, N = 1,048,576) against their plain versions; print
-     K3f's launch shape (blocks, threads, dynamic shared bytes, blocks per
-     SM, registers) as the C library plans it;
+     their launch shapes;
   5. the render slice: a full-width model (TPU_GRID trilinear encode
      through K1, fused heads through K3f, the 36-64-64-1 proposal net
      through K4f, hidden 128, geo 15, 64 semantic features, 6 classes,
@@ -23,7 +25,8 @@ Phases, each failing loudly:
      480 x 360 (num_steps 32, proposal_steps 64, max_ray_batch 16384: 11
      chunks a frame), with every launch count set to 0 just before and read
      just after; the same render with the plain versions swapped in is the
-     reference;
+     reference; before it, K1 is held and timed on the main samples of one
+     render chunk (16,384 rays x 32, in ray order), recorded from a render;
   6. ms per frame, rays/s and each kernel's time from CUDA events; the
      steady state, frames rendered in turns (plain, kernels, kernels,
      plain) with their median and quartiles; one frame under
@@ -436,6 +439,24 @@ def main():
                       16 * n1 * TPU_GRID.out_dim, PEAK_FP32)
     results['K1'] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                          bound=k1_bound, library_ms=None)
+    # The rows the gathers read (8 corner rows of F fp32 per point and
+    # level), which the byte bound counts once per table row instead.
+    k1_gathered = 8 * TPU_GRID.n_features * 4 * n1 * TPU_GRID.n_levels
+    print(f'K1 [{gpu}] uniform N={n1}: {k1_ms:.4f} ms, gathers '
+          f'{k1_gathered / 1e9:.3f} GB a launch '
+          f'({k1_gathered / k1_ms / 1e9:.3f} TB/s), bound '
+          f'{k1_bound[0]:.4f} ms ({k1_bound[1]})')
+    # The narrow path (the reference preset's F = 2) at the same N.
+    k1_narrow_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(
+        table_ref, x, ref_grid), 20)
+    print(f'K1 [{gpu}] reference 16x2x2^19 N={n1} (narrow rows): '
+          f'{k1_narrow_ms:.4f} ms')
+    shapes = {'K1': hashgrid_cuda.encode_launch_shapes(TPU_GRID, n1),
+              'K1 reference': hashgrid_cuda.encode_launch_shapes(ref_grid,
+                                                                 n1)}
+    _print_shapes(gpu, {f'{key} N={n1} {kernel}': sh
+                        for key in ('K1', 'K1 reference')
+                        for kernel, sh in shapes[key].items()})
 
     # ---- 5a. the model (built here so K3f/K4f see its real weights)
     flags = model_utils.model_flag_parser().parse_args(
@@ -473,7 +494,7 @@ def main():
                               rtol=2e-2)
                  for name, a, b in zip(('out1', 'features', 'logits'),
                                        got, want))
-    shapes = {'K3f': heads_cuda.heads_launch_shapes(packed, A, B)}
+    shapes['K3f'] = heads_cuda.heads_launch_shapes(packed, A, B)
     _print_shapes(gpu, {'K3f N=524288 heads_fwd_kernel':
                         shapes['K3f']['heads_fwd_kernel']})
     k3_ms = _cuda_ms(lambda: heads_cuda.fused_heads(packed, A, B), 10)
@@ -514,6 +535,9 @@ def main():
     want4 = heads_cuda.fused_mlp3_plain(packed3, X, torch.bfloat16)
     k4_err = checks.close('K4f mlp3 N=1048576', got4, want4, atol=2e-2,
                           rtol=2e-2)
+    shapes['K4f'] = heads_cuda.mlp3_launch_shapes(packed3, X)
+    _print_shapes(gpu, {f'K4f N={n4} {kernel}': sh
+                        for kernel, sh in shapes['K4f'].items()})
     k4_ms = _cuda_ms(lambda: heads_cuda.fused_mlp3(packed3, X), 20)
     k4_plain = _cuda_ms(lambda: heads_cuda.fused_mlp3_plain(
         packed3, X, torch.bfloat16), 5)
@@ -548,6 +572,33 @@ def main():
                                           field.state_dict().values())))
     frames = [_frame(rays, (3.2, -2.4, 1.2)), _frame(rays, (-2.8, -3.0, 0.8))]
     chunks = -(-FRAME_W * FRAME_H // MAX_RAY_BATCH)
+
+    # K1 on the main samples of one render chunk (16,384 rays x 32, in ray
+    # order), recorded from a render: does their locality help the gathers?
+    n_chunk = MAX_RAY_BATCH * NUM_STEPS
+    recorded, encode = [], hashgrid_cuda.hashgrid_encode
+
+    def record(table_, x_, config_):
+        if not recorded and x_.shape[0] == n_chunk:
+            recorded.append((table_.detach(), x_.detach().clone()))
+        return encode(table_, x_, config_)
+
+    hashgrid_cuda.hashgrid_encode = record
+    try:
+        model.render(frames[0])
+    finally:
+        hashgrid_cuda.hashgrid_encode = encode
+    checks.true('K1 ray-ordered samples recorded', bool(recorded))
+    table_r, x_r = recorded[0]
+    checks.close(f'K1 encode ray-ordered N={n_chunk}',
+                 hashgrid_cuda.hashgrid_encode(table_r, x_r, TPU_GRID),
+                 hashgrid_cuda.hashgrid_encode_plain(table_r, x_r, TPU_GRID),
+                 atol=1e-5, rtol=0.0)
+    k1_ray_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(
+        table_r, x_r, TPU_GRID), 20)
+    print(f'K1 [{gpu}] ray-ordered N={n_chunk}: {k1_ray_ms:.4f} ms '
+          f'(uniform {k1_ms:.4f} ms)')
+    del recorded, table_r, x_r
 
     torch.cuda.synchronize()
     _kernels.reset_launches()
@@ -1018,6 +1069,9 @@ def main():
                    'train_grad_rel_errors': grad_errors,
                    'k3b_against_fp32': k3b_witness,
                    'launch_shapes': shapes, 'k3b_phases': k3b_breakdown,
+                   'k1_gathered_bytes': k1_gathered,
+                   'k1_ray_ordered_ms': k1_ray_ms,
+                   'k1_narrow_ms': k1_narrow_ms,
                    'k3b_phase_profiles': phase_ms, 'k3b_peak_bytes': k3b_mem,
                    'train_peak_bytes': train_peak,
                    'train_steady_step_ms': train_steady,

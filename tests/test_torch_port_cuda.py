@@ -68,6 +68,37 @@ def test_encode_kernel_matches_plain(cuda, variant, features, domain):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+# The wide-row encode's points per block (8 warps x 4 points of a level).
+ENCODE_TILE = 32
+
+
+@pytest.mark.parametrize('n', [0, 1, ENCODE_TILE - 1, ENCODE_TILE + 1, 1000])
+@pytest.mark.parametrize('variant,domain', [('native', 'unit'),
+                                            ('tcnn', 'outside'),
+                                            ('torch_ngp', 'unit'),
+                                            ('torch_ngp', 'outside')])
+def test_encode_kernel_wide_rows_match_plain(cuda, variant, domain, n):
+    """F = 128 (the wide-row kernel) on every lattice: hashed and dense
+    levels, level sizes that are not powers of two (tcnn, torch_ngp: the
+    division-free modulo), ragged point counts and points outside [0, 1]
+    (negative dense indices: the 32-bit floor-mod)."""
+    rng = np.random.default_rng(7)
+    config = HashGridConfig(n_levels=4, n_features=128,
+                            log2_hashmap_size=12, base_resolution=8,
+                            per_level_scale=1.6, variant=variant)
+    if variant == 'torch_ngp':
+        assert any(s & (s - 1) for s in config.level_sizes)
+    table = torch.tensor(rng.uniform(-1, 1, (4, 4096, 128)).astype(
+        np.float32), device=cuda)
+    x = _points(rng, max(n, 4), cuda, domain)[:n].contiguous()
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode(table, x, config)
+    assert _kernels.launches[hashgrid_cuda.NAME] == 1
+    assert got.shape == (n, 4 * 128)
+    want = hashgrid_cuda.hashgrid_encode_plain(table, x, config)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
 def test_encode_kernel_rejects_bad_inputs(cuda):
     config = HashGridConfig(n_levels=2, n_features=8, log2_hashmap_size=8)
     table = torch.zeros((2, 256, 8), device=cuda)
@@ -130,6 +161,53 @@ def test_head_kernels_match_plain(cuda, classes, n, weight_dtype, semantic):
     torch.testing.assert_close(
         got3, heads_cuda.fused_mlp3_plain(packed3, X, torch.bfloat16),
         **BF16_TOL)
+
+
+# The proposal MLP kernel's points per warp tile, and per block round.
+MLP3_TILE = 16
+MLP3_BLOCK = 128
+
+
+@pytest.mark.parametrize('hidden,d_in,d_out,n,weight_dtype', [
+    (64, 36, 1, 0, torch.bfloat16), (64, 36, 1, 1, torch.bfloat16),
+    (64, 36, 1, MLP3_TILE - 1, torch.bfloat16),
+    (64, 36, 1, MLP3_TILE + 1, torch.float32),
+    (64, 36, 1, MLP3_BLOCK - 1, torch.bfloat16),
+    (64, 36, 1, MLP3_BLOCK + 1, torch.float32),
+    (64, 36, 1, 5000, torch.float32), (128, 36, 1, 1000, torch.bfloat16),
+    (128, 36, 1, 5000, torch.float32), (256, 36, 1, 1000, torch.bfloat16),
+    (256, 36, 1, MLP3_BLOCK + 1, torch.float32),
+    (64, 100, 80, 1000, torch.bfloat16), (32, 37, 16, 333, torch.float32)])
+def test_mlp3_kernel_matches_plain(cuda, hidden, d_in, d_out, n,
+                                   weight_dtype):
+    """K4f against its plain version in bf16: ragged n around the warp's
+    and the block's tiles, hidden widths 64 to 256 (the registers' A
+    fragments), d_out 80 (two output passes), and X rows of 37 floats
+    (not 16-byte copies)."""
+    g = torch.Generator().manual_seed(8)
+    packed = [w.to(cuda).to(weight_dtype) for w in heads_cuda.pack_mlp3(
+        mlp_init(g, d_in, hidden, d_out, 2))]
+    X = (torch.rand((n, d_in), generator=g) * 2 - 1).to(cuda)
+    _kernels.reset_launches()
+    got = heads_cuda.fused_mlp3(packed, X)
+    assert _kernels.launches[heads_cuda.MLP3] == 1
+    want = heads_cuda.fused_mlp3_plain(packed, X, torch.bfloat16)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize('d_in,hidden', [(36, 512), (512, 256)])
+def test_mlp3_kernel_refuses_widths_beyond_shared_memory(cuda, d_in, hidden):
+    """A hidden layer wider than 256, or weights and X stages beyond the
+    card's shared memory per block, raise ValueError; nothing launches."""
+    g = torch.Generator().manual_seed(9)
+    packed = [w.to(cuda) for w in heads_cuda.pack_mlp3(
+        mlp_init(g, d_in, hidden, 1, 2))]
+    X = torch.zeros((10, d_in), device=cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match='shared memory|at most 256'):
+        heads_cuda.fused_mlp3(packed, X)
+    assert _kernels.launches[heads_cuda.MLP3] == 0
 
 
 def test_head_kernel_covers_a_256_wide_semantic_head(cuda):
