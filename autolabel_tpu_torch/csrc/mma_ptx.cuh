@@ -1,5 +1,6 @@
 // PTX wrappers shared by the tensor-core kernels (heads_tile.cuh for K3f
-// and K3b, mlp3.cu for K4f): cp.async copies into shared memory, ldmatrix
+// and K3b, mlp3.cu for K4f and K4b): cp.async copies into shared memory
+// (hashgrid_bwd.cu stages K2's cotangent tiles with them too), ldmatrix
 // operand loads, the mma.sync m16n8k16 bf16 product with fp32
 // accumulation, and bf16 packing.
 #pragma once

@@ -34,6 +34,24 @@ def hashgrid_encode_backward_plain(g, x, config):
     return encoders.hashgrid_encode_backward_plain(g, x, config)
 
 
+def backward_tolerance(g, x, config):
+    """Per element of the table gradient, how far two fp32 sums of its
+    terms g * w in different orders (the scatter kernel's atomics and
+    in-tile groups against index_add_'s) can lie apart: 2 k 2^-24 times
+    the sum of the terms' magnitudes, k the terms of the element's row
+    (each order's error is at most (k - 1) 2^-24 of that sum)."""
+    cell, _, stride, use_dense, size = encoders._grid_geometry(x, config)
+    terms = torch.zeros((config.n_levels, config.table_size),
+                        dtype=torch.float32, device=x.device)
+    ones = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    for l in range(config.n_levels):
+        for corner in encoders._CORNERS:
+            terms[l].index_add_(0, encoders._corner_index(
+                cell[:, l], corner, stride[l], use_dense[l], size[l]), ones)
+    magnitude = hashgrid_encode_backward_plain(g.abs(), x, config)
+    return 2.0 * terms[..., None] * 2.0 ** -24 * magnitude
+
+
 def _entry(source, symbol):
     """A C entry point taking x, src, dst and the six per-level arrays."""
     fn = getattr(_kernels.library(source), symbol)
@@ -139,6 +157,41 @@ def encode_launch_shapes(config, n):
             'points_per_warp')
     return {'encode_rows_kernel' if wide else 'encode_lanes_kernel':
             dict(zip(keys, out))}
+
+
+def encode_backward_launch_shapes(config, n):
+    """K2's launch shape for n points, as the C library plans it: blocks,
+    threads, static shared bytes, blocks per SM, registers per thread and
+    points per tile, keyed by the kernel the feature width selects."""
+    fn = _kernels.library(_BWD_SOURCE).hashgrid_encode_bwd_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _kernels.check(fn(config.n_levels, config.n_features, n, out), BWD_NAME)
+    wide = config.n_features % 4 == 0 and config.n_features >= 32
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'points_per_tile')
+    return {'scatter_rows_kernel' if wide else 'scatter_lanes_kernel':
+            dict(zip(keys, out))}
+
+
+def atomic_rows(buf, updates):
+    """Add 1 to `updates` rows of buf (rows, F fp32, F a multiple of 4) drawn
+    by a fixed hash, a warp of float4 atomics a row: the floor K2's atomics
+    stand on, which chip_smoke.py times into a buffer L2 holds and one it
+    does not. A measurement, on no path, and not counted as a launch."""
+    if buf.device.type != 'cuda' or buf.dtype != torch.float32 \
+            or buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError('atomic_rows: buf must be a contiguous 2-D float32 '
+                         'CUDA tensor')
+    fn = _kernels.library(_BWD_SOURCE).hashgrid_bwd_atomic_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _kernels.check(fn(buf.data_ptr(), buf.shape[0], updates, buf.shape[1],
+                      torch.cuda.current_stream(buf.device).cuda_stream),
+                   'atomic_rows')
 
 
 def _launch_backward(g, x, config):

@@ -300,19 +300,6 @@ def _heads_launch(ws, A, B):
     return out1, outf, outl
 
 
-_WORKSPACE_OUT = [ctypes.POINTER(ctypes.c_int),
-                  ctypes.POINTER(ctypes.c_longlong)]
-
-
-def _workspace(name, fn, args):
-    """(blocks, total floats) of a persistent backward kernel's per-block
-    weight-gradient partials, from its workspace query."""
-    blocks, total = ctypes.c_int(0), ctypes.c_longlong(0)
-    fn.restype = ctypes.c_int
-    _kernels.check(fn(*args, ctypes.byref(blocks), ctypes.byref(total)), name)
-    return blocks.value, total.value
-
-
 def _split(flat, shapes):
     out, o = [], 0
     for r, c in shapes:
@@ -505,26 +492,31 @@ def _mlp3_dims(ws, X):
 
 _MLP3_SHAPE_KEYS = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm',
                     'registers', 'tile_points', 'smem_limit', 'max_hidden')
+_MLP3_BWD_SHAPE_KEYS = _MLP3_SHAPE_KEYS + ('dw_in_registers',)
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: the C library refuses the widths
 
 
-def _mlp3_shape(d_in, hidden, d_out, n):
-    """K4f's launch shape for these widths and n points, as the C library
-    plans it; raises ValueError for widths the kernel does not take."""
-    fn = _kernels.library(_MLP3_SOURCE).mlp3_fwd_shape
+def _mlp3_shape(d_in, hidden, d_out, n, backward=False):
+    """K4f's (or K4b's) launch shape for these widths and n points, as the
+    C library plans it; raises ValueError for widths the kernel does not
+    take."""
+    name, symbol, keys = ((MLP3_BWD, 'mlp3_bwd_shape', _MLP3_BWD_SHAPE_KEYS)
+                          if backward else
+                          (MLP3, 'mlp3_fwd_shape', _MLP3_SHAPE_KEYS))
+    fn = getattr(_kernels.library(_MLP3_SOURCE), symbol)
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(_MLP3_SHAPE_KEYS))()
+    out = (ctypes.c_int * len(keys))()
     status = fn(d_in, hidden, d_out, n, out)
-    shape = dict(zip(_MLP3_SHAPE_KEYS, out))
+    shape = dict(zip(keys, out))
     if status == _INVALID_VALUE:
         raise ValueError(
-            f'{MLP3}: widths {d_in}-{hidden}-{hidden}-{d_out} are outside the '
+            f'{name}: widths {d_in}-{hidden}-{hidden}-{d_out} are outside the '
             f'kernel: multiples of 16, hidden at most {shape["max_hidden"]}, '
-            f'and weights and X stages within the shared memory per block '
-            f'({shape["smem_bytes"]} bytes needed, the card allows '
+            f"and the weights and one warp's tiles within the shared memory "
+            f'per block ({shape["smem_bytes"]} bytes needed, the card allows '
             f'{shape["smem_limit"]})')
-    _kernels.check(status, MLP3)
+    _kernels.check(status, name)
     return shape
 
 
@@ -551,12 +543,38 @@ def _mlp3_launch(ws, X):
 
 
 def mlp3_launch_shapes(packed, X):
-    """K4f's launch shape for these inputs, as the C library plans it:
-    blocks, threads, dynamic shared bytes, blocks per SM, registers per
-    thread, points per warp tile, the card's shared-memory limit and the
-    widest hidden layer."""
+    """K4f's and K4b's launch shapes for these inputs, as the C library
+    plans them: blocks, threads, dynamic shared bytes, blocks per SM,
+    registers per thread, points per warp tile, the card's shared-memory
+    limit and the widest hidden layer; for K4b also whether the weight
+    gradients stay in registers."""
     ws = _kernel_weights(MLP3, packed, X.device)
-    return {'mlp3_fwd_kernel': _mlp3_shape(*_mlp3_dims(ws, X), X.shape[0])}
+    dims = _mlp3_dims(ws, X)
+    return {'mlp3_fwd_kernel': _mlp3_shape(*dims, X.shape[0]),
+            'mlp3_bwd_kernel': _mlp3_shape(*dims, X.shape[0], backward=True)}
+
+
+# (device index, d_in, hidden, d_out) -> (the most blocks a K4b launch
+# takes, floats of one block's weight-gradient partial), from the C
+# library's plan: one query per device and widths.
+_mlp3_bwd_workspaces = {}
+
+
+def _mlp3_bwd_workspace(device, d_in, hidden, d_out):
+    key = (device.index, d_in, hidden, d_out)
+    if key not in _mlp3_bwd_workspaces:
+        fn = _kernels.library(_MLP3_SOURCE).mlp3_bwd_workspace
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+        blocks, total = ctypes.c_int(0), ctypes.c_longlong(0)
+        status = fn(d_in, hidden, d_out, ctypes.byref(blocks),
+                    ctypes.byref(total))
+        if status == _INVALID_VALUE:
+            _mlp3_shape(d_in, hidden, d_out, 0, backward=True)  # raises
+        _kernels.check(status, MLP3_BWD)
+        _mlp3_bwd_workspaces[key] = (blocks.value, total.value)
+    return _mlp3_bwd_workspaces[key]
 
 
 def _mlp3_backward_launch(ws, X, g, need_dX=True):
@@ -566,16 +584,12 @@ def _mlp3_backward_launch(ws, X, g, need_dX=True):
     d_in, hidden, d_out = _mlp3_dims(ws, X)
     n = X.shape[0]
     (g,) = _grads(MLP3_BWD, n, (d_out,), device, g)
-    lib = _kernels.library(_MLP3_SOURCE)
-    query = lib.mlp3_bwd_workspace
-    query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong,
-                                           *_WORKSPACE_OUT]
-    blocks, total = _workspace(MLP3_BWD, query, (d_in, hidden, d_out, n))
+    blocks, total = _mlp3_bwd_workspace(device, d_in, hidden, d_out)
     part = torch.empty(blocks * total, dtype=torch.float32, device=device)
     dW = torch.empty(total, dtype=torch.float32, device=device)
     dX = (torch.empty((n, X.shape[1]), dtype=torch.float32, device=device)
           if need_dX else None)
-    fn = lib.mlp3_bwd
+    fn = _kernels.library(_MLP3_SOURCE).mlp3_bwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]

@@ -33,15 +33,18 @@ Phases, each failing loudly:
      torch.profiler for device time by kernel and the device's busy share;
   7. the backward kernels alone at the training step's shapes: the
      hash-grid table gradient (K2) at TPU_GRID (N = 131,072, x including 0
-     and 1) and at the reference preset, the fused head backward (K3b,
-     N = 131,072) and the proposal-MLP backward (K4b, N = 262,144) against
-     their plain versions (K3b's dA and dB also against the fp32 plain
-     version, no further from it than the bf16 plain version is; its
-     weight gradients bit-equal across two launches), with their times,
-     bounds and the autograd backward of the bf16 torch.matmul chains as
-     the library yardstick; K3b's launch shapes, its peak memory and its
-     breakdown: device time by kernel from torch.profiler, beside K3f at
-     the same N (the recompute alone);
+     and 1) and at the reference preset, each element within the stated
+     bound of two fp32 summation orders (hashgrid_cuda.backward_tolerance),
+     with its atomics floor (as many float4 atomic rows into random rows
+     of 16 and 64 MiB); the fused head backward (K3b, N = 131,072) and the
+     proposal-MLP backward (K4b, N = 262,144) against their plain versions
+     (K3b's dA and dB also against the fp32 plain version, no further from
+     it than the bf16 plain version is; K3b's and K4b's weight gradients
+     bit-equal across two launches), with their times, bounds and the
+     autograd backward of the bf16 torch.matmul chains as the library
+     yardstick; K2's, K3b's and K4b's launch shapes, K3b's peak memory and
+     its breakdown: device time by kernel from torch.profiler, beside K3f
+     at the same N (the recompute alone);
   8. the training slice: SimpleTrainer on the same full-width model (all
      six kernels: K1, K2, K3f, K3b, K4f, K4b), batch 4096, proposal 64 ->
      32, perturbed, exact trilinear gathers, on ray batches of a procedural
@@ -50,7 +53,9 @@ Phases, each failing loudly:
      versions, same params and draws: loss parts and every parameter's
      gradient; (b) 200 steps through train_iterations, every launch count
      set to 0 just before and read just after: each kernel launched once a
-     step, every loss finite, the held-out rgb loss falling; (c) ms per
+     step, every loss finite, the held-out rgb loss falling; then K2
+     held and timed on the (g, x) of one more step's backward, the main
+     path's own ray-ordered samples; (c) ms per
      step and rays/s in turns (plain, kernels, kernels, plain); (d) one
      step's peak memory, and one step under torch.profiler; (e) the trained model's checkpoint served
      through InferenceModel.from_checkpoint, equal to the trainer's own
@@ -247,6 +252,20 @@ class Checks:
         return dict(rel_err=norm_got, ref_rel_err=norm_ref, share=share_got,
                     ref_share=share_ref)
 
+    def within(self, name, got, want, tol):
+        """|got - want| at most tol, element by element."""
+        import torch
+        err = (got.float() - want.float()).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+        used = float((err / tol.clamp(min=1e-38)).max()) if err.numel() \
+            else 0.0
+        print(f'check {name}: max_abs_err={float(err.max()):.3e} '
+              f'max|want|={float(want.abs().max()):.3e} (worst uses '
+              f'{used:.3f} of its tolerance) {"ok" if ok else "FAILED"}')
+        if not ok:
+            self.failures.append(name)
+        return float(err.max())
+
     def true(self, name, cond, detail=''):
         print(f'check {name}: {"ok" if cond else "FAILED"} {detail}')
         if not cond:
@@ -357,6 +376,88 @@ def _plain_kernels(hashgrid_cuda, heads_cuda):
          heads_cuda.fused_mlp3) = saved
 
 
+def _model_config():
+    """The full-width model both slices drive: TPU_GRID trilinear through
+    the encode kernel, the fused heads, the 36-64-64-1 proposal net,
+    hidden 128, geo 15, 64 semantic features, 6 classes, bound 2."""
+    import numpy as np
+    from autolabel_tpu_torch import model_utils
+    flags = model_utils.model_flag_parser().parse_args(
+        ['--grid-preset', 'tpu', '--proposal', '--heads-impl', 'pallas',
+         '--grid-interp', 'trilinear', '--feature-dim', '64'])
+    lo, hi = np.full(3, -1.0), np.full(3, 1.0)  # bound = 2.0
+    return dataclasses.replace(model_utils.model_config(lo, hi, 6, flags),
+                               grid_impl='pallas')
+
+
+def _train_slice(dev, seed):
+    """The training slice: (trainer, loader of ray batches, held-out
+    frame). SimpleTrainer on a fresh full-width field, batch TRAIN_BATCH,
+    proposal 64 -> 32, perturbed, exact trilinear gathers, on rays of the
+    procedural sphere scene seen from 8 cameras."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core import rays
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.render.renderer import RenderOptions
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    positions = [(3.2 * np.cos(a), 3.2 * np.sin(a), 0.9 * (-1) ** k)
+                 for k, a in enumerate(np.linspace(0, 2 * np.pi, 9)[:-1])]
+    loader = _RayBatches([_scene_frame(rays, pos) for pos in positions],
+                         TRAIN_BATCH, dev, seed + 4)
+    held_out = _scene_frame(rays, (2.2, 2.6, -0.4))
+    options = RenderOptions(perturb=True, stochastic_corners=0,
+                            sampled_backward=0, num_steps=NUM_STEPS,
+                            proposal_steps=PROPOSAL_STEPS)
+    field = Field(_model_config(), device=dev,
+                  generator=torch.Generator().manual_seed(seed + 2))
+    trainer = SimpleTrainer('chip_smoke', field, lr=5e-3, iters=10000,
+                            render_options=options,
+                            workspace=os.path.join(WORK_DIR, 'train'),
+                            use_checkpoint=None,
+                            max_ray_batch=MAX_RAY_BATCH, metrics=False,
+                            seed=seed)
+    return trainer, loader, held_out
+
+
+def _record_k2_inputs(trainer, loader):
+    """The (g, x) that one training step's backward hands the table
+    gradient kernel (K2): the step's main samples, ray by ray."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    recorded, launch = [], hashgrid_cuda._launch_backward
+
+    def record(g, x, config):
+        recorded.append((g.detach().clone(), x.detach().clone()))
+        return launch(g, x, config)
+
+    hashgrid_cuda._launch_backward = record
+    try:
+        trainer.train_step(next(loader))
+    finally:
+        hashgrid_cuda._launch_backward = launch
+    return recorded[0]
+
+
+def _check_k2(checks, name, hashgrid_cuda, g, x, config):
+    """K2 against its plain version on (g, x): each element within
+    hashgrid_cuda.backward_tolerance (the same fp32 products summed in
+    another order: 2 k 2^-24 of the terms' magnitudes, k the terms of the
+    element's row), and the hottest row's k. Returns the largest
+    error."""
+    got = hashgrid_cuda.hashgrid_encode_backward(g, x, config)
+    want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
+    tol = hashgrid_cuda.backward_tolerance(g, x, config)
+    err = checks.within(name, got, want, tol)
+    # the hottest row's terms: the tolerance over 2^-23 times the
+    # magnitude, where the magnitude is largest
+    magnitude = hashgrid_cuda.hashgrid_encode_backward_plain(g.abs(), x,
+                                                             config)
+    hottest = float((tol / (2.0 ** -23 * magnitude).clamp(
+        min=1e-38)).max())
+    print(f'  {name}: the hottest row sums {hottest:.0f} terms')
+    return err
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -370,16 +471,14 @@ def main():
         _fail_early('autolabel_tpu_torch/ is not beside this script; run it '
                     'from a checkout of the repository')
     sys.path.insert(0, HERE)
-    from autolabel_tpu_torch import bridge, model_utils
+    from autolabel_tpu_torch import bridge
     from autolabel_tpu_torch.core import rays
     from autolabel_tpu_torch.inference import InferenceModel
     from autolabel_tpu_torch.models.field import Field
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
     from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
-    from autolabel_tpu_torch.render.renderer import (RenderOptions,
-                                                     draw_perturbations)
+    from autolabel_tpu_torch.render.renderer import draw_perturbations
     from autolabel_tpu_torch.train import checkpoints
-    from autolabel_tpu_torch.train.trainer import SimpleTrainer
 
     # fp32 products in the plain versions stay full fp32 (PyTorch's
     # default, stated here).
@@ -459,12 +558,7 @@ def main():
                         for kernel, sh in shapes[key].items()})
 
     # ---- 5a. the model (built here so K3f/K4f see its real weights)
-    flags = model_utils.model_flag_parser().parse_args(
-        ['--grid-preset', 'tpu', '--proposal', '--heads-impl', 'pallas',
-         '--grid-interp', 'trilinear', '--feature-dim', '64'])
-    lo, hi = np.full(3, -1.0), np.full(3, 1.0)  # bound = 2.0
-    config = dataclasses.replace(model_utils.model_config(lo, hi, 6, flags),
-                                 grid_impl='pallas')
+    config = _model_config()
     assert config.bound == 2.0 and config.grid == TPU_GRID
     field = Field(config, device=dev, generator=g)
     # A table far from its U(-1e-4, 1e-4) init, so density, color and
@@ -535,7 +629,8 @@ def main():
     want4 = heads_cuda.fused_mlp3_plain(packed3, X, torch.bfloat16)
     k4_err = checks.close('K4f mlp3 N=1048576', got4, want4, atol=2e-2,
                           rtol=2e-2)
-    shapes['K4f'] = heads_cuda.mlp3_launch_shapes(packed3, X)
+    shapes['K4f'] = {'mlp3_fwd_kernel': heads_cuda.mlp3_launch_shapes(
+        packed3, X)['mlp3_fwd_kernel']}
     _print_shapes(gpu, {f'K4f N={n4} {kernel}': sh
                         for kernel, sh in shapes['K4f'].items()})
     k4_ms = _cuda_ms(lambda: heads_cuda.fused_mlp3(packed3, X), 20)
@@ -692,20 +787,11 @@ def main():
     n_tr = TRAIN_BATCH * NUM_STEPS  # main samples per step: 131,072
     x2 = x[:n_tr].contiguous()  # holds the points at 0 and 1
     g2 = torch.randn((n_tr, TPU_GRID.out_dim), generator=g).to(dev)
-    got2 = hashgrid_cuda.hashgrid_encode_backward(g2, x2, TPU_GRID)
-    want2 = hashgrid_cuda.hashgrid_encode_backward_plain(g2, x2, TPU_GRID)
-    # fp32 atomic adds in an order that changes from run to run against
-    # index_add_'s: each row sums up to a few hundred terms of O(1).
-    k2_err = checks.close(f'K2 table gradient TPU_GRID N={n_tr}', got2,
-                          want2, atol=5e-4, rtol=1e-5)
+    k2_err = _check_k2(checks, f'K2 table gradient TPU_GRID N={n_tr}',
+                       hashgrid_cuda, g2, x2, TPU_GRID)
     g_ref = torch.randn((65536, ref_grid.out_dim), generator=g).to(dev)
-    checks.close('K2 table gradient reference 16x2x2^19 N=65536',
-                 hashgrid_cuda.hashgrid_encode_backward(g_ref, x_ref,
-                                                        ref_grid),
-                 hashgrid_cuda.hashgrid_encode_backward_plain(g_ref, x_ref,
-                                                              ref_grid),
-                 atol=5e-4, rtol=1e-5)
-    del want2, got2
+    _check_k2(checks, 'K2 table gradient reference 16x2x2^19 N=65536',
+              hashgrid_cuda, g_ref, x_ref, ref_grid)
     k2_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward(
         g2, x2, TPU_GRID), 20)
     k2_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward_plain(
@@ -714,8 +800,30 @@ def main():
     # an add per corner per element in fp32.
     k2_bound = _bound(_nbytes(x2, g2, table), 16 * n_tr * TPU_GRID.out_dim,
                       PEAK_FP32)
+    # K2's atomics floor: as many float4 atomic rows as K2 would make with
+    # no row combined (8 corners x points x levels, 512 bytes each), into
+    # random rows of a buffer L2 holds (one level's gradient) and of one it
+    # does not (all four levels').
+    k2_updates = 8 * n_tr * TPU_GRID.n_levels
+    k2_floor = {}
+    for mib in (16, 64):
+        buf = torch.zeros((mib * 2 ** 20 // 512, 128), device=dev)
+        k2_floor[f'{mib} MiB'] = _cuda_ms(
+            lambda: hashgrid_cuda.atomic_rows(buf, k2_updates), 10)
+        del buf
+    print(f'K2 atomics floor [{gpu}]: {k2_updates * 32} float4 atomics '
+          f'({k2_updates * 512 / 1e9:.3f} GB) into random 512-byte rows: '
+          f'{k2_floor["16 MiB"]:.4f} ms into 16 MiB, '
+          f'{k2_floor["64 MiB"]:.4f} ms into 64 MiB; K2 {k2_ms:.4f} ms')
     results['K2'] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
-                         bound=k2_bound, library_ms=None)
+                         bound=k2_bound, library_ms=None,
+                         atomics_floor_ms=k2_floor)
+    shapes['K2'] = hashgrid_cuda.encode_backward_launch_shapes(TPU_GRID, n_tr)
+    shapes['K2 reference'] = hashgrid_cuda.encode_backward_launch_shapes(
+        ref_grid, n_tr)
+    _print_shapes(gpu, {f'{key} N={n_tr} {kernel}': sh
+                        for key in ('K2', 'K2 reference')
+                        for kernel, sh in shapes[key].items()})
 
     A3 = hashgrid_cuda.hashgrid_encode(table, x2, TPU_GRID)
     B3 = torch.zeros((n_tr, 32), device=dev)
@@ -862,7 +970,16 @@ def main():
                            atol=2e-2 * float(wX.abs().max()))
     for name, a, b in zip(('W0', 'W1', 'W2'), dws, wws):
         checks.rel_norm(f'K4b d{name}', a, b, 1e-2)
-    del dX, dws, wX, wws
+    del dX, wX, wws
+    # Per-block partials summed in a fixed order: a second launch on the
+    # same inputs gives the same bits.
+    _, again = heads_cuda.fused_mlp3_backward(packed3, X4, g4, need_dX=False)
+    checks.true('K4b dW bit-equal across two launches',
+                all(torch.equal(a, b) for a, b in zip(dws, again)))
+    shapes['K4b'] = {'mlp3_bwd_kernel': heads_cuda.mlp3_launch_shapes(
+        packed3, X4)['mlp3_bwd_kernel']}
+    _print_shapes(gpu, {f'K4b N={n4b} mlp3_bwd_kernel':
+                        shapes['K4b']['mlp3_bwd_kernel']})
     k4b_ms = _cuda_ms(lambda: heads_cuda.fused_mlp3_backward(
         packed3, X4, g4, need_dX=False), 20)
     k4b_plain = _cuda_ms(lambda: heads_cuda.fused_mlp3_backward_plain(
@@ -887,26 +1004,13 @@ def main():
     results['K4b'] = dict(max_abs_err=k4b_err, ms=k4b_ms,
                           plain_ms=k4b_plain, bound=k4b_bound,
                           library_ms=k4b_lib)
-    del X4, g4, x2, table, enc, x
+    del X4, g4, x2, table, enc, x, dws, again
     torch.cuda.empty_cache()
 
     # ---- 8. the training slice through SimpleTrainer
-    positions = [(3.2 * np.cos(a), 3.2 * np.sin(a), 0.9 * (-1) ** k)
-                 for k, a in enumerate(np.linspace(0, 2 * np.pi, 9)[:-1])]
-    loader = _RayBatches([_scene_frame(rays, pos) for pos in positions],
-                         TRAIN_BATCH, dev, args.seed + 4)
-    held_out = _scene_frame(rays, (2.2, 2.6, -0.4))
-    train_options = RenderOptions(perturb=True, stochastic_corners=0,
-                                  sampled_backward=0, num_steps=NUM_STEPS,
-                                  proposal_steps=PROPOSAL_STEPS)
-    train_field = Field(config, device=dev,
-                        generator=torch.Generator().manual_seed(args.seed + 2))
-    workspace = os.path.join(WORK_DIR, 'train')
-    trainer = SimpleTrainer('chip_smoke', train_field, lr=5e-3, iters=10000,
-                            render_options=train_options,
-                            workspace=workspace, use_checkpoint=None,
-                            max_ray_batch=MAX_RAY_BATCH, metrics=False,
-                            seed=args.seed)
+    trainer, loader, held_out = _train_slice(dev, args.seed)
+    train_options = trainer.render_options
+    workspace = trainer.workspace
 
     # (a) one step, kernels against plain versions: same params and draws.
     step_batch = next(loader)
@@ -953,6 +1057,20 @@ def main():
     checks.true('train held-out rgb loss falls', mse_after * 4 < mse_before,
                 f'{mse_before:.5f} -> {mse_after:.5f} (PSNR '
                 f'{_psnr(mse_before):.2f} -> {_psnr(mse_after):.2f} dB)')
+
+    # K2 on the main path's own traffic: the (g, x) of one more step's
+    # backward, after the 200 steps (main samples ray by ray, where the
+    # trained proposal net concentrates them).
+    g_s, x_s = _record_k2_inputs(trainer, loader)
+    n_s = x_s.shape[0]
+    _check_k2(checks, f'K2 table gradient step samples N={n_s}',
+              hashgrid_cuda, g_s, x_s, TPU_GRID)
+    k2_step_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward(
+        g_s, x_s, TPU_GRID), 20)
+    print(f'K2 [{gpu}] step samples N={n_s}: {k2_step_ms:.4f} ms (uniform '
+          f'{results["K2"]["ms"]:.4f} ms)')
+    results['K2']['ms_step_samples'] = k2_step_ms
+    del g_s, x_s
 
     # (c) steady state, kernels against plain versions in turns.
     def step_ms():
@@ -1052,6 +1170,8 @@ def main():
         'bound_ms': results[key]['bound'][0],
         'bound_by': results[key]['bound'][1],
         'library_ms': results[key]['library_ms'],
+        **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms')
+           if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -9,7 +9,8 @@ Both packages are imported side by side, each as a module tree of its own
 that builds its kernels into a build directory beside itself, and every
 kernel of the main path is called through each package's public wrapper
 on the same inputs: K1 at TPU_GRID (wide rows) and at the reference preset
-(narrow rows), K2, K3f, K3b, K4f and K4b at chip_smoke.py's shapes. Each
+(narrow rows), K2, K3f, K3b, K4f and K4b at chip_smoke.py's shapes, and K2
+also on the (g, x) of a step of chip_smoke.py's training slice. Each
 kernel's old and new outputs are compared (largest absolute difference;
 0 means bit-equal), then both are timed by CUDA events, old, new, new,
 old, ... for --rounds rounds. Prints one line per kernel and writes
@@ -59,9 +60,21 @@ def _max_diff(a, b):
                for x, y in zip(_flat(a), _flat(b)))
 
 
-def _cases(pkg, seed):
+def _step_samples(seed, steps=40):
+    """The (g, x) that a training step's backward hands K2, recorded from
+    chip_smoke.py's training slice (this tree's package) after `steps`
+    steps: the main path's own ray-ordered traffic."""
+    import torch
+    from chip_smoke import _record_k2_inputs, _train_slice
+    trainer, loader, _ = _train_slice(torch.device('cuda'), seed)
+    trainer.train_iterations(loader, steps)
+    return _record_k2_inputs(trainer, loader)
+
+
+def _cases(pkg, seed, step_samples):
     """{name: (fn(pkg), reps)}: each kernel of the main path called through
-    pkg's wrappers on inputs made from seed (the same for every pkg)."""
+    pkg's wrappers on inputs made from seed (the same for every pkg), and
+    K2 on a training step's recorded samples."""
     import torch
     g = torch.Generator().manual_seed(seed)
     dev = torch.device('cuda')
@@ -96,6 +109,7 @@ def _cases(pkg, seed):
     X4, g4 = X[:n4 // 4].contiguous(), torch.randn(
         (n4 // 4, ws[2].shape[1]), generator=g).to(dev)
     hg, hd = pkg.hashgrid_cuda, pkg.heads_cuda
+    g_s, x_s = step_samples
     return {
         f'K1 TPU_GRID N={n1}': (lambda: hg.hashgrid_encode(table, x, grid),
                                 20),
@@ -103,6 +117,8 @@ def _cases(pkg, seed):
             lambda: hg.hashgrid_encode(table_ref, x, ref), 20),
         f'K2 TPU_GRID N={n2}': (
             lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20),
+        f'K2 TPU_GRID step samples N={x_s.shape[0]}': (
+            lambda: hg.hashgrid_encode_backward(g_s, x_s, grid), 20),
         f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10),
         f'K3b N={n2}': (lambda: hd.fused_heads_backward(
             packed, A2, B2, *cots, need_dB=False), 10),
@@ -133,7 +149,9 @@ def main():
         pkg.kernels.build_all()
     gpu = _gpu_line()
     result = {'gpu': gpu, 'rounds': args.rounds, 'kernels': {}}
-    cases = {side: _cases(pkg, args.seed) for side, pkg in sides.items()}
+    step_samples = _step_samples(args.seed)
+    cases = {side: _cases(pkg, args.seed, step_samples)
+             for side, pkg in sides.items()}
     for name in cases['new']:
         (old, reps), (new, _) = cases['old'][name], cases['new'][name]
         diff = _max_diff(old(), new())

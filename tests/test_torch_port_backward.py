@@ -65,6 +65,55 @@ def test_encode_backward_plain_is_the_autograd_gradient(n_features):
     assert sum(_kernels.launches.values()) == 0  # plain versions on the CPU
 
 
+def _clustered_points(rng, n, kind):
+    """Duplicate-heavy points: all inside one cell of every level
+    ('one_cell'), or the samples of a few rays in ray order ('rays', 32 a
+    ray, as a training step's main samples come), so many terms land in
+    the same rows."""
+    if kind == 'one_cell':
+        return (0.4321 + rng.uniform(0.0, 1e-3, (n, 3))).astype(np.float32)
+    rays = n // 32
+    o = rng.uniform(0.1, 0.9, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.3, (rays, 32, 1)), axis=1)
+    return np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize('kind', ['one_cell', 'rays'])
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('n_features', [8, 2])
+def test_encode_backward_plain_on_clustered_points(variant, n_features,
+                                                   kind):
+    """The table gradient where rows sum hundreds of terms (384 points a
+    row for 'one_cell'). The two packages sum them in other orders: each
+    element within hashgrid_cuda.backward_tolerance (2 k 2^-24 of its
+    terms' magnitudes, k its row's terms), plus 1e-4 of those magnitudes
+    for the blend weights' last bits (the packages round the cell
+    fractions differently)."""
+    rng = np.random.default_rng(11)
+    cfg = _grid(variant, n_features, n_levels=2)
+    x = _clustered_points(rng, 384, kind)
+    g = rng.normal(size=(384, 2 * n_features)).astype(np.float32)
+    config = encoders.HashGridConfig(**cfg)
+    ours = hashgrid_cuda.hashgrid_encode_backward_plain(
+        torch.tensor(g), torch.tensor(x), config)
+    tol = hashgrid_cuda.backward_tolerance(torch.tensor(g), torch.tensor(x),
+                                           config).numpy()
+    magnitude = hashgrid_cuda.hashgrid_encode_backward_plain(
+        torch.tensor(np.abs(g)), torch.tensor(x), config).numpy()
+    _, vjp = jax.vjp(lambda t: jax_encoders.hashgrid_encode(
+        t, x, jax_encoders.HashGridConfig(**cfg)),
+        _table(rng, cfg))
+    (ref,) = vjp(g)
+    ref = np.asarray(ref)
+    assert ours.shape == ref.shape
+    if kind == 'one_cell':  # every level's 8 corner rows take all points
+        assert int((np.abs(ref).sum(-1) > 0).sum()) <= 2 * 8
+    err = np.abs(ours.numpy() - ref)
+    assert np.all(err <= tol + RTOL * magnitude), float(err.max())
+
+
 def _head_cotangents(rng, n, packed_ours, packed_jax):
     """Cotangents of (out1, features, logits): random in the port's
     widths, zero beyond them in the JAX package's 128-lane widths."""
@@ -177,3 +226,31 @@ def test_fused_mlp3_backward_plain_matches_jax_vjp(n):
     torch.testing.assert_close(got[0], dX)
     for a, b in zip(got[1:], dws):
         torch.testing.assert_close(a, b)
+
+
+@pytest.mark.parametrize('hidden,d_out,n', [(16, 1, 257), (16, 5, 40),
+                                            (128, 3, 257), (128, 16, 33)])
+def test_fused_mlp3_backward_plain_matches_jax_vjp_at_other_widths(
+        hidden, d_out, n):
+    """dX and the three weight gradients at hidden 16 and 128 and more
+    than one output column, against the VJP of heads_pallas.fused_mlp3
+    (its _mlp3_bwd_kernel in interpret mode)."""
+    rng = np.random.default_rng(12)
+    weights = [(rng.normal(size=(a, b)) * np.sqrt(2.0 / a)).astype(
+        np.float32) for a, b in ((36, hidden), (hidden, hidden),
+                                 (hidden, d_out))]
+    X = rng.uniform(-1, 1, (n, 36)).astype(np.float32)
+    ours_packed = heads_cuda.pack_mlp3([torch.tensor(w) for w in weights])
+    jax_packed = jax_heads.pack_mlp3(weights)
+    width = ours_packed[2].shape[1]
+    g = np.zeros((n, jax_packed[2].shape[1]), np.float32)
+    g[:, :width] = rng.normal(size=(n, width))
+    _, vjp = jax.vjp(jax_heads.fused_mlp3, jax_packed, X)
+    ref_dws, ref_dX = vjp(g)
+    dX, dws = heads_cuda.fused_mlp3_backward_plain(
+        ours_packed, torch.tensor(X), torch.tensor(g[:, :width]))
+    _close(dX, ref_dX)
+    for ours, ref in zip(dws, ref_dws):
+        ref = np.asarray(ref)
+        _close(ours, ref[:ours.shape[0], :ours.shape[1]],
+               atol=ATOL * max(float(np.abs(ref).max()), 1.0))

@@ -349,7 +349,98 @@ def test_encode_backward_kernel_matches_plain(cuda, variant, features,
     (got,) = torch.autograd.grad(out, table, g)
     assert _kernels.launches[hashgrid_cuda.BWD_NAME] == 1
     want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    _assert_within_sum_orders(got, want, g, x, config)
+
+
+def _assert_within_sum_orders(got, want, g, x, config):
+    """K2 against its plain version: the same fp32 products summed in
+    another order (atomics and in-tile groups against index_add_'s), so
+    each element within hashgrid_cuda.backward_tolerance (2 k 2^-24 of
+    its terms' magnitudes, k its row's terms)."""
+    assert got.shape == want.shape
+    tol = hashgrid_cuda.backward_tolerance(g, x, config)
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), (
+        f'max excess {float((err - tol).max()):.3e}, max err '
+        f'{float(err.max()):.3e}')
+
+
+# K2's points per tile of one level (wide rows).
+K2_TILE = 32
+
+
+def _fine_grid(variant, features):
+    """TPU_GRID's resolutions (16, 80, 406, 2048) on a 2^12 table: dense
+    and hashed levels, cells from coarse to finer than the points' spread
+    in a tile."""
+    return HashGridConfig(n_levels=4, n_features=features,
+                          log2_hashmap_size=12, base_resolution=16,
+                          per_level_scale=5.04, variant=variant)
+
+
+def _clustered(rng, n, kind, device):
+    """All points inside one cell of every level ('one_cell'), or the
+    samples of a few rays in ray order ('rays', 32 a ray, as a training
+    step's main samples come)."""
+    if kind == 'one_cell':
+        x = 0.4321 + rng.uniform(0.0, 1e-5, (n, 3))
+    else:
+        rays = -(-n // 32)
+        o = rng.uniform(0.1, 0.9, (rays, 1, 3))
+        d = rng.normal(size=(rays, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = np.sort(rng.uniform(0.0, 0.3, (rays, 32, 1)), axis=1)
+        x = np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3)[:n]
+    return torch.tensor(x.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize('kind', ['one_cell', 'rays'])
+@pytest.mark.parametrize('variant,features', [
+    ('native', 128), ('tcnn', 128), ('torch_ngp', 128), ('native', 2),
+    ('tcnn', 2), ('torch_ngp', 2)])
+def test_encode_backward_kernel_on_clustered_points(cuda, variant, features,
+                                                   kind):
+    """K2 where a tile's updates share rows: every point in one cell (each
+    corner's row a group of 32 entries in each of 64 tiles, and every
+    tile's atomics into the same 8 rows a level) or ray-ordered
+    samples."""
+    rng = np.random.default_rng(13)
+    config = _fine_grid(variant, features)
+    n = 2048
+    x = _clustered(rng, n, kind, cuda)
+    g = torch.tensor(rng.normal(size=(n, config.out_dim)).astype(
+        np.float32), device=cuda)
+    if features == 128:
+        shape = hashgrid_cuda.encode_backward_launch_shapes(config, n)
+        assert shape['scatter_rows_kernel']['points_per_tile'] == K2_TILE
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode_backward(g, x, config)
+    assert _kernels.launches[hashgrid_cuda.BWD_NAME] == 1
+    want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
+    _assert_within_sum_orders(got, want, g, x, config)
+
+
+@pytest.mark.parametrize('n', [0, 1, K2_TILE - 1, K2_TILE + 1, 5000])
+@pytest.mark.parametrize('variant,features,domain', [
+    ('native', 128, 'unit'), ('torch_ngp', 128, 'outside'),
+    ('tcnn', 2, 'unit')])
+def test_encode_backward_kernel_ragged_tiles(cuda, variant, features, domain,
+                                            n):
+    """K2 on point counts around its tile (a partial tile, one point, none)
+    and over many tiles, on dense and hashed levels."""
+    rng = np.random.default_rng(14)
+    config = _fine_grid(variant, features)
+    x = _points(rng, max(n, 4), cuda, domain)[:n].contiguous()
+    g = torch.tensor(rng.normal(size=(n, config.out_dim)).astype(
+        np.float32), device=cuda)
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode_backward(g, x, config)
+    assert _kernels.launches[hashgrid_cuda.BWD_NAME] == 1
+    want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
+    if n == 0:
+        assert not bool(got.any())
+    _assert_within_sum_orders(got, want, g, x, config)
 
 
 def test_encode_backward_refuses_the_point_gradient(cuda):
@@ -429,22 +520,88 @@ def test_head_backward_weight_gradients_are_deterministic(cuda):
         assert torch.equal(a, b)
 
 
-def test_mlp3_backward_kernel_matches_plain(cuda):
+# K4b's points per warp tile, and per block step (8 warps).
+MLP3_BWD_STEP = 128
+
+
+@pytest.mark.parametrize('hidden,d_in,d_out,n,need_dX', [
+    (64, 36, 1, 1000, True), (64, 36, 1, 0, True), (64, 36, 1, 1, False),
+    (64, 36, 1, MLP3_TILE - 1, True), (64, 36, 1, MLP3_TILE + 1, False),
+    (64, 36, 1, MLP3_BWD_STEP - 1, True),
+    (64, 36, 1, MLP3_BWD_STEP + 1, True), (64, 36, 1, 5000, False),
+    (16, 36, 1, 1000, True), (16, 36, 1, 5000, False),
+    (128, 36, 1, 1000, True), (128, 36, 16, 5000, False),
+    (256, 36, 1, 333, True), (256, 36, 1, MLP3_BWD_STEP + 1, False),
+    (64, 100, 80, 1000, True), (32, 37, 16, 333, True)])
+def test_mlp3_backward_kernel_matches_plain(cuda, hidden, d_in, d_out, n,
+                                            need_dX):
+    """K4b through autograd of the mlp3, on fp32 packed weights (cast to
+    bf16 inside, fp32 weight gradients back), against the plain backward
+    with the same bf16 operands: dX within 2e-2 of its largest magnitude,
+    each dW within 1e-2 of its norm. Ragged n around the warp's tile and
+    the block's step, hidden 16 to 256 (dW in registers up to 64, in the
+    block's partial beyond), d_out 80 and X rows of 37 floats; need_dX
+    False as the training step calls it (X takes no gradient)."""
     g = torch.Generator().manual_seed(4)
-    weights = [w.to(cuda) for w in mlp_init(g, 36, 64, 1, 2)]
+    weights = [w.to(cuda) for w in mlp_init(g, d_in, hidden, d_out, 2)]
     packed = [w.requires_grad_(True) for w in heads_cuda.pack_mlp3(weights)]
-    X = (torch.rand((1000, 36), generator=g) * 2 - 1).to(cuda)
-    X.requires_grad_(True)
+    X = (torch.rand((n, d_in), generator=g) * 2 - 1).to(cuda)
+    X.requires_grad_(need_dX)
     _kernels.reset_launches()
     out = heads_cuda.fused_mlp3(packed, X)
     cot = torch.randn(out.shape, generator=g).to(cuda)
-    got = torch.autograd.grad(out, [X, *packed], cot)
+    inputs = [X] * need_dX + packed
+    got = torch.autograd.grad(out, inputs, cot)
     assert _kernels.launches[heads_cuda.MLP3_BWD] == 1
     bf = [w.detach().to(torch.bfloat16) for w in packed]
     dX, dws = heads_cuda.fused_mlp3_backward_plain(
         bf, X.detach(), cot, compute_dtype=torch.bfloat16)
-    torch.testing.assert_close(got[0], dX, rtol=0,
-                               atol=2e-2 * float(dX.abs().max()))
-    for a, b in zip(got[1:], dws):
-        assert a.dtype == torch.float32
-        assert _rel_err(a, b) < 1e-2
+    if need_dX:
+        assert got[0].shape == dX.shape
+        if n:
+            torch.testing.assert_close(got[0], dX, rtol=0,
+                                       atol=2e-2 * float(dX.abs().max()))
+    for a, b in zip(got[need_dX:], dws):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        if n:
+            assert _rel_err(a, b) < 1e-2
+        else:
+            assert not bool(a.any())
+
+
+@pytest.mark.parametrize('hidden,in_registers', [(64, 1), (128, 0)])
+def test_mlp3_backward_weight_gradients_are_deterministic(cuda, hidden,
+                                                          in_registers):
+    """Two K4b launches on the same inputs give bit-equal weight
+    gradients (per-block partials summed in block order; no float
+    atomics), with dW in registers (the proposal net's widths) and in the
+    block's partial."""
+    g = torch.Generator().manual_seed(10)
+    packed = [w.to(cuda).to(torch.bfloat16) for w in heads_cuda.pack_mlp3(
+        mlp_init(g, 36, hidden, 1, 2))]
+    n = 20000
+    X = (torch.rand((n, 36), generator=g) * 2 - 1).to(cuda)
+    cot = torch.randn((n, packed[2].shape[1]), generator=g).to(cuda)
+    shape = heads_cuda.mlp3_launch_shapes(packed, X)['mlp3_bwd_kernel']
+    assert shape['dw_in_registers'] == in_registers
+    _, first = heads_cuda.fused_mlp3_backward(packed, X, cot, need_dX=False)
+    _, second = heads_cuda.fused_mlp3_backward(packed, X, cot, need_dX=False)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('d_in,hidden', [(36, 512), (512, 256)])
+def test_mlp3_backward_kernel_refuses_widths_beyond_shared_memory(
+        cuda, d_in, hidden):
+    """A hidden layer wider than 256, or weights and one warp's tiles
+    beyond the card's shared memory per block, raise ValueError; nothing
+    launches."""
+    g = torch.Generator().manual_seed(9)
+    packed = [w.to(cuda) for w in heads_cuda.pack_mlp3(
+        mlp_init(g, d_in, hidden, 1, 2))]
+    X = torch.zeros((10, d_in), device=cuda)
+    cot = torch.zeros((10, packed[2].shape[1]), device=cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match='shared memory|at most 256'):
+        heads_cuda.fused_mlp3_backward(packed, X, cot)
+    assert _kernels.launches[heads_cuda.MLP3_BWD] == 0
