@@ -61,6 +61,17 @@ def model_flag_parser():
     return parser
 
 
+def parse_sampled_backward(spec):
+    """--sampled-backward's value -> RenderOptions.sampled_backward: '2' ->
+    2, '4,4,2,2' -> a per-level tuple of scatter rows (coarsest level
+    first), '0' -> 0 (JAX encoders.parse_sampled_backward, as
+    scripts/train.py reads the flag)."""
+    if isinstance(spec, (int, tuple)):
+        return spec
+    parts = [int(p) for p in str(spec).split(',')]
+    return parts[0] if len(parts) == 1 else tuple(parts)
+
+
 def effective_grid_interp(flags):
     """The interpolant a flags object actually trains with: the narrow
     reference-preset grid always interpolates trilinearly."""

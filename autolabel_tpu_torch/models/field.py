@@ -22,8 +22,7 @@ from autolabel_tpu_torch.device import resolve_device
 from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
 from autolabel_tpu_torch.ops.activation import trunc_exp
 from autolabel_tpu_torch.ops.encoders import (HashGridConfig,
-                                              frequency_encode,
-                                              hashgrid_encode, hashgrid_init,
+                                              frequency_encode, hashgrid_init,
                                               sh_encode)
 from autolabel_tpu_torch.ops.mlp import mlp_apply, mlp_init
 
@@ -44,9 +43,10 @@ class FieldConfig:
     # Optional override of the hash-grid hyperparameters; None = the
     # reference-parity defaults per encoding.
     grid: HashGridConfig = None
-    # Hash-grid implementation: 'xla' (plain PyTorch gathers) or 'pallas'
-    # (the CUDA encode kernel, ops/hashgrid_cuda.py). The names are the
-    # JAX package's, so configs and flags carry over unchanged.
+    # Hash-grid implementation, the JAX package's switch ('xla' or
+    # 'pallas'), carried so configs carry over. It routes nothing here: the
+    # encodes run the CUDA kernels on the card and the plain versions on
+    # the CPU either way (ops/hashgrid_cuda.hashgrid_encode).
     grid_impl: str = 'xla'
     # Head-stack implementation: 'xla' (mlp_apply chains) or 'pallas' (the
     # fused CUDA head and proposal kernels, ops/heads_cuda.py). Same math.
@@ -156,40 +156,48 @@ class Field(nn.Module):
         bound = self.config.bound
         return torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
 
-    def _grid_encode(self, normalized):
+    def _grid_encode(self, normalized, u=None, sampled_backward=0,
+                     backward_points=1.0):
+        """The hash-grid encode of normalized points: exact (fp32), or with
+        sampled_backward and the uniforms u the exact-forward /
+        sampled-backward encode (in the compute dtype), as JAX
+        Field._grid_encode routes a key. The kernels on the card, the plain
+        versions on the CPU."""
         c = self.config
-        table = self.encoder['grid']
-        if c.grid_impl == 'pallas' and c.grid_interp == 'trilinear':
-            return hashgrid_cuda.hashgrid_encode(table, normalized,
-                                                 c.grid_config)
-        return hashgrid_encode(table, normalized, c.grid_config,
-                               interp=c.grid_interp)
+        return hashgrid_cuda.hashgrid_encode(
+            self.encoder['grid'], normalized, c.grid_config,
+            interp=c.grid_interp, u=u, sampled_backward=sampled_backward,
+            backward_points=backward_points)
 
-    def encode(self, x):
-        """Positional encoding of (N, 3) points in [-bound, bound] (exact
-        interpolation, the eval form)."""
-        return torch.cat(self._encode_segments(x), dim=-1)
+    def encode(self, x, **estimator):
+        """Positional encoding of (N, 3) points in [-bound, bound]; exact
+        unless `estimator` (u, sampled_backward, backward_points: see
+        _grid_encode) asks for the sampled backward."""
+        return torch.cat([s.float() for s in self._encode_segments(
+            x, **estimator)], dim=-1)
 
-    def _encode_segments(self, x):
+    def _encode_segments(self, x, **estimator):
         """The encoding as a list of segments (same values and column order
         as encode(); mlp_apply consumes them as split products)."""
         c = self.config
         if c.encoding == 'freq':
             return [frequency_encode(self._normalized(x), 10)]
         if c.encoding == 'hg':
-            return [self._grid_encode(self._normalized(x))]
+            return [self._grid_encode(self._normalized(x), **estimator)]
         if c.encoding == 'hg+freq':
             # Frequency part on the raw coordinates, grid on the
             # normalized ones.
             return [frequency_encode(x, 2),
-                    self._grid_encode(self._normalized(x))]
+                    self._grid_encode(self._normalized(x), **estimator)]
         raise NotImplementedError(f"Unknown input encoding {c.encoding}")
 
     # -- heads --------------------------------------------------------------
 
-    def density(self, x):
-        """(N, 3) points -> (sigma (N,), geo_feat (N, G))."""
-        h = mlp_apply(list(self.sigma_net), self._encode_segments(x))
+    def density(self, x, **estimator):
+        """(N, 3) points -> (sigma (N,), geo_feat (N, G)); `estimator` as
+        for encode."""
+        h = mlp_apply(list(self.sigma_net),
+                      self._encode_segments(x, **estimator))
         return trunc_exp(h[..., 0]), h[..., 1:]
 
     def fused_heads_available(self):
@@ -202,11 +210,13 @@ class Field(nn.Module):
         return heads_cuda.supported(self.head_params(),
                                     12 if c.encoding == 'hg+freq' else 0)
 
-    def all_heads(self, x, d):
+    def all_heads(self, x, d, **estimator):
         """Every head in one fused kernel: (N, 3) points + (N, 3) view dirs
-        -> (sigma (N,), rgb (N, 3), logits (N, C), features (N, S))."""
+        -> (sigma (N,), rgb (N, 3), logits (N, C), features (N, S));
+        `estimator` as for encode. The fused head kernel takes fp32 A: the
+        sampled encode's bf16 values are cast, exactly."""
         c = self.config
-        A = self._grid_encode(self._normalized(x))
+        A = self._grid_encode(self._normalized(x), **estimator).float()
         freq_dim = 12 if c.encoding == 'hg+freq' else 0
         B = torch.zeros((x.shape[0], 32), dtype=torch.float32,
                         device=x.device)

@@ -1,18 +1,26 @@
 """Input encodings: frequency, spherical harmonics, multiresolution hash grid.
 
-Counterpart of autolabel_tpu/ops/encoders.py, exact paths only. The exact
-trilinear encode here (_encode_rows for wide rows, _encode_lanes for
-narrow ones) is the plain PyTorch version of the CUDA hash-grid encode
-kernel, and hashgrid_encode_backward_plain (its exact table gradient) that
-of the scatter kernel (ops/hashgrid_cuda.py). The simplex, stochastic,
-residual and sampled-backward modes of the JAX package are not ported yet
-and raise NotImplementedError.
+Counterpart of autolabel_tpu/ops/encoders.py. Here are the plain PyTorch
+versions of the CUDA hash-grid kernels (ops/hashgrid_cuda.py), on any
+device: the exact trilinear encode (_encode_rows for wide rows,
+_encode_lanes for narrow ones) and its table gradient
+(hashgrid_encode_backward_plain); the exact simplex encode
+(_encode_rows_simplex); and the flagship's exact-forward /
+sampled-backward encode: the interpolation atoms (_corner_idx_weights),
+the gather from them (_gather_from_atoms), the point subsample
+(_select_backward_points) and the sampled scatter (sampled_scatter_plain).
+The sampled encode takes its uniforms as a tensor `u`, where the JAX
+package draws them from a PRNG key. The stochastic-corner and residual
+encodes (a `key` without the sampled backward) are not ported and raise
+NotImplementedError.
 """
 import dataclasses
 import math
 
 import numpy as np
 import torch
+
+from autolabel_tpu_torch.ops.mlp import default_compute_dtype
 
 # instant-ngp spatial hashing primes (identity on x).
 _PRIMES = (1, 2654435761, 805459861)
@@ -269,23 +277,294 @@ def hashgrid_encode_backward_plain(g, x, config):
     return out
 
 
+def _simplex_corners(frac_l):
+    """Tetrahedral-interpolation corners of one level (JAX
+    encoders._simplex_corners). frac_l: (3, N) fractions in the cell. With
+    the fractions sorted s1 >= s2 >= s3, the corners are the lattice path
+    base -> +e_argmax -> +(1 - e_argmin) -> (1, 1, 1) and the weights
+    (1 - s1, s1 - s2, s2 - s3, s3), in the JAX package's fp32 expression
+    order (s2 = sum - s1 - s3, the sum taken in axis order). argmax and
+    argmin take the first index on ties. Returns (offsets (4, 3, N) int64
+    in {0, 1}, weights (4, N))."""
+    s1 = frac_l.amax(dim=0)
+    s3 = frac_l.amin(dim=0)
+    s2 = (frac_l[0] + frac_l[1]) + frac_l[2] - s1 - s3
+    axes = torch.arange(3, device=frac_l.device)[:, None]
+    o1 = (axes == frac_l.argmax(dim=0)).long()
+    o2 = 1 - (axes == frac_l.argmin(dim=0)).long()
+    offsets = torch.stack([torch.zeros_like(o1), o1, o2,
+                           torch.ones_like(o1)])
+    weights = torch.stack([1.0 - s1, s1 - s2, s2 - s3, s3])
+    return offsets, weights
+
+
+def _exact_level_rows_simplex(table, l, cell, frac, stride, use_dense,
+                              size, config):
+    """4-corner tetrahedral interpolation of one level (rows layout),
+    blended in corner order."""
+    offsets, weights = _simplex_corners(frac[:, l])
+    acc = torch.zeros((cell.shape[-1], config.n_features), dtype=table.dtype,
+                      device=table.device)
+    for ci in range(4):
+        idx = _corner_index(cell[:, l], offsets[ci], stride[l], use_dense[l],
+                            size[l])
+        acc = acc + table[l][idx] * weights[ci][:, None]
+    return acc
+
+
+def _encode_rows_simplex(table, x, config):
+    """Exact simplex encode (the plain version of the simplex encode
+    kernel's eval form), differentiable by autograd."""
+    cell, frac, stride, use_dense, size = _grid_geometry(x, config)
+    return torch.cat([
+        _exact_level_rows_simplex(table, l, cell, frac, stride, use_dense,
+                                  size, config)
+        for l in range(config.n_levels)], dim=-1)
+
+
+def _corner_idx_weights(x, config, interp):
+    """Every level's interpolation atoms: table indices (L, A, N) int32 and
+    weights (L, A, N) fp32, A = 4 (simplex) or 8 (trilinear, in _CORNERS
+    order). The plain version of the atoms the simplex encode kernel
+    writes for the sampled backward."""
+    cell, frac, stride, use_dense, size = _grid_geometry(x, config)
+    idx_levels, w_levels = [], []
+    for l in range(config.n_levels):
+        if interp == 'simplex':
+            offsets, w = _simplex_corners(frac[:, l])
+            corners = list(offsets)
+        else:
+            corners = list(_CORNERS)
+            w = torch.stack([_corner_weight(frac[:, l], c) for c in corners])
+        idx_levels.append(torch.stack([
+            _corner_index(cell[:, l], c, stride[l], use_dense[l], size[l])
+            for c in corners]))
+        w_levels.append(w)
+    return torch.stack(idx_levels).to(torch.int32), torch.stack(w_levels)
+
+
+def _gather_from_atoms(table, idx, w, config, dtype):
+    """Exact interpolation from the atoms, in `dtype` (the MLP compute
+    dtype: bf16 on the card, fp32 on the CPU): each product and partial
+    sum rounded to it, in atom order, as the JAX package computes it."""
+    n = idx.shape[2]
+    outs = []
+    for l in range(config.n_levels):
+        table_l = table[l].to(dtype)
+        acc = torch.zeros((n, config.n_features), dtype=dtype,
+                          device=table.device)
+        for ci in range(idx.shape[1]):
+            acc = acc + table_l[idx[l, ci].long()] \
+                * w[l, ci].to(dtype)[:, None]
+        outs.append(acc)
+    return torch.cat(outs, dim=-1)
+
+
+def _select_scan(g):
+    """p_i ∝ ||g_i|| (uniform when the total is 0) and its inclusive scan
+    normalized to end at 1, in fp32: what _select_backward_points draws
+    from."""
+    n = g.shape[0]
+    g32 = g.float()
+    s = torch.sqrt((g32 * g32).sum(dim=-1))
+    tot = s.sum()
+    p = torch.where(tot > 0, s / torch.clamp(tot, min=1e-30),
+                    torch.full_like(s, 1.0 / n))
+    cum = torch.cumsum(p, dim=0)
+    return p, cum / cum[-1]
+
+
+def _select_backward_points(g, u_sys, k):
+    """Systematic resample of k points from p_i ∝ ||g_i|| (JAX
+    encoders._select_backward_points): counts_i = #{grid positions
+    (j + u_sys) / k in (cum_{i-1}, cum_i]}, coef = counts / (k p). Returns
+    the points with counts > 0 in ascending order and their coefs; JAX
+    pads the same set to k with coef-0 rows (top_k's order), which
+    scatter nothing. The plain version of the point-subsample kernel."""
+    return _select_from_scan(*_select_scan(g), u_sys, k)
+
+
+def _select_from_scan(p, cum, u_sys, k):
+    """_select_backward_points from its scan (p, cum): the same scan read
+    twice selects the same points, where torch.cumsum on the card may not
+    give the same bits twice."""
+    c = torch.floor(k * cum - u_sys)
+    counts = torch.diff(c, prepend=c.new_full((1,), -1.0))
+    sel = torch.nonzero(counts > 0).squeeze(1)
+    coef = counts[sel] / (k * torch.clamp(p[sel], min=1e-30))
+    return sel, coef
+
+
+def _pick_rows(rows, i):
+    """rows (A, N) -> (N,): rows[i[n], n]."""
+    return rows.gather(0, i[None].long())[0]
+
+
+def _atom_cumsum(w):
+    """Partial sums of w (A, N) over atoms, each in fp32 and in atom order
+    (as the JAX package's cumsum and sum; torch.cumsum on the CPU would
+    accumulate in float64)."""
+    out = [w[0]]
+    for a in range(1, w.shape[0]):
+        out.append(out[-1] + w[a])
+    return torch.stack(out)
+
+
+def _draw_rows(idx_l, w_l, u_l, rows):
+    """The (row, weight) pairs one level's points scatter into: every atom
+    at its weight (rows = A); the max-weight atom (first on ties) at w_m
+    and a draw from the rest at 1 - w_m (rows = 2); or one draw J ~ w at
+    weight 1 (rows = 1). Draws by inverse CDF of u_l over the atoms'
+    fp32 partial sums. Returns a list of ((N,) rows, (N,) weights or None
+    for 1)."""
+    n_atoms = w_l.shape[0]
+    if rows >= n_atoms:
+        return [(idx_l[a], w_l[a]) for a in range(n_atoms)]
+    if rows == 2:
+        m = w_l.argmax(dim=0)
+        w_m = _pick_rows(w_l, m)
+        wr = torch.where(torch.arange(n_atoms, device=w_l.device)[:, None]
+                         == m[None], torch.zeros_like(w_l), w_l)
+        cum = _atom_cumsum(wr)
+        cum = cum / torch.clamp(cum[-1], min=1e-12)
+        j = (u_l[None] > cum[:-1]).sum(dim=0)
+        return [(_pick_rows(idx_l, m), w_m),
+                (_pick_rows(idx_l, j), 1.0 - w_m)]
+    j = (u_l[None] > _atom_cumsum(w_l[:-1])).sum(dim=0)
+    return [(_pick_rows(idx_l, j), None)]
+
+
+def sampled_scatter_plain(g, idx, w, u, rows, config, sel=None, coef=None):
+    """The sampled table gradient (JAX encoders._encode_sampled_bwd_bwd
+    after its point subsample), the plain version of the sampled scatter
+    kernel. g: (N, L * F) cotangent of the encode; idx, w: the (L, A, N)
+    atoms; u: (L, N[+1]) uniforms (None when every level scatters all A
+    rows); rows: per-level scatter rows (1, 2 or A). With (sel, coef),
+    only the selected points scatter, their cotangents scaled by coef.
+    Returns (L, T, F) fp32."""
+    f = config.n_features
+    n = idx.shape[2]
+    g = g.float()
+    uc = None if u is None else u[:, :n]
+    if sel is not None:
+        g = g[sel] * coef[:, None]
+        idx, w = idx[:, :, sel], w[:, :, sel]
+        uc = None if uc is None else uc[:, sel]
+    cot = torch.zeros((config.n_levels, config.table_size, f),
+                      dtype=torch.float32, device=g.device)
+    for l in range(config.n_levels):
+        g_l = g[:, l * f:(l + 1) * f]
+        u_l = None if uc is None else uc[l]
+        for row, weight in _draw_rows(idx[l].long(), w[l], u_l, rows[l]):
+            cot[l].index_add_(0, row,
+                              g_l if weight is None else weight[:, None] * g_l)
+    return cot
+
+
+def backward_subsample(n, point_frac):
+    """The points the sampled backward scatters, k = round(frac * n) (at
+    least 1), or None when every point does."""
+    return max(1, int(round(point_frac * n))) if point_frac < 1.0 else None
+
+
+def sampled_backward_plain(g, idx, w, u, rows, config, point_frac):
+    """The whole sampled table gradient: the point subsample when
+    point_frac < 1 (systematic offset u[0, N]), then the scatter."""
+    k = backward_subsample(idx.shape[2], point_frac)
+    if k is None:
+        return sampled_scatter_plain(g, idx, w, u, rows, config)
+    sel, coef = _select_backward_points(g, u[0, idx.shape[2]], k)
+    return sampled_scatter_plain(g, idx, w, u, rows, config, sel, coef)
+
+
+class _SampledEncodePlain(torch.autograd.Function):
+    """Exact forward from the atoms, in the compute dtype; sampled table
+    gradient; zero cotangents for x and u (JAX _encode_sampled_bwd)."""
+
+    @staticmethod
+    def forward(ctx, table, x, u, config, interp, rows, point_frac):
+        idx, w = _corner_idx_weights(x, config, interp)
+        ctx.save_for_backward(idx, w, u)
+        ctx.args = (rows, config, point_frac)
+        return _gather_from_atoms(table, idx, w, config,
+                                  default_compute_dtype(x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w, u = ctx.saved_tensors
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            dtable = sampled_backward_plain(g, idx, w, u, *ctx.args)
+        return dtable, None, None, None, None, None, None
+
+
+def sampled_rows(config, interp, sampled_backward, backward_points):
+    """Validate the sampled-backward options as the JAX package does and
+    return (per-level rows tuple, point fraction)."""
+    if config.n_features % 8 != 0:
+        raise NotImplementedError(
+            "sampled_backward is implemented for the wide-row "
+            "(TPU_GRID-shaped) layout only")
+    n_atoms = 4 if interp == 'simplex' else 8
+    if isinstance(sampled_backward, int):
+        rows = (int(sampled_backward),) * config.n_levels
+    else:
+        rows = tuple(int(r) for r in sampled_backward)
+    if len(rows) != config.n_levels or any(r not in (1, 2, n_atoms)
+                                           for r in rows):
+        raise NotImplementedError(
+            "sampled_backward must be 1 (importance draw), 2 "
+            f"(residual pair), or {n_atoms} (exact scatter for this "
+            "interpolation), or a per-level tuple of those with one "
+            f"entry per grid level; got {sampled_backward!r}")
+    pf = float(backward_points)
+    if not 0.0 < pf <= 1.0:
+        raise ValueError(
+            f"backward_points must be in (0, 1]; got {backward_points!r}")
+    return rows, pf
+
+
+def check_uniforms(u, config, n, point_frac):
+    """u must be (L, N), or (L, N + 1) when the points are subsampled
+    (u[0, N] is the systematic offset), float32."""
+    want = (config.n_levels, n + (1 if point_frac < 1.0 else 0))
+    if tuple(u.shape) != want or u.dtype != torch.float32:
+        raise ValueError(f'u must be float32 of shape {want}, got '
+                         f'{u.dtype} {tuple(u.shape)}')
+
+
 def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
                     interp='trilinear', residual=False, sampled_backward=0,
-                    backward_points=1.0):
-    """Encode (N, 3) points in [0, 1] -> (N, n_levels * n_features).
+                    backward_points=1.0, u=None):
+    """Encode (N, 3) points in [0, 1] -> (N, n_levels * n_features), as
+    autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch.
 
-    The exact trilinear interpolation (key=None), as in
-    autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch
-    (differentiable by autograd). The other modes are not ported yet.
+    u: the sampled backward's uniforms ((L, N), or (L, N + 1) when
+    backward_points < 1), which JAX draws from its key. With
+    sampled_backward and u the encode is exact forward / sampled backward,
+    its output in the compute dtype; otherwise it is the exact trilinear
+    or simplex interpolation, differentiable by autograd. A `key` (the
+    stochastic and residual encodes) is not ported and raises.
     """
-    if key is not None or sampled_backward or residual:
+    if key is not None:
         raise NotImplementedError(
-            "stochastic, residual and sampled-backward encodes are not "
-            "ported yet")
+            "the stochastic-corner and residual encodes are not ported; the "
+            "sampled backward takes its uniforms as u")
+    del n_samples, exact_levels, residual
+    if sampled_backward and u is not None:
+        rows, pf = sampled_rows(config, interp, sampled_backward,
+                                backward_points)
+        check_uniforms(u, config, x.shape[0], pf)
+        return _SampledEncodePlain.apply(table, x, u, config, interp, rows,
+                                         pf)
+    if interp == 'simplex':
+        if config.n_features % 8 != 0:
+            raise NotImplementedError(
+                "simplex interpolation is implemented for the wide-row "
+                "(TPU_GRID-shaped) layout only")
+        return _encode_rows_simplex(table, x, config)
     if interp != 'trilinear':
-        raise NotImplementedError(
-            f"{interp!r} interpolation is not ported yet")
-    del n_samples, exact_levels, backward_points
+        raise ValueError(f'unknown interpolation {interp!r}')
     if config.n_features % 8 == 0:
         return _encode_rows(table, x, config)
     return _encode_lanes(table, x, config)

@@ -1,16 +1,30 @@
-"""The hash-grid encode kernels (csrc/hashgrid_encode.cu, forward;
-csrc/hashgrid_bwd.cu, the table gradient) and their wrappers.
+"""The hash-grid kernels and their wrappers.
 
-Counterpart of autolabel_tpu/ops/hashgrid_pallas.py: the exact trilinear
-encode (`hashgrid_encode_pallas`) and its VJP (`hashgrid_encode_hybrid`,
-whose table gradient the JAX package leaves to XLA's scatter-add). On CPU
-tensors the wrapper computes the plain PyTorch version
-(ops/encoders.hashgrid_encode, differentiated by autograd); on CUDA
-tensors the forward launches the encode kernel and autograd's backward
-launches the scatter kernel, or they raise. The gradient for x, which only
-pose refinement needs, is not ported: asking for it on the card raises.
+Counterpart of autolabel_tpu/ops/hashgrid_pallas.py (the exact trilinear
+encode `hashgrid_encode_pallas` and its VJP `hashgrid_encode_hybrid`) and
+of the functions of autolabel_tpu/ops/encoders.py that XLA compiles for
+the TPU on the flagship's path: the simplex encode, the sampled
+backward's interpolation atoms, its point subsample and its scatter.
+
+- K1 (csrc/hashgrid_encode.cu) and K2 (csrc/hashgrid_bwd.cu): the exact
+  trilinear encode and its table gradient (`_Encode`).
+- K1s (csrc/hashgrid_atoms.cu): the simplex or trilinear encode from
+  each point's interpolation atoms (A = 4 or 8 table rows and weights a
+  level), written out as (L, A, N) indices and weights where a backward
+  needs them; fp32 out for the exact encode, the compute dtype (bf16) for
+  the sampled one.
+- K5 (csrc/select_points.cu): the sampled backward's point subsample.
+- K2s (csrc/hashgrid_sampled_bwd.cu): the sampled (or, with every level
+  at A rows, exact) table gradient from the atoms.
+
+On CPU tensors the wrappers compute the plain PyTorch versions
+(ops/encoders.py); on CUDA tensors they launch the kernels or raise. The
+gradient for x, which only pose refinement needs, is not ported: asking
+for it of an exact encode on the card raises; the sampled encode's is
+zero, as in the JAX package.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -19,14 +33,21 @@ from autolabel_tpu_torch.ops import _kernels, encoders
 
 NAME = 'hashgrid_encode'
 BWD_NAME = 'hashgrid_encode_bwd'
+ATOMS_NAME = 'hashgrid_encode_atoms'
+SELECT_NAME = 'select_points'
+SAMPLED_BWD_NAME = 'hashgrid_sampled_bwd'
 _SOURCE = 'hashgrid_encode.cu'
 _BWD_SOURCE = 'hashgrid_bwd.cu'
+_ATOMS_SOURCE = 'hashgrid_atoms.cu'
+_SELECT_SOURCE = 'select_points.cu'
+_SAMPLED_BWD_SOURCE = 'hashgrid_sampled_bwd.cu'
 _MAX_LEVELS = 32  # MAX_LEVELS in hashgrid_common.cuh
 
 
-def hashgrid_encode_plain(table, x, config):
-    """The plain PyTorch version of the encode kernel, on any device."""
-    return encoders.hashgrid_encode(table, x, config)
+def hashgrid_encode_plain(table, x, config, **kwargs):
+    """The plain PyTorch version of the encode kernels, on any device:
+    encoders.hashgrid_encode with the same options as hashgrid_encode."""
+    return encoders.hashgrid_encode(table, x, config, **kwargs)
 
 
 def hashgrid_encode_backward_plain(g, x, config):
@@ -108,10 +129,11 @@ def level_divisors(sizes):
     return np.asarray(magic, np.uint32), np.asarray(shift, np.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _geometry(config):
-    """The per-level arrays the kernels take (kept alive by the caller
-    until the launch returns: the launcher copies them): scales, dense
-    strides, sizes, use_dense and the sizes' divisor constants."""
+    """The per-level arrays the kernels take (the launcher copies them),
+    made once per grid config: scales, dense strides, sizes, use_dense and
+    the sizes' divisor constants."""
     scales, strides, sizes, use_dense = encoders.level_geometry(config)
     magic, shift = level_divisors(sizes)
     return (np.ascontiguousarray(scales, np.float32),
@@ -176,6 +198,44 @@ def encode_backward_launch_shapes(config, n):
             dict(zip(keys, out))}
 
 
+def sampled_launch_shapes(config, n, slots, interp='simplex'):
+    """The launch shapes of K1s (training form: atoms, bf16 out; eval
+    form: fp32 out), K5's three kernels and K2s (bf16 cotangent, `slots`
+    selected points), as the C libraries plan them: blocks, threads,
+    static shared bytes, blocks per SM, registers, points per warp, tile
+    or block."""
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'points')
+    a = _atom_count(interp)
+    shapes = {}
+    fn = _kernels.library(_ATOMS_SOURCE).hashgrid_atoms_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for form, write, bf16 in (('training', 1, 1), ('eval', 0, 0)):
+        out = (ctypes.c_int * 6)()
+        _kernels.check(fn(config.n_levels, n, a, write, bf16, out),
+                       ATOMS_NAME)
+        shapes[f'K1s atoms_rows_kernel ({form})'] = dict(zip(keys, out))
+    fn = _kernels.library(_SELECT_SOURCE).select_points_shape
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 18)()
+    _kernels.check(fn(n, out), SELECT_NAME)
+    for i, name in enumerate(('norms_kernel', 'counts_kernel',
+                              'compact_kernel')):
+        shapes[f'K5 {name}'] = dict(zip(keys, out[6 * i:6 * i + 6]))
+    fn = _kernels.library(_SAMPLED_BWD_SOURCE).hashgrid_sampled_bwd_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _kernels.check(fn(config.n_levels, config.n_features, slots, 1, out),
+                   SAMPLED_BWD_NAME)
+    shapes['K2s sampled_rows_kernel'] = dict(zip(keys, out))
+    return shapes
+
+
 def atomic_rows(buf, updates):
     """Add 1 to `updates` rows of buf (rows, F fp32, F a multiple of 4) drawn
     by a fixed hash, a warp of float4 atomics a row: the floor K2's atomics
@@ -235,9 +295,596 @@ class _Encode(torch.autograd.Function):
         return dtable, None, None
 
 
-def hashgrid_encode(table, x, config):
-    """Exact trilinear encode of (N, 3) points in [0, 1] -> (N, L * F):
-    the plain version on the CPU, the CUDA kernels on the card."""
+# -- K1s, K5, K2s: the simplex encode and the sampled backward -------------
+
+def _atom_count(interp):
+    return 4 if interp == 'simplex' else 8
+
+
+def _atoms_call(table, x, config, interp, out_dtype, atoms):
+    """K1s: the encode of x from its interpolation atoms, out_dtype fp32 or
+    bf16, and with atoms the (L, A, N) int32 indices and fp32 weights."""
+    _check_inputs(ATOMS_NAME, x, config, table, _table_shape(config))
+    if config.n_features % 4:
+        raise ValueError(f'{ATOMS_NAME}: features must be a multiple of 4')
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'{ATOMS_NAME}: output must be float32 or bfloat16')
+    n, a = x.shape[0], _atom_count(interp)
+    dev = x.device
+    out = torch.empty((n, config.out_dim), dtype=out_dtype, device=dev)
+    idx = w = None
+    if atoms:
+        idx = torch.empty((config.n_levels, a, n), dtype=torch.int32,
+                          device=dev)
+        w = torch.empty((config.n_levels, a, n), dtype=torch.float32,
+                        device=dev)
+    fn = _kernels.library(_ATOMS_SOURCE).hashgrid_atoms_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 11
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    geometry = _geometry(config)
+    status = fn(x.data_ptr(), table.data_ptr(), out.data_ptr(),
+                idx.data_ptr() if atoms else None,
+                w.data_ptr() if atoms else None,
+                *[g.ctypes.data for g in geometry], float(config.pos_offset),
+                n, config.n_levels, config.table_size, config.n_features, a,
+                int(out_dtype == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, ATOMS_NAME)
+    _kernels.launches[ATOMS_NAME] += 1
+    return out, idx, w
+
+
+def encode_atoms_plain(table, x, config, interp, out_dtype, atoms=True):
+    """The plain version of K1s, on any device: (out, idx, w), the atoms
+    None without `atoms`. fp32 out is the exact encode; another dtype
+    interpolates from the atoms in it (encoders._gather_from_atoms)."""
+    idx, w = encoders._corner_idx_weights(x, config, interp)
+    if out_dtype == torch.float32:
+        out = (encoders._encode_rows_simplex(table, x, config)
+               if interp == 'simplex' else
+               encoders.hashgrid_encode(table, x, config))
+    else:
+        out = encoders._gather_from_atoms(table, idx, w, config, out_dtype)
+    return (out, idx, w) if atoms else (out, None, None)
+
+
+def encode_atoms(table, x, config, interp='simplex',
+                 out_dtype=torch.float32, atoms=True):
+    """K1s on the card, its plain version on the CPU."""
     if x.device.type == 'cpu' and table.device.type == 'cpu':
-        return hashgrid_encode_plain(table, x, config)
+        return encode_atoms_plain(table, x, config, interp, out_dtype, atoms)
+    return _atoms_call(table.detach(), x, config, interp, out_dtype, atoms)
+
+
+def _g_dtype(name, g, n, width):
+    if g.dtype not in (torch.float32, torch.bfloat16) or g.dim() != 2 \
+            or tuple(g.shape) != (n, width) or not g.is_contiguous() \
+            or g.data_ptr() % 16:
+        raise ValueError(f'{name}: g must be a contiguous, 16-byte aligned '
+                         f'({n}, {width}) float32 or bfloat16 tensor')
+    return int(g.dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=64)
+def select_workspace_bytes(n):
+    """The scratch K5 needs for n points, as its C library counts it."""
+    fn = _kernels.library(_SELECT_SOURCE).select_points_workspace
+    fn.argtypes = [ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    return fn(n)
+
+
+@functools.lru_cache(maxsize=1)
+def select_tile():
+    """The points of one of K5's tiles."""
+    fn = _kernels.library(_SELECT_SOURCE).select_points_tile
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def select_workspace_views(work, n):
+    """K5's workspace of n points as its kernels leave it: the row norms s,
+    each tile's inclusive scan loc, the counts, the tiles' totals and the
+    total (as select_points.cu lays them out)."""
+    tiles = -(-n // select_tile())
+    f, i = work.view(torch.float32), work.view(torch.int32)
+    return dict(s=f[:n], loc=f[n:2 * n], counts=i[2 * n:3 * n],
+                tile_total=f[3 * n:3 * n + tiles],
+                total=f[3 * n + 2 * tiles])
+
+
+def _select_call(g, u, k, work=None):
+    """K5: (sel (k,) int32, coef (k,) fp32, count (1,) int32) on the card;
+    the first count entries are the selected points. `work`, if given,
+    is the workspace (select_workspace_bytes(n) uint8), left for the
+    caller to read (select_workspace_views)."""
+    n = g.shape[0]
+    dev = g.device
+    if g.device.type != 'cuda' or u.device != dev:
+        raise ValueError(f'{SELECT_NAME}: inputs must be on one CUDA device')
+    if g.dtype != torch.bfloat16 or g.dim() != 2 or not g.is_contiguous() \
+            or g.data_ptr() % 16 or g.shape[1] % 8:
+        raise ValueError(f'{SELECT_NAME}: g must be a contiguous, 16-byte '
+                         'aligned (N, D) bfloat16 tensor, D a multiple of 8')
+    if u.dtype != torch.float32 or u.dim() != 2 or u.shape[1] != n + 1 \
+            or not u.is_contiguous():
+        raise ValueError(f'{SELECT_NAME}: u must be contiguous float32 '
+                         f'(L, {n + 1})')
+    if not 1 <= k <= n:
+        raise ValueError(f'{SELECT_NAME}: k={k} outside [1, {n}]')
+    sel = torch.empty(k, dtype=torch.int32, device=dev)
+    coef = torch.empty(k, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    if work is None:
+        work = torch.empty(select_workspace_bytes(n), dtype=torch.uint8,
+                           device=dev)
+    elif work.dtype != torch.uint8 or work.device != dev \
+            or work.numel() != select_workspace_bytes(n):
+        raise ValueError(f'{SELECT_NAME}: the workspace must be '
+                         f'{select_workspace_bytes(n)} bytes on the card')
+    fn = _kernels.library(_SELECT_SOURCE).select_points
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    status = fn(g.data_ptr(), n, g.shape[1], u[0, n:].data_ptr(), k,
+                work.data_ptr(), sel.data_ptr(), coef.data_ptr(),
+                count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, SELECT_NAME)
+    _kernels.launches[SELECT_NAME] += 1
+    return sel, coef, count
+
+
+def select_points(g, u, k):
+    """The point subsample of the sampled backward: (sel, coef, count),
+    the count first entries of sel the points drawn (K5 on the card, in
+    ascending order within each block of points), or on the CPU the plain
+    version's (sel, coef) and their count."""
+    if g.device.type == 'cpu':
+        sel, coef = encoders._select_backward_points(g, u[0, g.shape[0]], k)
+        return sel, coef, torch.tensor([sel.shape[0]], dtype=torch.int32)
+    return _select_call(g.contiguous(), u, k)
+
+
+def _sampled_scatter_call(g, idx, w, u, rows, config, sel, coef, count):
+    """K2s: the table gradient from the atoms, every level's points (or the
+    count first of sel, scaled by coef) scattered into rows[l] rows."""
+    dev = g.device
+    n_levels, a, n = idx.shape
+    for t in (idx, w, u, sel, coef, count):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f'{SAMPLED_BWD_NAME}: inputs must be '
+                             f'contiguous on one CUDA device')
+    if dev.type != 'cuda' or idx.dtype != torch.int32 \
+            or w.dtype != torch.float32 or tuple(w.shape) != tuple(idx.shape) \
+            or n_levels != config.n_levels or a not in (4, 8):
+        raise ValueError(f'{SAMPLED_BWD_NAME}: atoms must be (L, 4 or 8, N) '
+                         f'int32 indices and fp32 weights on the card')
+    bf16 = _g_dtype(SAMPLED_BWD_NAME, g, n, config.out_dim)
+    if config.n_features % 4 or len(rows) != n_levels \
+            or any(r not in (1, 2, a) for r in rows):
+        raise ValueError(f'{SAMPLED_BWD_NAME}: rows {rows} or features '
+                         f'{config.n_features} outside the kernel')
+    if any(r < a for r in rows) and (
+            u is None or u.dtype != torch.float32 or u.dim() != 2
+            or u.shape[0] != n_levels or u.shape[1] < n):
+        raise ValueError(f'{SAMPLED_BWD_NAME}: the draws need u (L, >= N)')
+    if (sel is None) != (coef is None) or (sel is None) != (count is None):
+        raise ValueError(f'{SAMPLED_BWD_NAME}: sel, coef and count go '
+                         'together')
+    if sel is not None and (sel.dtype != torch.int32
+                            or coef.dtype != torch.float32
+                            or count.dtype != torch.int32
+                            or coef.shape != sel.shape):
+        raise ValueError(f'{SAMPLED_BWD_NAME}: sel and count int32, coef '
+                         'float32')
+    slots = n if sel is None else sel.shape[0]
+    dtable = torch.empty(_table_shape(config), dtype=torch.float32,
+                         device=dev)
+    fn = _kernels.library(_SAMPLED_BWD_SOURCE).hashgrid_sampled_bwd
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    rows_arr = (ctypes.c_int * n_levels)(*rows)
+    status = fn(g.data_ptr(), bf16, idx.data_ptr(), w.data_ptr(),
+                None if u is None else u.data_ptr(),
+                0 if u is None else u.shape[1],
+                None if sel is None else sel.data_ptr(),
+                None if sel is None else coef.data_ptr(),
+                None if sel is None else count.data_ptr(), rows_arr,
+                dtable.data_ptr(), slots, n, n_levels, config.table_size,
+                config.n_features, a,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, SAMPLED_BWD_NAME)
+    _kernels.launches[SAMPLED_BWD_NAME] += 1
+    return dtable
+
+
+def sampled_scatter(g, idx, w, u, rows, config, sel=None, coef=None,
+                    count=None):
+    """The sampled table gradient from the atoms (K2s on the card, the plain
+    version on the CPU): with (sel, coef, count) the count first selected
+    points scatter, scaled by coef; rows[l] = A is the exact scatter."""
+    if g.device.type == 'cpu':
+        if sel is not None:
+            m = int(count[0])
+            sel, coef = sel[:m].long(), coef[:m]
+        return encoders.sampled_scatter_plain(g, idx, w, u, rows, config,
+                                              sel, coef)
+    return _sampled_scatter_call(g.contiguous(), idx, w, u, rows, config,
+                                 sel, coef, count)
+
+
+def sampled_backward_tolerance(g, idx, w, u, rows, config, sel=None,
+                               coef=None):
+    """Per element of the sampled table gradient, how far two fp32 sums of
+    its terms in different orders can lie apart (as backward_tolerance):
+    2 k 2^-24 times the sum of the terms' magnitudes, k the terms of the
+    element's row under the same draws. sel: the selected points (the
+    plain version's, or the kernel's first count)."""
+    n = idx.shape[2]
+    uc = u[:, :n] if u is not None else None
+    terms = torch.zeros((config.n_levels, config.table_size),
+                        dtype=torch.float32, device=g.device)
+    idx_s, w_s = idx, w
+    if sel is not None:
+        sel = sel.long()
+        idx_s, w_s = idx[:, :, sel], w[:, :, sel]
+        uc = uc[:, sel] if uc is not None else None
+    for l in range(config.n_levels):
+        u_l = uc[l] if uc is not None else None
+        for row, _ in encoders._draw_rows(idx_s[l].long(), w_s[l], u_l,
+                                          rows[l]):
+            terms[l].index_add_(0, row, torch.ones_like(row,
+                                                        dtype=torch.float32))
+    magnitude = encoders.sampled_scatter_plain(
+        g.float().abs(), idx, w, u, rows, config, sel,
+        None if coef is None else coef.abs())
+    return 2.0 * terms[..., None] * 2.0 ** -24 * magnitude
+
+
+def _select_roundings(n, dim):
+    """The fp32 roundings in K5's p_i = s_i / total, each at most 2^-24 of
+    the quantity: every norm of a dim-wide row carries at most dim / 32
+    products a lane, 5 shuffles and the root (norm); every partial sum of
+    the norms, and the total, a chain of at most 4 (a thread's rows) + 32
+    (lanes) + 8 (warps) + n / 1024 (tiles) additions of non-negative
+    terms (chain)."""
+    return -(-dim // 32) + 6, 4 + 32 + 8 + -(-n // 1024)
+
+
+def select_scan_bound(n, k, dim):
+    """How far K5 can move k cum_i - u from the float64 value, in counts:
+    cum_i = P_i / total, the partial sum and the total each a chain of
+    roundings of sums no larger than the total, then the division, k cum
+    and - u; every norm's rounding moves cum by twice its own (through
+    P_i and the total)."""
+    norm, chain = _select_roundings(n, dim)
+    return (2 * chain + 3 + 2 * norm) * 2.0 ** -24 * k
+
+
+def select_coef_bound(n, dim):
+    """How far K5's coef = counts / (k p) can lie from counts / (k p_64),
+    relative: the norm's rounding twice (s_i, and the total through its
+    terms), the total's chain, the division p = s / total, k p and the
+    last division."""
+    norm, chain = _select_roundings(n, dim)
+    return (2 * norm + chain + 3) * 2.0 ** -24
+
+
+# float64's rounding of the distances of values up to k from integers, in
+# counts, far above it for any k below 2^30
+_F64_SLACK = 1e-6
+
+
+def _draws(cum, k, u_sys):
+    """v = k cum - u, rounded as cum's dtype rounds it, and the counts
+    diff(floor(v)) with floor(v_{-1}) = -1."""
+    v = cum * k - u_sys
+    c = torch.floor(v)
+    return v, torch.diff(c, prepend=c.new_full((1,), -1.0))
+
+
+def select_chain(g):
+    """K5's norms and scans recomputed on the CPU in its own fp32 order, for
+    g (N, D) bf16: (s, loc, tile_total) as its norms_kernel writes them.
+    A lane adds the squares of its 16-byte chunks of a row in order, each
+    by one fused multiply-add (here the exact float64 square and sum
+    rounded to fp32: the same, since a bf16 square has 16 bits), a
+    butterfly of shuffles sums the lanes;
+    in a tile each thread scans its 4 rows, the threads' totals chain
+    along the lanes and the warps' along the block."""
+    tile = select_tile()
+    n, dim = g.shape
+    width = -(-dim // 256) * 256  # 32 lanes of 8 bf16 values a chunk
+    x = np.zeros((n, width), np.float64)
+    x[:, :dim] = g.double().cpu().numpy()
+    sq = (x * x).reshape(n, width // 256, 32, 8)
+    acc = np.zeros((n, 32), np.float32)
+    for j in range(sq.shape[1]):
+        for e in range(8):
+            acc = (acc + sq[:, j, :, e]).astype(np.float32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, np.arange(32) ^ o]
+    s = np.sqrt(acc[:, 0])
+    tiles = -(-n // tile)
+    sn = np.zeros(tiles * tile, np.float32)
+    sn[:n] = s
+    run = np.add.accumulate(sn.reshape(tiles, tile // 4, 4), axis=2)
+    lanes = np.add.accumulate(run[:, :, 3].reshape(tiles, -1, 32), axis=2)
+    mine = np.concatenate([np.zeros_like(lanes[:, :, :1]),
+                           lanes[:, :, :-1]], axis=2).reshape(tiles, -1, 1)
+    warps = np.add.accumulate(lanes[:, :, 31], axis=1)
+    w = np.concatenate([np.zeros_like(warps[:, :1]), warps[:, :-1]], axis=1)
+    w = np.repeat(w, 32, axis=1)[:, :, None]
+    loc = (w + (mine + run)).reshape(-1)[:n]
+    return s, loc, warps[:, -1]
+
+
+def check_selection(g, u_sys, k, sel, coef, count, views):
+    """Hold one K5 call of (g (N, D) bf16, u_sys, k) with its outputs
+    (sel, coef, count) and workspace views (select_workspace_views) against
+    itself, the float64 truth and the plain version. Returns a dict:
+
+    - norms_off, scan_off: K5's norms, and its tiles' scans and totals,
+      that differ in their bits from select_chain's (must be 0);
+    - chain_equal: the tiles' totals chained in fp32 in tile order (as every
+      counts_kernel block chains them) give the total K5 wrote, bit-equal;
+    - counts_equal: K5's counts are exactly diff(floor(k cum - u)) of its
+      own cum = (offset + loc) / total, recomputed here in fp32 with the
+      kernel's roundings;
+    - selection_equal: sel[:count] is the points with counts > 0 in
+      ascending order, and coef bit-equal to counts / (k max(s / total,
+      1e-30));
+    - norm_rel: the largest relative deviation of s from the float64 norms,
+      relative to norms of at least 2^-50 (bounded by _select_roundings'
+      norm times 2^-24; below 2^-50 the squares' underflow in fp32, at most
+      2^-149 a rounding, can move a norm by more than that relative
+      amount, and by less absolute);
+    - scan_dev: the largest distance in counts of the fp32 k cum - u that
+      K5 floors from the float64 one (bounded by select_scan_bound);
+    - coef_rel, compared: the largest relative deviation of coef from
+      counts / (k p_64) over the selected points, and their number
+      (bounded by select_coef_bound);
+    - truth_off, truth_dist: the points whose count differs from the
+      float64 count, and the largest distance in counts of k cum_64 - u
+      from an integer among them (at or below scan_dev);
+    - plain_off, plain_dev, plain_unexplained: the points one of K5 and
+      the plain version selects and the other not or with another count;
+      the plain version's scan_dev; and the differing points
+      where k cum_64 - u lies farther than max(scan_dev, plain_dev) from
+      an integer (must be 0: an integer lies between the two scans' values);
+      plain_consistent: the plain selection is its counts' compaction;
+    - plain_coef_rel, plain_compared, plain_coef_dev: the largest relative
+      coef difference from the plain version's on every point both give
+      the same count, their number, and the plain coefs' own largest
+      relative deviation from counts / (k p_64)."""
+    cpu = torch.device('cpu')
+    n = g.shape[0]
+    m = int(count[0])
+    sel = sel[:m].to(cpu).long()
+    coef = coef[:m].to(cpu)
+    s = views['s'].to(cpu)
+    loc = views['loc'].to(cpu)
+    counts = views['counts'].to(cpu).long()
+    total = views['total'].to(cpu)
+    u = torch.as_tensor(u_sys, dtype=torch.float32).to(cpu)
+    # K5's own chain, in fp32 with its roundings
+    tt = views['tile_total'].to(cpu).numpy()
+    s_ref, loc_ref, tt_ref = select_chain(g)
+    norms_off = int((s_ref.view(np.int32)
+                     != s.numpy().view(np.int32)).sum())
+    scan_off = int((loc_ref.view(np.int32)
+                    != loc.numpy().view(np.int32)).sum()
+                   + (tt_ref.view(np.int32) != tt.view(np.int32)).sum())
+    offsets = np.empty(tt.shape[0], np.float32)
+    acc = np.float32(0.0)
+    for b, t in enumerate(tt):
+        offsets[b] = acc
+        acc = np.float32(acc + t)
+    chain_equal = acc.tobytes() == total.numpy().tobytes()
+    uniform = not float(total) > 0.0
+    if uniform:
+        cum = (torch.arange(1, n + 1, dtype=torch.float32)
+               / torch.tensor(float(n), dtype=torch.float32))
+        p = torch.full((n,), 1.0) / torch.tensor(float(n))
+    else:
+        off = torch.from_numpy(offsets).repeat_interleave(select_tile())[:n]
+        cum = (off + loc) / total
+        p = s / torch.clamp(total, min=1e-30)
+    v_k5, want = _draws(cum, k, u)
+    counts_equal = torch.equal(counts, want.long())
+    flagged = torch.nonzero(counts > 0).squeeze(1)
+    want_coef = (counts[flagged].float()
+                 / (torch.clamp(p[flagged], min=1e-30) * float(k)))
+    selection_equal = (m == min(flagged.numel(), k)
+                       and torch.equal(sel, flagged[:m])
+                       and torch.equal(coef, want_coef[:m]))
+    # the float64 truth
+    s64 = g.double().pow(2).sum(dim=-1).sqrt().to(cpu)
+    tot64 = s64.sum()
+    p64 = s64 / tot64 if float(tot64) > 0 else torch.full_like(s64, 1.0 / n)
+    cum64 = p64.cumsum(0)
+    norm_rel = float(((s.double() - s64).abs()
+                      / s64.clamp(min=2.0 ** -50)).max())
+    v, truth = _draws(cum64, k, float(u))
+    scan_dev = float((v_k5.double() - v).abs().max())
+    coef_rel = float(((coef.double() * k * p64[sel] / counts[sel].double())
+                      - 1.0).abs().max()) if m else 0.0
+    dist = (v - v.round()).abs()
+    dist = torch.minimum(dist, torch.cat([dist.new_full((1,), 1.0),
+                                          dist[:-1]]))
+    wrong = counts.double() != truth
+    # the plain version (encoders._select_backward_points) on g's device,
+    # its scan kept (torch.cumsum on the card need not repeat its bits)
+    p_p, cum_p = encoders._select_scan(g)
+    plain_sel, plain_coef = encoders._select_from_scan(p_p, cum_p, u.to(
+        g.device), k)
+    plain_sel, plain_coef = plain_sel.to(cpu), plain_coef.to(cpu)
+    v_p, counts_p = _draws(cum_p.to(cpu), k, u)
+    counts_p = counts_p.long()
+    plain_consistent = torch.equal(plain_sel,
+                                   torch.nonzero(counts_p > 0).squeeze(1))
+    plain_dev = float((v_p.double() - v).abs().max())
+    differ = counts != counts_p
+    same = torch.zeros(n, dtype=torch.bool)
+    same[sel] = True
+    same &= ~differ
+    ck = torch.zeros(n, dtype=torch.float64)
+    cp = torch.zeros(n, dtype=torch.float64)
+    ck[sel] = coef.double()
+    cp[plain_sel] = plain_coef.double()
+    plain_coef_rel = float(((ck - cp).abs() / cp.clamp(min=1e-300))[same]
+                           .max()) if bool(same.any()) else 0.0
+    plain_coef_dev = float(((plain_coef.double() * k * p64[plain_sel]
+                             / counts_p[plain_sel].double()) - 1.0)
+                           .abs().max()) if plain_sel.numel() else 0.0
+    return dict(
+        norms_off=norms_off, scan_off=scan_off,
+        chain_equal=chain_equal, counts_equal=counts_equal,
+        selection_equal=selection_equal, norm_rel=norm_rel,
+        scan_dev=scan_dev, coef_rel=coef_rel, compared=m,
+        truth_off=int(wrong.sum()),
+        truth_dist=float(dist[wrong].max()) if bool(wrong.any()) else 0.0,
+        plain_off=int(differ.sum()), plain_dev=plain_dev,
+        plain_consistent=plain_consistent,
+        plain_unexplained=int((differ & (dist > max(scan_dev, plain_dev)
+                                         + _F64_SLACK)).sum()),
+        plain_coef_rel=plain_coef_rel, plain_compared=int(same.sum()),
+        plain_coef_dev=plain_coef_dev)
+
+
+def selection_failures(check, n, k, dim):
+    """The failed conditions of a check_selection result for n points of
+    width dim and k draws, each with its numbers; empty when K5 holds."""
+    norm, _ = _select_roundings(n, dim)
+    scan_bound = select_scan_bound(n, k, dim)
+    coef_bound = select_coef_bound(n, dim)
+    c = check
+    conditions = [
+        (f'norms bit-equal to K5\'s order ({c["norms_off"]} off)',
+         c['norms_off'] == 0),
+        (f'scans bit-equal to K5\'s order ({c["scan_off"]} off)',
+         c['scan_off'] == 0),
+        ('the tiles\' chain gives the total', c['chain_equal']),
+        ('counts are the floors of K5\'s own cum', c['counts_equal']),
+        ('sel and coef are the compaction of the counts',
+         c['selection_equal']),
+        (f'norms within {norm} roundings of float64 '
+         f'({c["norm_rel"]:.3e})', c['norm_rel'] <= norm * 2.0 ** -24),
+        (f'scan within {scan_bound:.3e} counts of float64 '
+         f'({c["scan_dev"]:.3e})', c['scan_dev'] <= scan_bound),
+        (f'coefs within {coef_bound:.3e} of float64 on {c["compared"]} '
+         f'points ({c["coef_rel"]:.3e})',
+         c['compared'] > 0 and c['coef_rel'] <= coef_bound),
+        (f'counts off float64 only within the scan\'s deviation '
+         f'({c["truth_dist"]:.3e})',
+         c['truth_dist'] <= c['scan_dev'] + _F64_SLACK),
+        ('the plain version\'s selection is its counts\' compaction',
+         c['plain_consistent']),
+        (f'{c["plain_off"]} counts off the plain version\'s, '
+         f'{c["plain_unexplained"]} unexplained',
+         c['plain_unexplained'] == 0),
+        (f'coefs within {coef_bound:.3e} + {c["plain_coef_dev"]:.3e} of the '
+         f'plain version\'s on {c["plain_compared"]} points '
+         f'({c["plain_coef_rel"]:.3e})',
+         c['plain_compared'] > 0 and c['plain_coef_rel']
+         <= coef_bound + c['plain_coef_dev'])]
+    return [text for text, ok in conditions if not ok]
+
+
+class _SimplexEncode(torch.autograd.Function):
+    """The exact simplex encode while autograd records: K1s (fp32 out, the
+    atoms written for the backward), K2s with every level at its 4 rows
+    as the table gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x, config):
+        out, idx, w = _atoms_call(table, x, config, 'simplex', torch.float32,
+                                  True)
+        ctx.config = config
+        ctx.save_for_backward(idx, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                'the gradient of the hash-grid encode for x (pose '
+                'refinement) is not ported')
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            idx, w = ctx.saved_tensors
+            c = ctx.config
+            dtable = _sampled_scatter_call(g.contiguous(), idx, w, None,
+                                           (4,) * c.n_levels, c, None, None,
+                                           None)
+        return dtable, None, None
+
+
+class _SampledEncode(torch.autograd.Function):
+    """Exact forward / sampled backward (JAX encoders._encode_sampled_bwd):
+    K1s writes the atoms and the bf16 encode; the backward runs K5 when
+    the points are subsampled, then K2s. The x and u cotangents are
+    zero."""
+
+    @staticmethod
+    def forward(ctx, table, x, u, config, interp, rows, point_frac):
+        out, idx, w = _atoms_call(table, x, config, interp, torch.bfloat16,
+                                  True)
+        ctx.save_for_backward(idx, w, u)
+        ctx.args = (config, rows, point_frac)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            idx, w, u = ctx.saved_tensors
+            config, rows, point_frac = ctx.args
+            g = g.contiguous()
+            k = encoders.backward_subsample(idx.shape[2], point_frac)
+            sel = coef = count = None
+            if k is not None:
+                sel, coef, count = _select_call(g, u, k)
+            dtable = _sampled_scatter_call(g, idx, w, u, rows, config, sel,
+                                           coef, count)
+        return dtable, None, None, None, None, None, None
+
+
+def hashgrid_encode(table, x, config, interp='trilinear', u=None,
+                    sampled_backward=0, backward_points=1.0):
+    """Encode (N, 3) points in [0, 1] -> (N, L * F): the plain versions on
+    the CPU, the CUDA kernels on the card, whatever the field's grid_impl.
+
+    With sampled_backward and u (the uniforms, (L, N) or (L, N + 1)) the
+    exact-forward / sampled-backward encode (K1s, K5, K2s; bf16 out on the
+    card); otherwise the exact simplex (K1s, K2s) or trilinear (K1, K2)
+    interpolation, fp32.
+    """
+    if x.device.type == 'cpu' and table.device.type == 'cpu':
+        return hashgrid_encode_plain(table, x, config, interp=interp, u=u,
+                                     sampled_backward=sampled_backward,
+                                     backward_points=backward_points)
+    if sampled_backward and u is not None:
+        rows, pf = encoders.sampled_rows(config, interp, sampled_backward,
+                                         backward_points)
+        encoders.check_uniforms(u, config, x.shape[0], pf)
+        return _SampledEncode.apply(table, x, u.contiguous(), config, interp,
+                                    rows, pf)
+    if interp == 'simplex':
+        if config.n_features % 8:
+            raise NotImplementedError(
+                "simplex interpolation is implemented for the wide-row "
+                "(TPU_GRID-shaped) layout only")
+        if torch.is_grad_enabled() and table.requires_grad:
+            return _SimplexEncode.apply(table, x, config)
+        # serving: K1s without atoms
+        return _atoms_call(table.detach(), x, config, 'simplex',
+                           torch.float32, False)[0]
     return _Encode.apply(table, x, config)

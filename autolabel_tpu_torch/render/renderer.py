@@ -5,11 +5,13 @@ sample grid, placed uniformly or by the proposal net, and compositing is
 closed-form exp/cumsum. Ported: the eval form (no perturbation) and the
 training form (perturbed sample positions, the proposal net's interlevel
 loss, the JAX package's stop-gradients), with the proposal, fused-head,
-non-fused and upsample branches, all with the exact trilinear encode.
-JAX draws its perturbations from a PRNG key; here they come in as tensors
+non-fused and upsample branches, with the exact encode or the
+exact-forward / sampled-backward one (options.sampled_backward, which
+takes precedence over stochastic_corners, as in the JAX package). JAX
+draws its perturbations from a PRNG key; here they come in as tensors
 (`draws`) or from a torch.Generator (`key`), so tests can feed JAX's own
-draws. Occupancy masking, level windows and the stochastic or
-sampled-backward encodes are not ported and raise.
+draws. Occupancy masking, level windows and the stochastic-corner encodes
+are not ported and raise.
 
 Output contract: image, depth, semantic, semantic_features,
 depth_variance, coordinates_map, weights_sum, and interlevel (a scalar)
@@ -26,9 +28,9 @@ MIN_NEAR = 0.05
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
     """The JAX package's RenderOptions, defaults mirrored exactly. The
-    fields of estimators that are not ported (stochastic corners, the
-    sampled backward, occupancy, level windows) are carried so configs
-    transfer; a perturbed render that would use them raises."""
+    fields of what is not ported (stochastic corners without the sampled
+    backward, occupancy, level windows) are carried so configs transfer;
+    a perturbed render that would use them raises."""
     num_steps: int = 128
     upsample_steps: int = 0
     perturb: bool = False
@@ -115,11 +117,22 @@ def _interlevel_loss(z_main, d_main, w_main, z_prop, d_prop, w_prop):
     return (excess ** 2 / (bound + 1e-4)).mean()
 
 
-def draw_perturbations(generator, n_rays, options):
+def _encode_columns(options, n_points):
+    """Columns of the sampled encode's uniforms for n_points points: one
+    more (the point subsample's systematic offset) when backward_points
+    < 1."""
+    return n_points + (1 if options.backward_points < 1.0 else 0)
+
+
+def draw_perturbations(generator, n_rays, options, grid_levels=0):
     """The uniforms a perturbed render consumes, drawn from `generator` on
     its device: 'u_coarse' jitters the first sample grid (the proposal
-    samples, or the uniform samples when there is no proposal net) and
-    'u_fine' places the importance samples (proposal or upsample)."""
+    samples, or the uniform samples when there is no proposal net),
+    'u_fine' places the importance samples (proposal or upsample), and,
+    with options.sampled_backward and a hash grid of grid_levels levels,
+    'u_enc' (and 'u_enc_upsample' for the upsample query) are the sampled
+    encode's uniforms, (L, points [+ 1]) as the JAX package draws them
+    from its k_enc key."""
     first = options.proposal_steps or options.num_steps
     fine = options.num_steps if options.proposal_steps \
         else options.upsample_steps
@@ -129,6 +142,16 @@ def draw_perturbations(generator, n_rays, options):
     if fine:
         draws['u_fine'] = torch.rand((n_rays, fine), generator=generator,
                                      device=dev)
+    if options.sampled_backward and grid_levels:
+        draws['u_enc'] = torch.rand(
+            (grid_levels, _encode_columns(options,
+                                          n_rays * options.num_steps)),
+            generator=generator, device=dev)
+        if options.upsample_steps and not options.proposal_steps:
+            draws['u_enc_upsample'] = torch.rand(
+                (grid_levels, _encode_columns(
+                    options, n_rays * options.upsample_steps)),
+                generator=generator, device=dev)
     return draws
 
 
@@ -152,17 +175,32 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     n_rays = rays_o.shape[0]
     num_steps = options.num_steps
     dev = rays_o.device
+    grid = c.grid_config if c.encoding in ('hg', 'hg+freq') else None
     if options.perturb and draws is None and key is not None:
-        draws = draw_perturbations(key, n_rays, options)
+        draws = draw_perturbations(key, n_rays, options,
+                                   grid.n_levels if grid else 0)
     if not options.perturb:
         draws = None
-    if draws is not None and (options.stochastic_corners
-                              or options.sampled_backward):
+    if draws is not None and options.stochastic_corners \
+            and not options.sampled_backward:
         raise NotImplementedError(
-            'stochastic-corner and sampled-backward encodes are not ported '
-            'yet: train with stochastic_corners=0, sampled_backward=0')
+            'stochastic-corner encodes are not ported yet: train with '
+            'stochastic_corners=0 or sampled_backward')
     u_coarse = None if draws is None else draws['u_coarse']
     u_fine = None if draws is None else draws.get('u_fine')
+    # The sampled encode's options for each main-field query (the proposal
+    # net has no grid); empty for the exact encode.
+    enc, enc_upsample = {}, {}
+    if draws is not None and options.sampled_backward and grid is not None:
+        names = ['u_enc'] + (['u_enc_upsample'] if options.upsample_steps
+                             and not options.proposal_steps else [])
+        if any(name not in draws for name in names):
+            raise ValueError(f'the sampled backward needs {names} in draws')
+        opts = dict(sampled_backward=options.sampled_backward,
+                    backward_points=options.backward_points)
+        enc = dict(opts, u=draws['u_enc'])
+        if 'u_enc_upsample' in names:
+            enc_upsample = dict(opts, u=draws['u_enc_upsample'])
 
     near, far = ray_aabb_intersect(rays_o, rays_d, bound)
     sample_dist = (far - near) / num_steps  # (N, 1)
@@ -190,9 +228,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
         if u_coarse is not None:
             z = z + (u_coarse - 0.5) * sample_dist
 
-    def query_density(z_vals):
+    def query_density(z_vals, estimator):
         xyz = _points(rays_o, rays_d, z_vals, bound)
-        sigma, geo = field.density(xyz.reshape(-1, 3))
+        sigma, geo = field.density(xyz.reshape(-1, 3), **estimator)
         s = z_vals.shape[1]
         return xyz, sigma.reshape(n_rays, s), geo.reshape(n_rays, s, -1)
 
@@ -203,17 +241,18 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
         flat = xyz.reshape(-1, 3)
         dirs_flat = rays_d[:, None, :].expand(n_rays, num_steps,
                                               3).reshape(-1, 3)
-        sigma_f, rgb_f, logits_f, feats_f = field.all_heads(flat, dirs_flat)
+        sigma_f, rgb_f, logits_f, feats_f = field.all_heads(flat, dirs_flat,
+                                                            **enc)
         sigma = sigma_f.reshape(n_rays, num_steps)
     else:
-        xyz, sigma, geo = query_density(z)
+        xyz, sigma, geo = query_density(z, enc)
 
     if not use_fused and options.upsample_steps > 0:
         w_coarse = _composite_weights(sigma.detach(), _deltas(z, sample_dist))
         z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
         z_new = sample_pdf(z_mid, w_coarse[..., :-1], options.upsample_steps,
                            u=u_fine).detach()
-        xyz_new, sigma_new, geo_new = query_density(z_new)
+        xyz_new, sigma_new, geo_new = query_density(z_new, enc_upsample)
         z_all = torch.cat([z, z_new], dim=-1)
         z, order = torch.sort(z_all, dim=-1, stable=True)
         sigma = torch.gather(torch.cat([sigma, sigma_new], dim=-1), 1, order)

@@ -8,12 +8,17 @@ payload (so either package resumes or serves the other's), and staged
 eval renders. The field holds the live parameters; the trainer holds the
 EMA copy and the optimizer state.
 
-Not ported, and refused rather than ignored: the device mesh, pose
-refinement, occupancy grids, TensorBoard events, the stochastic-corner
-and sampled-backward estimators, and the phase schedule that anneals
-those estimators.
+The estimator phase schedule is the JAX trainer's: with
+sampled_warmup_fraction (and sampled_backward == 2) the first steps
+scatter one row a level, with exact_final_fraction the last steps use
+exact gathers; one set of render options per phase, chosen on the host by
+global_step. Not ported, and refused rather than ignored: the device mesh,
+pose refinement, occupancy grids, TensorBoard events and the
+stochastic-corner estimator (stochastic_corners without the sampled
+backward).
 """
 import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -31,25 +36,41 @@ _BATCH_KEYS = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
                'semantic')
 
 
-def _refuse_unported(mesh, occupancy, tensorboard, pose_refine, options,
-                     exact_final_fraction, sampled_warmup_fraction):
+def _refuse_unported(mesh, occupancy, tensorboard, pose_refine, options):
     unported = {
         'a device mesh (data parallelism)': mesh is not None,
         'occupancy grids': occupancy is not None,
         'TensorBoard events': tensorboard,
         'pose refinement': pose_refine is not None,
-        'the stochastic-corner and sampled-backward estimators':
-            options.perturb and bool(options.stochastic_corners
-                                     or options.sampled_backward),
-        'the estimator phase schedule': (
-            (sampled_warmup_fraction > 0 and options.sampled_backward == 2)
-            or (exact_final_fraction > 0 and bool(
-                options.stochastic_corners or options.sampled_backward))),
+        'the stochastic-corner estimator': (
+            options.perturb and bool(options.stochastic_corners)
+            and not options.sampled_backward),
     }
     for what, asked in unported.items():
         if asked:
             raise NotImplementedError(f'SimpleTrainer: {what} is not ported '
                                       'yet')
+
+
+def phase_schedule(options, iters, exact_final_fraction=0.0,
+                   sampled_warmup_fraction=0.0):
+    """The JAX trainer's gather-annealing phases, [(first_step, render
+    options)] ascending: [0, warmup) scatters one sampled row a level
+    (only with sampled_warmup_fraction and sampled_backward == 2), then
+    the given options, then from (1 - exact_final_fraction) * iters exact
+    gathers (only when an estimator is on)."""
+    phases = [(0, options)]
+    if (iters is not None and sampled_warmup_fraction > 0
+            and options.sampled_backward == 2):
+        phases = [(0, dataclasses.replace(options, sampled_backward=1)),
+                  (int(iters * sampled_warmup_fraction), options)]
+    if (iters is not None and exact_final_fraction > 0
+            and (options.stochastic_corners or options.sampled_backward)):
+        phases.append((int(iters * (1 - exact_final_fraction)),
+                       dataclasses.replace(options, stochastic_corners=0,
+                                           sampled_backward=0,
+                                           backward_points=1.0)))
+    return phases
 
 
 class SimpleTrainer:
@@ -81,8 +102,10 @@ class SimpleTrainer:
         del occupancy_update_every  # occupancy grids are refused below
         self.render_options = render_options or RenderOptions(perturb=True)
         _refuse_unported(mesh, occupancy, tensorboard, pose_refine,
-                         self.render_options, exact_final_fraction,
-                         sampled_warmup_fraction)
+                         self.render_options)
+        self.phases = phase_schedule(self.render_options, iters,
+                                     exact_final_fraction,
+                                     sampled_warmup_fraction)
         self.name = name
         self.field = field
         self.workspace = workspace
@@ -158,15 +181,22 @@ class SimpleTrainer:
                                                                         None]
         return batch
 
+    def step_options(self, step=None):
+        """The render options of the phase that `step` (global_step by
+        default) falls in."""
+        step = self.global_step if step is None else step
+        return [o for first, o in self.phases if step >= first][-1]
+
     def loss_and_grads(self, data, draws=None):
         """One step's loss parts (0-dim tensors, 'total' included) and the
         gradient of every parameter (name -> tensor or None), without an
-        update. draws: the render's uniforms (renderer.draw_perturbations),
-        drawn from the trainer's generator when None."""
+        update, with the render options of the current phase. draws: the
+        render's uniforms (renderer.draw_perturbations), drawn from the
+        trainer's generator when None."""
         batch = self._device_batch(data)
         outputs = render_rays(self.field, batch['rays_o'], batch['rays_d'],
                               batch['direction_norms'], key=self.generator,
-                              options=self.render_options, draws=draws)
+                              options=self.step_options(), draws=draws)
         loss, parts = compute_losses(outputs, batch, self.loss_options)
         params = self.optimizer.params
         grads = torch.autograd.grad(loss, list(params.values()),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render (serving) path and its training step on
-one CUDA card.
+"""Drive the PyTorch port's render (serving) path, its training step and
+the flagship training step on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -59,14 +59,39 @@ Phases, each failing loudly:
      step and rays/s in turns (plain, kernels, kernels, plain); (d) one
      step's peak memory, and one step under torch.profiler; (e) the trained model's checkpoint served
      through InferenceModel.from_checkpoint, equal to the trainer's own
-     render.
+     render;
+  9. the flagship step: SimpleTrainer on bench.py's model (TPU_GRID with
+     simplex interpolation, as model_utils builds it from the CLI's flags,
+     grid_impl left at 'xla') and options (sampled_backward 2,
+     backward_points 0.25), under heads_impl 'xla' and 'pallas', on the
+     same scene: K1s, K5 and K2s on every step, and on the 'pallas' leg the
+     four head kernels too. (b) one step per leg with the kernels against
+     one with the plain versions, same params and draws: loss parts and
+     every gradient but the table's; (c) 200 steps ('xla') and 20
+     ('pallas') through train_iterations, every count set to 0 just before
+     and read just after: each kernel once a step, every loss finite, the
+     held-out rgb loss falling; (a) on one more step's recorded inputs:
+     K1s (indices equal, weights bit-equal, the bf16 encode within half a
+     bf16 unit of the fp32 one and within the plain bf16 chain's
+     roundings), K5 (its counts exactly the floors of its own fp32 scan,
+     read from its workspace; that scan and its coefs within their
+     rounding bounds of float64; its coefs within those of the plain
+     subsample's wherever the two give a point the same count, and every
+     other difference within the two scans' measured deviations of a
+     boundary), K2s against the plain scatter fed
+     the same (sel, coef), K2s exact against the plain exact gradient, and
+     64 draws of K5 + K2s whose mean is the exact gradient within 4
+     standard errors; their times, bounds, launch shapes, and the bf16 ->
+     fp32 cast before K3f; (d) ms per step in turns (plain, kernels,
+     kernels, plain), peak memory and one profiled step per leg; (e) the
+     flagship checkpoint served through InferenceModel.from_checkpoint,
+     through K1s's eval form, equal to the trainer's own render.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
 """
 import argparse
 import contextlib
-import dataclasses
 import json
 import os
 import subprocess
@@ -93,6 +118,10 @@ TRAIN_BATCH, TRAIN_STEPS = 4096, 200
 TRAIN_CHUNK = 20  # steps per train_iterations call (one EMA tick each)
 TRAIN_ROUNDS, STEPS_PER_TURN = 4, 5
 SPHERE_RADIUS = 0.8
+# The flagship slice: steps of the main path per head implementation, and
+# draws of the sampled backward averaged against the exact gradient.
+FLAGSHIP_STEPS = {'xla': 200, 'pallas': 20}
+UNBIASED_DRAWS = 64
 
 
 def _fail_early(msg):
@@ -376,25 +405,27 @@ def _plain_kernels(hashgrid_cuda, heads_cuda):
          heads_cuda.fused_mlp3) = saved
 
 
-def _model_config():
-    """The full-width model both slices drive: TPU_GRID trilinear through
-    the encode kernel, the fused heads, the 36-64-64-1 proposal net,
-    hidden 128, geo 15, 64 semantic features, 6 classes, bound 2."""
+def _model_config(interp='trilinear', heads_impl='pallas'):
+    """The full-width model the slices drive, as model_utils builds it from
+    the CLI's flags (grid_impl left at 'xla': on the card every encode runs
+    a kernel): TPU_GRID with `interp` interpolation, the 36-64-64-1
+    proposal net, hidden 128, geo 15, 64 semantic features, 6 classes,
+    bound 2. With simplex it is bench.py's model (bench.py:90-99)."""
     import numpy as np
     from autolabel_tpu_torch import model_utils
     flags = model_utils.model_flag_parser().parse_args(
-        ['--grid-preset', 'tpu', '--proposal', '--heads-impl', 'pallas',
-         '--grid-interp', 'trilinear', '--feature-dim', '64'])
+        ['--grid-preset', 'tpu', '--proposal', '--heads-impl', heads_impl,
+         '--grid-interp', interp, '--feature-dim', '64'])
     lo, hi = np.full(3, -1.0), np.full(3, 1.0)  # bound = 2.0
-    return dataclasses.replace(model_utils.model_config(lo, hi, 6, flags),
-                               grid_impl='pallas')
+    return model_utils.model_config(lo, hi, 6, flags)
 
 
-def _train_slice(dev, seed):
-    """The training slice: (trainer, loader of ray batches, held-out
-    frame). SimpleTrainer on a fresh full-width field, batch TRAIN_BATCH,
-    proposal 64 -> 32, perturbed, exact trilinear gathers, on rays of the
-    procedural sphere scene seen from 8 cameras."""
+def _train_slice(dev, seed, config=None, options=None, name='train'):
+    """A training slice: (trainer, loader of ray batches, held-out frame).
+    SimpleTrainer on a fresh full-width field (default: the exact
+    trilinear model of phases 5-8), batch TRAIN_BATCH, proposal 64 -> 32,
+    perturbed (default: exact gathers), on rays of the procedural sphere
+    scene seen from 8 cameras."""
     import numpy as np
     import torch
     from autolabel_tpu_torch.core import rays
@@ -406,18 +437,49 @@ def _train_slice(dev, seed):
     loader = _RayBatches([_scene_frame(rays, pos) for pos in positions],
                          TRAIN_BATCH, dev, seed + 4)
     held_out = _scene_frame(rays, (2.2, 2.6, -0.4))
-    options = RenderOptions(perturb=True, stochastic_corners=0,
-                            sampled_backward=0, num_steps=NUM_STEPS,
-                            proposal_steps=PROPOSAL_STEPS)
-    field = Field(_model_config(), device=dev,
+    if options is None:
+        options = RenderOptions(perturb=True, stochastic_corners=0,
+                                sampled_backward=0, num_steps=NUM_STEPS,
+                                proposal_steps=PROPOSAL_STEPS)
+    field = Field(config or _model_config(), device=dev,
                   generator=torch.Generator().manual_seed(seed + 2))
     trainer = SimpleTrainer('chip_smoke', field, lr=5e-3, iters=10000,
                             render_options=options,
-                            workspace=os.path.join(WORK_DIR, 'train'),
+                            workspace=os.path.join(WORK_DIR, name),
                             use_checkpoint=None,
                             max_ray_batch=MAX_RAY_BATCH, metrics=False,
                             seed=seed)
     return trainer, loader, held_out
+
+
+def _record_flagship_inputs(trainer, loader, hashgrid_cuda):
+    """What one flagship step hands K1s (table, x), K5 (g, u, k) and K2s
+    (the atoms and rows): the step's main samples, ray by ray."""
+    rec = {}
+    atoms, select, scatter = (hashgrid_cuda._atoms_call,
+                              hashgrid_cuda._select_call,
+                              hashgrid_cuda._sampled_scatter_call)
+
+    def rec_atoms(table, x, config, interp, out_dtype, with_atoms):
+        rec.setdefault('atoms', (table.detach().clone(), x.clone()))
+        return atoms(table, x, config, interp, out_dtype, with_atoms)
+
+    def rec_select(g, u, k):
+        rec.setdefault('select', (g.clone(), u.clone(), k))
+        return select(g, u, k)
+
+    def rec_scatter(g, idx, w, u, rows, config, sel, coef, count):
+        rec.setdefault('scatter', (idx.clone(), w.clone(), rows))
+        return scatter(g, idx, w, u, rows, config, sel, coef, count)
+
+    (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+     hashgrid_cuda._sampled_scatter_call) = rec_atoms, rec_select, rec_scatter
+    try:
+        trainer.train_step(next(loader))
+    finally:
+        (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+         hashgrid_cuda._sampled_scatter_call) = atoms, select, scatter
+    return rec
 
 
 def _record_k2_inputs(trainer, loader):
@@ -456,6 +518,374 @@ def _check_k2(checks, name, hashgrid_cuda, g, x, config):
         min=1e-38)).max())
     print(f'  {name}: the hottest row sums {hottest:.0f} terms')
     return err
+
+
+def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
+    """Phase 9 (see the module docstring). Adds K1s, K5 and K2s to
+    `results` and `shapes`; returns what the output file keeps."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.inference import InferenceModel
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.render.renderer import (RenderOptions,
+                                                     draw_perturbations)
+    # ---- 9. the flagship step through SimpleTrainer: bench.py's model and
+    # options (simplex, sampled backward 2, backward_points 0.25), under
+    # both head implementations: K1s, K5 and K2s on every step, and on the
+    # 'pallas' leg K3f, K3b, K4f and K4b too.
+    # bench.py's options (bench.py:119-124)
+    fl_options = RenderOptions(num_steps=NUM_STEPS,
+                               proposal_steps=PROPOSAL_STEPS, perturb=True,
+                               stochastic_corners=0, sampled_backward=2,
+                               backward_points=0.25)
+    legs = {impl: _train_slice(dev, seed, _model_config('simplex', impl),
+                               fl_options, f'flagship_{impl}')
+            for impl in ('xla', 'pallas')}
+    fl_held = legs['xla'][2]
+    grid = legs['xla'][0].field.config.grid_config
+    new_names = {'K1s': hashgrid_cuda.ATOMS_NAME,
+                 'K5': hashgrid_cuda.SELECT_NAME,
+                 'K2s': hashgrid_cuda.SAMPLED_BWD_NAME}
+
+    # (b) one step, kernels against plain versions: same params and draws.
+    # The table's gradient is left to (a): the two subsamples may differ
+    # where k cum - u lies within their rounding of an integer.
+    fl_grad_errors = {}
+    for impl, (tr, ld, _) in legs.items():
+        batch = next(ld)
+        draws = draw_perturbations(tr.generator, TRAIN_BATCH, fl_options,
+                                   grid.n_levels)
+        parts_k, grads_k = tr.loss_and_grads(batch, draws)
+        with _plain_kernels(hashgrid_cuda, heads_cuda):
+            parts_p, grads_p = tr.loss_and_grads(batch, draws)
+        for key in parts_k:
+            checks.close(f'flagship {impl} step loss {key}', parts_k[key],
+                         parts_p[key], atol=1e-6, rtol=2e-2)
+        fl_grad_errors[impl] = {
+            name: checks.rel_norm(f'flagship {impl} step grad {name}',
+                                  grads_k[name], grads_p[name], 5e-2)
+            for name in grads_k if name != 'encoder.grid'}
+        del grads_k, grads_p
+
+    # (c) the main path: FLAGSHIP_STEPS[impl] steps through
+    # train_iterations, every count set to 0 just before and read after.
+    fl_launches, fl_curves, fl_mse, fl_train_s = {}, {}, {}, {}
+    for impl, (tr, ld, held) in legs.items():
+        _, mse_before = tr.eval_step(held)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        curve = [tr.train_iterations(ld, TRAIN_CHUNK)
+                 for _ in range(FLAGSHIP_STEPS[impl] // TRAIN_CHUNK)]
+        torch.cuda.synchronize()
+        fl_train_s[impl] = time.perf_counter() - t0
+        fl_launches[impl] = dict(_kernels.launches)
+        steps = FLAGSHIP_STEPS[impl]
+        expected = dict.fromkeys(new_names.values(), steps)
+        expected.update({hashgrid_cuda.NAME: 0, hashgrid_cuda.BWD_NAME: 0})
+        for name in (heads_cuda.HEADS, heads_cuda.HEADS_BWD, heads_cuda.MLP3,
+                     heads_cuda.MLP3_BWD):
+            expected[name] = steps if impl == 'pallas' else 0
+        for name, want in expected.items():
+            got = fl_launches[impl].get(name, 0)
+            checks.true(f'flagship {impl} launches {name}', got == want,
+                        f'{got} (expected {want})')
+        fl_curves[impl] = [{k: float(v) for k, v in c.items()}
+                           for c in curve]
+        checks.true(f'flagship {impl} losses finite', all(
+            np.isfinite(v) for c in fl_curves[impl] for v in c.values()))
+        _, mse_after = tr.eval_step(held)
+        fl_mse[impl] = [mse_before, mse_after]
+        # 200 steps: at least 2-fold; 20 steps: lower.
+        factor = 2.0 if steps >= 200 else 1.0
+        checks.true(f'flagship {impl} held-out rgb loss falls',
+                    mse_after * factor < mse_before,
+                    f'{mse_before:.5f} -> {mse_after:.5f} (PSNR '
+                    f'{_psnr(mse_before):.2f} -> {_psnr(mse_after):.2f} dB, '
+                    f'{steps} steps)')
+
+    # (a) each new kernel against its plain version on one more step's own
+    # recorded inputs (the 'xla' leg, after its 200 steps).
+    trainer, loader, _ = legs['xla']
+    rec = _record_flagship_inputs(trainer, loader, hashgrid_cuda)
+    table_f, x_f = rec['atoms']
+    g_f, u_f, k_f = rec['select']
+    idx_f, w_f, rows_f = rec['scatter']
+    n_f = x_f.shape[0]
+    # K1s, eval form: the same products and sums as the plain exact encode.
+    enc_e, _, _ = hashgrid_cuda.encode_atoms(table_f, x_f, grid,
+                                             'simplex', torch.float32, False)
+    want_e = hashgrid_cuda.encode_atoms_plain(table_f, x_f, grid,
+                                              'simplex', torch.float32,
+                                              False)[0]
+    checks.close(f'K1s eval step samples N={n_f}', enc_e, want_e, atol=1e-5,
+                 rtol=0.0)
+    # K1s, training form: indices equal, weights bit-equal; the bf16 encode
+    # its fp32 sum rounded once (half a bf16 unit: 2^-8 of the value), and
+    # within the plain bf16 chain's roundings ((4 A + 1) 2^-8 of the terms'
+    # magnitudes: the table entries, weights, products and partial sums
+    # each rounded to bf16 there, the kernel's sum once).
+    enc_t, idx_t, w_t = hashgrid_cuda.encode_atoms(
+        table_f, x_f, grid, 'simplex', torch.bfloat16, True)
+    checks.true('K1s atoms: indices equal, weights bit-equal',
+                torch.equal(idx_t, idx_f) and torch.equal(w_t, w_f))
+    checks.within(f'K1s training bf16 against fp32 N={n_f}', enc_t, want_e,
+                  2.0 ** -8 * want_e.abs() + 1e-30)
+    want_t = hashgrid_cuda.encode_atoms_plain(table_f, x_f, grid,
+                                              'simplex', torch.bfloat16)[0]
+    terms = hashgrid_cuda.encoders._gather_from_atoms(
+        table_f.abs(), idx_f, w_f, grid, torch.float32)
+    k1s_err = checks.within(f'K1s training against plain bf16 N={n_f}',
+                            enc_t, want_t, 17 * 2.0 ** -8 * terms + 1e-30)
+    del want_t, terms, enc_e
+    # K5 against itself, float64 and the plain subsample, on the step's
+    # cotangent: its counts exactly the floors of its own fp32 scan (read
+    # from its workspace), that scan within select_scan_bound of float64,
+    # its coefs within select_coef_bound of float64 on every point drawn,
+    # and of the plain version's on every point both give the same count.
+    work_f = torch.empty(hashgrid_cuda.select_workspace_bytes(n_f),
+                         dtype=torch.uint8, device=dev)
+    sel_f, coef_f, count_f = hashgrid_cuda._select_call(g_f, u_f, k_f,
+                                                        work_f)
+    m_f = int(count_f[0])
+    sel_check = hashgrid_cuda.check_selection(
+        g_f, u_f[0, n_f], k_f, sel_f, coef_f, count_f,
+        hashgrid_cuda.select_workspace_views(work_f, n_f))
+    del work_f
+    print(f'K5 [{gpu}] N={n_f} k={k_f}: {m_f} points drawn; counts equal '
+          f'to its own scan\'s floors: {sel_check["counts_equal"]}; scan '
+          f'{sel_check["scan_dev"]:.3e} counts from float64 (bound '
+          f'{hashgrid_cuda.select_scan_bound(n_f, k_f, g_f.shape[1]):.3e}); '
+          f'coefs {sel_check["coef_rel"]:.3e} from float64 (bound '
+          f'{hashgrid_cuda.select_coef_bound(n_f, g_f.shape[1]):.3e}); '
+          f'{sel_check["truth_off"]} counts off float64, '
+          f'{sel_check["plain_off"]} off the plain version\'s (its scan '
+          f'{sel_check["plain_dev"]:.3e} counts from float64); coefs '
+          f'{sel_check["plain_coef_rel"]:.3e} from the plain version\'s on '
+          f'{sel_check["plain_compared"]} points')
+    failures = hashgrid_cuda.selection_failures(sel_check, n_f, k_f,
+                                                g_f.shape[1])
+    checks.true('K5 selection against itself, float64 and plain',
+                not failures, '; '.join(failures) or 'all conditions hold')
+    k5_err = sel_check['plain_coef_rel']
+    off = sel_check['plain_off']
+    # K2s against the plain scatter fed the same (sel, coef).
+    sel_m, coef_m = sel_f[:m_f].long(), coef_f[:m_f]
+    got2 = hashgrid_cuda.sampled_scatter(g_f, idx_f, w_f, u_f, rows_f,
+                                         grid, sel_f, coef_f, count_f)
+    want2 = hashgrid_cuda.encoders.sampled_scatter_plain(
+        g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m)
+    tol2 = hashgrid_cuda.sampled_backward_tolerance(
+        g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m)
+    k2s_err = checks.within(f'K2s sampled scatter step samples k={m_f}',
+                            got2, want2, tol2)
+    del want2, tol2
+    # K2s exact: every level at its 4 rows, every point.
+    exact = hashgrid_cuda.sampled_scatter(g_f, idx_f, w_f, None, (4,) * 4,
+                                          grid)
+    want_x = hashgrid_cuda.encoders.sampled_scatter_plain(
+        g_f, idx_f, w_f, None, (4,) * 4, grid)
+    checks.within(f'K2s exact simplex step samples N={n_f}', exact, want_x,
+                  hashgrid_cuda.sampled_backward_tolerance(
+                      g_f, idx_f, w_f, None, (4,) * 4, grid))
+    del want_x
+    # Unbiasedness on the card: the mean of UNBIASED_DRAWS draws of K5 +
+    # K2s is the exact gradient within 4 standard errors (in the norm, from
+    # the draws' own spread).
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    acc = torch.zeros(exact.shape, dtype=torch.float64, device=dev)
+    acc2 = torch.zeros_like(acc)
+    for _ in range(UNBIASED_DRAWS):
+        u_d = torch.rand(u_f.shape, generator=gen, device=dev)
+        s_d, c_d, n_d = hashgrid_cuda.select_points(g_f, u_d, k_f)
+        est = hashgrid_cuda.sampled_scatter(g_f, idx_f, w_f, u_d, rows_f,
+                                            grid, s_d, c_d, n_d).double()
+        acc += est
+        acc2 += est * est
+    mean = acc / UNBIASED_DRAWS
+    var = (acc2 / UNBIASED_DRAWS - mean * mean).clamp(min=0) \
+        * UNBIASED_DRAWS / (UNBIASED_DRAWS - 1)
+    se = float(torch.sqrt(var.sum() / UNBIASED_DRAWS))
+    bias = float((mean - exact.double()).norm())
+    unbiased_ratio = bias / max(se, 1e-30)
+    print(f'K5+K2s unbiasedness [{gpu}]: |mean of {UNBIASED_DRAWS} draws - '
+          f'exact| = {bias:.4e}, standard error {se:.4e}: ratio '
+          f'{unbiased_ratio:.3f} (|exact| {float(exact.norm()):.4e})')
+    checks.true('K5+K2s unbiased', unbiased_ratio <= 4.0,
+                f'ratio {unbiased_ratio:.3f} (at most 4)')
+    del acc, acc2, mean, var, est, exact
+    torch.cuda.empty_cache()
+
+    # Times on the recorded inputs, plain versions, bounds and shapes.
+    k1s_ms = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
+        table_f, x_f, grid, 'simplex', torch.bfloat16, True), 20)
+    k1s_plain = _cuda_ms(lambda: hashgrid_cuda.encode_atoms_plain(
+        table_f, x_f, grid, 'simplex', torch.bfloat16), 3)
+    k1s_eval_ms = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
+        table_f, x_f, grid, 'simplex', torch.float32, False), 20)
+    k5_ms = _cuda_ms(lambda: hashgrid_cuda.select_points(g_f, u_f, k_f), 20)
+    k5_plain = _cuda_ms(lambda: hashgrid_cuda.encoders._select_backward_points(
+        g_f, u_f[0, n_f], k_f), 5)
+    k2s_ms = _cuda_ms(lambda: hashgrid_cuda.sampled_scatter(
+        g_f, idx_f, w_f, u_f, rows_f, grid, sel_f, coef_f, count_f), 20)
+    k2s_plain = _cuda_ms(lambda: hashgrid_cuda.encoders.sampled_scatter_plain(
+        g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m), 3)
+    cast_ms = _cuda_ms(lambda: enc_t.float(), 20)
+    # Device time per call from torch.profiler (all of a call's device
+    # work: K2s's memset of the gradient, K5's three kernels), which CUDA
+    # events over back-to-back calls overstate where a call's host work
+    # exceeds its device time.
+    device_ms = {}
+    for key, fn in (
+            ('K1s', lambda: hashgrid_cuda.encode_atoms(
+                table_f, x_f, grid, 'simplex', torch.bfloat16, True)),
+            ('K5', lambda: hashgrid_cuda.select_points(g_f, u_f, k_f)),
+            ('K2s', lambda: hashgrid_cuda.sampled_scatter(
+                g_f, idx_f, w_f, u_f, rows_f, grid, sel_f, coef_f,
+                count_f))):
+        by_name = _kernel_ms(fn)
+        device_ms[key] = None if by_name is None else sum(by_name.values())
+    n_out = grid.out_dim
+    a_atoms = 4
+    # K1s (training): x and the table rows the atoms name read (each
+    # distinct row of a level once), the bf16 encode and the (L, 4, N)
+    # atoms written; a mul and an add per atom and element in fp32.
+    k1s_rows = sum(int(torch.unique(idx_f[l]).numel())
+                   for l in range(grid.n_levels))
+    k1s_bound = _bound(_nbytes(x_f) + k1s_rows * grid.n_features * 4
+                       + n_f * n_out * 2
+                       + 2 * grid.n_levels * a_atoms * n_f * 4,
+                       2 * a_atoms * n_f * n_out, PEAK_FP32)
+    print(f'K1s [{gpu}] N={n_f}: the atoms name {k1s_rows} distinct table '
+          f'rows of {grid.n_levels * grid.table_size}')
+    # K5: g read, the selection written; a mul and an add per element.
+    k5_bound = _bound(_nbytes(g_f) + 4 + m_f * 8 + 4,
+                      2 * g_f.numel(), PEAK_FP32)
+    # K2s: the selected points' g, atoms and uniforms and the selection
+    # read, the table gradient written; two muls and an add per term.
+    rows_sum = sum(rows_f)
+    k2s_bound = _bound(m_f * (n_out * g_f.element_size() + 8
+                              + grid.n_levels * (a_atoms * 8 + 4))
+                       + _nbytes(table_f),
+                       3 * m_f * rows_sum * grid.n_features, PEAK_FP32)
+    results['K1s'] = dict(max_abs_err=k1s_err, ms=k1s_ms, plain_ms=k1s_plain,
+                          bound=k1s_bound, library_ms=None,
+                          eval_ms=k1s_eval_ms, device_ms=device_ms['K1s'])
+    results['K5'] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain,
+                         bound=k5_bound, library_ms=None, selected=m_f,
+                         k=k_f, off=off, scan_dev=sel_check['scan_dev'],
+                         coef_rel=sel_check['coef_rel'],
+                         device_ms=device_ms['K5'])
+    results['K2s'] = dict(max_abs_err=k2s_err, ms=k2s_ms,
+                          plain_ms=k2s_plain, bound=k2s_bound,
+                          library_ms=None, unbiased_ratio=unbiased_ratio,
+                          device_ms=device_ms['K2s'])
+    shapes.update(hashgrid_cuda.sampled_launch_shapes(grid, n_f, k_f))
+    _print_shapes(gpu, {f'{k} N={n_f}': v for k, v in shapes.items()
+                        if k.startswith(('K1s', 'K5', 'K2s'))})
+    print(f'cast bf16 -> fp32 before K3f [{gpu}] ({n_f} x {n_out}): '
+          f'{cast_ms:.4f} ms')
+    for key in ('K1s', 'K5', 'K2s'):
+        r = results[key]
+        print(f'kernel {key} [{gpu}] step samples: {r["ms"]:.4f} ms by '
+              f'events, {r["device_ms"]} ms device, plain '
+              f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
+              f'({r["bound"][1]})')
+    print(f'kernel K1s eval form [{gpu}] step samples: {k1s_eval_ms:.4f} ms')
+    del rec, table_f, x_f, g_f, u_f, idx_f, w_f, enc_t, idx_t, w_t, got2
+    torch.cuda.empty_cache()
+
+    # (d) ms per step in turns (plain, kernels, kernels, plain) per leg;
+    # peak memory and one profiled step per leg.
+    fl_steady, fl_stats, fl_peak, fl_profile = {}, {}, {}, {}
+    for impl, (tr, ld, _) in legs.items():
+        def fl_step_ms():
+            batches = [next(ld) for _ in range(STEPS_PER_TURN)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for batch in batches:
+                tr.train_step(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3 / STEPS_PER_TURN
+
+        turns = {'kernels': [], 'plain': []}
+        for _ in range(TRAIN_ROUNDS):
+            for side in ('plain', 'kernels', 'kernels', 'plain'):
+                if side == 'plain':
+                    with _plain_kernels(hashgrid_cuda, heads_cuda):
+                        turns[side].append(fl_step_ms())
+                else:
+                    turns[side].append(fl_step_ms())
+        fl_steady[impl] = turns
+        fl_stats[impl] = {k: _quartiles(v) for k, v in turns.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(next(ld))
+        torch.cuda.synchronize()
+        fl_peak[impl] = torch.cuda.max_memory_allocated()
+        fl_profile[impl] = _device_profile(lambda: tr.train_step(next(ld)))
+
+    # (e) the flagship checkpoint, served: the simplex encode through K1s's
+    # eval form, equal to the trainer's own render.
+    trainer, _, _ = legs['xla']
+    trainer.save_checkpoint('best', include_optimizer=False)
+    served_fl = InferenceModel.from_checkpoint(
+        Field(_model_config('simplex', 'xla'), device=dev,
+              generator=torch.Generator().manual_seed(seed + 5)),
+        trainer.workspace, num_steps=NUM_STEPS,
+        proposal_steps=PROPOSAL_STEPS, max_ray_batch=MAX_RAY_BATCH)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    served_fl_out = served_fl.render(fl_held)
+    fl_render_launches = dict(_kernels.launches)
+    own_fl = trainer.test_step(fl_held)[0].cpu().numpy()
+    checks.true('flagship checkpoint render launches K1s',
+                fl_render_launches.get(hashgrid_cuda.ATOMS_NAME, 0) == chunks
+                and fl_render_launches.get(hashgrid_cuda.NAME, 0) == 0,
+                f'{fl_render_launches}')
+    fl_served_err = float(np.abs(served_fl_out['image'] - own_fl).max())
+    checks.true('flagship checkpoint serves',
+                served_fl_out['image'].shape == (FRAME_H, FRAME_W, 3)
+                and bool(np.isfinite(served_fl_out['image']).all())
+                and fl_served_err < 1e-5,
+                f'max |served - trainer render| = {fl_served_err:.3e}')
+
+    for impl in legs:
+        print(f'flagship {impl} [{gpu}]: {FLAGSHIP_STEPS[impl]} steps in '
+              f'{fl_train_s[impl]:.3f} s; loss at chunk ends '
+              f'{[round(c["total"], 5) for c in fl_curves[impl]]}; '
+              f'launches {fl_launches[impl]}')
+        for side, st in fl_stats[impl].items():
+            print(f'flagship steady [{gpu}] {impl} {side}: ms per step median'
+                  f' {st["median"]:.3f} (q1 {st["q1"]:.3f}, q3 '
+                  f'{st["q3"]:.3f}, n {st["n"]}); rays/s '
+                  f'{TRAIN_BATCH / st["median"] * 1e3:.1f}')
+        print(f'flagship step peak memory [{gpu}] {impl}: '
+              f'{fl_peak[impl] / 1e9:.3f} GB allocated at {TRAIN_BATCH} rays')
+        rows_p, busy_p = fl_profile[impl]
+        if rows_p is None:
+            print(f'flagship {impl} profile: the trace holds no device time: '
+                  'not measured')
+        else:
+            wall = fl_stats[impl]['kernels']['median']
+            print(f'flagship {impl} profile [{gpu}]: device busy '
+                  f'{busy_p:.3f} ms of a {wall:.3f} ms step (median wall, '
+                  f'unprofiled): busy share {busy_p / wall:.4f}')
+            for name, ms, count in rows_p[:18]:
+                print(f'  {ms:9.3f} ms {ms / busy_p:7.2%} x{count:<5d} '
+                      f'{name[:90]}')
+        print(f'flagship {impl} step grads: worst relative error '
+              f'{max(fl_grad_errors[impl].values()):.3e}')
+
+    return dict(launches=fl_launches, curves=fl_curves, mse=fl_mse,
+                train_s=fl_train_s, grad_errors=fl_grad_errors,
+                steady=fl_steady, stats=fl_stats, peak=fl_peak,
+                profile={k: v[0] for k, v in fl_profile.items()},
+                profile_busy_ms={k: v[1] for k, v in fl_profile.items()},
+                render_launches=fl_render_launches,
+                served_err=fl_served_err, cast_ms=cast_ms,
+                names=new_names)
 
 
 def main():
@@ -673,10 +1103,10 @@ def main():
     n_chunk = MAX_RAY_BATCH * NUM_STEPS
     recorded, encode = [], hashgrid_cuda.hashgrid_encode
 
-    def record(table_, x_, config_):
+    def record(table_, x_, config_, **kwargs):
         if not recorded and x_.shape[0] == n_chunk:
             recorded.append((table_.detach(), x_.detach().clone()))
-        return encode(table_, x_, config_)
+        return encode(table_, x_, config_, **kwargs)
 
     hashgrid_cuda.hashgrid_encode = record
     try:
@@ -1146,6 +1576,13 @@ def main():
               f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
               f'{r["bound"][0]:.4f} ms ({r["bound"][1]})')
 
+    # ---- 9. the flagship step
+    del trainer, loader
+    torch.cuda.empty_cache()
+    flagship = _flagship_phase(dev, args.seed, gpu, checks, results, shapes,
+                               chunks)
+    fl_launches, new_names = flagship['launches'], flagship['names']
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -1159,18 +1596,35 @@ def main():
          'autolabel_tpu/ops/heads_pallas.py:407', 'K4f'),
         ('K4b fused_mlp3_bwd', 'autolabel_tpu_torch/csrc/mlp3.cu',
          'autolabel_tpu/ops/heads_pallas.py:414', 'K4b'),
+        ('K1s hashgrid_encode_atoms',
+         'autolabel_tpu_torch/csrc/hashgrid_atoms.cu',
+         'autolabel_tpu/ops/encoders.py:463', 'K1s'),
+        ('K5 select_points', 'autolabel_tpu_torch/csrc/select_points.cu',
+         'autolabel_tpu/ops/encoders.py:661', 'K5'),
+        ('K2s hashgrid_sampled_bwd',
+         'autolabel_tpu_torch/csrc/hashgrid_sampled_bwd.cu',
+         'autolabel_tpu/ops/encoders.py:698', 'K2s'),
     ]
+    kernel_names.update(new_names)
+    # `launches`: the main path each kernel serves, phase 8's training
+    # slice for the six kernels of slices 1-5, phase 9's flagship step
+    # ('xla' heads) for K1s, K5 and K2s.
     kernels = [{
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-        'launches': train_launches.get(kernel_names[key], 0),
+        'launches': (fl_launches['xla'] if key in new_names
+                     else train_launches).get(kernel_names[key], 0),
         'launches_train': train_launches.get(kernel_names[key], 0),
         'launches_render': launches.get(kernel_names[key], 0),
+        'launches_flagship': fl_launches['xla'].get(kernel_names[key], 0),
+        'launches_flagship_pallas': fl_launches['pallas'].get(
+            kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
         'bound_by': results[key]['bound'][1],
         'library_ms': results[key]['library_ms'],
-        **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms')
+        **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms',
+                                        'eval_ms', 'device_ms')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -1198,6 +1652,8 @@ def main():
                    'train_steady_stats': train_stats,
                    'train_profile_busy_ms': train_busy,
                    'train_profile': train_profile,
+                   'flagship': {k: v for k, v in flagship.items()
+                                if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

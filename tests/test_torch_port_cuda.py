@@ -605,3 +605,231 @@ def test_mlp3_backward_kernel_refuses_widths_beyond_shared_memory(
     with pytest.raises(ValueError, match='shared memory|at most 256'):
         heads_cuda.fused_mlp3_backward(packed, X, cot)
     assert _kernels.launches[heads_cuda.MLP3_BWD] == 0
+
+
+# -- K1s, K5, K2s: the simplex encode and the sampled backward -------------
+
+def _flagship_grid(features=8, variant='native'):
+    """TPU_GRID's resolutions on a 2^12 table (dense and hashed levels)."""
+    return HashGridConfig(n_levels=4, n_features=features,
+                          log2_hashmap_size=12, base_resolution=16,
+                          per_level_scale=5.04, variant=variant)
+
+
+def _tie_points(rng, n, device):
+    """_points' unit cube with its corners and faces, plus points whose
+    fractions tie on every level (x0 = x1, or all three equal)."""
+    x = _points(rng, max(n, 16), device, 'unit')
+    x[4:10, 1] = x[4:10, 0]
+    x[10:14] = x[10:14, :1]
+    x[14:16, 2] = 0.5
+    return x[:n].contiguous()
+
+
+@pytest.mark.parametrize('n', [1, 7, 33, 2000])
+@pytest.mark.parametrize('interp,features,variant', [
+    ('simplex', 8, 'native'), ('simplex', 128, 'native'),
+    ('simplex', 16, 'tcnn'), ('trilinear', 128, 'native'),
+    ('trilinear', 8, 'torch_ngp')])
+def test_atoms_kernel_matches_plain(cuda, interp, features, variant, n):
+    """K1s: indices equal and weights bit-equal to the plain atoms; the fp32
+    encode equal to the plain exact encode (same products and sums in the
+    same order); the bf16 encode its fp32 sum rounded once (within half a
+    bf16 unit, 2^-8 of the value)."""
+    rng = np.random.default_rng(20)
+    config = _flagship_grid(features, variant)
+    table = torch.tensor(rng.uniform(-1, 1, (4, 4096, features)).astype(
+        np.float32), device=cuda)
+    x = _tie_points(rng, n, cuda)
+    want, want_idx, want_w = hashgrid_cuda.encode_atoms_plain(
+        table, x, config, interp, torch.float32)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for atoms in (True, False):
+            _kernels.reset_launches()
+            out, idx, w = hashgrid_cuda.encode_atoms(table, x, config, interp,
+                                                     out_dtype, atoms)
+            assert _kernels.launches[hashgrid_cuda.ATOMS_NAME] == 1
+            assert out.dtype == out_dtype
+            if atoms:
+                assert torch.equal(idx, want_idx) and torch.equal(w, want_w)
+            else:
+                assert idx is None and w is None
+            if out_dtype == torch.float32:
+                torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+            else:
+                err = (out.float() - want).abs()
+                assert bool((err <= 2.0 ** -8 * want.abs() + 1e-30).all())
+
+
+def test_simplex_encode_kernels_under_autograd(cuda):
+    """The exact simplex encode on the card: K1s forward (atoms only when
+    the table's gradient is taken), K2s with every level at 4 rows as its
+    table gradient, against autograd of the plain version."""
+    rng = np.random.default_rng(21)
+    config = _flagship_grid(16)
+    table = torch.tensor(rng.uniform(-1, 1, (4, 4096, 16)).astype(
+        np.float32), device=cuda, requires_grad=True)
+    x = _tie_points(rng, 3000, cuda)
+    g = torch.tensor(rng.normal(size=(3000, 64)).astype(np.float32),
+                     device=cuda)
+    _kernels.reset_launches()
+    out = hashgrid_cuda.hashgrid_encode(table, x, config, interp='simplex')
+    (got,) = torch.autograd.grad(out, table, g)
+    assert _kernels.launches[hashgrid_cuda.ATOMS_NAME] == 1
+    assert _kernels.launches[hashgrid_cuda.SAMPLED_BWD_NAME] == 1
+    with torch.no_grad():
+        hashgrid_cuda.hashgrid_encode(table, x, config, interp='simplex')
+    t = table.detach().clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(hashgrid_cuda.hashgrid_encode_plain(
+        t, x, config, interp='simplex'), t, g)
+    idx, w = hashgrid_cuda.encoders._corner_idx_weights(x, config, 'simplex')
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, None, (4,) * 4,
+                                                   config)
+    assert bool(((got - want).abs() <= tol + 1e-4 * want.abs()).all())
+
+
+def _step_like_cotangent(rng, n, width, device, dtype):
+    """Rows of spread magnitudes, a third zero, as a render's cotangent."""
+    g = rng.normal(size=(n, width)) * np.exp(rng.normal(size=(n, 1)))
+    g[::3] = 0.0
+    return torch.tensor(g.astype(np.float32), device=device).to(dtype)
+
+
+@pytest.mark.parametrize('n', [1, 999, 1024, 5000])
+def test_select_kernel_matches_plain(cuda, n):
+    """K5 against itself, float64 and the plain subsample
+    (check_selection): its counts exactly the floors of its own scan, read
+    from its workspace; the scan and the coefs within their rounding
+    bounds of float64; the coefs within those of the plain version's
+    wherever both give a point the same count; ascending; counts summing
+    to k; rows so small that their squares underflow in fp32 included. A
+    cotangent that is all zero draws uniformly."""
+    rng = np.random.default_rng(22)
+    g = _step_like_cotangent(rng, n, 64, cuda, torch.bfloat16)
+    g[1::7] *= 1e-22
+    u = torch.rand((4, n + 1), generator=torch.Generator().manual_seed(n)
+                   ).to(cuda)
+    k = max(1, n // 4)
+    work = torch.empty(hashgrid_cuda.select_workspace_bytes(n),
+                       dtype=torch.uint8, device=cuda)
+    _kernels.reset_launches()
+    sel, coef, count = hashgrid_cuda._select_call(g, u, k, work)
+    assert _kernels.launches[hashgrid_cuda.SELECT_NAME] == 1
+    check = hashgrid_cuda.check_selection(
+        g, u[0, n], k, sel, coef, count,
+        hashgrid_cuda.select_workspace_views(work, n))
+    assert not hashgrid_cuda.selection_failures(check, n, k, g.shape[1]), \
+        check
+    m = int(count[0])
+    assert bool((sel[1:m] > sel[:m - 1]).all())
+    counts = hashgrid_cuda.select_workspace_views(work, n)['counts']
+    assert int(counts.sum()) == k
+    # no gradient at all: a uniform draw, k points of coef n / k
+    sel0, coef0, count0 = hashgrid_cuda.select_points(torch.zeros_like(g), u,
+                                                      k)
+    assert int(count0[0]) == k
+    torch.testing.assert_close(coef0[:k], torch.full((k,), n / k,
+                                                     device=cuda))
+
+
+def test_select_kernel_takes_bf16_only(cuda):
+    """K5 reads the sampled encode's cotangent, which is bf16: another
+    dtype raises before any launch."""
+    g = torch.ones((64, 16), device=cuda)
+    u = torch.rand((4, 65), device=cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match='bfloat16'):
+        hashgrid_cuda.select_points(g, u, 16)
+    assert _kernels.launches[hashgrid_cuda.SELECT_NAME] == 0
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('interp,rows,subsample', [
+    ('simplex', 1, False), ('simplex', 2, False), ('simplex', 4, False),
+    ('simplex', (4, 4, 2, 2), False), ('simplex', 2, True),
+    ('simplex', 1, True), ('trilinear', 2, True), ('trilinear', 8, False)])
+def test_sampled_scatter_kernel_matches_plain(cuda, interp, rows, subsample,
+                                              dtype):
+    """K2s against the plain scatter fed the same draws and the same
+    (sel, coef): each element within the sum-order bound of its row's
+    terms (sampled_backward_tolerance)."""
+    rng = np.random.default_rng(23)
+    config = _flagship_grid(128)
+    n = 4000
+    x = _clustered(rng, n, 'rays', cuda)
+    x[:16] = _tie_points(rng, 16, cuda)
+    idx, w = hashgrid_cuda.encoders._corner_idx_weights(x, config, interp)
+    g = _step_like_cotangent(rng, n, config.out_dim, cuda, dtype)
+    u = torch.rand((4, n + 1), generator=torch.Generator().manual_seed(1)
+                   ).to(cuda)
+    rows = rows if isinstance(rows, tuple) else (rows,) * 4
+    sel = coef = count = None
+    if subsample:  # K5 reads bf16 cotangents only
+        sel, coef, count = hashgrid_cuda.select_points(
+            g.to(torch.bfloat16), u, n // 4)
+    _kernels.reset_launches()
+    got = hashgrid_cuda.sampled_scatter(g, idx, w, u, rows, config, sel,
+                                        coef, count)
+    assert _kernels.launches[hashgrid_cuda.SAMPLED_BWD_NAME] == 1
+    if subsample:
+        m = int(count[0])
+        sel, coef = sel[:m].long(), coef[:m]
+    want = hashgrid_cuda.encoders.sampled_scatter_plain(g, idx, w, u, rows,
+                                                        config, sel, coef)
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows, config,
+                                                   sel, coef)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert bool(want.any())
+
+
+def test_sampled_encode_launches_each_kernel_once(cuda):
+    """The exact-forward / sampled-backward encode under autograd: K1s
+    (bf16 out), K5 and K2s once each; zero cotangents for x and u."""
+    rng = np.random.default_rng(24)
+    config = _flagship_grid(128)
+    table = torch.tensor(rng.uniform(-1, 1, (4, 4096, 128)).astype(
+        np.float32), device=cuda, requires_grad=True)
+    x = _tie_points(rng, 2000, cuda).requires_grad_(True)
+    u = torch.rand((4, 2001), device=cuda, requires_grad=True)
+    _kernels.reset_launches()
+    out = hashgrid_cuda.hashgrid_encode(table, x, config, interp='simplex',
+                                        u=u, sampled_backward=2,
+                                        backward_points=0.25)
+    assert out.dtype == torch.bfloat16
+    out.float().pow(2).sum().backward()
+    for name in (hashgrid_cuda.ATOMS_NAME, hashgrid_cuda.SELECT_NAME,
+                 hashgrid_cuda.SAMPLED_BWD_NAME):
+        assert _kernels.launches[name] == 1, name
+    assert x.grad is None or not bool(x.grad.any())
+    assert u.grad is None or not bool(u.grad.any())
+    assert bool(table.grad.any())
+
+
+@pytest.mark.parametrize('interp,kernel', [
+    ('trilinear', hashgrid_cuda.NAME), ('simplex', hashgrid_cuda.ATOMS_NAME)])
+def test_field_from_create_model_launches_the_encode_kernel(cuda, interp,
+                                                            kernel):
+    """A Field as model_utils.create_model builds it (grid_impl left at
+    'xla', as the CLI leaves it) renders on the card through the encode
+    kernels, never the plain encode: K1 for trilinear, K1s for simplex."""
+    from autolabel_tpu_torch import model_utils
+    from autolabel_tpu_torch.render.renderer import RenderOptions, render_rays
+    flags = model_utils.model_flag_parser().parse_args(
+        ['--grid-interp', interp, '--proposal'])
+    field = model_utils.create_model(np.full(3, -1.0), np.full(3, 1.0), 6,
+                                     flags, device=cuda)
+    assert field.config.grid_impl == 'xla'
+    rng = np.random.default_rng(25)
+    o = torch.tensor(rng.uniform(-0.3, 0.3, (64, 3)).astype(np.float32),
+                     device=cuda)
+    d = torch.nn.functional.normalize(torch.tensor(
+        rng.normal(size=(64, 3)).astype(np.float32), device=cuda), dim=-1)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        out = render_rays(field, o, d, torch.ones((64, 1), device=cuda),
+                          options=RenderOptions(num_steps=16,
+                                                proposal_steps=32))
+    assert _kernels.launches[kernel] == 1
+    assert bool(torch.isfinite(out['image']).all())

@@ -170,15 +170,24 @@ def test_tcnn_hash_wraps_uint32_for_non_power_of_two_levels():
 
 
 def test_encode_modes_outside_the_slice_raise():
+    """The stochastic and residual encodes (a key) are not ported; simplex
+    and the sampled backward refuse narrow rows and row counts other than
+    1, 2 or A, as the JAX package does."""
     cfg = encoders.HashGridConfig(**_grid())
     table = torch.zeros((4, 1024, 8))
     x = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError):
-        encoders.hashgrid_encode(table, x, cfg, interp='simplex')
+    u = torch.zeros((4, 4))
     with pytest.raises(NotImplementedError):
         encoders.hashgrid_encode(table, x, cfg, key=1)
     with pytest.raises(NotImplementedError):
-        encoders.hashgrid_encode(table, x, cfg, sampled_backward=2)
+        encoders.hashgrid_encode(table, x, cfg, sampled_backward=3, u=u)
+    narrow = encoders.HashGridConfig(**_grid(n_features=4))
+    with pytest.raises(NotImplementedError):
+        encoders.hashgrid_encode(torch.zeros((4, 1024, 4)), x, narrow,
+                                 interp='simplex')
+    with pytest.raises(NotImplementedError):
+        encoders.hashgrid_encode(torch.zeros((4, 1024, 4)), x, narrow,
+                                 sampled_backward=2, u=u)
 
 
 def test_cpu_encode_launches_no_kernel():

@@ -195,3 +195,22 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'train.losses', 'train.optim', 'train.metrics',
                    'train.trainer', 'train.checkpoints', 'bridge'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
+
+
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'bench_torch.py'])
+def test_card_scripts_import_only_the_port(script):
+    """The card's scripts import nothing of JAX or the JAX package, at any
+    depth: every import statement of their source, read as a syntax
+    tree."""
+    import ast
+    with open(f"{REPO}/{script}") as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert any(n.startswith('autolabel_tpu_torch') for n in names)
+    bad = [n for n in names if n.split('.')[0] in ('jax', 'autolabel_tpu')]
+    assert not bad, bad

@@ -121,12 +121,27 @@ def _close(ours, ref, rtol=RTOL, atol=ATOL):
     np.testing.assert_allclose(ours, np.asarray(ref), rtol=rtol, atol=atol)
 
 
-def _close_trees(ours, ref, rtol=RTOL, atol=ATOL):
-    """Leaf by leaf, atol relative to each leaf's largest magnitude."""
+def _close_trees(ours, ref, rtol=RTOL, atol=ATOL, leaf_atol=None):
+    """Leaf by leaf, atol relative to each leaf's largest magnitude;
+    leaf_atol: a top-level key -> the relative atol of its leaves, where
+    it differs."""
     assert jax.tree.structure(ours) == jax.tree.structure(ref)
-    for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(ref)):
+    leaf_atol = leaf_atol or {}
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(ours)[0],
+                            jax.tree.leaves(ref)):
         b = np.asarray(b)
-        _close(a, b, rtol, atol * max(float(np.abs(b).max()), 1e-3))
+        rel = leaf_atol.get(path[0].key, atol)
+        _close(a, b, rtol, rel * max(float(np.abs(b).max()), 1e-3))
+
+
+def _proposal_atol(steps):
+    """The proposal net's weight gradients sum one term per proposal sample
+    (N_RAYS x proposal_steps), and XLA's CPU sum takes them in an order
+    that can change from run to run (seen once in four whole runs of the
+    suite: proposal[0], 7.7e-9 off against 1e-9 allowed). Two fp32 sums of
+    k terms lie within 2 k 2^-24 of the terms' magnitude, taken as the
+    leaf's largest (floor 1e-3), as ATOL takes it."""
+    return {'proposal': 2 * N_RAYS * steps['proposal_steps'] * 2.0 ** -24}
 
 
 def _jax_draws(key, opts):
@@ -189,7 +204,8 @@ def test_perturbed_render_and_loss_gradients_match_jax(branch, n_features):
     names = [n for n, _ in pf.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in pf.named_parameters()])
     ours = bridge.state_to_numpy(dict(zip(names, grads)))
-    _close_trees(ours, ref_grads)
+    _close_trees(ours, ref_grads, leaf_atol=_proposal_atol(steps)
+                 if steps.get('proposal_steps') else None)
     assert float(np.abs(ours['encoder']['grid']).max()) > 0
 
 
@@ -513,8 +529,9 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
     dict(mesh=object()), dict(pose_refine=(np.eye(3)[None], np.zeros(
         (1, 3)))), dict(occupancy=object()), dict(tensorboard=True),
     dict(render_options=RenderOptions(perturb=True)),
-    dict(render_options=RenderOptions(perturb=False, sampled_backward=2),
-         sampled_warmup_fraction=0.1)])
+    dict(render_options=RenderOptions(perturb=True, stochastic_corners=1,
+                                      sampled_backward=0),
+         exact_final_fraction=0.1)])
 def test_trainer_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):
         SimpleTrainer('t', _port_field(_params()), **kwargs)
