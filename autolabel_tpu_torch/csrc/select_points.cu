@@ -16,27 +16,43 @@
 // and floats). g is bf16, as the sampled encode's output and so its
 // cotangent always are.
 //
-// Design, three kernels on tiles of 1024 points:
-//   1. norms_kernel: a warp per row computes s_i (4 rows at a time, 16-byte
-//      loads); each thread scans 4 consecutive rows in order; the
-//      threads' totals are chained in order along the warp (shuffles) and
-//      the warps' along the block, so that the tile's inclusive scan loc_i
-//      never decreases: each partial sum is an earlier one plus a
-//      non-negative number, rounded;
-//   2. counts_kernel: each block chains the tiles' totals in tile order
+// Design, four kernels:
+//   1. norms_kernel<CH>: the streamed read of g, s_i only. Blocks on a
+//      grid stride, 8 of 256 threads an SM (faster on the H100 than the
+//      blocks its registers hold at once, or one an SM: PERF.md); a
+//      warp takes R = 16 / CH consecutive rows at a time and issues all
+//      their 16-byte loads (CH a lane a row, CH = row bytes / 512 rounded
+//      up: two at D = 512) before it reduces any: each lane adds the
+//      squares of its chunks in order by fused multiply-adds, a butterfly
+//      of shuffles sums the lanes (every lane ends with the same bits),
+//      lane q writes row q's norm;
+//   2. scan_kernel, a block per tile of 1024 points: each thread scans its
+//      4 consecutive norms in order, the threads' totals are chained in
+//      order along the warp (shuffles) and the warps' along the block, so
+//      that the tile's inclusive scan loc_i never decreases: each partial
+//      sum is an earlier one plus a non-negative number, rounded;
+//   3. counts_kernel: each block chains the tiles' totals in tile order
 //      (the same additions in every block, so every block gets the same
 //      offsets P_b and total), cum_i = (P_b + loc_i) / total (the last one
 //      exactly 1, none decreasing, so every count is >= 0 and they sum to
 //      k), counts_i, and the tile's number of points with counts > 0;
-//   3. compact_kernel: each block sums the earlier tiles' numbers (exact
+//   4. compact_kernel: each block sums the earlier tiles' numbers (exact
 //      integers), scans its own flags and writes (sel, coef); the last
 //      tile writes the count.
-// Two fp32 scans in different orders move floor(k cum - u) where it lies
-// within their rounding of an integer, so the selection is not bit-equal to
-// another implementation's there; its expectation is the same.
+// The order of every fp32 addition is fixed by the tile (1024 points), a
+// thread's rows (4) and the lanes' chunks, so a CPU copy of it
+// (hashgrid_cuda.select_chain, which checks select_points_order) gives
+// the same bits. Two fp32 scans in different orders move floor(k cum - u)
+// where it lies within their rounding of an integer, so the selection is
+// not bit-equal to another implementation's there; its expectation is the
+// same.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #define K5_THREADS 256
 #define K5_WARPS (K5_THREADS / 32)
@@ -57,48 +73,63 @@ __device__ __forceinline__ float sumsq8(uint4 v, float acc) {
   return acc;
 }
 
-__device__ __forceinline__ float row_sumsq(const unsigned char* row,
-                                           int bytes, int lane) {
-  float acc = 0.0f;
-  for (int b = lane * 16; b < bytes; b += 32 * 16)
-    acc = sumsq8(__ldcs(reinterpret_cast<const uint4*>(row + b)), acc);
-  return acc;
+#define K5_NORM_THREADS 256
+#define K5_NORM_WAVE 8    // norms blocks an SM: 2,048 threads
+#define K5_MAX_CHUNKS 16  // 16-byte chunks a lane per row: D up to 4096
+
+// s_i for n rows of CH * 512 bytes or fewer (`chunks` 16-byte chunks a
+// row): a warp takes R = 16 / CH rows at a time, issues their loads, then
+// reduces them.
+template <int CH>
+__global__ void __launch_bounds__(K5_NORM_THREADS)
+    norms_kernel(const uint4* __restrict__ g, long long n, int chunks,
+                 float* __restrict__ s) {
+  constexpr int R = 16 / CH;
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (K5_NORM_THREADS / 32);
+  for (long long r0 = ((long long)blockIdx.x * (K5_NORM_THREADS / 32) +
+                       (threadIdx.x >> 5)) * R;
+       r0 < n; r0 += warps * R) {
+    uint4 v[R][CH];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int j = c * 32 + lane;  // the lane's c-th chunk of the row
+        v[q][c] = r0 + q < n && j < chunks ? __ldcs(g + (r0 + q) * chunks + j)
+                                           : make_uint4(0, 0, 0, 0);
+      }
+    float mine = 0.0f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc = sumsq8(v[q][c], acc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == q) mine = acc;
+    }
+    if (lane < R && r0 + lane < n) s[r0 + lane] = sqrtf(mine);
+  }
 }
 
+// A tile's inclusive scan of the norms (loc) and its total, in the fixed
+// order: a thread's K5_ROWS rows, the threads' totals along the lanes, the
+// warps' along the block.
 __global__ void __launch_bounds__(K5_THREADS)
-    norms_kernel(const unsigned char* __restrict__ g, long long n,
-                 int row_bytes, float* __restrict__ s,
-                 float* __restrict__ loc, float* __restrict__ tile_total) {
-  __shared__ float sn[K5_TILE];
+    scan_kernel(const float* __restrict__ s, long long n,
+                float* __restrict__ loc, float* __restrict__ tile_total) {
   __shared__ float warp_total[K5_WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long base = (long long)blockIdx.x * K5_TILE;
   const int rows = (int)min((long long)K5_TILE, n - base);
-  // row norms: a warp a row, 4 rows in flight
-  for (int r0 = warp * 4; r0 < rows; r0 += K5_WARPS * 4) {
-    float acc[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      acc[q] = r0 + q < rows
-                   ? row_sumsq(g + (base + r0 + q) * row_bytes,
-                                     row_bytes, lane)
-                   : 0.0f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
-      if (lane == 0 && r0 + q < rows) sn[r0 + q] = sqrtf(acc[q]);
-    }
-  }
-  __syncthreads();
-  // each thread's rows, in order
   float run[K5_ROWS];
   float c = 0.0f;
 #pragma unroll
   for (int k = 0; k < K5_ROWS; ++k) {
     const int r = tid * K5_ROWS + k;
-    c = __fadd_rn(c, r < rows ? sn[r] : 0.0f);
+    c = __fadd_rn(c, r < rows ? s[base + r] : 0.0f);
     run[k] = c;
   }
   // the threads' totals chained in lane order
@@ -115,10 +146,7 @@ __global__ void __launch_bounds__(K5_THREADS)
 #pragma unroll
   for (int k = 0; k < K5_ROWS; ++k) {
     const int r = tid * K5_ROWS + k;
-    if (r < rows) {
-      s[base + r] = sn[r];
-      loc[base + r] = __fadd_rn(w, __fadd_rn(mine, run[k]));
-    }
+    if (r < rows) loc[base + r] = __fadd_rn(w, __fadd_rn(mine, run[k]));
   }
   if (tid == 0) {
     float t = 0.0f;
@@ -264,7 +292,63 @@ extern "C" long long select_points_workspace(long long n) {
   return 4 * (3 * n + 2 * k5_tiles(n) + 4);
 }
 
-extern "C" int select_points_tile() { return K5_TILE; }
+// The constants that fix K5's order of fp32 additions: points a tile and
+// consecutive points a thread scans.
+extern "C" void select_points_order(int* out) {
+  out[0] = K5_TILE;
+  out[1] = K5_ROWS;
+}
+
+typedef void (*NormsKernel)(const uint4*, long long, int, float*);
+
+// The 16-byte chunks a lane reads of a row of `chunks` chunks, as the norms
+// kernel's template width (1, 2, 4, 8 or K5_MAX_CHUNKS), or 0 beyond.
+static int lane_chunks(int chunks) {
+  for (int ch = 1; ch <= K5_MAX_CHUNKS; ch *= 2)
+    if (chunks <= 32 * ch) return ch;
+  return 0;
+}
+
+static NormsKernel norms_for(int ch) {
+  switch (ch) {
+    case 1: return norms_kernel<1>;
+    case 2: return norms_kernel<2>;
+    case 4: return norms_kernel<4>;
+    case 8: return norms_kernel<8>;
+    case K5_MAX_CHUNKS: return norms_kernel<K5_MAX_CHUNKS>;
+    default: return nullptr;
+  }
+}
+
+// The norms kernel's grid for n rows on the current device: K5_NORM_WAVE
+// blocks an SM (2,048 threads, the most an SM holds, whatever its
+// registers allow at once), and no more blocks than rows for all their
+// warps; each warp walks its rows on a grid stride. The SM count is asked
+// once per device and kept.
+static cudaError_t norms_grid(int ch, long long n, int* blocks) {
+  static std::mutex mu;
+  static std::map<int, int> sms_of;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = sms_of.find(dev);
+    if (it == sms_of.end()) {
+      if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess)
+        return err;
+      it = sms_of.emplace(dev, sms).first;
+    }
+    sms = it->second;
+  }
+  const long long rows = (long long)(16 / ch) * (K5_NORM_THREADS / 32);
+  const long long want = (n + rows - 1) / rows;
+  const long long most = (long long)sms * K5_NORM_WAVE;
+  *blocks = (int)(want < most ? want : most);
+  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
 
 extern "C" int select_points(const void* g, long long n, int dim,
                              const float* u_sys, int k, void* workspace,
@@ -272,8 +356,9 @@ extern "C" int select_points(const void* g, long long n, int dim,
                              void* stream) {
   const int row_bytes = dim * 2;
   const long long tiles = k5_tiles(n);
+  const int chunks = row_bytes / 16, ch = lane_chunks(chunks);
   if (n < 1 || tiles > K5_MAX_TILES || k < 1 || k > n || row_bytes % 16 ||
-      ((uintptr_t)g & 15))
+      ((uintptr_t)g & 15) || !ch)
     return (int)cudaErrorInvalidValue;
   float* s = reinterpret_cast<float*>(workspace);
   float* loc = s + n;
@@ -282,41 +367,51 @@ extern "C" int select_points(const void* g, long long n, int dim,
   int* tile_flags = reinterpret_cast<int*>(tile_total + tiles);
   float* total = reinterpret_cast<float*>(tile_flags + tiles);
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned char* gb = reinterpret_cast<const unsigned char*>(g);
-  norms_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(
-      gb, n, row_bytes, s, loc, tile_total);
-  cudaError_t err = cudaGetLastError();
+  int blocks = 0;
+  cudaError_t err = norms_grid(ch, n, &blocks);
   if (err != cudaSuccess) return (int)err;
+  norms_for(ch)<<<blocks, K5_NORM_THREADS, 0, st>>>(
+      reinterpret_cast<const uint4*>(g), n, chunks, s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  scan_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(s, n, loc,
+                                                          tile_total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   counts_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(
       loc, tile_total, n, k, u_sys, counts, tile_flags, total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   compact_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(
       s, counts, tile_flags, total, n, k, sel, coef, count);
   return (int)cudaGetLastError();
 }
 
-// out[0..18): per kernel (norms, counts, compact) for n points: blocks,
-// threads, static shared bytes, blocks per SM, registers, points per tile.
-extern "C" int select_points_shape(long long n, int* out) {
-  const void* kernels[3] = {(const void*)norms_kernel,
-                            (const void*)counts_kernel,
-                            (const void*)compact_kernel};
-  for (int i = 0; i < 3; ++i) {
+// out[0..24): per kernel (norms, scan, counts, compact) for n points of
+// width dim: blocks, threads, static shared bytes, blocks per SM,
+// registers, and the points a block takes at a time (norms) or a tile.
+extern "C" int select_points_shape(long long n, int dim, int* out) {
+  const int ch = lane_chunks(dim * 2 / 16);
+  if (!ch || dim % 8 || n < 1) return (int)cudaErrorInvalidValue;
+  int norms_blocks = 0;
+  cudaError_t err = norms_grid(ch, n, &norms_blocks);
+  if (err != cudaSuccess) return (int)err;
+  const void* kernels[4] = {
+      (const void*)norms_for(ch), (const void*)scan_kernel,
+      (const void*)counts_kernel, (const void*)compact_kernel};
+  for (int i = 0; i < 4; ++i) {
+    const int threads = i == 0 ? K5_NORM_THREADS : K5_THREADS;
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernels[i]);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = cudaFuncGetAttributes(&attr, kernels[i])) != cudaSuccess)
+      return (int)err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernels[i],
-                                                        K5_THREADS, 0);
-    if (err != cudaSuccess) return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernels[i], threads, 0)) != cudaSuccess)
+      return (int)err;
     int* o = out + 6 * i;
-    o[0] = (int)k5_tiles(n);
-    o[1] = K5_THREADS;
+    o[0] = i == 0 ? norms_blocks : (int)k5_tiles(n);
+    o[1] = threads;
     o[2] = (int)attr.sharedSizeBytes;
     o[3] = per_sm;
     o[4] = attr.numRegs;
-    o[5] = K5_TILE;
+    o[5] = i == 0 ? 16 / ch * (K5_NORM_THREADS / 32) : K5_TILE;
   }
   return 0;
 }

@@ -198,12 +198,13 @@ def encode_backward_launch_shapes(config, n):
             dict(zip(keys, out))}
 
 
-def sampled_launch_shapes(config, n, slots, interp='simplex'):
+def sampled_launch_shapes(config, n, slots, rows, interp='simplex'):
     """The launch shapes of K1s (training form: atoms, bf16 out; eval
-    form: fp32 out), K5's three kernels and K2s (bf16 cotangent, `slots`
-    selected points), as the C libraries plan them: blocks, threads,
-    static shared bytes, blocks per SM, registers, points per warp, tile
-    or block."""
+    form: fp32 out), K5's four kernels (N x out_dim bf16 cotangent) and
+    K2s (bf16 cotangent, `slots` selected points, `rows` per level), as
+    the C libraries plan them: blocks, threads, shared bytes (static;
+    K2s's dynamic), blocks per SM, registers, points per warp, tile (at
+    most, for K2s) or block."""
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
             'points')
     a = _atom_count(interp)
@@ -217,21 +218,23 @@ def sampled_launch_shapes(config, n, slots, interp='simplex'):
         _kernels.check(fn(config.n_levels, n, a, write, bf16, out),
                        ATOMS_NAME)
         shapes[f'K1s atoms_rows_kernel ({form})'] = dict(zip(keys, out))
-    fn = _kernels.library(_SELECT_SOURCE).select_points_shape
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+    fn = _select_library().select_points_shape
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 18)()
-    _kernels.check(fn(n, out), SELECT_NAME)
-    for i, name in enumerate(('norms_kernel', 'counts_kernel',
+    out = (ctypes.c_int * 24)()
+    _kernels.check(fn(n, config.out_dim, out), SELECT_NAME)
+    for i, name in enumerate(('norms_kernel', 'scan_kernel', 'counts_kernel',
                               'compact_kernel')):
         shapes[f'K5 {name}'] = dict(zip(keys, out[6 * i:6 * i + 6]))
     fn = _kernels.library(_SAMPLED_BWD_SOURCE).hashgrid_sampled_bwd_shape
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
-    _kernels.check(fn(config.n_levels, config.n_features, slots, 1, out),
-                   SAMPLED_BWD_NAME)
+    _kernels.check(fn(config.n_levels, config.n_features, a,
+                      (ctypes.c_int * config.n_levels)(*rows),
+                      config.table_size, slots, 1, out), SAMPLED_BWD_NAME)
     shapes['K2s sampled_rows_kernel'] = dict(zip(keys, out))
     return shapes
 
@@ -371,25 +374,42 @@ def _g_dtype(name, g, n, width):
 @functools.lru_cache(maxsize=64)
 def select_workspace_bytes(n):
     """The scratch K5 needs for n points, as its C library counts it."""
-    fn = _kernels.library(_SELECT_SOURCE).select_points_workspace
+    fn = _select_library().select_points_workspace
     fn.argtypes = [ctypes.c_longlong]
     fn.restype = ctypes.c_longlong
     return fn(n)
 
 
+# The constants that fix K5's order of fp32 additions (select_points.cu
+# select_points_order): points a tile, and consecutive points a thread
+# scans before the threads' totals chain along the lanes (32) and the
+# warps' along the tile.
+SELECT_TILE = 1024
+SELECT_ROWS = 4
+_SELECT_MAX_DIM = 4096  # 16 16-byte chunks a lane per row
+
+
 @functools.lru_cache(maxsize=1)
-def select_tile():
-    """The points of one of K5's tiles."""
-    fn = _kernels.library(_SELECT_SOURCE).select_points_tile
-    fn.restype = ctypes.c_int
-    return fn()
+def _select_library():
+    """K5's library, once its order is checked against SELECT_TILE and
+    SELECT_ROWS, which select_chain reproduces."""
+    lib = _kernels.library(_SELECT_SOURCE)
+    out = (ctypes.c_int * 2)()
+    lib.select_points_order.argtypes = [ctypes.c_void_p]
+    lib.select_points_order.restype = None
+    lib.select_points_order(out)
+    if tuple(out) != (SELECT_TILE, SELECT_ROWS):
+        raise RuntimeError(f'{SELECT_NAME}: the library\'s order (tile, '
+                           f'rows) {tuple(out)} is not select_chain\'s '
+                           f'{(SELECT_TILE, SELECT_ROWS)}')
+    return lib
 
 
 def select_workspace_views(work, n):
     """K5's workspace of n points as its kernels leave it: the row norms s,
     each tile's inclusive scan loc, the counts, the tiles' totals and the
     total (as select_points.cu lays them out)."""
-    tiles = -(-n // select_tile())
+    tiles = -(-n // SELECT_TILE)
     f, i = work.view(torch.float32), work.view(torch.int32)
     return dict(s=f[:n], loc=f[n:2 * n], counts=i[2 * n:3 * n],
                 tile_total=f[3 * n:3 * n + tiles],
@@ -406,9 +426,11 @@ def _select_call(g, u, k, work=None):
     if g.device.type != 'cuda' or u.device != dev:
         raise ValueError(f'{SELECT_NAME}: inputs must be on one CUDA device')
     if g.dtype != torch.bfloat16 or g.dim() != 2 or not g.is_contiguous() \
-            or g.data_ptr() % 16 or g.shape[1] % 8:
+            or g.data_ptr() % 16 or g.shape[1] % 8 \
+            or g.shape[1] > _SELECT_MAX_DIM:
         raise ValueError(f'{SELECT_NAME}: g must be a contiguous, 16-byte '
-                         'aligned (N, D) bfloat16 tensor, D a multiple of 8')
+                         'aligned (N, D) bfloat16 tensor, D a multiple of 8 '
+                         f'and at most {_SELECT_MAX_DIM}')
     if u.dtype != torch.float32 or u.dim() != 2 or u.shape[1] != n + 1 \
             or not u.is_contiguous():
         raise ValueError(f'{SELECT_NAME}: u must be contiguous float32 '
@@ -425,7 +447,7 @@ def _select_call(g, u, k, work=None):
             or work.numel() != select_workspace_bytes(n):
         raise ValueError(f'{SELECT_NAME}: the workspace must be '
                          f'{select_workspace_bytes(n)} bytes on the card')
-    fn = _kernels.library(_SELECT_SOURCE).select_points
+    fn = _select_library().select_points
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
@@ -592,31 +614,34 @@ def _draws(cum, k, u_sys):
 
 def select_chain(g):
     """K5's norms and scans recomputed on the CPU in its own fp32 order, for
-    g (N, D) bf16: (s, loc, tile_total) as its norms_kernel writes them.
-    A lane adds the squares of its 16-byte chunks of a row in order, each
-    by one fused multiply-add (here the exact float64 square and sum
-    rounded to fp32: the same, since a bf16 square has 16 bits), a
-    butterfly of shuffles sums the lanes;
-    in a tile each thread scans its 4 rows, the threads' totals chain
-    along the lanes and the warps' along the block."""
-    tile = select_tile()
+    g (N, D) bf16: (s, loc, tile_total) as its norms and scan kernels
+    write them. A lane adds the squares of its 16-byte chunks of a row in
+    order, each by one fused multiply-add (here the exact float64 square
+    and sum rounded to fp32: the same, since a bf16 square has 16 bits), a
+    butterfly of shuffles sums the lanes; in a tile of SELECT_TILE points
+    each thread scans its SELECT_ROWS rows, the threads' totals chain
+    along the 32 lanes and the warps' along the tile."""
+    tile = SELECT_TILE
     n, dim = g.shape
     width = -(-dim // 256) * 256  # 32 lanes of 8 bf16 values a chunk
-    x = np.zeros((n, width), np.float64)
-    x[:, :dim] = g.double().cpu().numpy()
-    sq = (x * x).reshape(n, width // 256, 32, 8)
-    acc = np.zeros((n, 32), np.float32)
-    for j in range(sq.shape[1]):
-        for e in range(8):
-            acc = (acc + sq[:, j, :, e]).astype(np.float32)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, np.arange(32) ^ o]
-    s = np.sqrt(acc[:, 0])
+    s = np.empty(n, np.float32)
+    for r0 in range(0, n, 1 << 16):  # rows in blocks, to bound the memory
+        x = np.zeros((min(n - r0, 1 << 16), width), np.float64)
+        x[:, :dim] = g[r0:r0 + x.shape[0]].double().cpu().numpy()
+        sq = (x * x).reshape(x.shape[0], width // 256, 32, 8)
+        acc = np.zeros((x.shape[0], 32), np.float32)
+        for j in range(sq.shape[1]):
+            for e in range(8):
+                acc = (acc + sq[:, j, :, e]).astype(np.float32)
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, np.arange(32) ^ o]
+        s[r0:r0 + x.shape[0]] = np.sqrt(acc[:, 0])
     tiles = -(-n // tile)
     sn = np.zeros(tiles * tile, np.float32)
     sn[:n] = s
-    run = np.add.accumulate(sn.reshape(tiles, tile // 4, 4), axis=2)
-    lanes = np.add.accumulate(run[:, :, 3].reshape(tiles, -1, 32), axis=2)
+    run = np.add.accumulate(sn.reshape(tiles, tile // SELECT_ROWS,
+                                       SELECT_ROWS), axis=2)
+    lanes = np.add.accumulate(run[:, :, -1].reshape(tiles, -1, 32), axis=2)
     mine = np.concatenate([np.zeros_like(lanes[:, :, :1]),
                            lanes[:, :, :-1]], axis=2).reshape(tiles, -1, 1)
     warps = np.add.accumulate(lanes[:, :, 31], axis=1)
@@ -694,7 +719,7 @@ def check_selection(g, u_sys, k, sel, coef, count, views):
                / torch.tensor(float(n), dtype=torch.float32))
         p = torch.full((n,), 1.0) / torch.tensor(float(n))
     else:
-        off = torch.from_numpy(offsets).repeat_interleave(select_tile())[:n]
+        off = torch.from_numpy(offsets).repeat_interleave(SELECT_TILE)[:n]
         cum = (off + loc) / total
         p = s / torch.clamp(total, min=1e-30)
     v_k5, want = _draws(cum, k, u)

@@ -81,8 +81,9 @@ Phases, each failing loudly:
      boundary), K2s against the plain scatter fed
      the same (sel, coef), K2s exact against the plain exact gradient, and
      64 draws of K5 + K2s whose mean is the exact gradient within 4
-     standard errors; their times, bounds, launch shapes, and the bf16 ->
-     fp32 cast before K3f; (d) ms per step in turns (plain, kernels,
+     standard errors; their times, bounds, launch shapes, the split of
+     their device time (K5 by kernel, K2s's memset beside its kernel),
+     and the bf16 -> fp32 cast before K3f; (d) ms per step in turns (plain, kernels,
      kernels, plain), peak memory and one profiled step per leg; (e) the
      flagship checkpoint served through InferenceModel.from_checkpoint,
      through K1s's eval form, equal to the trainer's own render.
@@ -452,6 +453,15 @@ def _train_slice(dev, seed, config=None, options=None, name='train'):
     return trainer, loader, held_out
 
 
+def _flagship_options():
+    """bench.py's render options for the flagship step (bench.py:119-124):
+    simplex's sampled backward 2 on a quarter of the points."""
+    from autolabel_tpu_torch.render.renderer import RenderOptions
+    return RenderOptions(num_steps=NUM_STEPS, proposal_steps=PROPOSAL_STEPS,
+                         perturb=True, stochastic_corners=0,
+                         sampled_backward=2, backward_points=0.25)
+
+
 def _record_flagship_inputs(trainer, loader, hashgrid_cuda):
     """What one flagship step hands K1s (table, x), K5 (g, u, k) and K2s
     (the atoms and rows): the step's main samples, ray by ray."""
@@ -528,17 +538,12 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
     from autolabel_tpu_torch.inference import InferenceModel
     from autolabel_tpu_torch.models.field import Field
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
-    from autolabel_tpu_torch.render.renderer import (RenderOptions,
-                                                     draw_perturbations)
+    from autolabel_tpu_torch.render.renderer import draw_perturbations
     # ---- 9. the flagship step through SimpleTrainer: bench.py's model and
     # options (simplex, sampled backward 2, backward_points 0.25), under
     # both head implementations: K1s, K5 and K2s on every step, and on the
     # 'pallas' leg K3f, K3b, K4f and K4b too.
-    # bench.py's options (bench.py:119-124)
-    fl_options = RenderOptions(num_steps=NUM_STEPS,
-                               proposal_steps=PROPOSAL_STEPS, perturb=True,
-                               stochastic_corners=0, sampled_backward=2,
-                               backward_points=0.25)
+    fl_options = _flagship_options()
     legs = {impl: _train_slice(dev, seed, _model_config('simplex', impl),
                                fl_options, f'flagship_{impl}')
             for impl in ('xla', 'pallas')}
@@ -733,10 +738,10 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
         g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m), 3)
     cast_ms = _cuda_ms(lambda: enc_t.float(), 20)
     # Device time per call from torch.profiler (all of a call's device
-    # work: K2s's memset of the gradient, K5's three kernels), which CUDA
+    # work: K2s's memset of the gradient, K5's four kernels), which CUDA
     # events over back-to-back calls overstate where a call's host work
     # exceeds its device time.
-    device_ms = {}
+    device_ms, device_split = {}, {}
     for key, fn in (
             ('K1s', lambda: hashgrid_cuda.encode_atoms(
                 table_f, x_f, grid, 'simplex', torch.bfloat16, True)),
@@ -746,6 +751,16 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
                 count_f))):
         by_name = _kernel_ms(fn)
         device_ms[key] = None if by_name is None else sum(by_name.values())
+        device_split[key] = by_name
+    # The split of K5 by kernel and of K2s into its memset and kernel.
+    for key in ('K5', 'K2s'):
+        if device_split[key] is None:
+            print(f'{key} split: the trace holds no device time: not '
+                  'measured')
+            continue
+        print(f'{key} split [{gpu}] N={n_f} drawn={m_f}: device ms per call '
+              + ', '.join(f'{name[:40]} {ms:.4f}' for name, ms in
+                          device_split[key].items()))
     n_out = grid.out_dim
     a_atoms = 4
     # K1s (training): x and the table rows the atoms name read (each
@@ -776,12 +791,15 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
                          bound=k5_bound, library_ms=None, selected=m_f,
                          k=k_f, off=off, scan_dev=sel_check['scan_dev'],
                          coef_rel=sel_check['coef_rel'],
-                         device_ms=device_ms['K5'])
+                         device_ms=device_ms['K5'],
+                         device_split=device_split['K5'])
     results['K2s'] = dict(max_abs_err=k2s_err, ms=k2s_ms,
                           plain_ms=k2s_plain, bound=k2s_bound,
                           library_ms=None, unbiased_ratio=unbiased_ratio,
-                          device_ms=device_ms['K2s'])
-    shapes.update(hashgrid_cuda.sampled_launch_shapes(grid, n_f, k_f))
+                          device_ms=device_ms['K2s'],
+                          device_split=device_split['K2s'])
+    shapes.update(hashgrid_cuda.sampled_launch_shapes(grid, n_f, k_f,
+                                                      rows_f))
     _print_shapes(gpu, {f'{k} N={n_f}': v for k, v in shapes.items()
                         if k.startswith(('K1s', 'K5', 'K2s'))})
     print(f'cast bf16 -> fp32 before K3f [{gpu}] ({n_f} x {n_out}): '
@@ -1624,7 +1642,8 @@ def main():
         'bound_by': results[key]['bound'][1],
         'library_ms': results[key]['library_ms'],
         **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms',
-                                        'eval_ms', 'device_ms')
+                                        'eval_ms', 'device_ms',
+                                        'device_split')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 

@@ -9,11 +9,17 @@ Both packages are imported side by side, each as a module tree of its own
 that builds its kernels into a build directory beside itself, and every
 kernel of the main path is called through each package's public wrapper
 on the same inputs: K1 at TPU_GRID (wide rows) and at the reference preset
-(narrow rows), K2, K3f, K3b, K4f and K4b at chip_smoke.py's shapes, and K2
-also on the (g, x) of a step of chip_smoke.py's training slice. Each
-kernel's old and new outputs are compared (largest absolute difference;
-0 means bit-equal), then both are timed by CUDA events, old, new, new,
-old, ... for --rounds rounds. Prints one line per kernel and writes
+(narrow rows), K2, K3f, K3b, K4f and K4b at chip_smoke.py's shapes, K2
+also on the (g, x) of a step of chip_smoke.py's training slice, and K5
+and K2s on the inputs a flagship step hands them (chip_smoke.py's
+flagship 'xla' leg after 200 steps; K2s fed one (sel, coef, count), this
+tree's K5's). Each kernel's old and new outputs are compared (largest
+absolute difference; 0 means bit-equal; for K5 whether the selections,
+count, points and coefs, are bit-equal), then both are timed by CUDA
+events, old, new, new, old, ... for --rounds rounds, and by
+torch.profiler's device time a call (all of a call's kernels and
+memsets; events carry a call's host work where it exceeds its device
+time). Prints one line per kernel and writes
 chiprun_out/kernel_compare.json.
 """
 import argparse
@@ -23,7 +29,7 @@ import os
 import sys
 import types
 
-from chip_smoke import _cuda_ms, _gpu_line
+from chip_smoke import _cuda_ms, _gpu_line, _kernel_ms
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
@@ -71,10 +77,43 @@ def _step_samples(seed, steps=40):
     return _record_k2_inputs(trainer, loader)
 
 
-def _cases(pkg, seed, step_samples):
-    """{name: (fn(pkg), reps)}: each kernel of the main path called through
-    pkg's wrappers on inputs made from seed (the same for every pkg), and
-    K2 on a training step's recorded samples."""
+def _flagship_samples(seed, steps=200):
+    """What a flagship step hands K5 (g, u, k) and K2s (the atoms and rows),
+    recorded from chip_smoke.py's flagship 'xla' leg (this tree's package)
+    after `steps` steps, with the grid config and this tree's K5 selection
+    (sel, coef, count)."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from chip_smoke import (TRAIN_CHUNK, _flagship_options, _model_config,
+                            _record_flagship_inputs, _train_slice)
+    trainer, loader, _ = _train_slice(torch.device('cuda'), seed,
+                                      _model_config('simplex', 'xla'),
+                                      _flagship_options(), 'compare')
+    for _ in range(steps // TRAIN_CHUNK):
+        trainer.train_iterations(loader, TRAIN_CHUNK)
+    rec = _record_flagship_inputs(trainer, loader, hashgrid_cuda)
+    g, u, k = rec['select']
+    return dict(g=g, u=u, k=k, atoms=rec['scatter'],
+                grid=trainer.field.config.grid_config,
+                selection=hashgrid_cuda.select_points(g, u, k))
+
+
+def _same_selection(a, b):
+    """0.0 where two K5 outputs (sel, coef, count) draw the same points with
+    bit-equal coefs, else 1.0."""
+    import torch
+    m = int(a[2][0])
+    same = (m == int(b[2][0]) and torch.equal(a[0][:m], b[0][:m])
+            and torch.equal(a[1][:m], b[1][:m]))
+    return 0.0 if same else 1.0
+
+
+def _cases(pkg, seed, step_samples, flagship):
+    """{name: (fn(pkg), reps, compare)}: each kernel of the main path called
+    through pkg's wrappers on inputs made from seed (the same for every
+    pkg), K2 on a training step's recorded samples, and K5 and K2s on a
+    flagship step's; compare(old, new) of their outputs, None for the
+    largest absolute difference."""
     import torch
     g = torch.Generator().manual_seed(seed)
     dev = torch.device('cuda')
@@ -110,21 +149,31 @@ def _cases(pkg, seed, step_samples):
         (n4 // 4, ws[2].shape[1]), generator=g).to(dev)
     hg, hd = pkg.hashgrid_cuda, pkg.heads_cuda
     g_s, x_s = step_samples
+    f = flagship
+    g_f, u_f, k_f, fl_grid = f['g'], f['u'], f['k'], f['grid']
+    idx_f, w_f, rows_f = f['atoms']
+    sel_f, coef_f, count_f = f['selection']
+    n_f, m_f = g_f.shape[0], int(count_f[0])
     return {
         f'K1 TPU_GRID N={n1}': (lambda: hg.hashgrid_encode(table, x, grid),
-                                20),
+                                20, None),
         f'K1 reference N={n1}': (
-            lambda: hg.hashgrid_encode(table_ref, x, ref), 20),
+            lambda: hg.hashgrid_encode(table_ref, x, ref), 20, None),
         f'K2 TPU_GRID N={n2}': (
-            lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20),
+            lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20, None),
         f'K2 TPU_GRID step samples N={x_s.shape[0]}': (
-            lambda: hg.hashgrid_encode_backward(g_s, x_s, grid), 20),
-        f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10),
+            lambda: hg.hashgrid_encode_backward(g_s, x_s, grid), 20, None),
+        f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10, None),
         f'K3b N={n2}': (lambda: hd.fused_heads_backward(
-            packed, A2, B2, *cots, need_dB=False), 10),
-        f'K4f N={n4}': (lambda: hd.fused_mlp3(ws, X), 20),
+            packed, A2, B2, *cots, need_dB=False), 10, None),
+        f'K4f N={n4}': (lambda: hd.fused_mlp3(ws, X), 20, None),
         f'K4b N={n4 // 4}': (
-            lambda: hd.fused_mlp3_backward(ws, X4, g4), 20),
+            lambda: hd.fused_mlp3_backward(ws, X4, g4), 20, None),
+        f'K5 flagship step N={n_f} k={k_f}': (
+            lambda: hg.select_points(g_f, u_f, k_f), 20, _same_selection),
+        f'K2s flagship step N={n_f} drawn={m_f}': (
+            lambda: hg.sampled_scatter(g_f, idx_f, w_f, u_f, rows_f, fl_grid,
+                                       sel_f, coef_f, count_f), 20, None),
     }
 
 
@@ -150,22 +199,37 @@ def main():
     gpu = _gpu_line()
     result = {'gpu': gpu, 'rounds': args.rounds, 'kernels': {}}
     step_samples = _step_samples(args.seed)
-    cases = {side: _cases(pkg, args.seed, step_samples)
+    flagship = _flagship_samples(args.seed)
+    cases = {side: _cases(pkg, args.seed, step_samples, flagship)
              for side, pkg in sides.items()}
     for name in cases['new']:
-        (old, reps), (new, _) = cases['old'][name], cases['new'][name]
-        diff = _max_diff(old(), new())
+        (old, reps, compare), (new, _, _) = (cases['old'][name],
+                                             cases['new'][name])
+        diff = (compare or _max_diff)(old(), new())
         times = {'old': [], 'new': []}
+        device = {'old': [], 'new': []}
         for r in range(args.rounds):
             for side in (('old', 'new') if r % 2 == 0 else ('new', 'old')):
                 fn = old if side == 'old' else new
                 times[side].append(_cuda_ms(fn, reps))
+                by_kernel = _kernel_ms(fn)
+                device[side].append(None if by_kernel is None
+                                    else sum(by_kernel.values()))
         med = {k: float(np.median(v)) for k, v in times.items()}
+        dev_med = {k: None if None in v else float(np.median(v))
+                   for k, v in device.items()}
         result['kernels'][name] = dict(max_diff_old_new=diff, ms=times,
-                                       median_ms=med)
+                                       median_ms=med, device_ms=device,
+                                       median_device_ms=dev_med)
+        what = ('selections differ' if diff else 'selections equal') \
+            if compare is _same_selection else f'max |new - old| {diff:.3e}'
+        dev_text = ('device ms not measured' if None in dev_med.values()
+                    else f'device old {dev_med["old"]:.4f} ms, new '
+                         f'{dev_med["new"]:.4f} ms (new/old '
+                         f'{dev_med["new"] / dev_med["old"]:.3f})')
         print(f'{name} [{gpu}]: old {med["old"]:.4f} ms, new '
-              f'{med["new"]:.4f} ms (new/old {med["new"] / med["old"]:.3f}); '
-              f'max |new - old| {diff:.3e}; rounds old '
+              f'{med["new"]:.4f} ms (new/old {med["new"] / med["old"]:.3f}) '
+              f'by events; {dev_text}; {what}; rounds old '
               f'{[round(v, 4) for v in times["old"]]} new '
               f'{[round(v, 4) for v in times["new"]]}')
         torch.cuda.empty_cache()

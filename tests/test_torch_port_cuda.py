@@ -732,6 +732,59 @@ def test_select_kernel_matches_plain(cuda, n):
                                                      device=cuda))
 
 
+def _card_cotangent(n, width, device, seed):
+    """_step_like_cotangent made on the card (1 GiB of g at the largest
+    shape): rows of spread magnitudes, a third zero, every seventh scaled
+    by 1e-22."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((n, width), generator=gen, device=device) * torch.exp(
+        torch.randn((n, 1), generator=gen, device=device))
+    g[::3] = 0.0
+    g[1::7] *= 1e-22
+    return g.to(torch.bfloat16)
+
+
+# N = 1, a tile - 1 and + 1; the norms kernel's grid below the SM count
+# (64 rows a block at D = 512: 100 blocks) and the tiles above it (200);
+# 1 GiB of g, more rows than the persistent norms grid takes at a time and
+# 1,024 tiles.
+@pytest.mark.parametrize('n', [1, hashgrid_cuda.SELECT_TILE - 1,
+                               hashgrid_cuda.SELECT_TILE + 1, 6400,
+                               200 * hashgrid_cuda.SELECT_TILE, 1 << 20])
+def test_select_kernel_shapes(cuda, n):
+    """K5 at the flagship's width D = 512 across its grids: two launches
+    bit-equal (selection and workspace), the check of
+    test_select_kernel_matches_plain, and the all-zero cotangent drawing
+    uniformly (k points of coef n / k)."""
+    g = _card_cotangent(n, 512, cuda, n)
+    u = torch.rand((4, n + 1), generator=torch.Generator().manual_seed(n)
+                   ).to(cuda)
+    k = max(1, n // 4)
+    outs = []
+    for _ in range(2):
+        work = torch.empty(hashgrid_cuda.select_workspace_bytes(n),
+                           dtype=torch.uint8, device=cuda)
+        outs.append((hashgrid_cuda._select_call(g, u, k, work), work))
+    (sel, coef, count), work = outs[0]
+    (sel2, coef2, count2), work2 = outs[1]
+    m = int(count[0])
+    assert int(count2[0]) == m
+    assert torch.equal(sel[:m], sel2[:m]) and torch.equal(coef[:m],
+                                                          coef2[:m])
+    used = 4 * (3 * n + 2 * -(-n // hashgrid_cuda.SELECT_TILE) + 1)
+    assert torch.equal(work[:used], work2[:used])
+    check = hashgrid_cuda.check_selection(
+        g, u[0, n], k, sel, coef, count,
+        hashgrid_cuda.select_workspace_views(work, n))
+    assert not hashgrid_cuda.selection_failures(check, n, k, 512), check
+    assert bool((sel[1:m] > sel[:m - 1]).all())
+    sel0, coef0, count0 = hashgrid_cuda.select_points(torch.zeros_like(g), u,
+                                                      k)
+    assert int(count0[0]) == k
+    torch.testing.assert_close(coef0[:k], torch.full((k,), n / k,
+                                                     device=cuda))
+
+
 def test_select_kernel_takes_bf16_only(cuda):
     """K5 reads the sampled encode's cotangent, which is bf16: another
     dtype raises before any launch."""
@@ -782,6 +835,73 @@ def test_sampled_scatter_kernel_matches_plain(cuda, interp, rows, subsample,
     err = (got - want).abs()
     assert bool((err <= tol).all()), float((err - tol).max())
     assert bool(want.any())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('rows', [2, (4, 4, 2, 2)])
+@pytest.mark.parametrize('live', ['none', 'all', 'few'])
+def test_sampled_scatter_kernel_counts(cuda, live, rows, dtype):
+    """K2s reads how many of its k slots are live from the device: a count
+    of 0 (a zero gradient), every slot (count = k), and a count far below
+    k, as at the flagship (a sixth). Against the plain scatter fed the
+    first count of (sel, coef), within sampled_backward_tolerance."""
+    rng = np.random.default_rng(26)
+    config = _flagship_grid(128)
+    n, k = 8000, 2000
+    x = _clustered(rng, n, 'rays', cuda)
+    idx, w = hashgrid_cuda.encoders._corner_idx_weights(x, config, 'simplex')
+    g = _step_like_cotangent(rng, n, config.out_dim, cuda, dtype)
+    u = torch.rand((4, n + 1), generator=torch.Generator().manual_seed(2)
+                   ).to(cuda)
+    rows = rows if isinstance(rows, tuple) else (rows,) * 4
+    sel = torch.tensor(np.sort(rng.choice(n, k, replace=False)).astype(
+        np.int32), device=cuda)
+    coef = torch.tensor(rng.uniform(0.5, 4.0, k).astype(np.float32),
+                        device=cuda)
+    m = {'none': 0, 'all': k, 'few': k // 6}[live]
+    count = torch.tensor([m], dtype=torch.int32, device=cuda)
+    _kernels.reset_launches()
+    got = hashgrid_cuda.sampled_scatter(g, idx, w, u, rows, config, sel,
+                                        coef, count)
+    assert _kernels.launches[hashgrid_cuda.SAMPLED_BWD_NAME] == 1
+    if m == 0:
+        assert not bool(got.any())
+        return
+    sel_m, coef_m = sel[:m].long(), coef[:m]
+    want = hashgrid_cuda.encoders.sampled_scatter_plain(
+        g, idx, w, u, rows, config, sel_m, coef_m)
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows, config,
+                                                   sel_m, coef_m)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert bool(want.any())
+
+
+@pytest.mark.parametrize('interp,rows', [('simplex', 4), ('simplex', 2),
+                                         ('trilinear', 8)])
+def test_sampled_scatter_kernel_walks_many_tiles(cuda, interp, rows):
+    """Every point of a flagship-sized step (N = 131,072) at TPU_GRID's
+    widths: more tiles than K2s's persistent grid has blocks, so each
+    block walks several; exact (every atom) and sampled rows, against the
+    plain scatter within sampled_backward_tolerance."""
+    rng = np.random.default_rng(27)
+    config = hashgrid_cuda.encoders.TPU_GRID
+    n = 131072
+    x = _clustered(rng, n, 'rays', cuda)
+    idx, w = hashgrid_cuda.encoders._corner_idx_weights(x, config, interp)
+    g = _step_like_cotangent(rng, n, config.out_dim, cuda, torch.bfloat16)
+    u = torch.rand((4, n), generator=torch.Generator().manual_seed(3)
+                   ).to(cuda)
+    rows = (rows,) * 4
+    shape = hashgrid_cuda.sampled_launch_shapes(config, n, n, rows, interp)[
+        'K2s sampled_rows_kernel']
+    assert shape['blocks'] * shape['points'] < n
+    got = hashgrid_cuda.sampled_scatter(g, idx, w, u, rows, config)
+    want = hashgrid_cuda.encoders.sampled_scatter_plain(g, idx, w, u, rows,
+                                                        config)
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows, config)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 def test_sampled_encode_launches_each_kernel_once(cuda):

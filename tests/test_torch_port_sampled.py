@@ -249,6 +249,96 @@ def test_selection_matches_jax_as_sets():
     assert np.all(err <= tol + RTOL * np.abs(np.asarray(ref)))
 
 
+_TILE = hashgrid_cuda.SELECT_TILE
+_CHAIN_SHAPES = [(n, dim) for n in (1, _TILE - 1, _TILE + 1, 3 * _TILE + 17)
+                 for dim in (8, 512)]
+
+
+def _chain_cotangent(n, dim):
+    """A bf16 cotangent as K5 reads it: rows of spread magnitudes, a third
+    zero, every seventh scaled by 1e-22 (its squares underflow in fp32)."""
+    rng = np.random.default_rng(n * 7 + dim)
+    g = rng.normal(size=(n, dim)) * np.exp(rng.normal(size=(n, 1)))
+    g[::3] = 0.0
+    g[1::7] *= 1e-22
+    return torch.tensor(g.astype(np.float32)).to(torch.bfloat16)
+
+
+def _chain_draws(g, seed):
+    """K5 emulated on the CPU from select_chain: its workspace views, the
+    cum it floors, and (sel, coef, count) as its compaction writes them;
+    plus k and u_sys."""
+    n = g.shape[0]
+    k = max(1, n // 4)
+    u_sys = np.float32(np.random.default_rng(seed).uniform())
+    s, loc, tile_total = hashgrid_cuda.select_chain(g)
+    offsets = np.empty_like(tile_total)
+    total = np.float32(0.0)
+    for b, t in enumerate(tile_total):
+        offsets[b] = total
+        total = np.float32(total + t)
+    partial = (np.repeat(offsets, _TILE)[:n] + loc).astype(np.float32)
+    cum = partial / total if total > 0 else (
+        np.arange(1, n + 1, dtype=np.float32) / np.float32(n))
+    c = np.floor((np.float32(k) * cum - u_sys).astype(np.float32))
+    counts = np.diff(c, prepend=np.float32(-1.0)).astype(np.int64)
+    p = s / total if total > 0 else np.full(n, 1.0 / n, np.float32)
+    sel = np.nonzero(counts > 0)[0][:k]
+    coef = (counts[sel].astype(np.float32)
+            / (np.float32(k) * np.maximum(p[sel], np.float32(1e-30))))
+    views = dict(s=torch.from_numpy(s), loc=torch.from_numpy(loc),
+                 counts=torch.from_numpy(counts.astype(np.int32)),
+                 tile_total=torch.from_numpy(tile_total),
+                 total=torch.tensor(total))
+    return (views, partial, cum, torch.from_numpy(sel.astype(np.int32)),
+            torch.from_numpy(coef.astype(np.float32)),
+            torch.tensor([len(sel)], dtype=torch.int32), k, u_sys)
+
+
+@pytest.mark.parametrize('n,dim', _CHAIN_SHAPES)
+def test_select_chain_scan_never_decreases_and_chains_its_tiles(n, dim):
+    """select_chain, K5's fp32 order on the CPU: its scan (each tile's
+    offset plus its inclusive scan, over the chained total) never
+    decreases within or across tiles; each tile's total is its scan's
+    last value, and the tiles' totals chained in order give the last
+    partial sum; the k cum - u it floors lies within select_scan_bound
+    of float64's (n = 1 draws the all-zero row: the uniform branch)."""
+    g = _chain_cotangent(n, dim)
+    views, partial, cum, _, _, _, k, u_sys = _chain_draws(g, n + dim)
+    loc, tile_total = views['loc'].numpy(), views['tile_total'].numpy()
+    assert len(tile_total) == -(-n // _TILE)
+    assert np.all(np.diff(partial) >= 0) and np.all(np.diff(cum) >= 0)
+    assert cum[-1] == 1.0
+    last = np.minimum(np.arange(1, len(tile_total) + 1) * _TILE, n) - 1
+    assert np.array_equal(tile_total.view(np.int32), loc[last].view(np.int32))
+    assert partial[-1].tobytes() == views['total'].numpy().tobytes()
+    s64 = np.sqrt((g.double().numpy() ** 2).sum(-1))
+    p64 = s64 / s64.sum() if s64.sum() > 0 else np.full(n, 1.0 / n)
+    v64 = k * np.cumsum(p64) - np.float64(u_sys)
+    v32 = (np.float32(k) * cum - u_sys).astype(np.float32)
+    dev = float(np.abs(v32.astype(np.float64) - v64).max())
+    assert dev <= hashgrid_cuda.select_scan_bound(n, k, dim), dev
+
+
+@pytest.mark.parametrize('n,dim', _CHAIN_SHAPES)
+def test_select_chain_selection_holds_against_float64_and_plain(n, dim):
+    """The selection drawn from select_chain's scan, as K5's compaction
+    writes it, passes every condition check_selection holds K5 to: its
+    counts the floors of its own scan, its scan and coefs within their
+    float64 bounds, and against the plain subsample
+    (encoders._select_backward_points) every differing count explained by
+    an integer within the two scans' deviations of the float64 value, and
+    the coefs equal within their bounds wherever the counts agree."""
+    g = _chain_cotangent(n, dim)
+    views, _, _, sel, coef, count, k, u_sys = _chain_draws(g, n + dim)
+    check = hashgrid_cuda.check_selection(g, u_sys, k, sel, coef, count,
+                                          views)
+    failures = hashgrid_cuda.selection_failures(check, n, k, dim)
+    assert not failures, (failures, check)
+    assert check['compared'] == int(count[0]) > 0
+    assert check['plain_compared'] > 0
+
+
 @pytest.mark.parametrize('rows,point_frac', [(2, 0.25), (1, 0.25),
                                              ((4, 4, 2, 2), 0.5)])
 def test_sampled_estimator_is_unbiased(rows, point_frac):
