@@ -34,24 +34,28 @@ def compute_directions(R_WC, ray_indices, w, fx, fy, cx, cy, rng=None):
     """World-space unit ray directions for flat pixel indices.
 
     R_WC: (3, 3) camera-to-world rotation; ray_indices: (N,) flat pixel
-    indices (row-major); rng: np.random.Generator for intra-pixel jitter,
-    or None for pixel centers. Returns directions (N, 3) float32 and the
-    norms (N, 1) of the unnormalized camera-space directions (x, y, 1),
-    the factor converting ray distance to z-depth.
+    indices (row-major); rng: np.random.Generator for intra-pixel jitter
+    (two float32 draws of N: x, then y), or None for pixel centers.
+    Returns directions (N, 3) float32 and the norms (N, 1) float32 of the
+    unnormalized camera-space directions (x, y, 1), the factor converting
+    ray distance to z-depth.
+
+    The arithmetic is the JAX package's native kernel's
+    (native/raybatch.c): float64 in its order, rounded once to float32.
     """
-    ray_indices = np.asarray(ray_indices)
-    xs = (ray_indices % w).astype(np.float32)
-    ys = ((ray_indices - xs) / w).astype(np.float32)
+    ray_indices = np.asarray(ray_indices).astype(np.int64)
     if rng is not None:
-        xs = xs + rng.random(ray_indices.size, dtype=np.float32)
-        ys = ys + rng.random(ray_indices.size, dtype=np.float32)
+        jx = rng.random(ray_indices.size, dtype=np.float32).astype(np.float64)
+        jy = rng.random(ray_indices.size, dtype=np.float32).astype(np.float64)
     else:
-        xs = xs + 0.5
-        ys = ys + 0.5
+        jx = jy = 0.5
+    dx = ((ray_indices % w).astype(np.float64) + jx - cx) / fx
+    dy = ((ray_indices // w).astype(np.float64) + jy - cy) / fy
+    norm = np.sqrt(dx * dx + dy * dy + 1.0)
+    inv = 1.0 / norm
+    ux, uy, uz = dx * inv, dy * inv, inv
+    r = np.asarray(R_WC, dtype=np.float64)
     directions = np.empty((ray_indices.size, 3), dtype=np.float32)
-    directions[:, 0] = (xs - cx) / fx
-    directions[:, 1] = (ys - cy) / fy
-    directions[:, 2] = 1.0
-    norms = np.linalg.norm(directions, axis=1, keepdims=True)
-    directions /= norms
-    return directions @ np.asarray(R_WC, dtype=np.float32).T, norms
+    for row in range(3):
+        directions[:, row] = r[row, 0] * ux + r[row, 1] * uy + r[row, 2] * uz
+    return directions, norm.astype(np.float32)[:, None]

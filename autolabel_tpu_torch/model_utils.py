@@ -7,6 +7,7 @@ to the JAX package's and both packages share workspaces.
 """
 import argparse
 import os
+import pickle
 
 from autolabel_tpu_torch.models.field import Field, FieldConfig
 from autolabel_tpu_torch.ops.encoders import TPU_GRID
@@ -146,3 +147,17 @@ def load_checkpoint(checkpoint_dir, config=None):
     if payload is None:
         raise FileNotFoundError(f"No checkpoints in {checkpoint_dir}")
     return payload['model'], payload.get('ema', payload['model'])
+
+
+def read_params(workspace):
+    """The flags a workspace was trained with (<workspace>/params.pkl, the
+    argparse Namespace pickled, as the JAX package writes it: either
+    package reads the other's)."""
+    with open(os.path.join(workspace, 'params.pkl'), 'rb') as f:
+        return pickle.load(f)
+
+
+def write_params(workspace, flags):
+    os.makedirs(workspace, exist_ok=True)
+    with open(os.path.join(workspace, 'params.pkl'), 'wb') as f:
+        pickle.dump(flags, f)

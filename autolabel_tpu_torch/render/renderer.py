@@ -10,8 +10,10 @@ exact-forward / sampled-backward one (options.sampled_backward, which
 takes precedence over stochastic_corners, as in the JAX package). JAX
 draws its perturbations from a PRNG key; here they come in as tensors
 (`draws`) or from a torch.Generator (`key`), so tests can feed JAX's own
-draws. Occupancy masking, level windows and the stochastic-corner encodes
-are not ported and raise.
+draws. With an occupancy grid, samples in empty or untrained cells get
+sigma 0 and, with options.occupancy_near_far, each ray's [near, far]
+shrinks to the occupied span. Level windows and the stochastic-corner
+encodes are not ported and raise.
 
 Output contract: image, depth, semantic, semantic_features,
 depth_variance, coordinates_map, weights_sum, and interlevel (a scalar)
@@ -22,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from autolabel_tpu_torch.render.occupancy import occupied
+
 MIN_NEAR = 0.05
 
 
@@ -29,8 +33,8 @@ MIN_NEAR = 0.05
 class RenderOptions:
     """The JAX package's RenderOptions, defaults mirrored exactly. The
     fields of what is not ported (stochastic corners without the sampled
-    backward, occupancy, level windows) are carried so configs transfer;
-    a perturbed render that would use them raises."""
+    backward, level windows) are carried so configs transfer; a perturbed
+    render that would use them raises."""
     num_steps: int = 128
     upsample_steps: int = 0
     perturb: bool = False
@@ -59,6 +63,41 @@ def ray_aabb_intersect(rays_o, rays_d, bound, min_near=MIN_NEAR):
     near = torch.clamp(near, min=min_near)
     far = torch.maximum(far, near + 1e-4)
     return near[..., None], far[..., None]
+
+
+def shrink_near_far(occupancy, rays_o, rays_d, near, far, bound,
+                    n_probe=32):
+    """Tighten per-ray [near, far] to the span of occupied+trained cells.
+
+    occupancy: (density_grid, trained_mask, threshold); near/far: (N, 1).
+    Probes the grid at n_probe equally spaced points per ray and brackets
+    the first/last occupied probe with a one-step margin. Rays with no
+    occupied probe keep the full interval. The probe fractions are JAX
+    linspace's i / (n_probe - 1), bit for bit.
+    """
+    frac = torch.arange(n_probe, dtype=torch.float32,
+                        device=near.device) / (n_probe - 1)
+    t = near + (far - near) * frac[None, :]  # (N, P)
+    xyz = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
+    occ = occupied(occupancy, xyz, bound)  # (N, P)
+    any_occ = occ.any(dim=-1, keepdim=True)
+    # argmax of a bool row: its first True (0 when there is none)
+    first = torch.argmax(occ.to(torch.uint8), dim=-1)
+    last = n_probe - 1 - torch.argmax(occ.flip(-1).to(torch.uint8), dim=-1)
+    step = 1.0 / (n_probe - 1)
+    lo = torch.clamp((first - 1) * step, 0.0, 1.0)[:, None]
+    hi = torch.clamp((last + 1) * step, 0.0, 1.0)[:, None]
+    new_near = torch.where(any_occ, near + (far - near) * lo, near)
+    new_far = torch.where(any_occ, near + (far - near) * hi, far)
+    return new_near, torch.maximum(new_far, new_near + 1e-4)
+
+
+def _mask_sigma(occupancy, flat, sigma, bound):
+    """sigma of (M, 3) points zeroed where their cell is empty or
+    untrained; unchanged without an occupancy grid."""
+    if occupancy is None:
+        return sigma
+    return sigma * occupied(occupancy, flat, bound).to(sigma.dtype)
 
 
 def sample_pdf(z_mid, weights, n_samples, u=None):
@@ -164,10 +203,10 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     takes its training form: the uniforms come from `draws` (see
     draw_perturbations) or, when it is None, are drawn from `key`, a
     torch.Generator on the rays' device; with neither, or without
-    perturb, the render is the eval form.
+    perturb, the render is the eval form. occupancy: None, or
+    (density_grid (R, R, R), trained_mask (R, R, R), threshold) from
+    OccupancyGrid.state() and its config.
     """
-    if occupancy is not None:
-        raise NotImplementedError('occupancy masking is not ported yet')
     if options.level_window is not None:
         raise NotImplementedError('level windows are not ported yet')
     c = field.config
@@ -203,6 +242,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
             enc_upsample = dict(opts, u=draws['u_enc_upsample'])
 
     near, far = ray_aabb_intersect(rays_o, rays_d, bound)
+    if occupancy is not None and options.occupancy_near_far:
+        near, far = shrink_near_far(occupancy, rays_o, rays_d, near, far,
+                                    bound, options.occupancy_probes)
     sample_dist = (far - near) / num_steps  # (N, 1)
 
     proposal_info = None
@@ -230,7 +272,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
 
     def query_density(z_vals, estimator):
         xyz = _points(rays_o, rays_d, z_vals, bound)
-        sigma, geo = field.density(xyz.reshape(-1, 3), **estimator)
+        flat = xyz.reshape(-1, 3)
+        sigma, geo = field.density(flat, **estimator)
+        sigma = _mask_sigma(occupancy, flat, sigma, bound)
         s = z_vals.shape[1]
         return xyz, sigma.reshape(n_rays, s), geo.reshape(n_rays, s, -1)
 
@@ -243,7 +287,8 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
                                               3).reshape(-1, 3)
         sigma_f, rgb_f, logits_f, feats_f = field.all_heads(flat, dirs_flat,
                                                             **enc)
-        sigma = sigma_f.reshape(n_rays, num_steps)
+        sigma = _mask_sigma(occupancy, flat, sigma_f,
+                            bound).reshape(n_rays, num_steps)
     else:
         xyz, sigma, geo = query_density(z, enc)
 

@@ -12,8 +12,11 @@ The estimator phase schedule is the JAX trainer's: with
 sampled_warmup_fraction (and sampled_backward == 2) the first steps
 scatter one row a level, with exact_final_fraction the last steps use
 exact gathers; one set of render options per phase, chosen on the host by
-global_step. Not ported, and refused rather than ignored: the device mesh,
-pose refinement, occupancy grids, TensorBoard events and the
+global_step. With an occupancy grid the grid is updated from the field
+every occupancy_update_every steps (before the step) and masks the
+render's sigma; with tensorboard, each epoch's loss parts go to TensorBoard
+event files at <workspace>/run/<name> beside metrics.jsonl. Not ported,
+and refused rather than ignored: the device mesh, pose refinement and the
 stochastic-corner estimator (stochastic_corners without the sampled
 backward).
 """
@@ -31,16 +34,15 @@ from autolabel_tpu_torch.train import checkpoints
 from autolabel_tpu_torch.train.losses import LossOptions, compute_losses
 from autolabel_tpu_torch.train.metrics import MetricsLogger
 from autolabel_tpu_torch.train.optim import Optimizer
+from autolabel_tpu_torch.train.tb_events import TBEventWriter
 
 _BATCH_KEYS = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
                'semantic')
 
 
-def _refuse_unported(mesh, occupancy, tensorboard, pose_refine, options):
+def _refuse_unported(mesh, pose_refine, options):
     unported = {
         'a device mesh (data parallelism)': mesh is not None,
-        'occupancy grids': occupancy is not None,
-        'TensorBoard events': tensorboard,
         'pose refinement': pose_refine is not None,
         'the stochastic-corner estimator': (
             options.perturb and bool(options.stochastic_corners)
@@ -99,10 +101,10 @@ class SimpleTrainer:
                  tensorboard=False,
                  pose_refine=None,
                  seed=0):
-        del occupancy_update_every  # occupancy grids are refused below
         self.render_options = render_options or RenderOptions(perturb=True)
-        _refuse_unported(mesh, occupancy, tensorboard, pose_refine,
-                         self.render_options)
+        _refuse_unported(mesh, pose_refine, self.render_options)
+        self.occupancy = occupancy
+        self.occupancy_update_every = occupancy_update_every
         self.phases = phase_schedule(self.render_options, iters,
                                      exact_final_fraction,
                                      sampled_warmup_fraction)
@@ -115,6 +117,8 @@ class SimpleTrainer:
         self.global_step = 0
         self.metrics_logger = (MetricsLogger(workspace)
                                if metrics and workspace is not None else None)
+        self.tb_writer = (TBEventWriter(os.path.join(workspace, 'run', name))
+                          if tensorboard and workspace is not None else None)
         self.optimizer = Optimizer(field.named_parameters(),
                                    field.param_labels(), lr=lr, iters=iters)
         self.ema = {k: v.detach().clone()
@@ -173,6 +177,9 @@ class SimpleTrainer:
     # -- training ----------------------------------------------------------
 
     def _device_batch(self, data):
+        """The batch's tensors on the field's device, direction_norms as
+        (N, 1). Idempotent, and free on a batch it already made (no copy):
+        PrefetchIterator applies it on its own thread, and the step again."""
         dev = self.field.device
         keys = _BATCH_KEYS + (('features',) if self.loss_options.feature_loss
                               else ())
@@ -194,9 +201,14 @@ class SimpleTrainer:
         render's uniforms (renderer.draw_perturbations), drawn from the
         trainer's generator when None."""
         batch = self._device_batch(data)
+        occupancy = None
+        if self.occupancy is not None:
+            occupancy = (*self.occupancy.state(),
+                         self.occupancy.config.threshold)
         outputs = render_rays(self.field, batch['rays_o'], batch['rays_d'],
                               batch['direction_norms'], key=self.generator,
-                              options=self.step_options(), draws=draws)
+                              options=self.step_options(),
+                              occupancy=occupancy, draws=draws)
         loss, parts = compute_losses(outputs, batch, self.loss_options)
         params = self.optimizer.params
         grads = torch.autograd.grad(loss, list(params.values()),
@@ -206,7 +218,12 @@ class SimpleTrainer:
         return parts, dict(zip(params, grads))
 
     def train_step(self, data, draws=None):
-        """One optimization step; returns its loss parts."""
+        """One optimization step; returns its loss parts. With an occupancy
+        grid, the grid is updated first on every occupancy_update_every-th
+        step."""
+        if (self.occupancy is not None
+                and self.global_step % self.occupancy_update_every == 0):
+            self.occupancy.update(self.field)
         parts, grads = self.loss_and_grads(data, draws)
         self.optimizer.step(grads)
         self.global_step += 1
@@ -225,10 +242,17 @@ class SimpleTrainer:
         for epoch in range(epochs):
             losses = self.train_iterations(dataloader, iters_per_epoch)
             self.epoch += 1
-            if losses is not None and self.metrics_logger is not None:
-                self.metrics_logger.log(
-                    self.epoch, self.global_step,
-                    {k: float(v) for k, v in losses.items()})
+            if losses is not None and (self.metrics_logger is not None
+                                       or self.tb_writer is not None):
+                # One small device-to-host read per epoch, at its end.
+                fetched = {k: float(v) for k, v in losses.items()}
+                if self.metrics_logger is not None:
+                    self.metrics_logger.log(self.epoch, self.global_step,
+                                            fetched)
+                if self.tb_writer is not None:
+                    self.tb_writer.add_scalars(
+                        self.global_step,
+                        {f'train/{k}': v for k, v in fetched.items()})
             if (checkpoint_interval is not None
                     and (epoch + 1) % checkpoint_interval == 0
                     and epoch + 1 < epochs):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render (serving) path, its training step and
-the flagship training step on one CUDA card.
+"""Drive the PyTorch port's render (serving) path, its training step, the
+flagship training step and the train CLI on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -86,7 +86,32 @@ Phases, each failing loudly:
      and the bf16 -> fp32 cast before K3f; (d) ms per step in turns (plain, kernels,
      kernels, plain), peak memory and one profiled step per leg; (e) the
      flagship checkpoint served through InferenceModel.from_checkpoint,
-     through K1s's eval form, equal to the trainer's own render.
+     through K1s's eval form, equal to the trainer's own render;
+ 10. the train CLI, autolabel_tpu_torch.train.main in-process, on a sphere
+     scene written by utils.fixtures (16 frames of 320 x 240) and read
+     through SceneDataset. Run A, README's command (--proposal, every other
+     flag at its default: 4,096 rays x 128 samples a step, N = 524,288)
+     for 300 iterations with --eval at factor 1, every count set to 0
+     just before and read just after: K1s (training form), K5 and K2s once
+     a step and K1s's eval form once an eval chunk, none of the heads'
+     kernels; the model-hash directory with params.pkl, metrics.jsonl and
+     the checkpoint; the eval MSE at least 4-fold below a 1-iteration run
+     of the same command; the checkpoint served through
+     InferenceModel.from_checkpoint, a finite frame; K1s (both forms), K5
+     and K2s held on the last step's recorded inputs as in phase 9 (a).
+     On Run A's trainer: the loader's ms per batch on the host, ms per
+     step through the loader and on a pre-made batch on the device, the
+     device's busy time over 5 profiled steps and its share of the same
+     steps' wall clock. Run B (--heads-impl pallas --occupancy-grid
+     --occupancy-near-far --tensorboard, 100 iterations at factor 2): the
+     seven kernels once a step (K1s also once per chunk of the occupancy
+     update), one update with its ms and peak memory, the events read
+     back, the loss finite; K3b held on the last step's recorded inputs
+     as in phase 8; then, on a grid updated afresh from the trained field
+     and thresholded to mask at least half the cells, shrink_near_far
+     narrowing rays and equal to its CPU run, and a test frame rendered
+     with the grid through the kernels against the plain versions. Both
+     runs' ms per step over the epoch's wall clock.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -191,7 +216,17 @@ def _kernel_ms(fn, reps=5):
     rows, _ = _device_profile(lambda: [fn() for _ in range(reps)])
     if rows is None:
         return None
-    return {name: ms / reps for name, ms, _ in rows}
+    # The trace can hold fewer launches than were made (seen on the H100:
+    # 3 or 4 of 5 calls' kernels). A kernel's ms a call is then its ms per
+    # recorded launch times its launches a call, the count rounded up.
+    out = {}
+    for name, ms, count in rows:
+        per_call = -(-count // reps)
+        if count != per_call * reps:
+            print(f'profiler: {count} launches of {name[:60]} recorded over '
+                  f'{reps} calls; counted as {per_call} a call')
+        out[name] = ms / count * per_call
+    return out
 
 
 def _print_shapes(gpu, shapes):
@@ -530,6 +565,141 @@ def _check_k2(checks, name, hashgrid_cuda, g, x, config):
     return err
 
 
+def _check_k1s(checks, tag, table, x, idx, w, grid):
+    """K1s on one step's recorded (table, x), the step's own atoms (idx, w)
+    beside them. Eval form: the same products and sums as the plain exact
+    encode. Training form: indices equal and weights bit-equal to the
+    plain atoms and to the step's; the bf16 encode its fp32 sum rounded
+    once (half a bf16 unit: 2^-8 of the value), and within the plain bf16
+    chain's roundings ((4 A + 1) 2^-8 of the terms' magnitudes: the table
+    entries, weights, products and partial sums each rounded to bf16
+    there, the kernel's sum once). Returns the largest error against the
+    plain bf16 version and the training form's encode."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    n = x.shape[0]
+    enc_e, _, _ = hashgrid_cuda.encode_atoms(table, x, grid, 'simplex',
+                                             torch.float32, False)
+    want_e, want_idx, want_w = hashgrid_cuda.encode_atoms_plain(
+        table, x, grid, 'simplex', torch.float32)
+    checks.close(f'K1s eval {tag} N={n}', enc_e, want_e, atol=1e-5, rtol=0.0)
+    del enc_e
+    enc_t, idx_t, w_t = hashgrid_cuda.encode_atoms(
+        table, x, grid, 'simplex', torch.bfloat16, True)
+    checks.true(f'K1s atoms {tag} N={n}: indices equal, weights bit-equal '
+                'to the plain atoms and to the step\'s',
+                torch.equal(idx_t, want_idx) and torch.equal(w_t, want_w)
+                and torch.equal(idx_t, idx) and torch.equal(w_t, w))
+    del idx_t, w_t, want_idx, want_w
+    checks.within(f'K1s training {tag} bf16 against fp32 N={n}', enc_t,
+                  want_e, 2.0 ** -8 * want_e.abs() + 1e-30)
+    del want_e
+    want_t = hashgrid_cuda.encode_atoms_plain(table, x, grid, 'simplex',
+                                              torch.bfloat16, False)[0]
+    terms = hashgrid_cuda.encoders._gather_from_atoms(
+        table.abs(), idx, w, grid, torch.float32)
+    err = checks.within(f'K1s training {tag} against plain bf16 N={n}',
+                        enc_t, want_t, 17 * 2.0 ** -8 * terms + 1e-30)
+    return err, enc_t
+
+
+def _check_k3b(checks, tag, packed, A, B, g1, gf, gl, need_dB=True):
+    """K3b against its plain version on (A, B, g1, gf, gl) and the bf16
+    packed weights. Both take bf16 operands and sum in another order.
+    That order can round an activation that sits at 0 to either side,
+    and the ReLU mask of that (point, unit) then flips: the point's
+    cotangents differ by O(their size) there. So dA and dB are held
+    within 1e-2 of their norm, with at most 3e-4 of their elements beyond
+    2e-2 of the largest magnitude; and, the second witness, for the
+    cause: against the fp32 plain version the kernel is no less accurate
+    than the bf16 plain version (room 1.1). Both round at the same
+    places, so mask flips alone grow that distance by a small share; a
+    fault (a wrong index, a dropped term or mask) adds errors of the
+    values' own size. Each weight gradient, a sum over the points, within
+    1e-2 of its norm; a second launch gives the same weight gradients'
+    bits. Returns dA's largest error and the fp32 witness."""
+    import torch
+    from autolabel_tpu_torch.ops import heads_cuda
+    n = A.shape[0]
+    dA, dB, dws = heads_cuda.fused_heads_backward(packed, A, B, g1, gf, gl,
+                                                  need_dB)
+    wA, wB, wws = heads_cuda.fused_heads_backward_plain(
+        packed, A, B, g1, gf, gl, torch.bfloat16)
+    fA, fB, _ = heads_cuda.fused_heads_backward_plain(packed, A, B, g1, gf,
+                                                      gl, torch.float32)
+    errors, witness = {}, {}
+    for key, got, ref, want in (('dA', dA, wA, fA), ('dB', dB, wB, fB)):
+        if got is None:
+            continue
+        checks.rel_norm(f'K3b {key} {tag} N={n}', got, ref, 1e-2)
+        errors[key] = checks.flips(f'K3b {key} {tag} N={n} elements', got,
+                                   ref, 2e-2 * float(ref.abs().max()), 3e-4)
+        witness[key] = checks.no_worse(
+            f'K3b {key} {tag} N={n} against fp32', got, ref, want,
+            2e-2 * float(want.abs().max()), 1.1)
+    del dA, dB, wA, wB, fA, fB
+    weight_names = ('WA', 'WBs', 'W1s', 'W2s', 'WBc', 'WSc', 'W1c', 'W2c',
+                    'WSf', 'W1f', 'W2f', 'WFo', 'WSo', 'W1o')
+    for name, a, b in zip(weight_names, dws, wws):
+        checks.rel_norm(f'K3b d{name} {tag} N={n}', a, b, 1e-2)
+    _, _, again = heads_cuda.fused_heads_backward(packed, A, B, g1, gf, gl,
+                                                  need_dB)
+    checks.true(f'K3b dW {tag} N={n} bit-equal across two launches',
+                all(torch.equal(a, b) for a, b in zip(dws, again)))
+    return errors['dA'], witness
+
+
+def _check_select_scatter(checks, gpu, dev, tag, g, u, k, idx, w, rows,
+                          grid):
+    """K5 and K2s on one step's recorded inputs: K5 against itself, float64
+    and the plain subsample (its counts exactly the floors of its own fp32
+    scan, read from its workspace; that scan within select_scan_bound of
+    float64, its coefs within select_coef_bound of float64 on every point
+    drawn and of the plain version's on every point both give the same
+    count), then K2s against the plain scatter fed the same (sel, coef),
+    within sampled_backward_tolerance. Returns the selection and the
+    errors."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    n = g.shape[0]
+    work = torch.empty(hashgrid_cuda.select_workspace_bytes(n),
+                       dtype=torch.uint8, device=dev)
+    sel, coef, count = hashgrid_cuda._select_call(g, u, k, work)
+    m = int(count[0])
+    sel_check = hashgrid_cuda.check_selection(
+        g, u[0, n], k, sel, coef, count,
+        hashgrid_cuda.select_workspace_views(work, n))
+    del work
+    print(f'K5 [{gpu}] {tag} N={n} k={k}: {m} points drawn; counts equal '
+          f'to its own scan\'s floors: {sel_check["counts_equal"]}; scan '
+          f'{sel_check["scan_dev"]:.3e} counts from float64 (bound '
+          f'{hashgrid_cuda.select_scan_bound(n, k, g.shape[1]):.3e}); '
+          f'coefs {sel_check["coef_rel"]:.3e} from float64 (bound '
+          f'{hashgrid_cuda.select_coef_bound(n, g.shape[1]):.3e}); '
+          f'{sel_check["truth_off"]} counts off float64, '
+          f'{sel_check["plain_off"]} off the plain version\'s (its scan '
+          f'{sel_check["plain_dev"]:.3e} counts from float64); coefs '
+          f'{sel_check["plain_coef_rel"]:.3e} from the plain version\'s on '
+          f'{sel_check["plain_compared"]} points')
+    failures = hashgrid_cuda.selection_failures(sel_check, n, k, g.shape[1])
+    checks.true(f'K5 selection {tag} N={n} against itself, float64 and '
+                'plain', not failures,
+                '; '.join(failures) or 'all conditions hold')
+    sel_m, coef_m = sel[:m].long(), coef[:m]
+    got = hashgrid_cuda.sampled_scatter(g, idx, w, u, rows, grid, sel, coef,
+                                        count)
+    want = hashgrid_cuda.encoders.sampled_scatter_plain(
+        g, idx, w, u, rows, grid, sel_m, coef_m)
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows, grid,
+                                                   sel_m, coef_m)
+    k2s_err = checks.within(f'K2s sampled scatter {tag} N={n} k={m}', got,
+                            want, tol)
+    return dict(sel=sel, coef=coef, count=count, m=m, sel_m=sel_m,
+                coef_m=coef_m, sel_check=sel_check,
+                k5_err=sel_check['plain_coef_rel'],
+                off=sel_check['plain_off'], k2s_err=k2s_err)
+
+
 def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
     """Phase 9 (see the module docstring). Adds K1s, K5 and K2s to
     `results` and `shapes`; returns what the output file keeps."""
@@ -618,74 +788,16 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
     g_f, u_f, k_f = rec['select']
     idx_f, w_f, rows_f = rec['scatter']
     n_f = x_f.shape[0]
-    # K1s, eval form: the same products and sums as the plain exact encode.
-    enc_e, _, _ = hashgrid_cuda.encode_atoms(table_f, x_f, grid,
-                                             'simplex', torch.float32, False)
-    want_e = hashgrid_cuda.encode_atoms_plain(table_f, x_f, grid,
-                                              'simplex', torch.float32,
-                                              False)[0]
-    checks.close(f'K1s eval step samples N={n_f}', enc_e, want_e, atol=1e-5,
-                 rtol=0.0)
-    # K1s, training form: indices equal, weights bit-equal; the bf16 encode
-    # its fp32 sum rounded once (half a bf16 unit: 2^-8 of the value), and
-    # within the plain bf16 chain's roundings ((4 A + 1) 2^-8 of the terms'
-    # magnitudes: the table entries, weights, products and partial sums
-    # each rounded to bf16 there, the kernel's sum once).
-    enc_t, idx_t, w_t = hashgrid_cuda.encode_atoms(
-        table_f, x_f, grid, 'simplex', torch.bfloat16, True)
-    checks.true('K1s atoms: indices equal, weights bit-equal',
-                torch.equal(idx_t, idx_f) and torch.equal(w_t, w_f))
-    checks.within(f'K1s training bf16 against fp32 N={n_f}', enc_t, want_e,
-                  2.0 ** -8 * want_e.abs() + 1e-30)
-    want_t = hashgrid_cuda.encode_atoms_plain(table_f, x_f, grid,
-                                              'simplex', torch.bfloat16)[0]
-    terms = hashgrid_cuda.encoders._gather_from_atoms(
-        table_f.abs(), idx_f, w_f, grid, torch.float32)
-    k1s_err = checks.within(f'K1s training against plain bf16 N={n_f}',
-                            enc_t, want_t, 17 * 2.0 ** -8 * terms + 1e-30)
-    del want_t, terms, enc_e
-    # K5 against itself, float64 and the plain subsample, on the step's
-    # cotangent: its counts exactly the floors of its own fp32 scan (read
-    # from its workspace), that scan within select_scan_bound of float64,
-    # its coefs within select_coef_bound of float64 on every point drawn,
-    # and of the plain version's on every point both give the same count.
-    work_f = torch.empty(hashgrid_cuda.select_workspace_bytes(n_f),
-                         dtype=torch.uint8, device=dev)
-    sel_f, coef_f, count_f = hashgrid_cuda._select_call(g_f, u_f, k_f,
-                                                        work_f)
-    m_f = int(count_f[0])
-    sel_check = hashgrid_cuda.check_selection(
-        g_f, u_f[0, n_f], k_f, sel_f, coef_f, count_f,
-        hashgrid_cuda.select_workspace_views(work_f, n_f))
-    del work_f
-    print(f'K5 [{gpu}] N={n_f} k={k_f}: {m_f} points drawn; counts equal '
-          f'to its own scan\'s floors: {sel_check["counts_equal"]}; scan '
-          f'{sel_check["scan_dev"]:.3e} counts from float64 (bound '
-          f'{hashgrid_cuda.select_scan_bound(n_f, k_f, g_f.shape[1]):.3e}); '
-          f'coefs {sel_check["coef_rel"]:.3e} from float64 (bound '
-          f'{hashgrid_cuda.select_coef_bound(n_f, g_f.shape[1]):.3e}); '
-          f'{sel_check["truth_off"]} counts off float64, '
-          f'{sel_check["plain_off"]} off the plain version\'s (its scan '
-          f'{sel_check["plain_dev"]:.3e} counts from float64); coefs '
-          f'{sel_check["plain_coef_rel"]:.3e} from the plain version\'s on '
-          f'{sel_check["plain_compared"]} points')
-    failures = hashgrid_cuda.selection_failures(sel_check, n_f, k_f,
-                                                g_f.shape[1])
-    checks.true('K5 selection against itself, float64 and plain',
-                not failures, '; '.join(failures) or 'all conditions hold')
-    k5_err = sel_check['plain_coef_rel']
-    off = sel_check['plain_off']
-    # K2s against the plain scatter fed the same (sel, coef).
-    sel_m, coef_m = sel_f[:m_f].long(), coef_f[:m_f]
-    got2 = hashgrid_cuda.sampled_scatter(g_f, idx_f, w_f, u_f, rows_f,
-                                         grid, sel_f, coef_f, count_f)
-    want2 = hashgrid_cuda.encoders.sampled_scatter_plain(
-        g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m)
-    tol2 = hashgrid_cuda.sampled_backward_tolerance(
-        g_f, idx_f, w_f, u_f, rows_f, grid, sel_m, coef_m)
-    k2s_err = checks.within(f'K2s sampled scatter step samples k={m_f}',
-                            got2, want2, tol2)
-    del want2, tol2
+    k1s_err, enc_t = _check_k1s(checks, 'step samples', table_f, x_f, idx_f,
+                                w_f, grid)
+    # K5 against itself, float64 and the plain subsample, and K2s against
+    # the plain scatter fed the same (sel, coef), on the step's cotangent.
+    sc = _check_select_scatter(checks, gpu, dev, 'step samples', g_f, u_f,
+                               k_f, idx_f, w_f, rows_f, grid)
+    sel_f, coef_f, count_f, m_f = (sc['sel'], sc['coef'], sc['count'],
+                                   sc['m'])
+    sel_m, coef_m, sel_check = sc['sel_m'], sc['coef_m'], sc['sel_check']
+    k5_err, off, k2s_err = sc['k5_err'], sc['off'], sc['k2s_err']
     # K2s exact: every level at its 4 rows, every point.
     exact = hashgrid_cuda.sampled_scatter(g_f, idx_f, w_f, None, (4,) * 4,
                                           grid)
@@ -811,7 +923,7 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
               f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
               f'({r["bound"][1]})')
     print(f'kernel K1s eval form [{gpu}] step samples: {k1s_eval_ms:.4f} ms')
-    del rec, table_f, x_f, g_f, u_f, idx_f, w_f, enc_t, idx_t, w_t, got2
+    del rec, table_f, x_f, g_f, u_f, idx_f, w_f, enc_t, sc
     torch.cuda.empty_cache()
 
     # (d) ms per step in turns (plain, kernels, kernels, plain) per leg;
@@ -904,6 +1016,454 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
                 render_launches=fl_render_launches,
                 served_err=fl_served_err, cast_ms=cast_ms,
                 names=new_names)
+
+
+def _check_occupancy_render(checks, gpu, trainer, testset):
+    """The occupancy grid's masking and near/far shrink on the card, on a
+    grid that masks. A fresh grid of the trainer's config and trained mask
+    is updated once from the trained field (its density then the field's
+    sigma at the cell centres, with no decayed past) and thresholded at
+    the larger of the config's threshold and the median density, so that
+    at most about half the cells count. On it: the occupied share of the
+    cells is in (0, 1); shrink_near_far, on frame 0's rays of the test
+    split, narrows some rays and gives the bits its CPU run gives on the
+    same inputs; and the frame rendered (eval form, the trainer's options)
+    through the kernels agrees with the plain versions' render on the same
+    grid as phase 5 holds a frame. Returns what the output file keeps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.render.occupancy import OccupancyGrid
+    from autolabel_tpu_torch.render.renderer import (ray_aabb_intersect,
+                                                     render_rays,
+                                                     shrink_near_far)
+    field, old = trainer.field, trainer.occupancy
+    bound = field.config.bound
+    grid = OccupancyGrid(old.config, bound)
+    grid.trained = old.trained.clone()
+    grid.update(field)
+    threshold = max(old.config.threshold, float(grid.density.median()))
+    occupancy = grid.state() + (threshold,)
+    share = float(((grid.density > threshold) & grid.trained).float()
+                  .mean())
+    checks.true('cli B occupancy: a grid that masks', 0.0 < share < 1.0,
+                f'{share:.4f} of the cells occupied and trained at threshold '
+                f'{threshold:.4e} (the config\'s {old.config.threshold})')
+    frame = testset._get_test(0)
+    dev = field.device
+    rays_o, rays_d = (torch.as_tensor(frame[k].reshape(-1, 3), device=dev)
+                      for k in ('rays_o', 'rays_d'))
+    norms = torch.as_tensor(frame['direction_norms'].reshape(-1, 1),
+                            device=dev)
+    options = dataclasses.replace(trainer.render_options, perturb=False)
+    near, far = ray_aabb_intersect(rays_o, rays_d, bound)
+    shrunk = shrink_near_far(occupancy, rays_o, rays_d, near, far, bound,
+                             options.occupancy_probes)
+    on_cpu = shrink_near_far(tuple(t.cpu() if torch.is_tensor(t) else t
+                                   for t in occupancy),
+                             rays_o.cpu(), rays_d.cpu(), near.cpu(),
+                             far.cpu(), bound, options.occupancy_probes)
+    narrowed = float(((shrunk[0] > near) | (shrunk[1] < far)).float().mean())
+    checks.true('cli B occupancy: shrink_near_far narrows rays, its bits '
+                'those of its CPU run',
+                0.0 < narrowed and all(torch.equal(a.cpu(), b)
+                                       for a, b in zip(shrunk, on_cpu)),
+                f'{narrowed:.4f} of {rays_o.shape[0]} rays narrowed')
+
+    def render(occ):
+        parts = []
+        with torch.no_grad():
+            for s in range(0, rays_o.shape[0], 4096):
+                parts.append(render_rays(
+                    field, rays_o[s:s + 4096], rays_d[s:s + 4096],
+                    norms[s:s + 4096], options=options, occupancy=occ))
+        return {k: torch.cat([p[k] for p in parts]).cpu().numpy()
+                for k in ('image', 'depth', 'semantic', 'semantic_features')}
+
+    ours = render(occupancy)
+    with _plain_kernels(hashgrid_cuda, heads_cuda):
+        plain = render(occupancy)
+    unmasked = render(None)
+    errors = {}
+    for key in ours:
+        err = np.abs(ours[key] - plain[key])
+        scale = 1.0 if key == 'image' else float(np.abs(plain[key]).max())
+        mean, p999 = float(err.mean()), float(np.quantile(err, 0.999))
+        errors[key] = dict(mean_abs=mean, p99_9=p999, max=float(err.max()),
+                           scale=scale)
+        checks.true(f'cli B occupancy render {key} vs plain render',
+                    bool(np.isfinite(ours[key]).all())
+                    and mean < 5e-3 * scale and p999 < 5e-2 * scale,
+                    f'mean_abs={mean:.3e} p99.9={p999:.3e} '
+                    f'max={float(err.max()):.3e} (scale {scale:.3e})')
+    moved = float(np.abs(ours['image'] - unmasked['image']).mean())
+    print(f'cli B occupancy [{gpu}]: the masked render moves the image by '
+          f'{moved:.4e} on average from the unmasked one')
+    return dict(share=share, threshold=threshold, narrowed=narrowed,
+                errors=errors, moved_by_mask=moved)
+
+
+# The train CLI (phase 10): the sphere scene of utils.fixtures, iterations
+# of README's command (Run A) and of the command with every option this
+# slice ports (Run B).
+CLI_SCENE = dict(n_frames=16, width=320, height=240)
+CLI_ITERS = {'A': 300, 'B': 100}
+CLI_BASE = ['--proposal']
+CLI_B = ['--proposal', '--heads-impl', 'pallas', '--occupancy-grid',
+         '--occupancy-near-far', '--tensorboard']
+# The model-hash directory scripts/train.py names for README's flags
+# (tests/test_torch_port_cli.py holds the two CLIs equal).
+CLI_HASH = 'g15_hg+freq_plain_rgb1.0_d0.1_s1.0_f0.5_tpugrid_prop_simplex'
+LOADER_BATCHES, PROFILED_STEPS, TIMED_STEPS = 40, 5, 20
+
+
+def _cli_phase(dev, gpu, checks, results):
+    """Phase 10 (see the module docstring). Adds the CLI's launch counts
+    and its K1s, K5, K2s and K3b checks at its own shapes to `results`;
+    returns what the output file keeps."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch import model_utils
+    from autolabel_tpu_torch.core.dataset import LenDataset, SceneDataset
+    from autolabel_tpu_torch.inference import InferenceModel
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.render import occupancy as occupancy_module
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.train.loader import PrefetchIterator
+    from autolabel_tpu_torch.train.tb_events import read_events
+    from autolabel_tpu_torch.utils import fixtures
+    phase_start = time.perf_counter()
+    root = os.path.join(WORK_DIR, 'cli')
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, 'sphere')
+    t0 = time.perf_counter()
+    fixtures.make_synthetic_scene(scene, **CLI_SCENE)
+    scene_s = time.perf_counter() - t0
+    full = ['--factor-train', '1', '--factor-test', '1', '--eval']
+
+    def workspace(name):
+        return ['--workspace', os.path.join(root, name)]
+
+    # A 1-iteration run of Run A's command: the untrained field's eval.
+    base = cli.main([scene] + CLI_BASE + full + ['--iters', '1']
+                    + workspace('base'))
+    del base.trainer
+
+    # Run A, every count set to 0 just before and read just after; the
+    # last step's K1s (training form), K5 and K2s inputs recorded, and
+    # K1s's launches split into its training form (atoms written) and its
+    # eval form.
+    steps_a = CLI_ITERS['A']
+    rec, forms = {}, {'training': 0, 'eval': 0}
+    atoms, select, scatter = (hashgrid_cuda._atoms_call,
+                              hashgrid_cuda._select_call,
+                              hashgrid_cuda._sampled_scatter_call)
+    calls = {'select': 0, 'scatter': 0}
+
+    def rec_atoms(table, x, config, interp, out_dtype, with_atoms):
+        form = 'training' if with_atoms else 'eval'
+        forms[form] += 1
+        if with_atoms and forms[form] == steps_a:
+            rec['atoms'] = (table.detach().clone(), x.clone())
+        return atoms(table, x, config, interp, out_dtype, with_atoms)
+
+    def rec_select(g, u, k):
+        calls['select'] += 1
+        if calls['select'] == steps_a:
+            rec['select'] = (g.clone(), u.clone(), k)
+        return select(g, u, k)
+
+    def rec_scatter(g, idx, w, u, rows, config, sel, coef, count):
+        calls['scatter'] += 1
+        if calls['scatter'] == steps_a:
+            rec['scatter'] = (idx.clone(), w.clone(), rows)
+        return scatter(g, idx, w, u, rows, config, sel, coef, count)
+
+    (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+     hashgrid_cuda._sampled_scatter_call) = (rec_atoms, rec_select,
+                                             rec_scatter)
+    try:
+        _kernels.reset_launches()
+        run_a = cli.main([scene] + CLI_BASE + full
+                         + ['--iters', str(steps_a)] + workspace('a'))
+        launches_a = dict(_kernels.launches)
+    finally:
+        (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+         hashgrid_cuda._sampled_scatter_call) = atoms, select, scatter
+    trainer, dataset = run_a.trainer, run_a.dataset
+    testset = SceneDataset('test', scene, factor=1.0)
+    frame_rays = testset.w * testset.h
+    chunks = -(-frame_rays // 4096)  # the trainer's max_ray_batch
+    eval_chunks = len(testset.poses) * chunks
+    grid = trainer.field.config.grid_config
+    names = {'K1s': hashgrid_cuda.ATOMS_NAME,
+             'K5': hashgrid_cuda.SELECT_NAME,
+             'K2s': hashgrid_cuda.SAMPLED_BWD_NAME,
+             'K3f': heads_cuda.HEADS, 'K3b': heads_cuda.HEADS_BWD,
+             'K4f': heads_cuda.MLP3, 'K4b': heads_cuda.MLP3_BWD}
+    checks.true('cli A: K1s training form once a step, eval form once a '
+                'chunk', forms == {'training': steps_a, 'eval': eval_chunks}
+                and launches_a.get(names['K1s'], 0) == steps_a + eval_chunks,
+                f'{forms}, {launches_a.get(names["K1s"], 0)} launches '
+                f'(expected {steps_a} + {eval_chunks}: {len(testset.poses)} '
+                f'frames x {chunks} chunks)')
+    for key in ('K5', 'K2s'):
+        got = launches_a.get(names[key], 0)
+        checks.true(f'cli A launches {key}', got == steps_a,
+                    f'{got} (expected {steps_a})')
+    for key in ('K3f', 'K3b', 'K4f', 'K4b'):  # 'xla' heads: none
+        got = launches_a.get(names[key], 0)
+        checks.true(f'cli A launches no {key}', got == 0, f'{got}')
+    model_dir = run_a.model_dir
+    want_dir = os.path.join(root, 'a', 'sphere', CLI_HASH)
+    files = {f: os.path.exists(os.path.join(model_dir, f)) for f in (
+        'params.pkl', 'metrics.jsonl', 'checkpoints/ngp_ep0001.pth')}
+    checks.true('cli A workspace: the model-hash directory and its files',
+                model_dir == want_dir and all(files.values()),
+                f'{model_dir}: {files}')
+    mse_a, mse_base = run_a.eval_mse, base.eval_mse
+    checks.true('cli A eval mse falls 4-fold from 1 iteration',
+                np.isfinite(mse_a) and mse_a * 4 < mse_base,
+                f'{mse_base:.5f} -> {mse_a:.5f} (PSNR {_psnr(mse_base):.2f} '
+                f'-> {_psnr(mse_a):.2f} dB)')
+    # The checkpoint, served: a fresh field from params.pkl's flags.
+    flags = model_utils.read_params(model_dir)
+    served = InferenceModel.from_checkpoint(
+        model_utils.create_model(dataset.min_bounds, dataset.max_bounds, 2,
+                                 flags,
+                                 generator=torch.Generator().manual_seed(7)),
+        model_dir, num_steps=flags.num_steps,
+        proposal_steps=flags.proposal_steps)
+    frame = testset._get_test(0)
+    image = served.render(frame)['image']
+    served_mse = float(np.mean((image - frame['pixels']) ** 2))
+    checks.true('cli A checkpoint serves a finite frame',
+                image.shape == (testset.h, testset.w, 3)
+                and bool(np.isfinite(image).all()),
+                f'{image.shape}, mse {served_mse:.5f}')
+    del served
+
+    # K1s, K5 and K2s on the last step's own inputs, at the CLI's shape.
+    checks.true('cli A recorded the last step\'s K1s, K5 and K2s inputs',
+                set(rec) == {'atoms', 'select', 'scatter'}, f'{sorted(rec)}')
+    if set(rec) == {'atoms', 'select', 'scatter'}:
+        table_a, x_a = rec['atoms']
+        g_a, u_a, k_a = rec['select']
+        idx_a, w_a, rows_a = rec['scatter']
+        n_a = x_a.shape[0]
+        k1s_err, enc_a = _check_k1s(checks, 'cli step', table_a, x_a, idx_a,
+                                    w_a, grid)
+        del enc_a
+        sc = _check_select_scatter(checks, gpu, dev, 'cli step', g_a, u_a,
+                                   k_a, idx_a, w_a, rows_a, grid)
+        # their device ms per call at this shape, from the profiler
+        cli_ms = {key: _kernel_ms(fn) for key, fn in (
+            ('K1s', lambda: hashgrid_cuda.encode_atoms(
+                table_a, x_a, grid, 'simplex', torch.bfloat16, True)),
+            ('K5', lambda: hashgrid_cuda.select_points(g_a, u_a, k_a)),
+            ('K2s', lambda: hashgrid_cuda.sampled_scatter(
+                g_a, idx_a, w_a, u_a, rows_a, grid, sc['sel'], sc['coef'],
+                sc['count'])))}
+        print(f'K1s [{gpu}] cli step N={n_a}: device ms a call by kernel '
+              f'{cli_ms["K1s"]}')
+        cli_ms = {key: None if v is None else sum(v.values())
+                  for key, v in cli_ms.items()}
+        k1s_events = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
+            table_a, x_a, grid, 'simplex', torch.bfloat16, True), 20)
+        results['K1s']['cli'] = dict(n=n_a, max_abs_err=k1s_err,
+                                     ms=k1s_events, device_ms=cli_ms['K1s'])
+        results['K5']['cli'] = dict(
+            n=n_a, k=k_a, drawn=sc['m'], max_abs_err=sc['k5_err'],
+            off=sc['off'], scan_dev=sc['sel_check']['scan_dev'],
+            device_ms=cli_ms['K5'])
+        results['K2s']['cli'] = dict(n=n_a, drawn=sc['m'],
+                                     max_abs_err=sc['k2s_err'],
+                                     device_ms=cli_ms['K2s'])
+        print(f'K1s, K5, K2s [{gpu}] cli step N={n_a} drawn={sc["m"]}: '
+              + ', '.join(f'{key} {ms} ms' for key, ms in cli_ms.items())
+              + f' device a call; K1s {k1s_events:.4f} ms by events')
+        del table_a, x_a, g_a, u_a, idx_a, w_a, sc
+    del rec
+
+    # Timing on Run A's trainer: the loader's batch on the host, steps
+    # through the CLI's loader (by the wall clock, and profiled), steps on
+    # one pre-made batch.
+    t0 = time.perf_counter()
+    host = [dataset._next_train() for _ in range(LOADER_BATCHES)]
+    host_ms = (time.perf_counter() - t0) * 1e3 / LOADER_BATCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in host:
+        trainer._device_batch(batch)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3 / LOADER_BATCHES
+    del host
+
+    def loader_steps(n, copy_on_loader=True):
+        loader = PrefetchIterator(LenDataset(dataset, n),
+                                  transform=(trainer._device_batch
+                                             if copy_on_loader else None))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in loader:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / n
+
+    loop_ms = loader_steps(TIMED_STEPS)
+    # the same with the copy to the device made by the step, on the main
+    # thread: what the loader thread's copy costs the step
+    main_copy_ms = loader_steps(TIMED_STEPS, copy_on_loader=False)
+    # the device's busy time and the wall clock of the same profiled steps
+    profiled = []
+    profile_rows, busy_ms = _device_profile(
+        lambda: profiled.append(loader_steps(PROFILED_STEPS)))
+    profiled_ms = profiled[0]
+    # A batch made once and held on the device, as bench_torch.py times
+    # its steps (bench_torch.py's own batch carries 6 classes' labels).
+    premade = trainer._device_batch(dataset._next_train())
+    trainer.train_step(premade)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        trainer.train_step(premade)
+    torch.cuda.synchronize()
+    premade_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    step_ms = {'A': run_a.train_s * 1e3 / steps_a}
+    del run_a, trainer, premade
+    torch.cuda.empty_cache()
+
+    # Run B: the heads' kernels, the occupancy grid (one update, timed,
+    # with its peak memory) and TensorBoard events; the last step's K3b
+    # inputs recorded.
+    steps_b = CLI_ITERS['B']
+    update = occupancy_module.OccupancyGrid.update
+    updates = []
+
+    def timed_update(self, field):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        update(self, field)
+        torch.cuda.synchronize()
+        updates.append(dict(
+            ms=(time.perf_counter() - t1) * 1e3,
+            peak_bytes=torch.cuda.max_memory_allocated() - before,
+            occupied=float((self.density > self.config.threshold).float()
+                           .mean())))
+
+    rec = {}
+    heads_bwd, k3b_calls = heads_cuda._heads_backward_launch, [0]
+
+    def rec_heads_bwd(ws, A, B, g1, gf, gl, need_dB=True):
+        k3b_calls[0] += 1
+        if k3b_calls[0] == steps_b:
+            rec['heads_bwd'] = ([w.clone() for w in ws], A.clone(),
+                                B.clone(), g1.clone(), gf.clone(),
+                                gl.clone(), need_dB)
+        return heads_bwd(ws, A, B, g1, gf, gl, need_dB)
+
+    occupancy_module.OccupancyGrid.update = timed_update
+    heads_cuda._heads_backward_launch = rec_heads_bwd
+    try:
+        _kernels.reset_launches()
+        run_b = cli.main([scene] + CLI_B + ['--iters', str(steps_b)]
+                         + workspace('b'))
+        launches_b = dict(_kernels.launches)
+    finally:
+        occupancy_module.OccupancyGrid.update = update
+        heads_cuda._heads_backward_launch = heads_bwd
+    update_chunks = -(-run_b.trainer.occupancy.config.resolution ** 3
+                      // occupancy_module.UPDATE_CHUNK)
+    for key, name in names.items():
+        want = steps_b + (update_chunks * len(updates) if key == 'K1s'
+                          else 0)
+        got = launches_b.get(name, 0)
+        checks.true(f'cli B launches {key}', got == want,
+                    f'{got} (expected {want}'
+                    + (f': {steps_b} steps + {update_chunks} chunks of the '
+                       'occupancy update)' if key == 'K1s' else ')'))
+    checks.true('cli B one occupancy update', len(updates) == 1,
+                f'{updates}')
+    (events,) = os.listdir(os.path.join(run_b.model_dir, 'run', 'ngp'))
+    read = read_events(os.path.join(run_b.model_dir, 'run', 'ngp', events))
+    checks.true('cli B TensorBoard events read back',
+                len(read) == 1 and read[0][0] == steps_b
+                and 'train/total' in read[0][1]
+                and all(np.isfinite(v) for v in read[0][1].values()),
+                f'{read}')
+    with open(os.path.join(run_b.model_dir, 'metrics.jsonl')) as f:
+        loss_b = json.loads(f.readline())['total']
+    checks.true('cli B loss finite', bool(np.isfinite(loss_b)),
+                f'{loss_b}')
+    step_ms['B'] = run_b.train_s * 1e3 / steps_b
+
+    # K3b on the last step's own inputs, at the CLI's shape.
+    checks.true('cli B recorded the last step\'s K3b inputs',
+                'heads_bwd' in rec, f'{sorted(rec)}')
+    if 'heads_bwd' in rec:
+        ws, A_b, B_b, g1, gf, gl, need_dB = rec.pop('heads_bwd')
+        k3b_err, k3b_witness = _check_k3b(checks, 'cli step', ws, A_b, B_b,
+                                          g1, gf, gl, need_dB)
+        k3b_split = _kernel_ms(lambda: heads_cuda.fused_heads_backward(
+            ws, A_b, B_b, g1, gf, gl, need_dB))
+        k3b_events = _cuda_ms(lambda: heads_cuda.fused_heads_backward(
+            ws, A_b, B_b, g1, gf, gl, need_dB), 10)
+        results['K3b']['cli'] = dict(
+            n=A_b.shape[0], need_dB=need_dB, max_abs_err=k3b_err,
+            against_fp32=k3b_witness, ms=k3b_events,
+            device_ms=None if k3b_split is None else sum(k3b_split.values()))
+        print(f'K3b [{gpu}] cli step N={A_b.shape[0]}: '
+              f'{results["K3b"]["cli"]["device_ms"]} ms device a call '
+              f'({k3b_split}), {k3b_events:.4f} ms by events')
+        del ws, A_b, B_b, g1, gf, gl
+        torch.cuda.empty_cache()
+    occupancy_check = _check_occupancy_render(checks, gpu, run_b.trainer,
+                                              testset)
+    del run_b
+
+    for key in ('A', 'B'):
+        print(f'cli {key} [{gpu}]: {CLI_ITERS[key]} steps, ms per step over '
+              f'the epoch\'s wall clock {step_ms[key]:.3f}')
+    print(f'cli loader [{gpu}] host thread: ms per batch {host_ms:.3f} '
+          f'(numpy assembly of {dataset.batch_size} rays), '
+          f'{copy_ms:.3f} more to copy it to the device; scene written in '
+          f'{scene_s:.1f} s')
+    print(f'cli step [{gpu}] through the loader {loop_ms:.3f} ms over '
+          f'{TIMED_STEPS} steps (the copy made by the step instead: '
+          f'{main_copy_ms:.3f} ms); on a pre-made batch on the device (as '
+          f'bench_torch.py times) {premade_ms:.3f} ms')
+    if profile_rows is None:
+        print('cli profile: the trace holds no device time: not measured')
+    else:
+        print(f'cli profile [{gpu}]: device busy {busy_ms:.3f} ms over '
+              f'{PROFILED_STEPS} steps through the loader '
+              f'({busy_ms / PROFILED_STEPS:.3f} a step) of the same steps\' '
+              f'{profiled_ms * PROFILED_STEPS:.3f} ms wall clock (profiled):'
+              f' busy share {busy_ms / (profiled_ms * PROFILED_STEPS):.4f}')
+        for name, ms, count in profile_rows[:12]:
+            print(f'  {ms:9.3f} ms {ms / busy_ms:7.2%} x{count:<5d} '
+                  f'{name[:90]}')
+    print(f'cli phase: {time.perf_counter() - phase_start:.1f} s')
+    for u in updates:
+        print(f'cli occupancy update [{gpu}]: {u["ms"]:.3f} ms, peak '
+              f'{u["peak_bytes"] / 1e9:.3f} GB above the step\'s; '
+              f'{u["occupied"]:.4f} of the cells occupied')
+    return dict(launches={'A': launches_a, 'B': launches_b},
+                k1s_forms=forms, eval_chunks=eval_chunks,
+                ms_per_step=step_ms,
+                eval_mse={'A': mse_a, 'base': mse_base},
+                served_mse=served_mse, loader_host_ms=host_ms,
+                loader_copy_ms=copy_ms, loop_ms=loop_ms,
+                main_copy_loop_ms=main_copy_ms, premade_ms=premade_ms,
+                profile_busy_ms=busy_ms, profiled_ms=profiled_ms,
+                profile=profile_rows, occupancy_updates=updates,
+                occupancy_check=occupancy_check, names=names)
 
 
 def main():
@@ -1280,46 +1840,10 @@ def main():
     g1 = torch.randn((n_tr, packed[7].shape[1]), generator=g).to(dev)
     gf = torch.randn((n_tr, packed[10].shape[1]), generator=g).to(dev)
     gl = torch.randn((n_tr, packed[13].shape[1]), generator=g).to(dev)
-    dA, dB, dws = heads_cuda.fused_heads_backward(packed, A3, B3, g1, gf, gl)
-    wA, wB, wws = heads_cuda.fused_heads_backward_plain(
-        packed, A3, B3, g1, gf, gl, torch.bfloat16)
-    # bf16 operands on both sides, sums in another order (as K3f). That
-    # order can round an activation that sits at 0 to either side, and the
-    # ReLU mask of that (point, unit) then flips: the point's cotangents
-    # differ by O(their size) there. So dA and dB are held within 1e-2 of
-    # their norm, with at most 3e-4 of their elements beyond 2e-2 of the
-    # largest magnitude (the seeded inputs gave 9.0e-5 and 5.0e-5 on the
-    # H100); each weight gradient, a sum over 131,072 points, within 1e-2
-    # of its norm.
-    checks.rel_norm(f'K3b dA N={n_tr}', dA, wA, 1e-2)
-    k3b_err = checks.flips(f'K3b dA N={n_tr} elements', dA, wA,
-                           2e-2 * float(wA.abs().max()), 3e-4)
-    checks.rel_norm(f'K3b dB N={n_tr}', dB, wB, 1e-2)
-    checks.flips(f'K3b dB N={n_tr} elements', dB, wB,
-                 2e-2 * float(wB.abs().max()), 3e-4)
-    # The second witness, for the cause: against the fp32 plain version,
-    # the kernel is no less accurate than the bf16 plain version. Both
-    # round at the same places, so where the kernel departs from the bf16
-    # plain version by mask flips alone, its distance from fp32 (bf16's own
-    # error, mask flips included) grows by a small share; a fault (a wrong
-    # index, a dropped term or mask) adds errors of the values' own size.
-    fA, fB, _ = heads_cuda.fused_heads_backward_plain(packed, A3, B3, g1, gf,
-                                                      gl, torch.float32)
-    k3b_witness = {
-        key: checks.no_worse(f'K3b {key} N={n_tr} against fp32', got, ref,
-                             want, 2e-2 * float(want.abs().max()), 1.1)
-        for key, got, ref, want in (('dA', dA, wA, fA), ('dB', dB, wB, fB))}
-    del fA, fB
-    weight_names = ('WA', 'WBs', 'W1s', 'W2s', 'WBc', 'WSc', 'W1c', 'W2c',
-                    'WSf', 'W1f', 'W2f', 'WFo', 'WSo', 'W1o')
-    for name, a, b in zip(weight_names, dws, wws):
-        checks.rel_norm(f'K3b d{name}', a, b, 1e-2)
-    # Per-block partials summed in a fixed order: a second launch on the
-    # same inputs gives the same bits.
-    _, _, again = heads_cuda.fused_heads_backward(packed, A3, B3, g1, gf, gl)
-    checks.true('K3b dW bit-equal across two launches',
-                all(torch.equal(a, b) for a, b in zip(dws, again)))
-    del dA, dB, dws, wA, wB, wws, again
+    # (the seeded inputs gave 9.0e-5 and 5.0e-5 of dA's and dB's elements
+    # beyond 2e-2 of the largest magnitude on the H100)
+    k3b_err, k3b_witness = _check_k3b(checks, 'seeded', packed, A3, B3, g1,
+                                      gf, gl)
     k3b_ms = _cuda_ms(lambda: heads_cuda.fused_heads_backward(
         packed, A3, B3, g1, gf, gl, need_dB=False), 10)
     k3b_plain = _cuda_ms(lambda: heads_cuda.fused_heads_backward_plain(
@@ -1601,6 +2125,11 @@ def main():
                                chunks)
     fl_launches, new_names = flagship['launches'], flagship['names']
 
+    # ---- 10. the train CLI
+    torch.cuda.empty_cache()
+    cli_run = _cli_phase(dev, gpu, checks, results)
+    cli_launches = cli_run['launches']
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -1636,6 +2165,8 @@ def main():
         'launches_flagship': fl_launches['xla'].get(kernel_names[key], 0),
         'launches_flagship_pallas': fl_launches['pallas'].get(
             kernel_names[key], 0),
+        'launches_cli': cli_launches['A'].get(kernel_names[key], 0),
+        'launches_cli_pallas': cli_launches['B'].get(kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -1643,7 +2174,7 @@ def main():
         'library_ms': results[key]['library_ms'],
         **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms',
                                         'eval_ms', 'device_ms',
-                                        'device_split')
+                                        'device_split', 'cli')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -1673,6 +2204,7 @@ def main():
                    'train_profile': train_profile,
                    'flagship': {k: v for k, v in flagship.items()
                                 if k != 'names'},
+                   'cli': {k: v for k, v in cli_run.items() if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

@@ -904,6 +904,131 @@ def test_sampled_scatter_kernel_walks_many_tiles(cuda, interp, rows):
     assert bool((err <= tol).all()), float((err - tol).max())
 
 
+def test_select_and_scatter_at_the_cli_step(cuda):
+    """K5 and K2s at the train CLI's step (4,096 rays x 128 samples: N =
+    524,288, k = 131,072) at TPU_GRID's widths: K5 by check_selection,
+    K2s fed its selection against the plain scatter within
+    sampled_backward_tolerance, on a ray-ordered cotangent made on the
+    card."""
+    rng = np.random.default_rng(31)
+    config = hashgrid_cuda.encoders.TPU_GRID
+    n, k = 524288, 131072
+    x = _clustered(rng, n, 'rays', cuda)
+    idx, w = hashgrid_cuda.encoders._corner_idx_weights(x, config, 'simplex')
+    g = _card_cotangent(n, config.out_dim, cuda, 5)
+    u = torch.rand((4, n + 1), generator=torch.Generator().manual_seed(5)
+                   ).to(cuda)
+    work = torch.empty(hashgrid_cuda.select_workspace_bytes(n),
+                       dtype=torch.uint8, device=cuda)
+    sel, coef, count = hashgrid_cuda._select_call(g, u, k, work)
+    check = hashgrid_cuda.check_selection(
+        g, u[0, n], k, sel, coef, count,
+        hashgrid_cuda.select_workspace_views(work, n))
+    assert not hashgrid_cuda.selection_failures(check, n, k,
+                                                config.out_dim), check
+    m = int(count[0])
+    rows = (2,) * 4
+    got = hashgrid_cuda.sampled_scatter(g, idx, w, u, rows, config, sel, coef,
+                                        count)
+    sel_m, coef_m = sel[:m].long(), coef[:m]
+    want = hashgrid_cuda.encoders.sampled_scatter_plain(g, idx, w, u, rows,
+                                                        config, sel_m, coef_m)
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows, config,
+                                                   sel_m, coef_m)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+    assert bool(want.any())
+
+
+def test_atoms_kernel_at_the_cli_step(cuda):
+    """K1s at the train CLI's step (N = 524,288 ray-ordered points) on
+    TPU_GRID's table: the fp32 form equal to the plain exact encode; the
+    training form's indices equal and weights bit-equal to the plain
+    atoms, its bf16 encode the fp32 sum rounded once (2^-8 of the value)
+    and within the plain bf16 chain's roundings ((4 A + 1) 2^-8 of the
+    terms' magnitudes)."""
+    rng = np.random.default_rng(33)
+    config = hashgrid_cuda.encoders.TPU_GRID
+    n = 524288
+    x = _clustered(rng, n, 'rays', cuda)
+    table = (torch.rand(hashgrid_cuda._table_shape(config),
+                        generator=torch.Generator().manual_seed(33)) * 2
+             - 1).to(cuda)
+    want, want_idx, want_w = hashgrid_cuda.encode_atoms_plain(
+        table, x, config, 'simplex', torch.float32)
+    _kernels.reset_launches()
+    out, _, _ = hashgrid_cuda.encode_atoms(table, x, config, 'simplex',
+                                           torch.float32, False)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    del out
+    out, idx, w = hashgrid_cuda.encode_atoms(table, x, config, 'simplex',
+                                             torch.bfloat16, True)
+    assert _kernels.launches[hashgrid_cuda.ATOMS_NAME] == 2
+    assert torch.equal(idx, want_idx) and torch.equal(w, want_w)
+    assert bool(((out.float() - want).abs()
+                 <= 2.0 ** -8 * want.abs() + 1e-30).all())
+    del want
+    plain = hashgrid_cuda.encode_atoms_plain(table, x, config, 'simplex',
+                                             torch.bfloat16, False)[0]
+    terms = hashgrid_cuda.encoders._gather_from_atoms(
+        table.abs(), idx, w, config, torch.float32)
+    assert bool(((out.float() - plain.float()).abs()
+                 <= 17 * 2.0 ** -8 * terms + 1e-30).all())
+
+
+def test_head_backward_kernel_at_the_cli_step(cuda):
+    """K3b at the train CLI's step with --heads-impl pallas (N = 524,288
+    points, a workspace of 2.85 GB) at the head widths create_model gives
+    README's flags, dB left out as the step leaves it, held as
+    chip_smoke.py holds it against the plain backward with the same bf16
+    operands: dA within 1e-2 of its norm, at most 3e-4 of its elements
+    beyond 2e-2 of the largest magnitude (ReLU masks that the other
+    summation order rounds to the other side of 0: see
+    _check_point_gradients), and no further from the fp32 plain version
+    than the bf16 plain version is (room 1.1, in the norm and in the share
+    beyond 2e-2 of the largest magnitude), which mask flips alone keep and
+    a wrong index or a dropped term would not; each dW within 1e-2 of its
+    norm."""
+    from autolabel_tpu_torch import model_utils
+    from autolabel_tpu_torch.train.__main__ import read_args
+    flags = read_args(['scene', '--proposal', '--heads-impl', 'pallas'])
+    field = model_utils.create_model(
+        np.full(3, -1.0), np.full(3, 1.0), 2, flags, device=cuda,
+        generator=torch.Generator().manual_seed(8))
+    ws = [w.detach().to(torch.bfloat16) for w in
+          heads_cuda.pack_head_weights(field.head_params(), 12)]
+    n = 524288
+    g = torch.Generator().manual_seed(34)
+    A = (torch.randn((n, field.config.grid_config.out_dim), generator=g)
+         * 0.5).to(cuda)
+    B = torch.zeros((n, 32), device=cuda)
+    B[:, :12] = torch.rand((n, 12), generator=g).to(cuda) * 2 - 1
+    B[:, 16:32] = torch.randn((n, 16), generator=g).to(cuda) * 0.3
+    cots = [torch.randn((n, w.shape[1]), generator=g).to(cuda)
+            for w in (ws[7], ws[10], ws[13])]
+    _kernels.reset_launches()
+    dA, dB, dws = heads_cuda.fused_heads_backward(ws, A, B, *cots,
+                                                  need_dB=False)
+    assert _kernels.launches[heads_cuda.HEADS_BWD] == 1 and dB is None
+    want, _, want_w = heads_cuda.fused_heads_backward_plain(
+        ws, A, B, *cots, compute_dtype=torch.bfloat16)
+    exact = heads_cuda.fused_heads_backward_plain(
+        ws, A, B, *cots, compute_dtype=torch.float32)[0]
+
+    def share(got, ref):
+        return float(((got - ref).abs() > 2e-2 * float(ref.abs().max()))
+                     .float().mean())
+
+    assert dA.shape == want.shape
+    assert _rel_err(dA, want) < 1e-2
+    assert share(dA, want) <= 3e-4
+    assert _rel_err(dA, exact) <= 1.1 * _rel_err(want, exact)
+    assert share(dA, exact) <= 1.1 * share(want, exact)
+    for a, b in zip(dws, want_w):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) < 1e-2
+
+
 def test_sampled_encode_launches_each_kernel_once(cuda):
     """The exact-forward / sampled-backward encode under autograd: K1s
     (bf16 out), K5 and K2s once each; zero cotangents for x and u."""

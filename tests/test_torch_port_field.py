@@ -180,8 +180,10 @@ for info in pkgutil.walk_packages(autolabel_tpu_torch.__path__,
     importlib.import_module(info.name)
 from autolabel_tpu_torch.ops import _kernels
 new = set(sys.modules) - before
-bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')
-             or m == 'autolabel_tpu' or m.startswith('autolabel_tpu.'))
+# JAX and the JAX package never; cv2, PIL and h5py (which a CUDA host
+# may lack) only at the call that needs them
+bad = sorted(m for m in new if m.split('.')[0] in (
+    'jax', 'autolabel_tpu', 'cv2', 'PIL', 'h5py'))
 print('BAD', bad)
 print('BUILT', len(_kernels._libs))
 print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
@@ -192,8 +194,11 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
     assert 'BAD []' in out, out
     assert 'BUILT 0' in out, out  # importing compiles nothing
     for module in ('ops.hashgrid_cuda', 'ops.heads_cuda', 'render.renderer',
-                   'train.losses', 'train.optim', 'train.metrics',
-                   'train.trainer', 'train.checkpoints', 'bridge'):
+                   'render.occupancy', 'train.losses', 'train.optim',
+                   'train.metrics', 'train.trainer', 'train.checkpoints',
+                   'train.loader', 'train.tb_events', 'train.__main__',
+                   'core.dataset', 'core.sampler', 'utils', 'utils.images',
+                   'utils.fixtures', 'bridge'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 

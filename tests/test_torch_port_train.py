@@ -525,9 +525,17 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
         assert torch.equal(p, live[name])
 
 
+# Occupancy grids and TensorBoard events are ported
+# (tests/test_torch_port_occupancy.py, tests/test_torch_port_cli.py); the
+# residual and exact-levels variants of the stochastic-corner estimator
+# are refused as it is.
 @pytest.mark.parametrize('kwargs', [
     dict(mesh=object()), dict(pose_refine=(np.eye(3)[None], np.zeros(
-        (1, 3)))), dict(occupancy=object()), dict(tensorboard=True),
+        (1, 3)))),
+    dict(render_options=RenderOptions(perturb=True, stochastic_corners=2,
+                                      stochastic_residual=True)),
+    dict(render_options=RenderOptions(perturb=True, stochastic_corners=4,
+                                      stochastic_exact_levels=1)),
     dict(render_options=RenderOptions(perturb=True)),
     dict(render_options=RenderOptions(perturb=True, stochastic_corners=1,
                                       sampled_backward=0),
