@@ -19,24 +19,47 @@
 // rounds that fp32 sum once, where the plain bf16 version rounds every
 // product and partial sum.
 //
-// What bounds it on the H100: bytes. It reads x and the table once and
-// writes the output (N * L * F, fp32 or bf16) and, in training, the atoms
-// (2 * L * A * N * 4 bytes). The gathers (A rows of F floats per point and
-// level) run from L2, as K1's do.
+// What bounds it on the H100: L2, not DRAM. Its DRAM bytes (x, each
+// table row its atoms name once, the output and, in training, the atoms)
+// take 0.061 ms at the flagship's N = 131,072 (3.35 TB/s). But each
+// warp's A rows a point come through L2, and away from the coarsest level
+// neighbouring ray samples share few rows: the distinct rows of each
+// warp's 8 points come to 0.65 GB at that shape (1.44 GB at the train
+// CLI's 524,288), which L2 serves, as scattered 512-byte rows with four
+// of a warp in flight at 8 blocks of 256 an SM, in 0.083 ms (0.159; the
+// gather_rows probe below). Fewer loads in flight serve them slower. The
+// output stores (0.15 GB in training, 0.27 GB in eval) pass through L2
+// beside them. So the gathers run at the rate of the loads in flight,
+// and the kernel keeps as many warps issuing them as an SM holds without
+// spilling.
 //
-// Design (K1's encode_rows_kernel frame): blocks run one level each, levels
-// slowest; a warp takes 32 / A points of its level, and each lane computes
-// one (point, atom)'s row and weight once, into shared memory (and, with
-// atoms, to the (L, A, N) arrays: a lane per atom and point, consecutive
-// points on consecutive lanes); then the warp's lanes gather the points'
-// A rows float4 wide and blend them, streaming the output rows out.
+// Design (K1's encode_rows_kernel frame): blocks of 4 warps run one level
+// each, levels slowest; a warp takes 32 / A points of its level, and each
+// lane computes one (point, atom)'s row and weight once, into shared
+// memory (and, with atoms, to the (L, A, N) arrays: a lane per atom and
+// point, consecutive points on consecutive lanes); then the warp's lanes
+// gather the points' A rows float4 wide (a row's 512 contiguous bytes a
+// warp load) and blend them, streaming the output rows out. The registers
+// are capped at 64 a thread (K1S_MIN_BLOCKS), so an SM holds 32 warps,
+// each with its loads in flight, where 256-thread blocks at 70 registers
+// held 24 (NVIDIA H100 80GB HBM3, 700 W: 0.117 against 0.130 ms device at
+// the flagship's shape, 0.379 against 0.406 at the CLI's); at 56
+// registers (36 warps) or 48 (40) it runs slower. Designs that stage
+// rows in shared memory lost: a tile's distinct rows fetched once by
+// cp.async into two stages held too few bytes in flight and ran 2.2
+// times slower, and async copies of scattered rows (cp.async, bulk
+// copies) came in slower than register loads with as much in flight;
+// skipping the loads of rows a lane already held for the previous point
+// took away the loads' independence and cost 3 to 8%.
 // Features must be a multiple of 4; the JAX package asks 8 for simplex.
 #include <cuda_bf16.h>
 
 #include "hashgrid_common.cuh"
 
-#define K1S_THREADS 256
+#define K1S_THREADS 128
 #define K1S_WARPS (K1S_THREADS / 32)
+// Blocks an SM must hold: 64 registers a thread, 32 warps an SM.
+#define K1S_MIN_BLOCKS 8
 
 // Atom a of the simplex corners of `cell`: its corner offset and weight.
 __device__ __forceinline__ float simplex_atom(const Cell& cell, int a,
@@ -83,7 +106,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, long long at,
 
 // A warp per 32 / A points of level blockIdx.y; lanes over features.
 template <int A, bool ATOMS, typename Out>
-__global__ void __launch_bounds__(K1S_THREADS)
+__global__ void __launch_bounds__(K1S_THREADS, K1S_MIN_BLOCKS)
     atoms_rows_kernel(const float* __restrict__ x,
                       const float* __restrict__ table, Out* __restrict__ out,
                       int* __restrict__ idx, float* __restrict__ wts,
@@ -224,4 +247,53 @@ extern "C" int hashgrid_atoms_shape(int levels, long long n, int atoms,
   out[4] = attr.numRegs;
   out[5] = 32 / atoms;
   return 0;
+}
+
+// The L2 gather floor's probe, on no path: a warp per listed row (rows[i]
+// of the whole table, F floats) reads it float4 wide, 4 rows of a warp in
+// flight (64 KB of loads an SM at 8 blocks of 256), rows in list order on
+// a grid stride, and folds them into a value written only when it is a
+// NaN the table never holds. Timed on the distinct rows each warp's
+// points need, it is the least time the kernel's gathers can take at the
+// rate L2 serves them.
+#define GATHER_DEPTH 4
+__global__ void __launch_bounds__(256)
+    gather_rows_kernel(const float* __restrict__ table,
+                       const long long* __restrict__ rows, long long count,
+                       int features, float* __restrict__ sink) {
+  const int lane = threadIdx.x & 31;
+  const long long step = (long long)gridDim.x * 8 * GATHER_DEPTH;
+  float acc = 0.0f;
+  for (long long r = ((long long)blockIdx.x * 8 + (threadIdx.x >> 5)) *
+                     GATHER_DEPTH;
+       r < count; r += step)
+    for (int f = lane * 4; f < features; f += 128) {
+      float4 v[GATHER_DEPTH];
+#pragma unroll
+      for (int q = 0; q < GATHER_DEPTH; ++q)
+        v[q] = r + q < count ? __ldg(reinterpret_cast<const float4*>(
+                                   table + rows[r + q] * features + f))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < GATHER_DEPTH; ++q)
+        acc += v[q].x + v[q].y + v[q].z + v[q].w;
+    }
+  if (__float_as_uint(acc) == 0x7fc00001u) sink[0] = acc;
+}
+
+extern "C" int hashgrid_atoms_gather_rows(const float* table,
+                                          const long long* rows,
+                                          long long count, int features,
+                                          float* sink, void* stream) {
+  if (features < 4 || features % 4) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if (count == 0) return 0;
+  gather_rows_kernel<<<sms * 8, 256, 0, (cudaStream_t)stream>>>(
+      table, rows, count, features, sink);
+  return (int)cudaGetLastError();
 }

@@ -198,6 +198,66 @@ def encode_backward_launch_shapes(config, n):
             dict(zip(keys, out))}
 
 
+def atoms_launch_shape(config, n, interp='simplex', write=1, bf16=1):
+    """K1s's launch shape for n points, as its C library plans it: blocks,
+    threads, static shared bytes, blocks per SM, registers and points, the
+    points a warp takes."""
+    fn = _kernels.library(_ATOMS_SOURCE).hashgrid_atoms_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _kernels.check(fn(config.n_levels, n, _atom_count(interp), write, bf16,
+                      out), ATOMS_NAME)
+    return dict(zip(('blocks', 'threads', 'smem_bytes', 'blocks_per_sm',
+                     'registers', 'points'), out))
+
+
+def tile_rows(idx, points, table_size):
+    """The distinct rows each tile of `points` consecutive points needs,
+    level by level, from the (L, A, N) atom indices: (the count per
+    level, the rows as int64 indices into the flattened (L * T) table,
+    tile by tile, levels slowest). A K1s warp takes a tile of 32 / A
+    points and needs each of them from L2 at least once; the last tile's
+    missing points repeat its last point."""
+    n_levels, a, n = idx.shape
+    pad = (-n) % points
+    counts, rows = [], []
+    for l in range(n_levels):
+        ids = idx[l].t()
+        if pad:
+            ids = torch.cat([ids, ids[-1:].expand(pad, a)])
+        s = ids.reshape(-1, points * a).sort(dim=1).values
+        first = torch.ones_like(s, dtype=torch.bool)
+        first[:, 1:] = s[:, 1:] != s[:, :-1]
+        counts.append(int(first.sum()))
+        rows.append(s[first].long() + l * table_size)
+    return counts, torch.cat(rows)
+
+
+def gather_rows(table, rows):
+    """Read the listed rows of the (L, T, F) fp32 table (int64 indices
+    into its L * T rows), a warp a row float4 wide, 4 rows of a warp in
+    flight: timed on tile_rows' list, the floor under K1s's L2 gathers,
+    which chip_smoke.py reports beside K1s's DRAM bound. A measurement,
+    on no path, and not counted as a launch."""
+    if table.device.type != 'cuda' or table.dtype != torch.float32 \
+            or table.dim() != 3 or not table.is_contiguous() \
+            or rows.dtype != torch.int64 or rows.device != table.device \
+            or not rows.is_contiguous():
+        raise ValueError('gather_rows: a contiguous (L, T, F) float32 CUDA '
+                         'table and int64 rows on its device')
+    sink = torch.zeros(1, device=table.device)
+    fn = _kernels.library(_ATOMS_SOURCE).hashgrid_atoms_gather_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _kernels.check(fn(table.data_ptr(), rows.data_ptr(), rows.numel(),
+                      table.shape[2], sink.data_ptr(),
+                      torch.cuda.current_stream(table.device).cuda_stream),
+                   'gather_rows')
+
+
 def sampled_launch_shapes(config, n, slots, rows, interp='simplex'):
     """The launch shapes of K1s (training form: atoms, bf16 out; eval
     form: fp32 out), K5's four kernels (N x out_dim bf16 cotangent) and
@@ -208,16 +268,9 @@ def sampled_launch_shapes(config, n, slots, rows, interp='simplex'):
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
             'points')
     a = _atom_count(interp)
-    shapes = {}
-    fn = _kernels.library(_ATOMS_SOURCE).hashgrid_atoms_shape
-    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for form, write, bf16 in (('training', 1, 1), ('eval', 0, 0)):
-        out = (ctypes.c_int * 6)()
-        _kernels.check(fn(config.n_levels, n, a, write, bf16, out),
-                       ATOMS_NAME)
-        shapes[f'K1s atoms_rows_kernel ({form})'] = dict(zip(keys, out))
+    shapes = {f'K1s atoms_rows_kernel ({form})':
+              atoms_launch_shape(config, n, interp, write, bf16)
+              for form, write, bf16 in (('training', 1, 1), ('eval', 0, 0))}
     fn = _select_library().select_points_shape
     fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -42,9 +42,10 @@ Phases, each failing loudly:
      it than the bf16 plain version is; K3b's and K4b's weight gradients
      bit-equal across two launches), with their times, bounds and the
      autograd backward of the bf16 torch.matmul chains as the library
-     yardstick; K2's, K3b's and K4b's launch shapes, K3b's peak memory and
-     its breakdown: device time by kernel from torch.profiler, beside K3f
-     at the same N (the recompute alone);
+     yardstick (by CUDA events and by the profiler's device time); K2's,
+     K3b's and K4b's launch shapes, K3b's peak memory and its breakdown:
+     device time by kernel from torch.profiler, beside K3f at the same N
+     (the recompute alone);
   8. the training slice: SimpleTrainer on the same full-width model (all
      six kernels: K1, K2, K3f, K3b, K4f, K4b), batch 4096, proposal 64 ->
      32, perturbed, exact trilinear gathers, on ray batches of a procedural
@@ -83,6 +84,10 @@ Phases, each failing loudly:
      64 draws of K5 + K2s whose mean is the exact gradient within 4
      standard errors; their times, bounds, launch shapes, the split of
      their device time (K5 by kernel, K2s's memset beside its kernel),
+     K1s in both forms (training: bf16 out, atoms written; eval: fp32
+     out) by events and by device time, each beside its DRAM bound and
+     the L2 gather floor (the distinct rows each of its warps needs,
+     read by hashgrid_cuda.gather_rows),
      and the bf16 -> fp32 cast before K3f; (d) ms per step in turns (plain, kernels,
      kernels, plain), peak memory and one profiled step per leg; (e) the
      flagship checkpoint served through InferenceModel.from_checkpoint,
@@ -98,7 +103,9 @@ Phases, each failing loudly:
      the checkpoint; the eval MSE at least 4-fold below a 1-iteration run
      of the same command; the checkpoint served through
      InferenceModel.from_checkpoint, a finite frame; K1s (both forms), K5
-     and K2s held on the last step's recorded inputs as in phase 9 (a).
+     and K2s held on the last step's recorded inputs as in phase 9 (a),
+     K1s timed there in both forms beside its bounds and L2 gather
+     floor.
      On Run A's trainer: the loader's ms per batch on the host, ms per
      step through the loader and on a pre-made batch on the device, the
      device's busy time over 5 profiled steps and its share of the same
@@ -567,14 +574,15 @@ def _check_k2(checks, name, hashgrid_cuda, g, x, config):
 
 def _check_k1s(checks, tag, table, x, idx, w, grid):
     """K1s on one step's recorded (table, x), the step's own atoms (idx, w)
-    beside them. Eval form: the same products and sums as the plain exact
-    encode. Training form: indices equal and weights bit-equal to the
-    plain atoms and to the step's; the bf16 encode its fp32 sum rounded
-    once (half a bf16 unit: 2^-8 of the value), and within the plain bf16
-    chain's roundings ((4 A + 1) 2^-8 of the terms' magnitudes: the table
-    entries, weights, products and partial sums each rounded to bf16
-    there, the kernel's sum once). Returns the largest error against the
-    plain bf16 version and the training form's encode."""
+    beside them. Eval form: equal to the plain exact encode (the same fp32
+    products and sums in the same order). Training form: indices equal
+    and weights bit-equal to the plain atoms and to the step's; the bf16
+    encode that fp32 sum rounded once (equal to the plain exact encode
+    rounded to bf16; half a bf16 unit: 2^-8 of the value), and within the
+    plain bf16 chain's roundings ((4 A + 1) 2^-8 of the terms' magnitudes:
+    the table entries, weights, products and partial sums each rounded to
+    bf16 there, the kernel's sum once). Returns the largest error against
+    the plain bf16 version and the training form's encode."""
     import torch
     from autolabel_tpu_torch.ops import hashgrid_cuda
     n = x.shape[0]
@@ -582,7 +590,9 @@ def _check_k1s(checks, tag, table, x, idx, w, grid):
                                              torch.float32, False)
     want_e, want_idx, want_w = hashgrid_cuda.encode_atoms_plain(
         table, x, grid, 'simplex', torch.float32)
-    checks.close(f'K1s eval {tag} N={n}', enc_e, want_e, atol=1e-5, rtol=0.0)
+    checks.true(f'K1s eval {tag} N={n}: equal to the plain exact encode',
+                torch.equal(enc_e, want_e),
+                f'max |diff| {float((enc_e - want_e).abs().max()):.3e}')
     del enc_e
     enc_t, idx_t, w_t = hashgrid_cuda.encode_atoms(
         table, x, grid, 'simplex', torch.bfloat16, True)
@@ -591,6 +601,8 @@ def _check_k1s(checks, tag, table, x, idx, w, grid):
                 torch.equal(idx_t, want_idx) and torch.equal(w_t, want_w)
                 and torch.equal(idx_t, idx) and torch.equal(w_t, w))
     del idx_t, w_t, want_idx, want_w
+    checks.true(f'K1s training {tag} N={n}: the plain exact encode rounded '
+                'to bf16 once', torch.equal(enc_t, want_e.to(torch.bfloat16)))
     checks.within(f'K1s training {tag} bf16 against fp32 N={n}', enc_t,
                   want_e, 2.0 ** -8 * want_e.abs() + 1e-30)
     del want_e
@@ -601,6 +613,70 @@ def _check_k1s(checks, tag, table, x, idx, w, grid):
     err = checks.within(f'K1s training {tag} against plain bf16 N={n}',
                         enc_t, want_t, 17 * 2.0 ** -8 * terms + 1e-30)
     return err, enc_t
+
+
+def _k1s_measure(gpu, tag, table, x, idx, grid):
+    """K1s's times, bounds and L2 gather floor on one step's recorded
+    (table, x) and its atoms idx, in both forms: the training form (bf16
+    out, atoms written) and the eval form (fp32 out, no atoms), each by
+    CUDA events (20 launches) and by the profiler's device ms a call. The
+    bounds count x, each table row the atoms name once (per level), the
+    output and, in training, the atoms; a mul and an add per atom and
+    element in fp32. The L2 gather floor is gather_rows timed on the
+    distinct rows each of the kernel's warps needs (tile_rows at its
+    32 / A points): the least time its gathers can take at the rate L2
+    serves scattered rows."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    n, levels, a = x.shape[0], grid.n_levels, idx.shape[1]
+    out = {}
+    for form, dtype, atoms in (('training', torch.bfloat16, True),
+                               ('eval', torch.float32, False)):
+        def call(dtype=dtype, atoms=atoms):
+            return hashgrid_cuda.encode_atoms(table, x, grid, 'simplex',
+                                              dtype, atoms)
+        by_kernel = _kernel_ms(call)
+        out[form] = dict(
+            ms=_cuda_ms(call, 20),
+            device_ms=None if by_kernel is None else sum(by_kernel.values()))
+    rows = sum(int(torch.unique(idx[l]).numel()) for l in range(levels))
+    flops = 2 * a * n * grid.out_dim
+    fixed = _nbytes(x) + rows * grid.n_features * 4
+    out['training']['bound'] = _bound(
+        fixed + n * grid.out_dim * 2 + 2 * levels * a * n * 4, flops,
+        PEAK_FP32)
+    out['eval']['bound'] = _bound(fixed + n * grid.out_dim * 4, flops,
+                                  PEAK_FP32)
+    # The L2 gather floor: the distinct rows of each warp's points.
+    shape = hashgrid_cuda.atoms_launch_shape(grid, n)
+    per_level, tile_list = hashgrid_cuda.tile_rows(idx, shape['points'],
+                                                   grid.table_size)
+    def floor_fn():
+        hashgrid_cuda.gather_rows(table, tile_list)
+    floor_ms = _cuda_ms(floor_fn, 20)
+    by_kernel = _kernel_ms(floor_fn)
+    floor_device = None if by_kernel is None else sum(by_kernel.values())
+    tile_bytes = tile_list.numel() * grid.n_features * 4
+    del tile_list
+    print(f'K1s [{gpu}] {tag} N={n}: the atoms name {rows} distinct table '
+          f'rows of {levels * grid.table_size}; a warp\'s {shape["points"]} '
+          f'points need {per_level} distinct rows per level (of {n * a} '
+          f'each), {tile_bytes / 1e9:.4f} GB from L2; L2 gather floor '
+          f'{floor_ms:.4f} ms by events, {floor_device} ms device '
+          f'({tile_bytes / floor_ms / 1e9:.3f} TB/s by events)')
+    for form in ('training', 'eval'):
+        r = out[form]
+        print(f'kernel K1s {form} form [{gpu}] {tag} N={n}: {r["ms"]:.4f} ms '
+              f'by events, {r["device_ms"]} ms device, DRAM bound '
+              f'{r["bound"][0]:.4f} ms ({r["bound"][1]}), L2 gather floor '
+              f'{floor_ms:.4f} ms')
+    return dict(ms=out['training']['ms'],
+                device_ms=out['training']['device_ms'],
+                bound=out['training']['bound'], eval_ms=out['eval']['ms'],
+                eval_device_ms=out['eval']['device_ms'],
+                eval_bound_ms=out['eval']['bound'][0], distinct_rows=rows,
+                tile_points=shape['points'], tile_rows=per_level,
+                l2_floor_ms=floor_ms, l2_floor_device_ms=floor_device)
 
 
 def _check_k3b(checks, tag, packed, A, B, g1, gf, gl, need_dB=True):
@@ -835,12 +911,9 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
     torch.cuda.empty_cache()
 
     # Times on the recorded inputs, plain versions, bounds and shapes.
-    k1s_ms = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
-        table_f, x_f, grid, 'simplex', torch.bfloat16, True), 20)
+    k1s = _k1s_measure(gpu, 'step samples', table_f, x_f, idx_f, grid)
     k1s_plain = _cuda_ms(lambda: hashgrid_cuda.encode_atoms_plain(
         table_f, x_f, grid, 'simplex', torch.bfloat16), 3)
-    k1s_eval_ms = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
-        table_f, x_f, grid, 'simplex', torch.float32, False), 20)
     k5_ms = _cuda_ms(lambda: hashgrid_cuda.select_points(g_f, u_f, k_f), 20)
     k5_plain = _cuda_ms(lambda: hashgrid_cuda.encoders._select_backward_points(
         g_f, u_f[0, n_f], k_f), 5)
@@ -855,8 +928,6 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
     # exceeds its device time.
     device_ms, device_split = {}, {}
     for key, fn in (
-            ('K1s', lambda: hashgrid_cuda.encode_atoms(
-                table_f, x_f, grid, 'simplex', torch.bfloat16, True)),
             ('K5', lambda: hashgrid_cuda.select_points(g_f, u_f, k_f)),
             ('K2s', lambda: hashgrid_cuda.sampled_scatter(
                 g_f, idx_f, w_f, u_f, rows_f, grid, sel_f, coef_f,
@@ -875,17 +946,6 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
                           device_split[key].items()))
     n_out = grid.out_dim
     a_atoms = 4
-    # K1s (training): x and the table rows the atoms name read (each
-    # distinct row of a level once), the bf16 encode and the (L, 4, N)
-    # atoms written; a mul and an add per atom and element in fp32.
-    k1s_rows = sum(int(torch.unique(idx_f[l]).numel())
-                   for l in range(grid.n_levels))
-    k1s_bound = _bound(_nbytes(x_f) + k1s_rows * grid.n_features * 4
-                       + n_f * n_out * 2
-                       + 2 * grid.n_levels * a_atoms * n_f * 4,
-                       2 * a_atoms * n_f * n_out, PEAK_FP32)
-    print(f'K1s [{gpu}] N={n_f}: the atoms name {k1s_rows} distinct table '
-          f'rows of {grid.n_levels * grid.table_size}')
     # K5: g read, the selection written; a mul and an add per element.
     k5_bound = _bound(_nbytes(g_f) + 4 + m_f * 8 + 4,
                       2 * g_f.numel(), PEAK_FP32)
@@ -896,9 +956,8 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
                               + grid.n_levels * (a_atoms * 8 + 4))
                        + _nbytes(table_f),
                        3 * m_f * rows_sum * grid.n_features, PEAK_FP32)
-    results['K1s'] = dict(max_abs_err=k1s_err, ms=k1s_ms, plain_ms=k1s_plain,
-                          bound=k1s_bound, library_ms=None,
-                          eval_ms=k1s_eval_ms, device_ms=device_ms['K1s'])
+    results['K1s'] = dict(max_abs_err=k1s_err, plain_ms=k1s_plain,
+                          library_ms=None, **k1s)
     results['K5'] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain,
                          bound=k5_bound, library_ms=None, selected=m_f,
                          k=k_f, off=off, scan_dev=sel_check['scan_dev'],
@@ -922,7 +981,6 @@ def _flagship_phase(dev, seed, gpu, checks, results, shapes, chunks):
               f'events, {r["device_ms"]} ms device, plain '
               f'{r["plain_ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
               f'({r["bound"][1]})')
-    print(f'kernel K1s eval form [{gpu}] step samples: {k1s_eval_ms:.4f} ms')
     del rec, table_f, x_f, g_f, u_f, idx_f, w_f, enc_t, sc
     torch.cuda.empty_cache()
 
@@ -1260,22 +1318,19 @@ def _cli_phase(dev, gpu, checks, results):
         del enc_a
         sc = _check_select_scatter(checks, gpu, dev, 'cli step', g_a, u_a,
                                    k_a, idx_a, w_a, rows_a, grid)
+        k1s_cli = _k1s_measure(gpu, 'cli step', table_a, x_a, idx_a, grid)
         # their device ms per call at this shape, from the profiler
         cli_ms = {key: _kernel_ms(fn) for key, fn in (
-            ('K1s', lambda: hashgrid_cuda.encode_atoms(
-                table_a, x_a, grid, 'simplex', torch.bfloat16, True)),
             ('K5', lambda: hashgrid_cuda.select_points(g_a, u_a, k_a)),
             ('K2s', lambda: hashgrid_cuda.sampled_scatter(
                 g_a, idx_a, w_a, u_a, rows_a, grid, sc['sel'], sc['coef'],
                 sc['count'])))}
-        print(f'K1s [{gpu}] cli step N={n_a}: device ms a call by kernel '
-              f'{cli_ms["K1s"]}')
         cli_ms = {key: None if v is None else sum(v.values())
                   for key, v in cli_ms.items()}
-        k1s_events = _cuda_ms(lambda: hashgrid_cuda.encode_atoms(
-            table_a, x_a, grid, 'simplex', torch.bfloat16, True), 20)
+        bound = k1s_cli.pop('bound')
         results['K1s']['cli'] = dict(n=n_a, max_abs_err=k1s_err,
-                                     ms=k1s_events, device_ms=cli_ms['K1s'])
+                                     bound_ms=bound[0], bound_by=bound[1],
+                                     **k1s_cli)
         results['K5']['cli'] = dict(
             n=n_a, k=k_a, drawn=sc['m'], max_abs_err=sc['k5_err'],
             off=sc['off'], scan_dev=sc['sel_check']['scan_dev'],
@@ -1283,9 +1338,9 @@ def _cli_phase(dev, gpu, checks, results):
         results['K2s']['cli'] = dict(n=n_a, drawn=sc['m'],
                                      max_abs_err=sc['k2s_err'],
                                      device_ms=cli_ms['K2s'])
-        print(f'K1s, K5, K2s [{gpu}] cli step N={n_a} drawn={sc["m"]}: '
+        print(f'K5, K2s [{gpu}] cli step N={n_a} drawn={sc["m"]}: '
               + ', '.join(f'{key} {ms} ms' for key, ms in cli_ms.items())
-              + f' device a call; K1s {k1s_events:.4f} ms by events')
+              + ' device a call')
         del table_a, x_a, g_a, u_a, idx_a, w_a, sc
     del rec
 
@@ -1912,7 +1967,11 @@ def main():
         return lambda: torch.autograd.grad(outs, [a, *ws], cots,
                                            retain_graph=True)
 
-    k3b_lib = _cuda_ms(heads_library_backward(), 10)
+    k3b_lib_fn = heads_library_backward()
+    k3b_lib = _cuda_ms(k3b_lib_fn, 10)
+    by_kernel = _kernel_ms(k3b_lib_fn)
+    k3b_lib_device = None if by_kernel is None else sum(by_kernel.values())
+    del k3b_lib_fn
     # Real widths: A, B's 28 columns and the cotangents of the 4 + S + C
     # real outputs read, dA and the fp32 weight gradients written; the
     # forward recomputed (all but the logits layer), the cotangents of
@@ -1928,7 +1987,8 @@ def main():
         2 * n_tr * (macs_fwd + macs_data + head_macs), PEAK_BF16)
     results['K3b'] = dict(max_abs_err=k3b_err, ms=k3b_ms,
                           plain_ms=k3b_plain, bound=k3b_bound,
-                          library_ms=k3b_lib)
+                          library_ms=k3b_lib,
+                          library_device_ms=k3b_lib_device)
     del A3, B3, g1, gf, gl, g2
 
     n4b = TRAIN_BATCH * PROPOSAL_STEPS  # proposal samples per step: 262,144
@@ -1965,7 +2025,11 @@ def main():
         cot = g4.to(torch.bfloat16)
         return lambda: torch.autograd.grad(out, ws, cot, retain_graph=True)
 
-    k4b_lib = _cuda_ms(mlp3_library_backward(), 20)
+    k4b_lib_fn = mlp3_library_backward()
+    k4b_lib = _cuda_ms(k4b_lib_fn, 20)
+    by_kernel = _kernel_ms(k4b_lib_fn)
+    k4b_lib_device = None if by_kernel is None else sum(by_kernel.values())
+    del k4b_lib_fn
     # X and the one real cotangent column read, the fp32 weight gradients
     # written; the forward recomputed without the output layer, the
     # hidden cotangents, and the three weight gradients (36-64-64-1).
@@ -1975,7 +2039,8 @@ def main():
         PEAK_BF16)
     results['K4b'] = dict(max_abs_err=k4b_err, ms=k4b_ms,
                           plain_ms=k4b_plain, bound=k4b_bound,
-                          library_ms=k4b_lib)
+                          library_ms=k4b_lib,
+                          library_device_ms=k4b_lib_device)
     del X4, g4, x2, table, enc, x, dws, again
     torch.cuda.empty_cache()
 
@@ -2115,7 +2180,8 @@ def main():
     for key in ('K2', 'K3b', 'K4b'):
         r = results[key]
         print(f'kernel {key} [{gpu}]: {r["ms"]:.4f} ms, plain '
-              f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
+              f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]} ms by '
+              f'events, {r.get("library_device_ms")} ms device, bound '
               f'{r["bound"][0]:.4f} ms ({r["bound"][1]})')
 
     # ---- 9. the flagship step
@@ -2173,8 +2239,11 @@ def main():
         'bound_by': results[key]['bound'][1],
         'library_ms': results[key]['library_ms'],
         **{k: results[key][k] for k in ('ms_step_samples', 'atomics_floor_ms',
-                                        'eval_ms', 'device_ms',
-                                        'device_split', 'cli')
+                                        'eval_ms', 'eval_device_ms',
+                                        'eval_bound_ms', 'l2_floor_ms',
+                                        'l2_floor_device_ms', 'device_ms',
+                                        'device_split', 'library_device_ms',
+                                        'cli')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 

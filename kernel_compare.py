@@ -13,7 +13,12 @@ on the same inputs: K1 at TPU_GRID (wide rows) and at the reference preset
 also on the (g, x) of a step of chip_smoke.py's training slice, and K5
 and K2s on the inputs a flagship step hands them (chip_smoke.py's
 flagship 'xla' leg after 200 steps; K2s fed one (sel, coef, count), this
-tree's K5's). Each kernel's old and new outputs are compared (largest
+tree's K5's), and K1s in its four instantiations (simplex or trilinear
+atoms; the training form, bf16 out with the atoms written, or the eval
+form, fp32 out) on the (table, x) a flagship step hands it (N = 131,072)
+and on the last step's of a short run of the train CLI (README's command,
+the ray-ordered samples of N = 524,288 a step). Each kernel's old and new
+outputs are compared (largest
 absolute difference; 0 means bit-equal; for K5 whether the selections,
 count, points and coefs, are bit-equal), then both are timed by CUDA
 events, old, new, new, old, ... for --rounds rounds, and by
@@ -93,9 +98,37 @@ def _flagship_samples(seed, steps=200):
         trainer.train_iterations(loader, TRAIN_CHUNK)
     rec = _record_flagship_inputs(trainer, loader, hashgrid_cuda)
     g, u, k = rec['select']
-    return dict(g=g, u=u, k=k, atoms=rec['scatter'],
+    return dict(g=g, u=u, k=k, atoms=rec['scatter'], encode=rec['atoms'],
                 grid=trainer.field.config.grid_config,
                 selection=hashgrid_cuda.select_points(g, u, k))
+
+
+def _cli_samples(iters=30):
+    """The (table, x) the train CLI's last step hands K1s (README's command,
+    4,096 rays x 128 samples, this tree's package) after `iters` steps on
+    the sphere scene chip_smoke.py's phase 10 writes, with its grid."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.utils import fixtures
+    from chip_smoke import CLI_SCENE, WORK_DIR
+    root = os.path.join(WORK_DIR, 'compare_cli')
+    scene = os.path.join(root, 'sphere')
+    fixtures.make_synthetic_scene(scene, **CLI_SCENE)
+    rec, atoms = {}, hashgrid_cuda._atoms_call
+
+    def rec_atoms(table, x, config, interp, out_dtype, with_atoms):
+        if with_atoms:
+            rec['atoms'] = (table.detach().clone(), x.clone())
+        return atoms(table, x, config, interp, out_dtype, with_atoms)
+
+    hashgrid_cuda._atoms_call = rec_atoms
+    try:
+        run = cli.main([scene, '--proposal', '--factor-train', '1',
+                        '--iters', str(iters),
+                        '--workspace', os.path.join(root, 'ws')])
+    finally:
+        hashgrid_cuda._atoms_call = atoms
+    return rec['atoms'], run.trainer.field.config.grid_config
 
 
 def _same_selection(a, b):
@@ -108,12 +141,12 @@ def _same_selection(a, b):
     return 0.0 if same else 1.0
 
 
-def _cases(pkg, seed, step_samples, flagship):
+def _cases(pkg, seed, step_samples, flagship, cli_samples):
     """{name: (fn(pkg), reps, compare)}: each kernel of the main path called
     through pkg's wrappers on inputs made from seed (the same for every
-    pkg), K2 on a training step's recorded samples, and K5 and K2s on a
-    flagship step's; compare(old, new) of their outputs, None for the
-    largest absolute difference."""
+    pkg), K2 on a training step's recorded samples, K5, K2s and K1s on a
+    flagship step's, K1s also on a CLI step's; compare(old, new) of their
+    outputs, None for the largest absolute difference."""
     import torch
     g = torch.Generator().manual_seed(seed)
     dev = torch.device('cuda')
@@ -154,7 +187,20 @@ def _cases(pkg, seed, step_samples, flagship):
     idx_f, w_f, rows_f = f['atoms']
     sel_f, coef_f, count_f = f['selection']
     n_f, m_f = g_f.shape[0], int(count_f[0])
+    k1s = {}
+    for where, ((t_e, x_e), grid_e) in (('flagship step', (f['encode'],
+                                                          fl_grid)),
+                                       ('cli step', cli_samples)):
+        for interp in ('simplex', 'trilinear'):
+            for form, dtype, atoms in (
+                    ('training', torch.bfloat16, True),
+                    ('eval', torch.float32, False)):
+                k1s[f'K1s {interp} {form} {where} N={x_e.shape[0]}'] = (
+                    lambda t_e=t_e, x_e=x_e, grid_e=grid_e, interp=interp,
+                    dtype=dtype, atoms=atoms: hg.encode_atoms(
+                        t_e, x_e, grid_e, interp, dtype, atoms), 20, None)
     return {
+        **k1s,
         f'K1 TPU_GRID N={n1}': (lambda: hg.hashgrid_encode(table, x, grid),
                                 20, None),
         f'K1 reference N={n1}': (
@@ -200,7 +246,9 @@ def main():
     result = {'gpu': gpu, 'rounds': args.rounds, 'kernels': {}}
     step_samples = _step_samples(args.seed)
     flagship = _flagship_samples(args.seed)
-    cases = {side: _cases(pkg, args.seed, step_samples, flagship)
+    cli_samples = _cli_samples()
+    cases = {side: _cases(pkg, args.seed, step_samples, flagship,
+                          cli_samples)
              for side, pkg in sides.items()}
     for name in cases['new']:
         (old, reps, compare), (new, _, _) = (cases['old'][name],

@@ -655,10 +655,60 @@ def test_atoms_kernel_matches_plain(cuda, interp, features, variant, n):
             else:
                 assert idx is None and w is None
             if out_dtype == torch.float32:
-                torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+                # the same fp32 products and sums in the same order
+                assert torch.equal(out, want)
             else:
                 err = (out.float() - want).abs()
                 assert bool((err <= 2.0 ** -8 * want.abs() + 1e-30).all())
+
+
+def _tile_grid(features, variant):
+    """TPU_GRID's resolutions on a 2^13 table: level 0 dense (stride^3 at
+    most its size), the finer ones hashed."""
+    return HashGridConfig(n_levels=4, n_features=features,
+                          log2_hashmap_size=13, base_resolution=16,
+                          per_level_scale=5.04, variant=variant)
+
+
+@pytest.mark.parametrize('edge', ['tile-1', 'tile', 'tile+1', '2tile+3'])
+@pytest.mark.parametrize('kind', ['uniform', 'rays', 'outside'])
+@pytest.mark.parametrize('interp,features,variant', [
+    ('simplex', 128, 'native'), ('trilinear', 128, 'native'),
+    ('simplex', 16, 'torch_ngp'), ('trilinear', 8, 'tcnn')])
+def test_atoms_kernel_tile_edges(cuda, interp, features, variant, kind,
+                                 edge):
+    """K1s at the edges of a block's points (one short, a block's, one
+    over, two blocks' and three over), on uniform points, ray-ordered ones
+    (neighbouring samples share rows) and points up to 0.05 outside the
+    unit cube (negative cells on the dense level 0): in every form the
+    atoms equal to the plain atoms, the fp32 encode equal to the plain
+    exact encode (the same fp32 products and sums in the same order) and
+    the bf16 encode that sum rounded once."""
+    rng = np.random.default_rng(40)
+    config = _tile_grid(features, variant)
+    assert hashgrid_cuda.encoders.level_geometry(config)[3][0]
+    shape = hashgrid_cuda.atoms_launch_shape(config, 1, interp)
+    tile = shape['threads'] // 32 * shape['points']  # a block's points
+    n = {'tile-1': tile - 1, 'tile': tile, 'tile+1': tile + 1,
+         '2tile+3': 2 * tile + 3}[edge]
+    if kind == 'rays':
+        x = _clustered(rng, n, 'rays', cuda)
+    else:
+        x = _points(rng, max(n, 16), cuda,
+                    'outside' if kind == 'outside' else 'unit')[:n]
+    table = torch.tensor(rng.uniform(-1, 1, (4, 8192, features)).astype(
+        np.float32), device=cuda)
+    want, want_idx, want_w = hashgrid_cuda.encode_atoms_plain(
+        table, x, config, interp, torch.float32)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for atoms in (True, False):
+            _kernels.reset_launches()
+            out, idx, w = hashgrid_cuda.encode_atoms(table, x, config, interp,
+                                                     out_dtype, atoms)
+            assert _kernels.launches[hashgrid_cuda.ATOMS_NAME] == 1
+            if atoms:
+                assert torch.equal(idx, want_idx) and torch.equal(w, want_w)
+            assert torch.equal(out, want.to(out_dtype))
 
 
 def test_simplex_encode_kernels_under_autograd(cuda):
@@ -959,7 +1009,7 @@ def test_atoms_kernel_at_the_cli_step(cuda):
     _kernels.reset_launches()
     out, _, _ = hashgrid_cuda.encode_atoms(table, x, config, 'simplex',
                                            torch.float32, False)
-    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    assert torch.equal(out, want)  # the same fp32 products and sums
     del out
     out, idx, w = hashgrid_cuda.encode_atoms(table, x, config, 'simplex',
                                              torch.bfloat16, True)

@@ -1,14 +1,16 @@
 """The host-side arithmetic of the port's kernels, on the CPU: the
 hash-grid kernels' division-free corner index (per-level constants from
 hashgrid_cuda.level_divisors, emulated in numpy as hashgrid_common.cuh
-computes it). No card needed."""
+computes it), and the distinct rows each of K1s's warps needs
+(hashgrid_cuda.tile_rows, which its L2 gather floor reads). No card
+needed."""
 import numpy as np
 import pytest
 import torch
 
 from autolabel_tpu_torch.ops import encoders
 from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
-from autolabel_tpu_torch.ops.hashgrid_cuda import level_divisors
+from autolabel_tpu_torch.ops.hashgrid_cuda import level_divisors, tile_rows
 
 _M32 = np.uint64(0xFFFFFFFF)
 
@@ -146,3 +148,31 @@ def test_level_corner_index_matches_plain(name):
                 torch.from_numpy(cell), corner, int(strides[l]),
                 bool(use_dense[l]), int(sizes[l])).numpy()
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('n,points,atoms', [
+    (1, 16, 4), (15, 16, 4), (16, 16, 4), (17, 16, 4), (35, 16, 4),
+    (100, 8, 8), (64, 64, 4), (7, 1, 8)])
+def test_tile_rows_lists_each_tiles_distinct_rows(n, points, atoms):
+    """tile_rows against sets: per level the sum over tiles of the
+    distinct rows among the tile's points' atoms (the last tile holds what
+    is left), and the list, tile by tile with levels slowest, holding
+    exactly each tile's set, offset by the level's first row."""
+    rng = np.random.default_rng(n + points)
+    levels, table_size = 3, 50
+    idx = torch.from_numpy(rng.integers(0, 12, (levels, atoms, n)).astype(
+        np.int32))
+    counts, rows = tile_rows(idx, points, table_size)
+    assert rows.dtype == torch.int64
+    at = 0
+    for l in range(levels):
+        want = 0
+        for p0 in range(0, n, points):
+            tile = set(idx[l, :, p0:p0 + points].flatten().tolist())
+            got = rows[at:at + len(tile)].tolist()
+            assert sorted(got) == sorted(r + l * table_size for r in tile)
+            at += len(tile)
+            want += len(tile)
+        assert counts[l] == want
+    assert at == rows.numel()
+
