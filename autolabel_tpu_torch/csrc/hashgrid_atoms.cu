@@ -61,27 +61,6 @@
 // Blocks an SM must hold: 64 registers a thread, 32 warps an SM.
 #define K1S_MIN_BLOCKS 8
 
-// Atom a of the simplex corners of `cell`: its corner offset and weight.
-__device__ __forceinline__ float simplex_atom(const Cell& cell, int a,
-                                              int (&off)[3]) {
-  const float f0 = cell.f[0], f1 = cell.f[1], f2 = cell.f[2];
-  int hi = 0, lo = 0;
-  float s1 = f0, s3 = f0;
-  if (f1 > s1) { hi = 1; s1 = f1; }
-  if (f2 > s1) { hi = 2; s1 = f2; }
-  if (f1 < s3) { lo = 1; s3 = f1; }
-  if (f2 < s3) { lo = 2; s3 = f2; }
-  const float s2 =
-      __fsub_rn(__fsub_rn(__fadd_rn(__fadd_rn(f0, f1), f2), s1), s3);
-#pragma unroll
-  for (int d = 0; d < 3; ++d)
-    off[d] = a == 0 ? 0 : a == 1 ? (d == hi) : a == 2 ? (d != lo) : 1;
-  return a == 0 ? __fsub_rn(1.0f, s1)
-         : a == 1 ? __fsub_rn(s1, s2)
-         : a == 2 ? __fsub_rn(s2, s3)
-                  : s3;
-}
-
 __device__ __forceinline__ float4 blend4(float4 acc, float4 v, float w) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, w));
   acc.y = __fadd_rn(acc.y, __fmul_rn(v.y, w));

@@ -1,9 +1,10 @@
-// Lattice geometry shared by the hash-grid encode and its backward
-// (hashgrid_encode.cu, hashgrid_bwd.cu): per point and level, the cell and
-// fraction, the 8 corner indices (level_corner_index, without divisions)
-// and the trilinear corner weights, with the same explicitly rounded fp32
-// operations (no FMA contraction) in the plain version's order, so kernels
-// and plain version agree to the last bits.
+// Lattice geometry shared by the hash-grid kernels (hashgrid_encode.cu,
+// hashgrid_bwd.cu, hashgrid_atoms.cu, hashgrid_stochastic.cu): per point
+// and level, the cell and fraction, the 8 corner indices
+// (level_corner_index, without divisions), the trilinear corner weights and
+// the simplex atoms, with the same explicitly rounded fp32 operations (no
+// FMA contraction) in the plain version's order, so kernels and plain
+// version agree to the last bits.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +35,31 @@ __device__ __forceinline__ float corner_weight(const Cell& cell, int c) {
   float wy = (c >> 1) & 1 ? cell.f[1] : __fsub_rn(1.0f, cell.f[1]);
   float wz = c & 1 ? cell.f[2] : __fsub_rn(1.0f, cell.f[2]);
   return __fmul_rn(__fmul_rn(wx, wy), wz);
+}
+
+// Atom a of the simplex corners of `cell`: its corner offset and weight.
+// The fractions sorted s1 >= s2 >= s3 (argmax and argmin take the first
+// index on ties, as jnp.argmax does), the atoms are base, +e_argmax,
+// +(1 - e_argmin), (1, 1, 1) with weights (1 - s1, s1 - s2, s2 - s3, s3),
+// s2 = ((f0 + f1) + f2 - s1) - s3 in the JAX package's fp32 order.
+__device__ __forceinline__ float simplex_atom(const Cell& cell, int a,
+                                              int (&off)[3]) {
+  const float f0 = cell.f[0], f1 = cell.f[1], f2 = cell.f[2];
+  int hi = 0, lo = 0;
+  float s1 = f0, s3 = f0;
+  if (f1 > s1) { hi = 1; s1 = f1; }
+  if (f2 > s1) { hi = 2; s1 = f2; }
+  if (f1 < s3) { lo = 1; s3 = f1; }
+  if (f2 < s3) { lo = 2; s3 = f2; }
+  const float s2 =
+      __fsub_rn(__fsub_rn(__fadd_rn(__fadd_rn(f0, f1), f2), s1), s3);
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    off[d] = a == 0 ? 0 : a == 1 ? (d == hi) : a == 2 ? (d != lo) : 1;
+  return a == 0 ? __fsub_rn(1.0f, s1)
+         : a == 1 ? __fsub_rn(s1, s2)
+         : a == 2 ? __fsub_rn(s2, s3)
+                  : s3;
 }
 
 // One level's constants, with its size's divisor from the host

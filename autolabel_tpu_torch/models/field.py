@@ -157,22 +157,26 @@ class Field(nn.Module):
         return torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
 
     def _grid_encode(self, normalized, u=None, sampled_backward=0,
-                     backward_points=1.0):
-        """The hash-grid encode of normalized points: exact (fp32), or with
-        sampled_backward and the uniforms u the exact-forward /
-        sampled-backward encode (in the compute dtype), as JAX
-        Field._grid_encode routes a key. The kernels on the card, the plain
-        versions on the CPU."""
+                     backward_points=1.0, n_samples=1, exact_levels=0,
+                     residual=False):
+        """The hash-grid encode of normalized points, as JAX
+        Field._grid_encode routes a key: exact (fp32) without u; with the
+        uniforms u and sampled_backward the exact-forward / sampled-backward
+        encode (in the compute dtype); with u alone the stochastic-corner
+        encode of n_samples draws or (residual) the residual encode, the
+        finest exact_levels levels exact (fp32). The kernels on the card,
+        the plain versions on the CPU."""
         c = self.config
         return hashgrid_cuda.hashgrid_encode(
             self.encoder['grid'], normalized, c.grid_config,
             interp=c.grid_interp, u=u, sampled_backward=sampled_backward,
-            backward_points=backward_points)
+            backward_points=backward_points, n_samples=n_samples,
+            exact_levels=exact_levels, residual=residual)
 
     def encode(self, x, **estimator):
         """Positional encoding of (N, 3) points in [-bound, bound]; exact
-        unless `estimator` (u, sampled_backward, backward_points: see
-        _grid_encode) asks for the sampled backward."""
+        unless `estimator` (u, sampled_backward, backward_points, n_samples,
+        exact_levels, residual: see _grid_encode) asks for an estimator."""
         return torch.cat([s.float() for s in self._encode_segments(
             x, **estimator)], dim=-1)
 

@@ -23,8 +23,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
 SOURCES = ('hashgrid_encode.cu', 'hashgrid_bwd.cu', 'hashgrid_atoms.cu',
-           'hashgrid_sampled_bwd.cu', 'select_points.cu', 'heads_fwd.cu',
-           'heads_bwd.cu', 'mlp3.cu')
+           'hashgrid_sampled_bwd.cu', 'select_points.cu',
+           'hashgrid_stochastic.cu', 'hashgrid_stochastic_bwd.cu',
+           'heads_fwd.cu', 'heads_bwd.cu', 'mlp3.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

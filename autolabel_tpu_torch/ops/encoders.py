@@ -5,14 +5,16 @@ versions of the CUDA hash-grid kernels (ops/hashgrid_cuda.py), on any
 device: the exact trilinear encode (_encode_rows for wide rows,
 _encode_lanes for narrow ones) and its table gradient
 (hashgrid_encode_backward_plain); the exact simplex encode
-(_encode_rows_simplex); and the flagship's exact-forward /
-sampled-backward encode: the interpolation atoms (_corner_idx_weights),
-the gather from them (_gather_from_atoms), the point subsample
-(_select_backward_points) and the sampled scatter (sampled_scatter_plain).
-The sampled encode takes its uniforms as a tensor `u`, where the JAX
-package draws them from a PRNG key. The stochastic-corner and residual
-encodes (a `key` without the sampled backward) are not ported and raise
-NotImplementedError.
+(_encode_rows_simplex); the flagship's exact-forward / sampled-backward
+encode: the interpolation atoms (_corner_idx_weights), the gather from
+them (_gather_from_atoms), the point subsample (_select_backward_points)
+and the sampled scatter (sampled_scatter_plain); and the stochastic-corner
+and residual encodes (JAX's _encode_stochastic,
+_encode_stochastic_simplex and _encode_residual): the rows they draw
+(stochastic_rows), the blend of those rows (blend_drawn_rows) and its
+table gradient (stochastic_scatter_plain). The JAX package draws its
+uniforms from a PRNG key; here every estimator takes them as a tensor
+`u`, of the shape uniform_shape gives.
 """
 import dataclasses
 import math
@@ -328,19 +330,10 @@ def _corner_idx_weights(x, config, interp):
     order). The plain version of the atoms the simplex encode kernel
     writes for the sampled backward."""
     cell, frac, stride, use_dense, size = _grid_geometry(x, config)
-    idx_levels, w_levels = [], []
-    for l in range(config.n_levels):
-        if interp == 'simplex':
-            offsets, w = _simplex_corners(frac[:, l])
-            corners = list(offsets)
-        else:
-            corners = list(_CORNERS)
-            w = torch.stack([_corner_weight(frac[:, l], c) for c in corners])
-        idx_levels.append(torch.stack([
-            _corner_index(cell[:, l], c, stride[l], use_dense[l], size[l])
-            for c in corners]))
-        w_levels.append(w)
-    return torch.stack(idx_levels).to(torch.int32), torch.stack(w_levels)
+    atoms = [_level_atoms(cell, frac, stride, use_dense, size, l, interp)
+             for l in range(config.n_levels)]
+    return (torch.stack([i for i, _ in atoms]).to(torch.int32),
+            torch.stack([w for _, w in atoms]))
 
 
 def _gather_from_atoms(table, idx, w, config, dtype):
@@ -524,13 +517,232 @@ def sampled_rows(config, interp, sampled_backward, backward_points):
     return rows, pf
 
 
-def check_uniforms(u, config, n, point_frac):
-    """u must be (L, N), or (L, N + 1) when the points are subsampled
-    (u[0, N] is the systematic offset), float32."""
-    want = (config.n_levels, n + (1 if point_frac < 1.0 else 0))
-    if tuple(u.shape) != want or u.dtype != torch.float32:
-        raise ValueError(f'u must be float32 of shape {want}, got '
+def uniform_shape(levels, n, interp='trilinear', n_samples=1, residual=False,
+                  sampled_backward=0, backward_points=1.0):
+    """The shape of the float32 uniforms `u` an estimator of n points on a
+    grid of `levels` levels takes, where the JAX package draws them from its
+    key:
+
+    - the sampled backward: (L, N), or (L, N + 1) when the points are
+      subsampled (u[0, N] is the systematic offset);
+    - the residual encode: (L, N), as jax.random.uniform(key, (L, N));
+    - the stochastic trilinear encode: (D, 3, L, N) and the stochastic
+      simplex encode (D, L, N), D = ceil(n_samples / 2): u[s] is
+      jax.random.uniform(split(key, D)[s], ...), set s < n_samples // 2
+      serving the antithetic pair (u, 1 - u) and, for odd n_samples, the
+      last set the single draw."""
+    if sampled_backward:
+        return (levels, n + (1 if backward_points < 1.0 else 0))
+    if residual:
+        return (levels, n)
+    sets = (n_samples + 1) // 2
+    return (sets, levels, n) if interp == 'simplex' else (sets, 3, levels, n)
+
+
+def check_uniforms(u, shape):
+    """u must be float32 of `shape` (uniform_shape)."""
+    if tuple(u.shape) != tuple(shape) or u.dtype != torch.float32:
+        raise ValueError(f'u must be float32 of shape {tuple(shape)}, got '
                          f'{u.dtype} {tuple(u.shape)}')
+
+
+# Kinds of level in the stochastic encodes: `DRAWS` averages n_samples drawn
+# corner rows (each weight 1), `RESIDUAL` blends the max-weight atom at w_m
+# with one draw from the rest at 1 - w_m, `EXACT` interpolates every atom at
+# its weight (the finest exact_levels levels).
+DRAWS, RESIDUAL, EXACT = 0, 1, 2
+
+
+def stochastic_plan(config, interp='trilinear', n_samples=1, exact_levels=0,
+                    residual=False):
+    """Validate the stochastic and residual encodes' options as the JAX
+    package does (hashgrid_encode's order and errors) and return each
+    level's (kind, rows): the rows it gathers and, in training, scatters."""
+    if residual:
+        if n_samples != 2:
+            raise NotImplementedError(
+                "residual sampling is a 2-row estimator (n_samples=2)")
+        if config.n_features % 8 != 0:
+            raise NotImplementedError(
+                "residual sampling is implemented for the wide-row "
+                "layout only")
+    elif interp == 'simplex' and config.n_features % 8 != 0:
+        raise NotImplementedError(
+            "simplex interpolation is implemented for the wide-row "
+            "(TPU_GRID-shaped) layout only")
+    if interp not in ('trilinear', 'simplex'):
+        raise ValueError(f'unknown interpolation {interp!r}')
+    if n_samples < 1:
+        raise ValueError(f'n_samples must be at least 1; got {n_samples!r}')
+    levels = config.n_levels
+    n_exact = min(max(exact_levels, 0), levels)
+    atoms = 4 if interp == 'simplex' else 8
+    return tuple((EXACT, atoms) if l >= levels - n_exact
+                 else (RESIDUAL, 2) if residual else (DRAWS, n_samples)
+                 for l in range(levels))
+
+
+def _draw_set(r, n_samples):
+    """Row r of a DRAWS level: its draw set s and whether it draws at 1 - u
+    (rows 2s and 2s + 1 are the pair (u, 1 - u) of set s; the last row of
+    an odd n_samples is the single draw of the last set)."""
+    pairs = n_samples // 2
+    return (r // 2, bool(r % 2)) if r < 2 * pairs else (pairs, False)
+
+
+def _atom_offset(offsets, i):
+    """offsets (A, 3, N) -> (3, N): each point's atom i[n]'s offset."""
+    return offsets.gather(0, i[None, None].expand(1, 3, -1).long())[0]
+
+
+def _level_atoms(cell, frac, stride, use_dense, size, l, interp):
+    """Level l's interpolation atoms: (indices (A, N) int64, weights (A, N)),
+    the simplex atoms or the 8 trilinear corners in _CORNERS order."""
+    if interp == 'simplex':
+        offsets, w = _simplex_corners(frac[:, l])
+    else:
+        offsets = _CORNERS
+        w = torch.stack([_corner_weight(frac[:, l], c) for c in _CORNERS])
+    idx = torch.stack([_corner_index(cell[:, l], o, stride[l], use_dense[l],
+                                     size[l]) for o in offsets])
+    return idx, w
+
+
+def _level_rows(cell, frac, stride, use_dense, size, l, u, kind, rows,
+                interp, n_samples):
+    """The (N,) table rows and (N,) weights level l gathers, in blend order:
+    for DRAWS the n_samples draws (weight 1): per axis the upper corner
+    where the uniform (or 1 - it) < frac (trilinear), or the atom
+    #{k < 3 : uniform > cum_k}, cum the fp32 partial sums of the simplex
+    weights; for RESIDUAL the max-weight atom (the first on ties) at w_m
+    and the draw from the rest at 1 - w_m (_draw_rows); for EXACT every
+    atom at its weight."""
+    if kind == DRAWS:
+        out = []
+        if interp == 'simplex':
+            offsets, w = _simplex_corners(frac[:, l])
+            cum = _atom_cumsum(w[:3])
+        for r in range(rows):
+            s, flip = _draw_set(r, n_samples)
+            if interp == 'simplex':
+                v = u[s, l]
+                v = 1.0 - v if flip else v
+                off = _atom_offset(offsets, (v[None] > cum).sum(dim=0))
+            else:
+                v = u[s, :, l]
+                v = 1.0 - v if flip else v
+                off = (v < frac[:, l]).long()
+            idx = _corner_index(cell[:, l], off, stride[l], use_dense[l],
+                                size[l])
+            out.append((idx, torch.ones_like(frac[0, l])))
+        return out
+    idx, w = _level_atoms(cell, frac, stride, use_dense, size, l, interp)
+    if kind == RESIDUAL:
+        return _draw_rows(idx, w, u[l], 2)
+    return [(idx[a], w[a]) for a in range(rows)]
+
+
+def sample_scale(n_samples, device):
+    """1 / n_samples rounded once to fp32, as a 0-dim tensor: the factor by
+    which XLA scales the sum of n_samples draws (its algebraic simplifier
+    turns the division by a constant into this product; measured against
+    JAX on the CPU, the product is bit-equal and a division is not)."""
+    return torch.tensor(1.0, device=device) / torch.tensor(
+        float(n_samples), device=device)
+
+
+def _blend_level(table_l, kind, level_rows, n_samples):
+    """One level's output from its rows, in the JAX package's fp32 order:
+    DRAWS sums each antithetic pair, chains the pairs and the single draw,
+    then scales by 1 / n_samples (sample_scale: XLA compiles JAX's
+    `acc / n_samples` to that product); RESIDUAL is w_m f_m + (1 - w_m) f_j;
+    EXACT sums w * row from zero in atom order. Every product and sum is
+    rounded on its own, where XLA may fuse a product into the next sum."""
+    if kind == DRAWS:
+        feats = [table_l[i] for i, _ in level_rows]
+        pairs = n_samples // 2
+        acc = None
+        for s in range(pairs):
+            pair = feats[2 * s] + feats[2 * s + 1]
+            acc = pair if acc is None else acc + pair
+        if n_samples % 2:
+            acc = feats[-1] if acc is None else acc + feats[-1]
+        if n_samples > 1:
+            acc = acc * sample_scale(n_samples, acc.device)
+        return acc
+    if kind == RESIDUAL:
+        (i_m, w_m), (i_j, w_j) = level_rows
+        return w_m[:, None] * table_l[i_m] + w_j[:, None] * table_l[i_j]
+    acc = torch.zeros((level_rows[0][0].shape[0], table_l.shape[1]),
+                      dtype=table_l.dtype, device=table_l.device)
+    for i, w in level_rows:
+        acc = acc + table_l[i] * w[:, None]
+    return acc
+
+
+def plan_starts(plan):
+    """Per level of the plan: (kind, rows, first, wfirst), `first` the first
+    of its rows among the S rows and `wfirst` the first of its weights among
+    the SW weighted (RESIDUAL and EXACT) rows, None on DRAWS levels (a draw
+    weighs 1 / n_samples, which is not stored), as hashgrid_stochastic.cuh
+    lays them out."""
+    out, first, wfirst = [], 0, 0
+    for kind, rows in plan:
+        out.append((kind, rows, first, None if kind == DRAWS else wfirst))
+        first += rows
+        wfirst += 0 if kind == DRAWS else rows
+    return out
+
+
+def stochastic_rows(x, config, u, plan, interp='trilinear', n_samples=1):
+    """The rows the stochastic or residual encode gathers, as the kernel
+    writes them for its backward: (indices (S, N) int32, weights (SW, N)
+    fp32), S the sum of every level's rows and SW that of the RESIDUAL and
+    EXACT levels', each level's rows in blend order from plan_starts."""
+    cell, frac, stride, use_dense, size = _grid_geometry(x, config)
+    levels = [_level_rows(cell, frac, stride, use_dense, size, l, u, kind,
+                          rows, interp, n_samples)
+              for l, (kind, rows) in enumerate(plan)]
+    idx = torch.stack([i for lv in levels for i, _ in lv]).to(torch.int32)
+    w = [w for lv, (kind, _) in zip(levels, plan) if kind != DRAWS
+         for _, w in lv]
+    w = torch.stack(w) if w else torch.empty(
+        (0, x.shape[0]), dtype=torch.float32, device=x.device)
+    return idx, w
+
+
+def blend_drawn_rows(table, idx, w, plan, n_samples=1):
+    """The encode (N, L * F) from stochastic_rows' (idx, w): each level's
+    rows blended as its kind asks (_blend_level), differentiable in table
+    by autograd."""
+    outs = []
+    for l, (kind, rows, first, wfirst) in enumerate(plan_starts(plan)):
+        level_rows = [(idx[first + r].long(),
+                       None if wfirst is None else w[wfirst + r])
+                      for r in range(rows)]
+        outs.append(_blend_level(table[l], kind, level_rows, n_samples))
+    return torch.cat(outs, dim=-1)
+
+
+def stochastic_scatter_plain(g, idx, w, plan, config, n_samples=1):
+    """The table gradient of the stochastic or residual encode from its
+    drawn rows (JAX: the VJP of its jnp.takes), the plain version of the
+    stochastic scatter kernel. g: (N, L * F) cotangent; idx, w: the rows
+    and weights of stochastic_rows. A DRAWS row takes g * sample_scale (g
+    itself for one sample), any other row w * g. Returns (L, T, F) fp32."""
+    f = config.n_features
+    g = g.float()
+    cot = torch.zeros((config.n_levels, config.table_size, f),
+                      dtype=torch.float32, device=g.device)
+    for l, (kind, rows, first, wfirst) in enumerate(plan_starts(plan)):
+        g_l = g[:, l * f:(l + 1) * f]
+        if kind == DRAWS and n_samples > 1:
+            g_l = g_l * sample_scale(n_samples, g.device)
+        for r in range(rows):
+            cot[l].index_add_(0, idx[first + r].long(),
+                              g_l if kind == DRAWS
+                              else w[wfirst + r][:, None] * g_l)
+    return cot
 
 
 def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
@@ -539,24 +751,36 @@ def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
     """Encode (N, 3) points in [0, 1] -> (N, n_levels * n_features), as
     autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch.
 
-    u: the sampled backward's uniforms ((L, N), or (L, N + 1) when
-    backward_points < 1), which JAX draws from its key. With
-    sampled_backward and u the encode is exact forward / sampled backward,
-    its output in the compute dtype; otherwise it is the exact trilinear
-    or simplex interpolation, differentiable by autograd. A `key` (the
-    stochastic and residual encodes) is not ported and raises.
+    u: the estimator's uniforms, which JAX draws from its key (shapes:
+    uniform_shape). With sampled_backward and u the encode is exact forward
+    / sampled backward, its output in the compute dtype; with u alone it is
+    the residual (residual=True) or stochastic-corner encode, fp32, in the
+    JAX package's order of dispatch and with its errors; without u the
+    exact trilinear or simplex interpolation. All differentiable by
+    autograd. The port never takes a JAX key: `key` raises.
     """
     if key is not None:
         raise NotImplementedError(
-            "the stochastic-corner and residual encodes are not ported; the "
-            "sampled backward takes its uniforms as u")
-    del n_samples, exact_levels, residual
+            "the port takes the estimators' uniforms as u, not a PRNG key")
     if sampled_backward and u is not None:
         rows, pf = sampled_rows(config, interp, sampled_backward,
                                 backward_points)
-        check_uniforms(u, config, x.shape[0], pf)
+        check_uniforms(u, uniform_shape(config.n_levels, x.shape[0],
+                                        sampled_backward=sampled_backward,
+                                        backward_points=pf))
         return _SampledEncodePlain.apply(table, x, u, config, interp, rows,
                                          pf)
+    if u is not None:
+        # JAX's _encode_residual, _encode_stochastic_simplex and
+        # _encode_stochastic (both of its branches: the narrow one computes
+        # the same values level by level in an (L, F, N) layout) differ
+        # only in how each level draws its rows: the plan's kinds.
+        plan = stochastic_plan(config, interp, n_samples, exact_levels,
+                               residual)
+        check_uniforms(u, uniform_shape(config.n_levels, x.shape[0], interp,
+                                        n_samples, residual))
+        idx, w = stochastic_rows(x, config, u, plan, interp, n_samples)
+        return blend_drawn_rows(table, idx, w, plan, n_samples)
     if interp == 'simplex':
         if config.n_features % 8 != 0:
             raise NotImplementedError(

@@ -3,8 +3,9 @@
 Counterpart of autolabel_tpu/ops/hashgrid_pallas.py (the exact trilinear
 encode `hashgrid_encode_pallas` and its VJP `hashgrid_encode_hybrid`) and
 of the functions of autolabel_tpu/ops/encoders.py that XLA compiles for
-the TPU on the flagship's path: the simplex encode, the sampled
-backward's interpolation atoms, its point subsample and its scatter.
+the TPU: the simplex encode, the sampled backward's interpolation atoms,
+its point subsample and its scatter, and the stochastic-corner and
+residual encodes with their table gradient.
 
 - K1 (csrc/hashgrid_encode.cu) and K2 (csrc/hashgrid_bwd.cu): the exact
   trilinear encode and its table gradient (`_Encode`).
@@ -16,12 +17,17 @@ backward's interpolation atoms, its point subsample and its scatter.
 - K5 (csrc/select_points.cu): the sampled backward's point subsample.
 - K2s (csrc/hashgrid_sampled_bwd.cu): the sampled (or, with every level
   at A rows, exact) table gradient from the atoms.
+- K6 (csrc/hashgrid_stochastic.cu) and K7 (csrc/hashgrid_stochastic_bwd.cu):
+  the stochastic-corner and residual encodes (fp32 out, the drawn rows
+  written as (S, N) indices and weights in training) and their table
+  gradient, the scatter of those rows (`_StochasticEncode`), in the rows
+  format of csrc/hashgrid_stochastic.cuh (encoders.plan_starts).
 
 On CPU tensors the wrappers compute the plain PyTorch versions
 (ops/encoders.py); on CUDA tensors they launch the kernels or raise. The
 gradient for x, which only pose refinement needs, is not ported: asking
-for it of an exact encode on the card raises; the sampled encode's is
-zero, as in the JAX package.
+for it of an exact or stochastic encode on the card raises; the sampled
+encode's is zero, as in the JAX package.
 """
 import ctypes
 import functools
@@ -36,12 +42,17 @@ BWD_NAME = 'hashgrid_encode_bwd'
 ATOMS_NAME = 'hashgrid_encode_atoms'
 SELECT_NAME = 'select_points'
 SAMPLED_BWD_NAME = 'hashgrid_sampled_bwd'
+STOCHASTIC_NAME = 'hashgrid_stochastic'
+STOCHASTIC_BWD_NAME = 'hashgrid_stochastic_bwd'
 _SOURCE = 'hashgrid_encode.cu'
 _BWD_SOURCE = 'hashgrid_bwd.cu'
 _ATOMS_SOURCE = 'hashgrid_atoms.cu'
 _SELECT_SOURCE = 'select_points.cu'
 _SAMPLED_BWD_SOURCE = 'hashgrid_sampled_bwd.cu'
+_STOCHASTIC_SOURCE = 'hashgrid_stochastic.cu'
+_STOCHASTIC_BWD_SOURCE = 'hashgrid_stochastic_bwd.cu'
 _MAX_LEVELS = 32  # MAX_LEVELS in hashgrid_common.cuh
+_STOCHASTIC_MAX_ROWS = 32  # STOCHASTIC_MAX_ROWS in hashgrid_stochastic.cuh
 
 
 def hashgrid_encode_plain(table, x, config, **kwargs):
@@ -935,26 +946,329 @@ class _SampledEncode(torch.autograd.Function):
         return dtable, None, None, None, None, None, None
 
 
+# -- K6, K7: the stochastic-corner and residual encodes ---------------------
+
+def _plan_arrays(plan):
+    """The plan's per-level kinds and rows as the C libraries take them."""
+    levels = len(plan)
+    return ((ctypes.c_int * levels)(*[k for k, _ in plan]),
+            (ctypes.c_int * levels)(*[r for _, r in plan]))
+
+
+def _weighted_rows(plan):
+    """SW: the rows of the plan's RESIDUAL and EXACT levels, whose weights
+    K6 stores for K7."""
+    return sum(r for k, r in plan if k != encoders.DRAWS)
+
+
+def _stochastic_call(table, x, u, config, interp, n_samples, plan, rows):
+    """K6: the stochastic or residual encode of x (fp32 out) and, with
+    `rows`, the drawn rows as (S, N) int32 indices and the weighted rows'
+    (SW, N) fp32 weights (encoders.stochastic_rows' format)."""
+    _check_inputs(STOCHASTIC_NAME, x, config, table, _table_shape(config))
+    dev = x.device
+    if u.device != dev or u.dtype != torch.float32 or not u.is_contiguous():
+        raise ValueError(f'{STOCHASTIC_NAME}: u must be contiguous float32 '
+                         'on the device of x')
+    if max(r for _, r in plan) > _STOCHASTIC_MAX_ROWS:
+        raise ValueError(f'{STOCHASTIC_NAME}: at most {_STOCHASTIC_MAX_ROWS} '
+                         'rows a level (n_samples)')
+    n, s = x.shape[0], sum(r for _, r in plan)
+    out = torch.empty((n, config.out_dim), dtype=torch.float32, device=dev)
+    idx = w = None
+    if rows:
+        idx = torch.empty((s, n), dtype=torch.int32, device=dev)
+        w = torch.empty((_weighted_rows(plan), n), dtype=torch.float32,
+                        device=dev)
+    fn = _kernels.library(_STOCHASTIC_SOURCE).hashgrid_stochastic_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 14
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    kinds, counts = _plan_arrays(plan)
+    status = fn(x.data_ptr(), table.data_ptr(), u.data_ptr(), out.data_ptr(),
+                idx.data_ptr() if rows else None,
+                w.data_ptr() if rows and w.numel() else None,
+                *[a.ctypes.data for a in _geometry(config)], kinds, counts,
+                float(config.pos_offset), n, config.n_levels,
+                config.table_size, config.n_features, _atom_count(interp),
+                n_samples, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, STOCHASTIC_NAME)
+    _kernels.launches[STOCHASTIC_NAME] += 1
+    return out, idx, w
+
+
+def _stochastic_scatter_call(g, idx, w, plan, config, n_samples):
+    """K7: the table gradient (L, T, F) fp32 from K6's rows, for the
+    encode's fp32 cotangent g."""
+    dev = g.device
+    n = idx.shape[1]
+    if dev.type != 'cuda' or idx.device != dev or w.device != dev \
+            or idx.dtype != torch.int32 or w.dtype != torch.float32 \
+            or tuple(idx.shape) != (sum(r for _, r in plan), n) \
+            or tuple(w.shape) != (_weighted_rows(plan), n) \
+            or not idx.is_contiguous() or not w.is_contiguous() \
+            or len(plan) != config.n_levels:
+        raise ValueError(f'{STOCHASTIC_BWD_NAME}: the rows must be (S, N) '
+                         'contiguous int32 indices and (SW, N) fp32 weights '
+                         'on the card, S the plan\'s rows and SW its '
+                         'weighted ones')
+    if g.dtype != torch.float32 or tuple(g.shape) != (n, config.out_dim) \
+            or not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError(f'{STOCHASTIC_BWD_NAME}: g must be a contiguous, '
+                         f'16-byte aligned ({n}, {config.out_dim}) float32 '
+                         'tensor')
+    dtable = torch.empty(_table_shape(config), dtype=torch.float32,
+                         device=dev)
+    fn = _kernels.library(_STOCHASTIC_BWD_SOURCE).hashgrid_stochastic_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    kinds, counts = _plan_arrays(plan)
+    status = fn(g.data_ptr(), idx.data_ptr(),
+                w.data_ptr() if w.numel() else None, kinds, counts,
+                dtable.data_ptr(), n, config.n_levels, config.table_size,
+                config.n_features, n_samples,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, STOCHASTIC_BWD_NAME)
+    _kernels.launches[STOCHASTIC_BWD_NAME] += 1
+    return dtable
+
+
+def stochastic_encode_plain(table, x, u, config, interp, n_samples, plan):
+    """The plain version of K6, on any device: (out, idx, w), the encode
+    and its rows (encoders.stochastic_rows, blend_drawn_rows)."""
+    idx, w = encoders.stochastic_rows(x, config, u, plan, interp, n_samples)
+    return (encoders.blend_drawn_rows(table, idx, w, plan, n_samples), idx,
+            w)
+
+
+def stochastic_backward_tolerance(g, idx, w, plan, config, n_samples):
+    """Per element of the stochastic table gradient, how far two fp32 sums of
+    its terms in different orders can lie apart (as backward_tolerance):
+    2 k 2^-24 times the sum of the terms' magnitudes, k the terms of the
+    element's row."""
+    terms = torch.zeros((config.n_levels, config.table_size),
+                        dtype=torch.float32, device=g.device)
+    start = 0
+    for l, (_, count) in enumerate(plan):
+        for r in range(count):
+            row = idx[start + r].long()
+            terms[l].index_add_(0, row, torch.ones_like(row,
+                                                        dtype=torch.float32))
+        start += count
+    magnitude = encoders.stochastic_scatter_plain(g.float().abs(), idx,
+                                                  w.abs(), plan, config,
+                                                  n_samples)
+    return 2.0 * terms[..., None] * 2.0 ** -24 * magnitude
+
+
+def _ulps(v, b):
+    """|v - b| in units of b's fp32 spacing."""
+    spacing = (torch.nextafter(b, torch.full_like(b, float('inf'))) - b)
+    return (v - b).abs() / spacing.clamp(min=2.0 ** -149)
+
+
+def draw_margins(x, config, u, plan, interp='trilinear', n_samples=1):
+    """For each drawn row (S, N): how many fp32 ulps the value its draw
+    compares lies from the nearest boundary it is compared with (the
+    fraction of each axis, the simplex partial sums, the residual's
+    renormalized sums; the runner-up weight for the residual's max-weight
+    atom); inf on EXACT rows, which draw nothing. A kernel whose geometry
+    or sums differed from the plain version's by an ulp could flip a draw
+    only where this is at most 1."""
+    geometry = encoders._grid_geometry(x, config)
+    frac = geometry[1]
+    out = []
+    for l, (kind, count) in enumerate(plan):
+        if kind == encoders.EXACT:
+            out += [torch.full_like(frac[0, l], float('inf'))] * count
+            continue
+        if kind == encoders.RESIDUAL:
+            _, w = encoders._level_atoms(*geometry, l, interp)
+            top2 = w.topk(2, dim=0).values
+            out.append(_ulps(top2[1], top2[0]))
+            m = w.argmax(dim=0)
+            wr = torch.where(torch.arange(w.shape[0], device=w.device)[:, None]
+                             == m[None], torch.zeros_like(w), w)
+            cum = encoders._atom_cumsum(wr)
+            cum = cum[:-1] / torch.clamp(cum[-1], min=1e-12)
+            out.append(_ulps(u[l][None], cum).amin(dim=0))
+            continue
+        if interp == 'simplex':
+            _, w = encoders._simplex_corners(frac[:, l])
+            bounds = encoders._atom_cumsum(w[:3])
+        else:
+            bounds = frac[:, l]
+        for r in range(count):
+            s, flip = encoders._draw_set(r, n_samples)
+            v = u[s, l] if interp == 'simplex' else u[s, :, l]
+            v = 1.0 - v if flip else v
+            out.append(_ulps(v[None] if interp == 'simplex' else v,
+                             bounds).amin(dim=0))
+    return torch.stack(out)
+
+
+def check_stochastic(table, x, u, config, interp, n_samples, plan, g):
+    """Hold K6 (training form) and K7 against their plain versions on one
+    input: (failures, details), the failures empty when both hold.
+
+    - K6's rows: indices equal to the plain version's, except where a draw
+      lies within 1 ulp of a boundary it is compared with (draw_margins):
+      such flips are counted (`flips`) and any other is a failure
+      (`unexplained`); the weighted rows' weights bit-equal where their
+      indices agree;
+    - K6's encode bit-equal to the plain version's on every point none of
+      whose rows flipped, and its eval form (no rows written) bit-equal to
+      its training form;
+    - K7, fed K6's rows and the cotangent g, within
+      stochastic_backward_tolerance of the plain scatter of the same rows
+      (`k7_used`: the worst element's share of its tolerance)."""
+    out, idx, w = _stochastic_call(table, x, u, config, interp, n_samples,
+                                   plan, True)
+    want, want_idx, want_w = stochastic_encode_plain(table, x, u, config,
+                                                     interp, n_samples, plan)
+    differ = idx != want_idx
+    flips = int(differ.sum())
+    unexplained = 0
+    if flips:
+        margins = draw_margins(x, config, u, plan, interp, n_samples)
+        unexplained = int((differ & (margins > 1.0)).sum())
+    same_points = ~differ.any(dim=0)
+    out_equal = torch.equal(out[same_points], want[same_points])
+    k6_err = float((out[same_points] - want[same_points]).abs().max()) \
+        if bool(same_points.any()) else 0.0
+    weighted = [first + r for _, rows, first, wfirst
+                in encoders.plan_starts(plan) if wfirst is not None
+                for r in range(rows)]
+    agree = ~differ[weighted]
+    w_equal = torch.equal(w[agree], want_w[agree])
+    eval_equal = torch.equal(_stochastic_call(
+        table, x, u, config, interp, n_samples, plan, False)[0], out)
+    del want, want_idx, want_w
+    got = _stochastic_scatter_call(g, idx, w, plan, config, n_samples)
+    ref = encoders.stochastic_scatter_plain(g, idx, w, plan, config,
+                                            n_samples)
+    tol = stochastic_backward_tolerance(g, idx, w, plan, config, n_samples)
+    err = (got - ref).abs()
+    k7_ok = bool((err <= tol).all())
+    k7_used = float((err / tol.clamp(min=1e-38)).max())
+    details = dict(flips=flips, unexplained=unexplained, out_equal=out_equal,
+                   k6_max_abs_err=k6_err,
+                   w_equal=w_equal, eval_equal=eval_equal,
+                   k7_max_abs_err=float(err.max()), k7_used=k7_used,
+                   out=out, idx=idx, w=w)
+    conditions = [
+        (f'{unexplained} of {flips} index flips not within 1 ulp of a '
+         'boundary', unexplained == 0),
+        ('weights bit-equal on the rows that agree', w_equal),
+        ('the encode bit-equal on the points without flips', out_equal),
+        ('the eval form bit-equal to the training form', eval_equal),
+        (f'K7 within its term-count tolerance (worst uses {k7_used:.3f})',
+         k7_ok)]
+    return [text for text, ok in conditions if not ok], details
+
+
+def stochastic_launch_shapes(config, n, plan, interp='trilinear',
+                             n_samples=1):
+    """K6's and K7's launch shapes for n points and this plan, as the C
+    libraries plan them: blocks, threads, static shared bytes, blocks per
+    SM, registers and points (a warp's for K6's wide kernel, 1 for its
+    narrow one; a block's for K7), each kernel named as the library picks
+    it (wide or narrow rows)."""
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'points')
+    kinds, counts = _plan_arrays(plan)
+    fn = _kernels.library(_STOCHASTIC_SOURCE).hashgrid_stochastic_shape
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    _kernels.check(fn(kinds, counts, config.n_levels, config.n_features, n,
+                      _atom_count(interp), n_samples, out), STOCHASTIC_NAME)
+    shapes = {'K6 stochastic_rows_kernel' if out[6] else
+              'K6 stochastic_lanes_kernel': dict(zip(keys, out))}
+    fn = _kernels.library(_STOCHASTIC_BWD_SOURCE) \
+        .hashgrid_stochastic_bwd_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    _kernels.check(fn(config.n_levels, config.n_features, n, out),
+                   STOCHASTIC_BWD_NAME)
+    shapes['K7 stochastic_scatter_rows_kernel' if out[6] else
+           'K7 stochastic_scatter_lanes_kernel'] = dict(zip(keys, out))
+    return shapes
+
+
+class _StochasticEncode(torch.autograd.Function):
+    """The stochastic or residual encode while autograd records: K6 (fp32
+    out, the drawn rows written for the backward), K7 as the table
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x, u, config, interp, n_samples, plan):
+        out, idx, w = _stochastic_call(table, x, u, config, interp,
+                                       n_samples, plan, True)
+        ctx.save_for_backward(idx, w)
+        ctx.args = (plan, config, n_samples)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                'the gradient of the hash-grid encode for x (pose '
+                'refinement) is not ported')
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            idx, w = ctx.saved_tensors
+            plan, config, n_samples = ctx.args
+            dtable = _stochastic_scatter_call(g.float().contiguous(), idx, w,
+                                              plan, config, n_samples)
+        return dtable, None, None, None, None, None, None
+
+
 def hashgrid_encode(table, x, config, interp='trilinear', u=None,
-                    sampled_backward=0, backward_points=1.0):
+                    sampled_backward=0, backward_points=1.0, n_samples=1,
+                    exact_levels=0, residual=False):
     """Encode (N, 3) points in [0, 1] -> (N, L * F): the plain versions on
     the CPU, the CUDA kernels on the card, whatever the field's grid_impl.
 
     With sampled_backward and u (the uniforms, (L, N) or (L, N + 1)) the
     exact-forward / sampled-backward encode (K1s, K5, K2s; bf16 out on the
-    card); otherwise the exact simplex (K1s, K2s) or trilinear (K1, K2)
-    interpolation, fp32.
+    card); with u alone the stochastic-corner or (residual) residual encode
+    (K6, K7; u of encoders.uniform_shape, fp32 out); otherwise the exact
+    simplex (K1s, K2s) or trilinear (K1, K2) interpolation, fp32.
     """
     if x.device.type == 'cpu' and table.device.type == 'cpu':
         return hashgrid_encode_plain(table, x, config, interp=interp, u=u,
                                      sampled_backward=sampled_backward,
-                                     backward_points=backward_points)
+                                     backward_points=backward_points,
+                                     n_samples=n_samples,
+                                     exact_levels=exact_levels,
+                                     residual=residual)
     if sampled_backward and u is not None:
         rows, pf = encoders.sampled_rows(config, interp, sampled_backward,
                                          backward_points)
-        encoders.check_uniforms(u, config, x.shape[0], pf)
+        encoders.check_uniforms(u, encoders.uniform_shape(
+            config.n_levels, x.shape[0], sampled_backward=sampled_backward,
+            backward_points=pf))
         return _SampledEncode.apply(table, x, u.contiguous(), config, interp,
                                     rows, pf)
+    if u is not None:
+        plan = encoders.stochastic_plan(config, interp, n_samples,
+                                        exact_levels, residual)
+        encoders.check_uniforms(u, encoders.uniform_shape(
+            config.n_levels, x.shape[0], interp, n_samples, residual))
+        if torch.is_grad_enabled() and table.requires_grad:
+            return _StochasticEncode.apply(table, x, u.contiguous(), config,
+                                           interp, n_samples, plan)
+        return _stochastic_call(table.detach(), x, u.contiguous(), config,
+                                interp, n_samples, plan, False)[0]
     if interp == 'simplex':
         if config.n_features % 8:
             raise NotImplementedError(

@@ -5,15 +5,16 @@ sample grid, placed uniformly or by the proposal net, and compositing is
 closed-form exp/cumsum. Ported: the eval form (no perturbation) and the
 training form (perturbed sample positions, the proposal net's interlevel
 loss, the JAX package's stop-gradients), with the proposal, fused-head,
-non-fused and upsample branches, with the exact encode or the
+non-fused and upsample branches, with the exact encode, the
 exact-forward / sampled-backward one (options.sampled_backward, which
-takes precedence over stochastic_corners, as in the JAX package). JAX
-draws its perturbations from a PRNG key; here they come in as tensors
-(`draws`) or from a torch.Generator (`key`), so tests can feed JAX's own
-draws. With an occupancy grid, samples in empty or untrained cells get
-sigma 0 and, with options.occupancy_near_far, each ray's [near, far]
-shrinks to the occupied span. Level windows and the stochastic-corner
-encodes are not ported and raise.
+takes precedence over stochastic_corners, as in the JAX package) or the
+stochastic-corner and residual ones (options.stochastic_corners,
+stochastic_exact_levels, stochastic_residual). JAX draws its perturbations
+from a PRNG key; here they come in as tensors (`draws`) or from a
+torch.Generator (`key`), so tests can feed JAX's own draws. With an
+occupancy grid, samples in empty or untrained cells get sigma 0 and, with
+options.occupancy_near_far, each ray's [near, far] shrinks to the
+occupied span. Level windows are not ported and raise.
 
 Output contract: image, depth, semantic, semantic_features,
 depth_variance, coordinates_map, weights_sum, and interlevel (a scalar)
@@ -24,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from autolabel_tpu_torch.ops.encoders import uniform_shape
 from autolabel_tpu_torch.render.occupancy import occupied
 
 MIN_NEAR = 0.05
@@ -31,9 +33,8 @@ MIN_NEAR = 0.05
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
-    """The JAX package's RenderOptions, defaults mirrored exactly. The
-    fields of what is not ported (stochastic corners without the sampled
-    backward, level windows) are carried so configs transfer; a perturbed
+    """The JAX package's RenderOptions, defaults mirrored exactly. Level
+    windows, which are not ported, are carried so configs transfer; a
     render that would use them raises."""
     num_steps: int = 128
     upsample_steps: int = 0
@@ -156,21 +157,29 @@ def _interlevel_loss(z_main, d_main, w_main, z_prop, d_prop, w_prop):
     return (excess ** 2 / (bound + 1e-4)).mean()
 
 
-def _encode_columns(options, n_points):
-    """Columns of the sampled encode's uniforms for n_points points: one
-    more (the point subsample's systematic offset) when backward_points
-    < 1."""
-    return n_points + (1 if options.backward_points < 1.0 else 0)
+def _encode_uniform_shape(options, n_points, grid_levels, interp):
+    """The shape of the encode's uniforms for n_points points of a grid of
+    grid_levels levels (encoders.uniform_shape), or None when the render
+    encodes exactly."""
+    if not grid_levels or not (options.sampled_backward
+                               or options.stochastic_corners):
+        return None
+    return uniform_shape(grid_levels, n_points, interp,
+                         max(1, int(options.stochastic_corners)),
+                         options.stochastic_residual,
+                         options.sampled_backward, options.backward_points)
 
 
-def draw_perturbations(generator, n_rays, options, grid_levels=0):
+def draw_perturbations(generator, n_rays, options, grid_levels=0,
+                       interp='trilinear'):
     """The uniforms a perturbed render consumes, drawn from `generator` on
     its device: 'u_coarse' jitters the first sample grid (the proposal
     samples, or the uniform samples when there is no proposal net),
     'u_fine' places the importance samples (proposal or upsample), and,
-    with options.sampled_backward and a hash grid of grid_levels levels,
-    'u_enc' (and 'u_enc_upsample' for the upsample query) are the sampled
-    encode's uniforms, (L, points [+ 1]) as the JAX package draws them
+    with options.sampled_backward or options.stochastic_corners and a hash
+    grid of grid_levels levels interpolated by `interp`, 'u_enc' (and
+    'u_enc_upsample' for the upsample query) are the encode's uniforms in
+    the shape encoders.uniform_shape gives, as the JAX package draws them
     from its k_enc key."""
     first = options.proposal_steps or options.num_steps
     fine = options.num_steps if options.proposal_steps \
@@ -181,15 +190,15 @@ def draw_perturbations(generator, n_rays, options, grid_levels=0):
     if fine:
         draws['u_fine'] = torch.rand((n_rays, fine), generator=generator,
                                      device=dev)
-    if options.sampled_backward and grid_levels:
-        draws['u_enc'] = torch.rand(
-            (grid_levels, _encode_columns(options,
-                                          n_rays * options.num_steps)),
-            generator=generator, device=dev)
+    shape = _encode_uniform_shape(options, n_rays * options.num_steps,
+                                  grid_levels, interp)
+    if shape is not None:
+        draws['u_enc'] = torch.rand(shape, generator=generator, device=dev)
         if options.upsample_steps and not options.proposal_steps:
             draws['u_enc_upsample'] = torch.rand(
-                (grid_levels, _encode_columns(
-                    options, n_rays * options.upsample_steps)),
+                _encode_uniform_shape(options,
+                                      n_rays * options.upsample_steps,
+                                      grid_levels, interp),
                 generator=generator, device=dev)
     return draws
 
@@ -217,26 +226,31 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     grid = c.grid_config if c.encoding in ('hg', 'hg+freq') else None
     if options.perturb and draws is None and key is not None:
         draws = draw_perturbations(key, n_rays, options,
-                                   grid.n_levels if grid else 0)
+                                   grid.n_levels if grid else 0,
+                                   c.grid_interp)
     if not options.perturb:
         draws = None
-    if draws is not None and options.stochastic_corners \
-            and not options.sampled_backward:
-        raise NotImplementedError(
-            'stochastic-corner encodes are not ported yet: train with '
-            'stochastic_corners=0 or sampled_backward')
     u_coarse = None if draws is None else draws['u_coarse']
     u_fine = None if draws is None else draws.get('u_fine')
-    # The sampled encode's options for each main-field query (the proposal
-    # net has no grid); empty for the exact encode.
+    # The encode's estimator for each main-field query (the proposal net has
+    # no grid), as JAX's k_enc and fold_in(k_enc, 1) feed it: the sampled
+    # backward, or else the stochastic-corner or residual encode; empty for
+    # the exact encode.
     enc, enc_upsample = {}, {}
-    if draws is not None and options.sampled_backward and grid is not None:
+    if draws is not None and grid is not None and (
+            options.sampled_backward or options.stochastic_corners):
         names = ['u_enc'] + (['u_enc_upsample'] if options.upsample_steps
                              and not options.proposal_steps else [])
         if any(name not in draws for name in names):
-            raise ValueError(f'the sampled backward needs {names} in draws')
-        opts = dict(sampled_backward=options.sampled_backward,
-                    backward_points=options.backward_points)
+            raise ValueError(f'the encode\'s estimator needs {names} in '
+                             'draws')
+        if options.sampled_backward:
+            opts = dict(sampled_backward=options.sampled_backward,
+                        backward_points=options.backward_points)
+        else:
+            opts = dict(n_samples=max(1, int(options.stochastic_corners)),
+                        exact_levels=options.stochastic_exact_levels,
+                        residual=options.stochastic_residual)
         enc = dict(opts, u=draws['u_enc'])
         if 'u_enc_upsample' in names:
             enc_upsample = dict(opts, u=draws['u_enc_upsample'])

@@ -15,10 +15,13 @@ the other trained. --eval renders the test split and prints
 It runs on the card; tests call main([...], device='cpu'). Flags the port
 does not cover raise and say what they need: --mesh-devices and
 --mesh-model (data and grid parallelism), --pose-refine-experimental
-(joint pose refinement) and the stochastic-corner estimator
-(--stochastic-corners without --sampled-backward). --pose-refine errors as
-in the JAX CLI. --profile writes a torch.profiler trace of the first
-epoch; --workers is accepted and unused. The JAX CLI's AUTOLABEL_TIMING
+(joint pose refinement). --sampled-backward 0 trains through the
+stochastic-corner encode (--stochastic-corners, --stochastic-exact-levels,
+--stochastic-residual), as does the narrow reference grid
+(--grid-preset reference), which turns the sampled backward off as the JAX
+CLI does. --pose-refine errors as in the JAX CLI. --profile writes a
+torch.profiler trace of the first epoch; --workers is accepted and
+unused. The JAX CLI's AUTOLABEL_TIMING
 stage timings are not carried over: main returns the training loop's
 seconds.
 """
@@ -78,11 +81,14 @@ def read_args(argv=None):
                         "ray's [near, far] to the occupied span.")
     parser.add_argument('--stochastic-residual', action='store_true',
                         help="Rao-Blackwellized stochastic gathers (with "
-                        "--stochastic-corners 2; not ported).")
+                        "--stochastic-corners 2 and the TPU grid): the "
+                        "max-weight corner at its weight, one draw for the "
+                        "rest.")
     parser.add_argument('--stochastic-corners', type=int, default=2,
                         help="Hash-grid corners sampled per point in "
-                        "training when --sampled-backward is 0 (not "
-                        "ported: raises); 0 = exact gathers.")
+                        "training when --sampled-backward is 0 (an "
+                        "unbiased estimate of the interpolation); 0 = "
+                        "exact gathers.")
     parser.add_argument('--no-stochastic-corners', action='store_true',
                         help="Alias for --stochastic-corners 0.")
     parser.add_argument('--sampled-backward', default='2',
@@ -128,7 +134,7 @@ def read_args(argv=None):
     return flags
 
 
-def _refuse_unported(flags, render_options):
+def _refuse_unported(flags):
     """Raise for each flag whose path the port does not have yet."""
     if flags.mesh_devices or flags.mesh_model != 1:
         raise NotImplementedError(
@@ -140,13 +146,6 @@ def _refuse_unported(flags, render_options):
             '--pose-refine-experimental is not ported yet: it needs '
             'train/pose_refine.py, the encode\'s point gradient and level '
             'windows')
-    if render_options.stochastic_corners \
-            and not render_options.sampled_backward:
-        raise NotImplementedError(
-            f'--stochastic-corners {render_options.stochastic_corners} '
-            'without the sampled backward is not ported yet: it needs the '
-            'stochastic-corner encodes; pass --no-stochastic-corners, or '
-            '--sampled-backward with the TPU grid')
 
 
 def main(argv=None, device=None):
@@ -180,7 +179,7 @@ def main(argv=None, device=None):
         sampled_backward=sampled_backward,
         backward_points=flags.backward_points,
         occupancy_near_far=flags.occupancy_near_far)
-    _refuse_unported(flags, render_options)
+    _refuse_unported(flags)
 
     dataset = SceneDataset('train',
                            flags.scene,

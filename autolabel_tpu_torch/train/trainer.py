@@ -15,10 +15,11 @@ exact gathers; one set of render options per phase, chosen on the host by
 global_step. With an occupancy grid the grid is updated from the field
 every occupancy_update_every steps (before the step) and masks the
 render's sigma; with tensorboard, each epoch's loss parts go to TensorBoard
-event files at <workspace>/run/<name> beside metrics.jsonl. Not ported,
-and refused rather than ignored: the device mesh, pose refinement and the
-stochastic-corner estimator (stochastic_corners without the sampled
-backward).
+event files at <workspace>/run/<name> beside metrics.jsonl. Every
+estimator of the JAX trainer trains: the exact encode, the sampled
+backward and the stochastic-corner and residual encodes (stochastic_corners
+without the sampled backward). Not ported, and refused rather than
+ignored: the device mesh and pose refinement.
 """
 import contextlib
 import dataclasses
@@ -40,13 +41,10 @@ _BATCH_KEYS = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
                'semantic')
 
 
-def _refuse_unported(mesh, pose_refine, options):
+def _refuse_unported(mesh, pose_refine):
     unported = {
         'a device mesh (data parallelism)': mesh is not None,
         'pose refinement': pose_refine is not None,
-        'the stochastic-corner estimator': (
-            options.perturb and bool(options.stochastic_corners)
-            and not options.sampled_backward),
     }
     for what, asked in unported.items():
         if asked:
@@ -102,7 +100,7 @@ class SimpleTrainer:
                  pose_refine=None,
                  seed=0):
         self.render_options = render_options or RenderOptions(perturb=True)
-        _refuse_unported(mesh, pose_refine, self.render_options)
+        _refuse_unported(mesh, pose_refine)
         self.occupancy = occupancy
         self.occupancy_update_every = occupancy_update_every
         self.phases = phase_schedule(self.render_options, iters,

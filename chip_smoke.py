@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
-flagship training step and the train CLI on one CUDA card.
+flagship training step, the train CLI and its stochastic-corner estimators
+on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -119,12 +120,34 @@ Phases, each failing loudly:
      narrowing rays and equal to its CPU run, and a test frame rendered
      with the grid through the kernels against the plain versions. Both
      runs' ms per step over the epoch's wall clock.
+ 11. the stochastic-corner and residual encodes (K6, K7) through the train
+     CLI on phase 10's scene. Run C, README's command with
+     --sampled-backward 0 (the TPU grid's simplex encode of 2 draws), 200
+     iterations, and Run D, --grid-preset reference
+     --stochastic-exact-levels 4 (16 x 2^19 x 2, trilinear, narrow rows),
+     100 iterations, each with --eval at factor 1 and every count set to 0
+     just before and read just after: K6 and K7 once a step, K1s (Run C)
+     or K1 (Run D) only for the eval chunks, no other kernel; the eval MSE
+     at least 4-fold below a 1-iteration run of the same command; ms per
+     step over the epoch's wall clock. (a) On each run's last recorded
+     (table, x), at N = 131,072 and 524,288, K6 and K7 in every mode of the
+     CPU tests (TPU grid: trilinear at 1, 2, 3 draws, simplex at 1, 2,
+     residual with both interps; reference: trilinear at 1, 2, 3; each at
+     three exact_levels): K6's rows equal to the plain version's, flips
+     counted and allowed only within 1 ulp of a boundary, its encode
+     bit-equal; K7 within its term-count tolerance
+     (hashgrid_cuda.check_stochastic); the mean of 64 draws of K6 and of
+     K7 within 4 standard errors of the exact encode and gradient; each
+     run's own mode timed by events and device time, beside its bound, its
+     plain version and (K7) one index_add_ of the pre-weighted drawn rows;
+     K6's and K7's launch shapes.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
 """
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -1521,6 +1544,316 @@ def _cli_phase(dev, gpu, checks, results):
                 occupancy_check=occupancy_check, names=names)
 
 
+# The stochastic-corner and residual encodes (phase 11): README's command
+# with the sampled backward off (Run C, the TPU grid's simplex encode of 2
+# draws) and on the reference preset with its 4 finest levels exact (Run
+# D), on phase 10's scene; K6 and K7 held in every mode of the CPU tests
+# on the last step's recorded (table, x) of each run.
+CLI_STOCHASTIC = {'C': (['--sampled-backward', '0'], 200),
+                  'D': (['--grid-preset', 'reference',
+                         '--stochastic-exact-levels', '4'], 100)}
+# (interp, n_samples, residual) and the exact levels of each preset's modes
+STOCHASTIC_MODES = {
+    'C': ([('trilinear', 1, False), ('trilinear', 2, False),
+           ('trilinear', 3, False), ('simplex', 1, False),
+           ('simplex', 2, False), ('trilinear', 2, True),
+           ('simplex', 2, True)], (0, 1, 4)),
+    'D': ([('trilinear', 1, False), ('trilinear', 2, False),
+           ('trilinear', 3, False)], (0, 4, 16))}
+STOCHASTIC_POINTS = (131072, 524288)
+
+
+def _stochastic_measure(gpu, tag, table, x, u, config, interp, n_samples,
+                        plan):
+    """K6 (training form: rows written) and K7 on one step's recorded
+    inputs, by CUDA events (20 launches) and the profiler's device ms a
+    call, beside their bounds, their plain versions' times and, for K7,
+    the library yardstick: one index_add_ of the pre-weighted drawn rows
+    into the flattened table. K6's bound counts x, the uniforms of the
+    levels that draw (EXACT levels read none), each table row its draws
+    name once, the output and the rows written (the indices of every row,
+    the weights of the RESIDUAL and EXACT rows only); K7's the cotangent,
+    those rows read and the gradient written once (fp32 adds and muls: two
+    an element of a row)."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    encoders = hashgrid_cuda.encoders
+    n, s = x.shape[0], sum(r for _, r in plan)
+
+    def k6():
+        return hashgrid_cuda._stochastic_call(table, x, u, config, interp,
+                                              n_samples, plan, True)
+
+    out, idx, w = k6()
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device)
+                    .manual_seed(11))
+
+    def k7():
+        return hashgrid_cuda._stochastic_scatter_call(g, idx, w, plan, config,
+                                                      n_samples)
+
+    res = {}
+    for key, fn, plain in (
+            ('K6', k6, lambda: hashgrid_cuda.stochastic_encode_plain(
+                table, x, u, config, interp, n_samples, plan)),
+            ('K7', k7, lambda: encoders.stochastic_scatter_plain(
+                g, idx, w, plan, config, n_samples))):
+        by_kernel = _kernel_ms(fn)
+        if by_kernel is None:
+            # the trace can hold none of a call's launches (seen for K6 in
+            # one run, where a trace of the same calls alone held all 5)
+            print(f'profiler: no device time for {key} in the trace; '
+                  'traced once more over 10 calls')
+            by_kernel = _kernel_ms(fn, 10)
+        res[key] = dict(ms=_cuda_ms(fn, 20), plain_ms=_cuda_ms(plain, 3),
+                        device_ms=None if by_kernel is None
+                        else sum(by_kernel.values()),
+                        device_split=by_kernel)
+    levels = torch.repeat_interleave(
+        torch.arange(config.n_levels, device=idx.device),
+        torch.tensor([r for _, r in plan], device=idx.device))
+    flat_rows = (levels[:, None] * config.table_size + idx.long()).reshape(-1)
+    distinct = int(torch.unique(flat_rows).numel())
+    f = config.n_features
+    flops = 2 * s * n * f
+    drawing = sum(k != encoders.EXACT for k, _ in plan)
+    u_bytes = _nbytes(u) * drawing // config.n_levels
+    res['K6']['bound'] = _bound(
+        _nbytes(x, out, idx, w) + u_bytes + distinct * f * 4, flops,
+        PEAK_FP32)
+    dtable = k7()
+    res['K7']['bound'] = _bound(_nbytes(g, idx, w, dtable), flops, PEAK_FP32)
+    # the yardstick: one index_add_ of the drawn rows, pre-weighted as K7
+    # weighs them (made outside the timing)
+    terms = []
+    for l, (kind, rows, _, wfirst) in enumerate(encoders.plan_starts(plan)):
+        g_l = g[:, l * f:(l + 1) * f]
+        if kind == encoders.DRAWS and n_samples > 1:
+            g_l = g_l * encoders.sample_scale(n_samples, g.device)
+        for r in range(rows):
+            terms.append(g_l if kind == encoders.DRAWS
+                         else w[wfirst + r][:, None] * g_l)
+    terms = torch.cat(terms)
+    flat = dtable.view(-1, f)
+
+    def library():
+        flat.zero_()
+        flat.index_add_(0, flat_rows, terms)
+
+    res['K7']['library_ms'] = _cuda_ms(library, 5)
+    by_kernel = _kernel_ms(library)
+    res['K7']['library_device_ms'] = None if by_kernel is None \
+        else sum(by_kernel.values())
+    res['K6']['library_ms'] = None
+    del terms, flat, dtable
+    for key in ('K6', 'K7'):
+        r = res[key]
+        print(f'kernel {key} [{gpu}] {tag} N={n}: {r["ms"]:.4f} ms by events, '
+              f'{r["device_ms"]} ms device, plain {r["plain_ms"]:.4f} ms, '
+              f'library {r["library_ms"]} ms'
+              + (f' ({r["library_device_ms"]} ms device)' if key == 'K7'
+                 else ' (none: no one PyTorch call)')
+              + f', bound {r["bound"][0]:.4f} ms ({r["bound"][1]})')
+    print(f'  {tag}: the draws name {distinct} distinct table rows of '
+          f'{config.n_levels * config.table_size}; {s} rows a point')
+    return res
+
+
+def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
+    """Phase 11 (see the module docstring). Adds K6 and K7 to `results` and
+    `shapes`; returns what the output file keeps."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core.dataset import SceneDataset
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.train import __main__ as cli
+    phase_start = time.perf_counter()
+    root = os.path.join(WORK_DIR, 'stochastic')
+    full = ['--factor-train', '1', '--factor-test', '1', '--eval']
+    testset = SceneDataset('test', scene, factor=1.0)
+    eval_chunks = len(testset.poses) * -(-testset.w * testset.h // 4096)
+    names = {'K6': hashgrid_cuda.STOCHASTIC_NAME,
+             'K7': hashgrid_cuda.STOCHASTIC_BWD_NAME,
+             'K1': hashgrid_cuda.NAME, 'K2': hashgrid_cuda.BWD_NAME,
+             'K1s': hashgrid_cuda.ATOMS_NAME,
+             'K5': hashgrid_cuda.SELECT_NAME,
+             'K2s': hashgrid_cuda.SAMPLED_BWD_NAME,
+             'K3f': heads_cuda.HEADS, 'K3b': heads_cuda.HEADS_BWD,
+             'K4f': heads_cuda.MLP3, 'K4b': heads_cuda.MLP3_BWD}
+    launches, step_ms, mse, recorded = {}, {}, {}, {}
+    call = hashgrid_cuda._stochastic_call
+    for key, (flags, steps) in CLI_STOCHASTIC.items():
+        argv = [scene] + CLI_BASE + flags + full
+
+        def workspace(name):
+            return ['--workspace', os.path.join(root, name)]
+
+        base = cli.main(argv + ['--iters', '1'] + workspace(f'{key}_base'))
+        del base.trainer
+        calls = [0]
+
+        def rec_call(table, x, u, config, interp, n_samples, plan, rows,
+                     key=key, steps=steps):
+            if rows:
+                calls[0] += 1
+                if calls[0] == steps:
+                    recorded[key] = (table.detach().clone(), x.clone(),
+                                     config, interp, n_samples, plan)
+            return call(table, x, u, config, interp, n_samples, plan, rows)
+
+        hashgrid_cuda._stochastic_call = rec_call
+        try:
+            _kernels.reset_launches()
+            run = cli.main(argv + ['--iters', str(steps)] + workspace(key))
+            launches[key] = dict(_kernels.launches)
+        finally:
+            hashgrid_cuda._stochastic_call = call
+        step_ms[key] = run.train_s * 1e3 / steps
+        mse[key] = {'run': run.eval_mse, 'base': base.eval_mse}
+        eval_key = 'K1' if key == 'D' else 'K1s'
+        for name, want in (('K6', steps), ('K7', steps),
+                           (eval_key, eval_chunks)):
+            got = launches[key].get(names[name], 0)
+            checks.true(f'cli {key} launches {name}', got == want,
+                        f'{got} (expected {want}'
+                        + (f': {eval_chunks} eval chunks)' if name == eval_key
+                           else ': one a step)'))
+        for name in names:
+            if name not in ('K6', 'K7', eval_key):
+                got = launches[key].get(names[name], 0)
+                checks.true(f'cli {key} launches no {name}', got == 0,
+                            f'{got}')
+        checks.true(f'cli {key} eval mse falls 4-fold from 1 iteration',
+                    np.isfinite(run.eval_mse)
+                    and run.eval_mse * 4 < base.eval_mse,
+                    f'{base.eval_mse:.5f} -> {run.eval_mse:.5f} (PSNR '
+                    f'{_psnr(base.eval_mse):.2f} -> {_psnr(run.eval_mse):.2f}'
+                    f' dB, {steps} steps)')
+        print(f'cli {key} [{gpu}] {" ".join(flags)}: {steps} steps, ms per '
+              f'step over the epoch\'s wall clock {step_ms[key]:.3f}')
+        del run
+        torch.cuda.empty_cache()
+
+    # (a) K6 and K7 in every mode on each run's last recorded (table, x).
+    gen = torch.Generator(device=dev).manual_seed(21)
+    held, timed, unbiased = {}, {}, {}
+    for key in CLI_STOCHASTIC:
+        checks.true(f'cli {key} recorded the last step\'s K6 inputs',
+                    key in recorded, f'{sorted(recorded)}')
+        if key not in recorded:
+            continue
+        table, x_all, config, interp_run, n_run, plan_run = recorded.pop(key)
+        modes, exact = STOCHASTIC_MODES[key]
+        for n in STOCHASTIC_POINTS:
+            x = x_all[:n].contiguous()
+            for (interp, n_samples, residual), ex in itertools.product(
+                    modes, exact):
+                plan = hashgrid_cuda.encoders.stochastic_plan(
+                    config, interp, n_samples, ex, residual)
+                u = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+                    config.n_levels, n, interp, n_samples, residual),
+                    generator=gen, device=dev)
+                g = torch.randn((n, config.out_dim), generator=gen,
+                                device=dev)
+                failures, d = hashgrid_cuda.check_stochastic(
+                    table, x, u, config, interp, n_samples, plan, g)
+                tag = (f'{key} {"residual " if residual else ""}{interp} '
+                       f'n_samples={n_samples} exact={ex} N={n}')
+                checks.true(f'K6+K7 {tag}', not failures,
+                            f'{d["flips"]} flips ({d["unexplained"]} '
+                            f'unexplained); K6 max_abs_err '
+                            f'{d["k6_max_abs_err"]:.3e}; K7 max_abs_err '
+                            f'{d["k7_max_abs_err"]:.3e} (worst uses '
+                            f'{d["k7_used"]:.3f} of its tolerance)'
+                            + ('; ' + '; '.join(failures) if failures
+                               else ''))
+                held[tag] = {k: d[k] for k in (
+                    'flips', 'unexplained', 'k6_max_abs_err',
+                    'k7_max_abs_err', 'k7_used')}
+                del d, u, g
+        # the run's own mode at the CLI's N: times, bounds, shapes
+        u_run = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+            config.n_levels, x_all.shape[0], interp_run, n_run),
+            generator=gen, device=dev)
+        timed[key] = _stochastic_measure(
+            gpu, f'cli {key} step', table, x_all, u_run, config, interp_run,
+            n_run, plan_run)
+        for kernel, sh in hashgrid_cuda.stochastic_launch_shapes(
+                config, x_all.shape[0], plan_run, interp_run,
+                n_run).items():
+            shapes[f'{kernel} ({key})'] = sh
+            print(f'launch shape [{gpu}] {kernel} ({key}) N='
+                  f'{x_all.shape[0]}: '
+                  + ', '.join(f'{k} {v}' for k, v in sh.items()))
+        # unbiasedness: 64 draws of K6 and K7 against the exact encode (K1s
+        # or K1) and gradient (K2s exact or K2), in the norm, within 4
+        # standard errors of the draws' own spread
+        x = x_all[:STOCHASTIC_POINTS[0]].contiguous()
+        t = table.clone().requires_grad_(True)
+        g = torch.randn((x.shape[0], config.out_dim), generator=gen,
+                        device=dev)
+        with torch.no_grad():
+            exact = hashgrid_cuda.hashgrid_encode(
+                table, x, config, interp=interp_run).double()
+        (exact_grad,) = torch.autograd.grad(hashgrid_cuda.hashgrid_encode(
+            t, x, config, interp=interp_run), t, g)
+        exact_grad = exact_grad.double()
+        sums = [torch.zeros_like(exact), torch.zeros_like(exact),
+                torch.zeros_like(exact_grad), torch.zeros_like(exact_grad)]
+        for _ in range(UNBIASED_DRAWS):
+            u = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+                config.n_levels, x.shape[0], interp_run, n_run),
+                generator=gen, device=dev)
+            out = hashgrid_cuda.hashgrid_encode(
+                t, x, config, interp=interp_run, u=u, n_samples=n_run,
+                exact_levels=sum(k == hashgrid_cuda.encoders.EXACT
+                                 for k, _ in plan_run))
+            (grad,) = torch.autograd.grad(out, t, g)
+            for k, v in ((0, out.detach().double()), (2, grad.double())):
+                sums[k] += v
+                sums[k + 1] += v * v
+        unbiased[key] = {}
+        for k, kernel, want in ((0, 'K6', exact), (2, 'K7', exact_grad)):
+            mean = sums[k] / UNBIASED_DRAWS
+            var = (sums[k + 1] / UNBIASED_DRAWS - mean * mean).clamp(min=0) \
+                * UNBIASED_DRAWS / (UNBIASED_DRAWS - 1)
+            se = float(torch.sqrt(var.sum() / UNBIASED_DRAWS))
+            bias = float((mean - want).norm())
+            ratio = bias / max(se, 1e-30)
+            unbiased[key][kernel] = ratio
+            checks.true(f'{kernel} unbiased cli {key} N={x.shape[0]}',
+                        ratio <= 4.0,
+                        f'|mean of {UNBIASED_DRAWS} draws - exact| = '
+                        f'{bias:.4e}, standard error {se:.4e}: ratio '
+                        f'{ratio:.3f} (at most 4; |exact| '
+                        f'{float(want.norm()):.4e})')
+        del table, x_all, t, g, exact, exact_grad, sums
+        torch.cuda.empty_cache()
+
+    for kernel in ('K6', 'K7'):
+        main = timed.get('C', {}).get(kernel)
+        if main is None:
+            continue
+        errs = [v['k6_max_abs_err' if kernel == 'K6' else 'k7_max_abs_err']
+                for v in held.values()]
+        results[kernel] = dict(
+            max_abs_err=max(errs) if errs else None, ms=main['ms'],
+            plain_ms=main['plain_ms'], bound=main['bound'],
+            library_ms=main['library_ms'], device_ms=main['device_ms'],
+            device_split=main['device_split'],
+            flips=sum(v['flips'] for v in held.values()),
+            reference={k: v for k, v in timed.get('D', {}).get(
+                kernel, {}).items() if k != 'device_split'},
+            unbiased_ratio={k: v.get(kernel) for k, v in unbiased.items()})
+        if kernel == 'K7':
+            results[kernel]['library_device_ms'] = main['library_device_ms']
+    print(f'stochastic phase: {time.perf_counter() - phase_start:.1f} s')
+    return dict(launches=launches, ms_per_step=step_ms, eval_mse=mse,
+                eval_chunks=eval_chunks, held=held, unbiased=unbiased,
+                names=names)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2196,6 +2529,12 @@ def main():
     cli_run = _cli_phase(dev, gpu, checks, results)
     cli_launches = cli_run['launches']
 
+    # ---- 11. the stochastic-corner and residual encodes through the CLI
+    torch.cuda.empty_cache()
+    stochastic = _stochastic_phase(dev, gpu, checks, results, shapes,
+                                   os.path.join(WORK_DIR, 'cli', 'sphere'))
+    st_launches = stochastic['launches']
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -2217,15 +2556,24 @@ def main():
         ('K2s hashgrid_sampled_bwd',
          'autolabel_tpu_torch/csrc/hashgrid_sampled_bwd.cu',
          'autolabel_tpu/ops/encoders.py:698', 'K2s'),
+        ('K6 hashgrid_stochastic',
+         'autolabel_tpu_torch/csrc/hashgrid_stochastic.cu',
+         'autolabel_tpu/ops/encoders.py:776', 'K6'),
+        ('K7 hashgrid_stochastic_bwd',
+         'autolabel_tpu_torch/csrc/hashgrid_stochastic_bwd.cu',
+         'autolabel_tpu/ops/encoders.py:761', 'K7'),
     ]
     kernel_names.update(new_names)
+    kernel_names.update({k: stochastic['names'][k] for k in ('K6', 'K7')})
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
-    # ('xla' heads) for K1s, K5 and K2s.
+    # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7.
+    main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
+                       fl_launches['xla'] if key in new_names
+                       else train_launches) for *_, key in table_rows}
     kernels = [{
         'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-        'launches': (fl_launches['xla'] if key in new_names
-                     else train_launches).get(kernel_names[key], 0),
+        'launches': main_path[key].get(kernel_names[key], 0),
         'launches_train': train_launches.get(kernel_names[key], 0),
         'launches_render': launches.get(kernel_names[key], 0),
         'launches_flagship': fl_launches['xla'].get(kernel_names[key], 0),
@@ -2233,6 +2581,8 @@ def main():
             kernel_names[key], 0),
         'launches_cli': cli_launches['A'].get(kernel_names[key], 0),
         'launches_cli_pallas': cli_launches['B'].get(kernel_names[key], 0),
+        'launches_cli_stochastic': st_launches['C'].get(kernel_names[key], 0),
+        'launches_cli_reference': st_launches['D'].get(kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -2243,7 +2593,8 @@ def main():
                                         'eval_bound_ms', 'l2_floor_ms',
                                         'l2_floor_device_ms', 'device_ms',
                                         'device_split', 'library_device_ms',
-                                        'cli')
+                                        'cli', 'flips', 'reference',
+                                        'unbiased_ratio')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -2274,6 +2625,8 @@ def main():
                    'flagship': {k: v for k, v in flagship.items()
                                 if k != 'names'},
                    'cli': {k: v for k, v in cli_run.items() if k != 'names'},
+                   'stochastic': {k: v for k, v in stochastic.items()
+                                  if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

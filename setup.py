@@ -17,7 +17,7 @@ setup(
     packages=find_packages(include=['autolabel_tpu', 'autolabel_tpu.*',
                                     'autolabel_tpu_torch',
                                     'autolabel_tpu_torch.*']),
-    package_data={'autolabel_tpu_torch': ['csrc/*.cu']},
+    package_data={'autolabel_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     ext_modules=[
         Extension('autolabel_tpu._raybatch',
                   sources=['native/raybatch.c'],

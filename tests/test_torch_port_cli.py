@@ -5,7 +5,8 @@ For a set of argvs, both CLIs run up to the trainer's construction (a
 stand-in that records its arguments and stops): the parsed flags, the
 model-hash directory, params.pkl, the render and loss options, the
 trainer's settings and the occupancy grid's trained cells are equal.
-Every flag the port does not cover raises. A short run of each CLI (batch
+Every flag the port does not cover raises; the stochastic-corner estimator
+(--sampled-backward 0, the reference grid) configures as in the JAX CLI. A short run of each CLI (batch
 512, 16 samples a ray) leaves a workspace the other package's trainer
 resumes, with metrics.jsonl and TensorBoard events the other package
 reads. A longer sphere run, whose held-out PSNR rises, is marked slow.
@@ -95,6 +96,12 @@ ARGVS = {
     'reference_grid': ['--grid-preset', 'reference',
                        '--no-stochastic-corners', '--proposal',
                        '--proposal-steps', '32'],
+    'stochastic': ['--sampled-backward', '0', '--stochastic-corners', '3',
+                   '--exact-final-fraction', '0.1'],
+    'residual': ['--sampled-backward', '0', '--stochastic-residual',
+                 '--stochastic-exact-levels', '1'],
+    'reference_stochastic': ['--grid-preset', 'reference',
+                             '--stochastic-exact-levels', '4'],
 }
 
 
@@ -139,14 +146,12 @@ def test_cli_configures_what_scripts_train_does(scene, tmp_path,
 
 @pytest.mark.parametrize('argv', [
     ['--mesh-devices', '2'], ['--mesh-model', '2'],
-    ['--pose-refine-experimental'], ['--sampled-backward', '0'],
-    ['--grid-preset', 'reference'],
-    ['--sampled-backward', '0', '--stochastic-corners', '1',
-     '--stochastic-residual']])
+    ['--pose-refine-experimental']])
 def test_cli_refuses_what_is_not_ported(scene, argv):
     """Each flag whose path the port lacks raises before any work: the
-    device mesh, joint pose refinement, and the stochastic-corner
-    estimator (on by default wherever the sampled backward is off)."""
+    device mesh and joint pose refinement. (The stochastic-corner
+    estimator, on by default wherever the sampled backward is off, trains:
+    tests/test_torch_port_stochastic.py.)"""
     with pytest.raises(NotImplementedError):
         port_cli.main([scene] + argv, device='cpu')
 

@@ -1128,3 +1128,169 @@ def test_field_from_create_model_launches_the_encode_kernel(cuda, interp,
                                                 proposal_steps=32))
     assert _kernels.launches[kernel] == 1
     assert bool(torch.isfinite(out['image']).all())
+
+
+# -- K6, K7: the stochastic-corner and residual encodes ---------------------
+
+# (interp, n_samples, residual): the modes of test_torch_port_stochastic.
+STOCHASTIC_MODES = [('trilinear', 1, False), ('trilinear', 2, False),
+                    ('trilinear', 3, False), ('simplex', 1, False),
+                    ('simplex', 2, False), ('trilinear', 2, True),
+                    ('simplex', 2, True)]
+
+
+def _stochastic_case(config, interp, n_samples, residual, exact_levels, n,
+                     seed, device, kind='rays'):
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    x = _clustered(rng, n, kind, device) if kind != 'ties' \
+        else _tie_points(rng, n, device)
+    table = (torch.rand(hashgrid_cuda._table_shape(config), generator=gen)
+             * 2 - 1).to(device)
+    u = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+        config.n_levels, n, interp, n_samples, residual),
+        generator=gen).to(device)
+    g = torch.randn((n, config.out_dim), generator=gen).to(device)
+    plan = hashgrid_cuda.encoders.stochastic_plan(config, interp, n_samples,
+                                                  exact_levels, residual)
+    return table, x, u, g, plan
+
+
+def _assert_stochastic_holds(config, interp, n_samples, residual,
+                             exact_levels, n, seed, device, kind='rays'):
+    table, x, u, g, plan = _stochastic_case(config, interp, n_samples,
+                                            residual, exact_levels, n, seed,
+                                            device, kind)
+    _kernels.reset_launches()
+    failures, details = hashgrid_cuda.check_stochastic(
+        table, x, u, config, interp, n_samples, plan, g)
+    assert not failures, failures
+    assert _kernels.launches[hashgrid_cuda.STOCHASTIC_NAME] == 2
+    assert _kernels.launches[hashgrid_cuda.STOCHASTIC_BWD_NAME] == 1
+    assert details['out'].shape == (n, config.out_dim)
+    assert details['idx'].shape == (sum(r for _, r in plan), n)
+
+
+@pytest.mark.parametrize('exact_levels', [0, 1, 4])
+@pytest.mark.parametrize('interp,n_samples,residual', STOCHASTIC_MODES)
+def test_stochastic_kernels_at_the_cli_step(cuda, interp, n_samples,
+                                            residual, exact_levels):
+    """K6 and K7 at the train CLI's step (N = 524,288 ray-ordered points)
+    on TPU_GRID's table, every mode: K6's rows equal to the plain
+    version's (flips only within 1 ulp of a boundary), its encode
+    bit-equal; K7 within the term-count tolerance of the plain scatter."""
+    _assert_stochastic_holds(hashgrid_cuda.encoders.TPU_GRID, interp,
+                             n_samples, residual, exact_levels, 524288, 40,
+                             cuda)
+
+
+@pytest.mark.parametrize('exact_levels', [0, 4, 16])
+@pytest.mark.parametrize('n_samples', [1, 2, 3])
+def test_stochastic_kernels_on_the_reference_grid(cuda, n_samples,
+                                                  exact_levels):
+    """The narrow kernels on the reference preset (16 x 2^19 x 2,
+    trilinear) at the CLI's N = 524,288."""
+    _assert_stochastic_holds(HashGridConfig(), 'trilinear', n_samples, False,
+                             exact_levels, 524288, 41, cuda)
+
+
+@pytest.mark.parametrize('n', [1, 7, 33, 2000])
+@pytest.mark.parametrize('features,interp,n_samples,residual', [
+    (128, 'simplex', 2, False), (128, 'trilinear', 3, False),
+    (128, 'simplex', 2, True), (8, 'trilinear', 2, True),
+    (2, 'trilinear', 2, False), (2, 'trilinear', 5, False)])
+def test_stochastic_kernels_ragged_and_tied(cuda, features, interp,
+                                            n_samples, residual, n):
+    """Ragged point counts, tied fractions and cube corners, wide rows
+    (also F = 8, below the float4 lanes' width), narrow rows and an odd
+    count of 5 draws, with one exact level."""
+    _assert_stochastic_holds(_flagship_grid(features), interp, n_samples,
+                             residual, 1, n, 42, cuda, kind='ties')
+
+
+@pytest.mark.parametrize('features', [128, 2])
+def test_stochastic_kernels_cap_the_rows_a_level(cuda, features):
+    """K6 draws at most 32 rows a level (STOCHASTIC_MAX_ROWS): 32 draws
+    hold against the plain version; 33, which the JAX package and the
+    plain version accept, raise on the card before any launch."""
+    config = _flagship_grid(features)
+    cap = hashgrid_cuda._STOCHASTIC_MAX_ROWS
+    _assert_stochastic_holds(config, 'trilinear', cap, False, 1, 333, 46,
+                             cuda)
+    table, x, u, _, _ = _stochastic_case(config, 'trilinear', cap + 1, False,
+                                         0, 333, 46, cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match=f'at most {cap} rows'):
+        hashgrid_cuda.hashgrid_encode(table, x, config, u=u,
+                                      n_samples=cap + 1)
+    assert sum(_kernels.launches.values()) == 0
+
+
+def test_stochastic_encode_under_autograd(cuda):
+    """The stochastic encode under autograd: K6 once with its rows, K7 once;
+    the table gradient is the plain scatter's; the gradient for x raises
+    (pose refinement is not ported)."""
+    config = _flagship_grid(128)
+    table, x, u, g, plan = _stochastic_case(config, 'simplex', 2, False, 1,
+                                            3000, 43, cuda)
+    table.requires_grad_(True)
+    _kernels.reset_launches()
+    out = hashgrid_cuda.hashgrid_encode(table, x, config, interp='simplex',
+                                        u=u, n_samples=2, exact_levels=1)
+    assert out.dtype == torch.float32
+    (grad,) = torch.autograd.grad(out, table, g)
+    assert _kernels.launches[hashgrid_cuda.STOCHASTIC_NAME] == 1
+    assert _kernels.launches[hashgrid_cuda.STOCHASTIC_BWD_NAME] == 1
+    _, idx, w = hashgrid_cuda.stochastic_encode_plain(
+        table.detach(), x, u, config, 'simplex', 2, plan)
+    want = hashgrid_cuda.encoders.stochastic_scatter_plain(g, idx, w, plan,
+                                                           config, 2)
+    tol = hashgrid_cuda.stochastic_backward_tolerance(g, idx, w, plan,
+                                                      config, 2)
+    assert bool(((grad - want).abs() <= tol).all())
+    xr = x.clone().requires_grad_(True)
+    out = hashgrid_cuda.hashgrid_encode(table, xr, config, interp='simplex',
+                                        u=u, n_samples=2)
+    with pytest.raises(NotImplementedError):
+        torch.autograd.grad(out.sum(), (table, xr))
+
+
+@pytest.mark.parametrize('preset', ['tpu_simplex', 'reference'])
+def test_stochastic_kernels_are_unbiased(cuda, preset):
+    """The mean of 64 draws of K6 is the exact encode (K1s or K1), and the
+    mean of 64 K7 gradients the exact gradient (K2s exact or K2), each
+    within 4 standard errors in the norm (from the draws' own spread)."""
+    if preset == 'reference':
+        config, interp = HashGridConfig(), 'trilinear'
+    else:
+        config, interp = hashgrid_cuda.encoders.TPU_GRID, 'simplex'
+    table, x, _, g, plan = _stochastic_case(config, interp, 2, False, 0,
+                                            20000, 44, cuda)
+    with torch.no_grad():
+        exact = hashgrid_cuda.hashgrid_encode(table, x, config,
+                                              interp=interp).double()
+    t = table.clone().requires_grad_(True)
+    (exact_grad,) = torch.autograd.grad(hashgrid_cuda.hashgrid_encode(
+        t, x, config, interp=interp), t, g)
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    draws = 64
+    sums = [torch.zeros_like(exact), torch.zeros_like(exact),
+            torch.zeros_like(exact_grad, dtype=torch.float64),
+            torch.zeros_like(exact_grad, dtype=torch.float64)]
+    for _ in range(draws):
+        u = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+            config.n_levels, x.shape[0], interp, 2), generator=gen,
+            device=cuda)
+        out = hashgrid_cuda.hashgrid_encode(t, x, config, interp=interp,
+                                            u=u, n_samples=2)
+        (grad,) = torch.autograd.grad(out, t, g)
+        for k, v in ((0, out.detach().double()), (2, grad.double())):
+            sums[k] += v
+            sums[k + 1] += v * v
+    for k, want in ((0, exact), (2, exact_grad.double())):
+        mean = sums[k] / draws
+        var = (sums[k + 1] / draws - mean * mean).clamp(min=0) \
+            * draws / (draws - 1)
+        se = float(torch.sqrt(var.sum() / draws))
+        bias = float((mean - want).norm())
+        assert bias <= 4 * se, (k, bias, se)

@@ -170,9 +170,11 @@ def test_tcnn_hash_wraps_uint32_for_non_power_of_two_levels():
 
 
 def test_encode_modes_outside_the_slice_raise():
-    """The stochastic and residual encodes (a key) are not ported; simplex
-    and the sampled backward refuse narrow rows and row counts other than
-    1, 2 or A, as the JAX package does."""
+    """A PRNG key raises (the port takes every estimator's uniforms as u:
+    the stochastic and residual encodes' cases are in
+    test_torch_port_stochastic); simplex and the sampled backward refuse
+    narrow rows and row counts other than 1, 2 or A, as the JAX package
+    does."""
     cfg = encoders.HashGridConfig(**_grid())
     table = torch.zeros((4, 1024, 8))
     x = torch.zeros((4, 3))

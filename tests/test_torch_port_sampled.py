@@ -485,8 +485,9 @@ def test_perturbed_render_and_loss_gradients_match_jax(heads_impl,
 
 def test_render_draws_the_encode_uniforms():
     """draw_perturbations adds u_enc, (L, points [+ 1]), with the sampled
-    backward; render_rays draws it from the generator and refuses draws
-    without it."""
+    backward (and the stochastic encode's, (D, 3, L, points), when only
+    stochastic_corners is set; none with neither); render_rays draws it from
+    the generator and refuses draws without it."""
     opts = RenderOptions(perturb=True, stochastic_corners=2,
                          sampled_backward=2, backward_points=0.25,
                          **train_tests.STEPS)
@@ -495,8 +496,11 @@ def test_render_draws_the_encode_uniforms():
     assert draws['u_enc'].shape == (2, 64 * 8 + 1)
     full = dataclasses.replace(opts, backward_points=1.0)
     assert draw_perturbations(gen, 64, full, 2)['u_enc'].shape == (2, 512)
+    stochastic = dataclasses.replace(opts, sampled_backward=0)
+    assert draw_perturbations(gen, 64, stochastic, 2)['u_enc'].shape == (
+        1, 3, 2, 512)
     assert 'u_enc' not in draw_perturbations(
-        gen, 64, dataclasses.replace(opts, sampled_backward=0), 2)
+        gen, 64, dataclasses.replace(stochastic, stochastic_corners=0), 2)
     params = train_tests._params(grid_interp='simplex')
     pf = train_tests._port_field(params, grid_interp='simplex')
     tb = train_tests._torch_batch(train_tests._batch())
@@ -554,11 +558,10 @@ def test_phase_schedule_matches_jax(monkeypatch, fractions,
     assert [s for s, _ in ours] == [s for s, _ in ref]
     for (_, a), (_, b) in zip(ours, ref):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
-    if sampled_backward:  # the stochastic-only estimator stays refused
-        trainer = SimpleTrainer(
-            't', train_tests._port_field(train_tests._params()), lr=5e-3,
-            iters=iters, render_options=RenderOptions(**kw), **fractions)
-        for step in (0, 49, 50, 99, 100, 699, 700, 999, 5000):
-            want = [o for s, o in ref if step >= s][-1]
-            assert dataclasses.asdict(trainer.step_options(step)) == \
-                dataclasses.asdict(want)
+    trainer = SimpleTrainer(
+        't', train_tests._port_field(train_tests._params()), lr=5e-3,
+        iters=iters, render_options=RenderOptions(**kw), **fractions)
+    for step in (0, 49, 50, 99, 100, 699, 700, 999, 5000):
+        want = [o for s, o in ref if step >= s][-1]
+        assert dataclasses.asdict(trainer.step_options(step)) == \
+            dataclasses.asdict(want)

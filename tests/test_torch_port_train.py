@@ -229,9 +229,16 @@ def test_render_draws_come_from_the_generator():
     torch.testing.assert_close(a['image'], b['image'])
     torch.testing.assert_close(c['image'], d['image'])  # eval: no draws
     assert not torch.equal(a['image'], c['image'])
-    with pytest.raises(NotImplementedError):
-        render_rays(*args, key=torch.Generator(),
-                    options=RenderOptions(perturb=True, **STEPS))
+    # the default options (stochastic_corners 2) render through the
+    # stochastic encode, whose uniforms the draws then must carry
+    stochastic = RenderOptions(perturb=True, **STEPS)
+    with torch.no_grad():
+        e = render_rays(*args, key=torch.Generator().manual_seed(3),
+                        options=stochastic)
+    assert bool(torch.isfinite(e['image']).all())
+    assert not torch.equal(a['image'], e['image'])
+    with pytest.raises(ValueError):
+        render_rays(*args, options=stochastic, draws=draws)
 
 
 @pytest.mark.parametrize('feature_loss', [False, True])
@@ -525,13 +532,18 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
         assert torch.equal(p, live[name])
 
 
-# Occupancy grids and TensorBoard events are ported
-# (tests/test_torch_port_occupancy.py, tests/test_torch_port_cli.py); the
-# residual and exact-levels variants of the stochastic-corner estimator
-# are refused as it is.
+# Occupancy grids, TensorBoard events and the stochastic-corner estimator
+# are ported (tests/test_torch_port_occupancy.py,
+# tests/test_torch_port_cli.py, tests/test_torch_port_stochastic.py).
 @pytest.mark.parametrize('kwargs', [
     dict(mesh=object()), dict(pose_refine=(np.eye(3)[None], np.zeros(
-        (1, 3)))),
+        (1, 3))))])
+def test_trainer_refuses_what_is_not_ported(kwargs):
+    with pytest.raises(NotImplementedError):
+        SimpleTrainer('t', _port_field(_params()), **kwargs)
+
+
+STOCHASTIC_TRAINERS = [
     dict(render_options=RenderOptions(perturb=True, stochastic_corners=2,
                                       stochastic_residual=True)),
     dict(render_options=RenderOptions(perturb=True, stochastic_corners=4,
@@ -539,7 +551,23 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
     dict(render_options=RenderOptions(perturb=True)),
     dict(render_options=RenderOptions(perturb=True, stochastic_corners=1,
                                       sampled_backward=0),
-         exact_final_fraction=0.1)])
-def test_trainer_refuses_what_is_not_ported(kwargs):
-    with pytest.raises(NotImplementedError):
-        SimpleTrainer('t', _port_field(_params()), **kwargs)
+         exact_final_fraction=0.1)]
+
+
+@pytest.mark.parametrize('kwargs', STOCHASTIC_TRAINERS)
+def test_trainer_takes_the_stochastic_estimators(kwargs):
+    """The stochastic-corner estimator's variants (residual, exact levels,
+    the defaults, an exact tail) build a trainer whose phases are the JAX
+    trainer's: the given options, then, with exact_final_fraction, exact
+    gathers."""
+    trainer = SimpleTrainer('t', _port_field(_params()), iters=1000, **kwargs)
+    options = kwargs['render_options']
+    assert trainer.step_options(0) == options
+    tail = kwargs.get('exact_final_fraction')
+    last = trainer.step_options(999)
+    if tail:
+        assert last == dataclasses.replace(options, stochastic_corners=0,
+                                           sampled_backward=0,
+                                           backward_points=1.0)
+    else:
+        assert last == options
