@@ -9,11 +9,11 @@
 // training the forward writes every row's table index as (S, N) int32, S
 // the sum of the levels' rows, level l's from `first[l]`, and the weights
 // of the RESIDUAL and EXACT rows only as (SW, N) fp32, level l's from
-// `wfirst[l]` (-1 on DRAWS levels, whose weight the scatter knows).
+// `wfirst[l]` (-1 on DRAWS levels, whose weight the scatter knows). A
+// level may have any count of rows: both kernels take them in chunks.
 #pragma once
 #include "hashgrid_common.cuh"
 
-#define STOCHASTIC_MAX_ROWS 32  // _STOCHASTIC_MAX_ROWS in hashgrid_cuda.py
 #define KIND_DRAWS 0
 #define KIND_RESIDUAL 1
 #define KIND_EXACT 2
@@ -33,33 +33,29 @@ static inline bool wide_rows(int features) {
 }
 
 // The plan checked against the kinds' row counts (EXACT: 4 or 8 atoms,
-// every EXACT level alike; atoms > 0 also fixes that count); its most rows
-// a level rounded up to a power of two (RS), 0 where it does not hold.
-static inline int make_plan(Plan* plan, const int* kinds, const int* rows,
-                            int levels, int atoms, int n_samples) {
-  if (levels < 1 || levels > MAX_LEVELS || n_samples < 1) return 0;
-  int most = 1, first = 0, wfirst = 0;
+// every EXACT level alike; atoms > 0 also fixes that count). False where
+// it does not hold.
+static inline bool make_plan(Plan* plan, const int* kinds, const int* rows,
+                             int levels, int atoms, int n_samples) {
+  if (levels < 1 || levels > MAX_LEVELS || n_samples < 1) return false;
+  int first = 0, wfirst = 0;
   for (int l = 0; l < levels; ++l) {
     const int k = kinds[l], r = rows[l];
     if (k == KIND_EXACT) {
       if (atoms <= 0) atoms = r;
-      if (r != atoms || (r != 4 && r != 8)) return 0;
+      if (r != atoms || (r != 4 && r != 8)) return false;
     }
     if ((k == KIND_DRAWS && r != n_samples) ||
-        (k == KIND_RESIDUAL && r != 2) || k < KIND_DRAWS ||
-        k > KIND_EXACT || r > STOCHASTIC_MAX_ROWS)
-      return 0;
+        (k == KIND_RESIDUAL && r != 2) || k < KIND_DRAWS || k > KIND_EXACT)
+      return false;
     plan->kind[l] = k;
     plan->rows[l] = r;
     plan->first[l] = first;
     plan->wfirst[l] = k == KIND_DRAWS ? -1 : wfirst;
     first += r;
     if (k != KIND_DRAWS) wfirst += r;
-    if (r > most) most = r;
   }
-  int rs = 1;
-  while (rs < most) rs *= 2;
-  return rs;
+  return true;
 }
 
 // The weighted rows SW of a plan that make_plan accepted.

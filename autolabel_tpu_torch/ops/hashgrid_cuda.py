@@ -52,7 +52,9 @@ _SAMPLED_BWD_SOURCE = 'hashgrid_sampled_bwd.cu'
 _STOCHASTIC_SOURCE = 'hashgrid_stochastic.cu'
 _STOCHASTIC_BWD_SOURCE = 'hashgrid_stochastic_bwd.cu'
 _MAX_LEVELS = 32  # MAX_LEVELS in hashgrid_common.cuh
-_STOCHASTIC_MAX_ROWS = 32  # STOCHASTIC_MAX_ROWS in hashgrid_stochastic.cuh
+# K6's parts (K6_PART_* in hashgrid_stochastic.cu): the encode, or one part
+# of its work alone for timing it
+K6_PARTS = {'all': 7, 'draws': 1, 'gathers': 3, 'stores': 4}
 
 
 def hashgrid_encode_plain(table, x, config, **kwargs):
@@ -961,18 +963,20 @@ def _weighted_rows(plan):
     return sum(r for k, r in plan if k != encoders.DRAWS)
 
 
-def _stochastic_call(table, x, u, config, interp, n_samples, plan, rows):
+def _stochastic_call(table, x, u, config, interp, n_samples, plan, rows,
+                     parts='all', group=0):
     """K6: the stochastic or residual encode of x (fp32 out) and, with
     `rows`, the drawn rows as (S, N) int32 indices and the weighted rows'
-    (SW, N) fp32 weights (encoders.stochastic_rows' format)."""
+    (SW, N) fp32 weights (encoders.stochastic_rows' format). `parts` other
+    than 'all' runs one part of the work alone (K6_PARTS: the draws with
+    their rows written, the gathers and blend, or the stores) for timing
+    it; `group` sets the levels a narrow-rows thread walks (0: the
+    library's choice)."""
     _check_inputs(STOCHASTIC_NAME, x, config, table, _table_shape(config))
     dev = x.device
     if u.device != dev or u.dtype != torch.float32 or not u.is_contiguous():
         raise ValueError(f'{STOCHASTIC_NAME}: u must be contiguous float32 '
                          'on the device of x')
-    if max(r for _, r in plan) > _STOCHASTIC_MAX_ROWS:
-        raise ValueError(f'{STOCHASTIC_NAME}: at most {_STOCHASTIC_MAX_ROWS} '
-                         'rows a level (n_samples)')
     n, s = x.shape[0], sum(r for _, r in plan)
     out = torch.empty((n, config.out_dim), dtype=torch.float32, device=dev)
     idx = w = None
@@ -984,7 +988,8 @@ def _stochastic_call(table, x, u, config, interp, n_samples, plan, rows):
     fn.argtypes = ([ctypes.c_void_p] * 14
                    + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     kinds, counts = _plan_arrays(plan)
     status = fn(x.data_ptr(), table.data_ptr(), u.data_ptr(), out.data_ptr(),
@@ -993,15 +998,18 @@ def _stochastic_call(table, x, u, config, interp, n_samples, plan, rows):
                 *[a.ctypes.data for a in _geometry(config)], kinds, counts,
                 float(config.pos_offset), n, config.n_levels,
                 config.table_size, config.n_features, _atom_count(interp),
-                n_samples, torch.cuda.current_stream(dev).cuda_stream)
+                n_samples, K6_PARTS[parts], group,
+                torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(status, STOCHASTIC_NAME)
     _kernels.launches[STOCHASTIC_NAME] += 1
     return out, idx, w
 
 
-def _stochastic_scatter_call(g, idx, w, plan, config, n_samples):
+def _stochastic_scatter_call(g, idx, w, plan, config, n_samples, level=None,
+                             dtable=None):
     """K7: the table gradient (L, T, F) fp32 from K6's rows, for the
-    encode's fp32 cotangent g."""
+    encode's fp32 cotangent g. With `level`, that level's scatter alone,
+    added into `dtable` (not zeroed), for timing a level's atomics."""
     dev = g.device
     n = idx.shape[1]
     if dev.type != 'cuda' or idx.device != dev or w.device != dev \
@@ -1019,18 +1027,24 @@ def _stochastic_scatter_call(g, idx, w, plan, config, n_samples):
         raise ValueError(f'{STOCHASTIC_BWD_NAME}: g must be a contiguous, '
                          f'16-byte aligned ({n}, {config.out_dim}) float32 '
                          'tensor')
-    dtable = torch.empty(_table_shape(config), dtype=torch.float32,
-                         device=dev)
+    if (level is None) != (dtable is None):
+        raise ValueError(f'{STOCHASTIC_BWD_NAME}: a level alone adds into a '
+                         'given dtable')
+    if dtable is None:
+        dtable = torch.empty(_table_shape(config), dtype=torch.float32,
+                             device=dev)
     fn = _kernels.library(_STOCHASTIC_BWD_SOURCE).hashgrid_stochastic_bwd
     fn.argtypes = ([ctypes.c_void_p] * 6
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     kinds, counts = _plan_arrays(plan)
     status = fn(g.data_ptr(), idx.data_ptr(),
                 w.data_ptr() if w.numel() else None, kinds, counts,
-                dtable.data_ptr(), n, config.n_levels, config.table_size,
-                config.n_features, n_samples,
+                dtable.data_ptr(), n,
+                config.n_levels, config.table_size, config.n_features,
+                n_samples, -1 if level is None else level,
                 torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(status, STOCHASTIC_BWD_NAME)
     _kernels.launches[STOCHASTIC_BWD_NAME] += 1
@@ -1174,23 +1188,24 @@ def check_stochastic(table, x, u, config, interp, n_samples, plan, g):
 def stochastic_launch_shapes(config, n, plan, interp='trilinear',
                              n_samples=1):
     """K6's and K7's launch shapes for n points and this plan, as the C
-    libraries plan them: blocks, threads, static shared bytes, blocks per
-    SM, registers and points (a warp's for K6's wide kernel, 1 for its
-    narrow one; a block's for K7), each kernel named as the library picks
-    it (wide or narrow rows)."""
+    libraries plan them: blocks, threads, shared bytes, blocks per SM,
+    registers and points (a warp's for K6's wide kernel, 1 for its narrow
+    one; a block's for K7), K6's levels a narrow thread walks, each kernel
+    named as the library picks it (wide or narrow rows)."""
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
-            'points')
+            'points', 'wide', 'levels_a_thread')
     kinds, counts = _plan_arrays(plan)
     fn = _kernels.library(_STOCHASTIC_SOURCE).hashgrid_stochastic_shape
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     _kernels.check(fn(kinds, counts, config.n_levels, config.n_features, n,
                       _atom_count(interp), n_samples, out), STOCHASTIC_NAME)
-    shapes = {'K6 stochastic_rows_kernel' if out[6] else
-              'K6 stochastic_lanes_kernel': dict(zip(keys, out))}
+    shape = dict(zip(keys, out))
+    shapes = {'K6 stochastic_rows_kernel' if shape.pop('wide') else
+              'K6 stochastic_lanes_kernel': shape}
     fn = _kernels.library(_STOCHASTIC_BWD_SOURCE) \
         .hashgrid_stochastic_bwd_shape
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -1200,7 +1215,7 @@ def stochastic_launch_shapes(config, n, plan, interp='trilinear',
     _kernels.check(fn(config.n_levels, config.n_features, n, out),
                    STOCHASTIC_BWD_NAME)
     shapes['K7 stochastic_scatter_rows_kernel' if out[6] else
-           'K7 stochastic_scatter_lanes_kernel'] = dict(zip(keys, out))
+           'K7 stochastic_scatter_lanes_kernel'] = dict(zip(keys[:6], out))
     return shapes
 
 

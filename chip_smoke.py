@@ -129,18 +129,25 @@ Phases, each failing loudly:
      just before and read just after: K6 and K7 once a step, K1s (Run C)
      or K1 (Run D) only for the eval chunks, no other kernel; the eval MSE
      at least 4-fold below a 1-iteration run of the same command; ms per
-     step over the epoch's wall clock. (a) On each run's last recorded
-     (table, x), at N = 131,072 and 524,288, K6 and K7 in every mode of the
-     CPU tests (TPU grid: trilinear at 1, 2, 3 draws, simplex at 1, 2,
-     residual with both interps; reference: trilinear at 1, 2, 3; each at
-     three exact_levels): K6's rows equal to the plain version's, flips
-     counted and allowed only within 1 ulp of a boundary, its encode
+     step over the epoch's wall clock; the device's busy time by kernel
+     over 5 more steps through the CLI's loader and its share of their
+     wall clock. Then 5 steps of Run C's command at --stochastic-corners
+     33 (more draws a level than a warp has lanes): K6 and K7 once a step,
+     no other kernel, the losses of one more step finite. (a) On each
+     run's last recorded (table, x), at N = 131,072 and 524,288, K6 and K7
+     in every mode of the CPU tests (TPU grid: trilinear at 1, 2, 3 draws,
+     simplex at 1, 2, residual with both interps; reference: trilinear at
+     1, 2, 3; each at three exact_levels), and at N = 131,072 in the run's
+     own mode at 33 and 64 draws: K6's rows equal to the plain version's,
+     flips counted and allowed only within 1 ulp of a boundary, its encode
      bit-equal; K7 within its term-count tolerance
      (hashgrid_cuda.check_stochastic); the mean of 64 draws of K6 and of
      K7 within 4 standard errors of the exact encode and gradient; each
      run's own mode timed by events and device time, beside its bound, its
-     plain version and (K7) one index_add_ of the pre-weighted drawn rows;
-     K6's and K7's launch shapes.
+     plain version and (K7) one index_add_ of the pre-weighted drawn rows,
+     after a probe of the profiler's trace (K6's calls traced bare and
+     opened by the marker launches every trace here opens with); K6's and
+     K7's launch shapes.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -215,25 +222,66 @@ def _quartiles(values):
             'n': len(values)}
 
 
+# The marker launches (one-thread spin kernels, left out of every device
+# time) that open every trace. A trace here loses the first device
+# activities after it opens (the probe below records which): all 5
+# launches of K6 in a bare 5-call trace, up to 6 of 8 markers where
+# markers open it, never a launch after the first one it records; 50 ms
+# of host idle before and after the traced work did not stop it. So the
+# markers, not the measured launches, are what it loses.
+TRACE_MARKERS = 32
+MARKER = 'spin_kernel'
+
+
+def _traced(fn, markers=TRACE_MARKERS):
+    """torch.profiler's trace of one call of fn, opened by `markers`
+    marker launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(markers):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def _device_profile(fn):
     """Device time of one call of fn by kernel, from torch.profiler:
     (rows of (name, ms, launches) by time, total device ms), or (None,
     None) when the trace holds no device time."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in _traced(fn).key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and MARKER not in e.key]
     if not rows:
         return None, None
     rows.sort(key=lambda r: -r[1])
     return rows, sum(r[1] for r in rows)
+
+
+def _trace_probe(gpu, tag, fn, reps=5):
+    """Which launches a short trace loses: reps calls of fn traced bare,
+    opened by 8 markers and by TRACE_MARKERS; each trace's device
+    activities in time order, m a marker and k a launch of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for markers in (0, 8, TRACE_MARKERS):
+        events = _traced(lambda: [fn() for _ in range(reps)],
+                         markers).events()
+        device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        seq = ''.join('m' if MARKER in e.name else 'k' for e in device)
+        out[markers] = seq
+        print(f'profiler window probe [{gpu}] {tag}, {reps} calls, {markers} '
+              f'markers: recorded in time order "{seq}" ({seq.count("k")} '
+              'launches of fn)')
+    return out
 
 
 def _kernel_ms(fn, reps=5):
@@ -246,8 +294,9 @@ def _kernel_ms(fn, reps=5):
     rows, _ = _device_profile(lambda: [fn() for _ in range(reps)])
     if rows is None:
         return None
-    # The trace can hold fewer launches than were made (seen on the H100:
-    # 3 or 4 of 5 calls' kernels). A kernel's ms a call is then its ms per
+    # A trace that holds fewer launches than were made (seen on the H100
+    # before traces opened with markers: 2 to 4 of 5 calls' kernels, or
+    # none) is reported, and a kernel's ms a call is then its ms per
     # recorded launch times its launches a call, the count rounded up.
     out = {}
     for name, ms, count in rows:
@@ -1561,6 +1610,42 @@ STOCHASTIC_MODES = {
     'D': ([('trilinear', 1, False), ('trilinear', 2, False),
            ('trilinear', 3, False)], (0, 4, 16))}
 STOCHASTIC_POINTS = (131072, 524288)
+# More draws a level than a warp has lanes (K6 once capped them at 32):
+# held at STOCHASTIC_POINTS[0] on each run's recorded inputs, and a few CLI
+# steps of Run C's command at 33.
+STOCHASTIC_MANY = (33, 64)
+CLI_MANY = (['--sampled-backward', '0', '--stochastic-corners', '33'], 5)
+
+
+def k7_yardstick(encoders, g, idx, w, plan, config, n_samples):
+    """K7's library yardstick: one index_add_ of the drawn rows, weighted as
+    K7 weighs them (made here, outside the timing), into a flattened table
+    gradient; returns the call."""
+    import torch
+    f = config.n_features
+    levels = torch.repeat_interleave(
+        torch.arange(config.n_levels, device=idx.device),
+        torch.tensor([r for _, r in plan], device=idx.device))
+    flat_rows = (levels[:, None] * config.table_size
+                 + idx.long()).reshape(-1)
+    terms = []
+    for l, (kind, rows, _, wfirst) in enumerate(encoders.plan_starts(plan)):
+        g_l = g[:, l * f:(l + 1) * f]
+        if kind == encoders.DRAWS and n_samples > 1:
+            g_l = g_l * encoders.sample_scale(n_samples, g.device)
+        for r in range(rows):
+            terms.append(g_l if kind == encoders.DRAWS
+                         else w[wfirst + r][:, None] * g_l)
+    terms = torch.cat(terms)
+    flat = torch.empty((config.n_levels * config.table_size, f),
+                       device=g.device)
+
+    def library():
+        flat.zero_()
+        flat.index_add_(0, flat_rows, terms)
+        return flat
+
+    return library
 
 
 def _stochastic_measure(gpu, tag, table, x, u, config, interp, n_samples,
@@ -1593,19 +1678,15 @@ def _stochastic_measure(gpu, tag, table, x, u, config, interp, n_samples,
         return hashgrid_cuda._stochastic_scatter_call(g, idx, w, plan, config,
                                                       n_samples)
 
-    res = {}
+    # the phase's first trace, where a bare trace of K6 held none of its
+    # launches
+    res = {'probe': _trace_probe(gpu, f'K6 {tag}', k6)}
     for key, fn, plain in (
             ('K6', k6, lambda: hashgrid_cuda.stochastic_encode_plain(
                 table, x, u, config, interp, n_samples, plan)),
             ('K7', k7, lambda: encoders.stochastic_scatter_plain(
                 g, idx, w, plan, config, n_samples))):
         by_kernel = _kernel_ms(fn)
-        if by_kernel is None:
-            # the trace can hold none of a call's launches (seen for K6 in
-            # one run, where a trace of the same calls alone held all 5)
-            print(f'profiler: no device time for {key} in the trace; '
-                  'traced once more over 10 calls')
-            by_kernel = _kernel_ms(fn, 10)
         res[key] = dict(ms=_cuda_ms(fn, 20), plain_ms=_cuda_ms(plain, 3),
                         device_ms=None if by_kernel is None
                         else sum(by_kernel.values()),
@@ -1624,29 +1705,14 @@ def _stochastic_measure(gpu, tag, table, x, u, config, interp, n_samples,
         PEAK_FP32)
     dtable = k7()
     res['K7']['bound'] = _bound(_nbytes(g, idx, w, dtable), flops, PEAK_FP32)
-    # the yardstick: one index_add_ of the drawn rows, pre-weighted as K7
-    # weighs them (made outside the timing)
-    terms = []
-    for l, (kind, rows, _, wfirst) in enumerate(encoders.plan_starts(plan)):
-        g_l = g[:, l * f:(l + 1) * f]
-        if kind == encoders.DRAWS and n_samples > 1:
-            g_l = g_l * encoders.sample_scale(n_samples, g.device)
-        for r in range(rows):
-            terms.append(g_l if kind == encoders.DRAWS
-                         else w[wfirst + r][:, None] * g_l)
-    terms = torch.cat(terms)
-    flat = dtable.view(-1, f)
-
-    def library():
-        flat.zero_()
-        flat.index_add_(0, flat_rows, terms)
-
+    del dtable
+    library = k7_yardstick(encoders, g, idx, w, plan, config, n_samples)
     res['K7']['library_ms'] = _cuda_ms(library, 5)
     by_kernel = _kernel_ms(library)
     res['K7']['library_device_ms'] = None if by_kernel is None \
         else sum(by_kernel.values())
     res['K6']['library_ms'] = None
-    del terms, flat, dtable
+    del library
     for key in ('K6', 'K7'):
         r = res[key]
         print(f'kernel {key} [{gpu}] {tag} N={n}: {r["ms"]:.4f} ms by events, '
@@ -1665,9 +1731,10 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
     `shapes`; returns what the output file keeps."""
     import numpy as np
     import torch
-    from autolabel_tpu_torch.core.dataset import SceneDataset
+    from autolabel_tpu_torch.core.dataset import LenDataset, SceneDataset
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
     from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.train.loader import PrefetchIterator
     phase_start = time.perf_counter()
     root = os.path.join(WORK_DIR, 'stochastic')
     full = ['--factor-train', '1', '--factor-test', '1', '--eval']
@@ -1681,7 +1748,7 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
              'K2s': hashgrid_cuda.SAMPLED_BWD_NAME,
              'K3f': heads_cuda.HEADS, 'K3b': heads_cuda.HEADS_BWD,
              'K4f': heads_cuda.MLP3, 'K4b': heads_cuda.MLP3_BWD}
-    launches, step_ms, mse, recorded = {}, {}, {}, {}
+    launches, step_ms, mse, recorded, profiles = {}, {}, {}, {}, {}
     call = hashgrid_cuda._stochastic_call
     for key, (flags, steps) in CLI_STOCHASTIC.items():
         argv = [scene] + CLI_BASE + flags + full
@@ -1732,8 +1799,59 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
                     f' dB, {steps} steps)')
         print(f'cli {key} [{gpu}] {" ".join(flags)}: {steps} steps, ms per '
               f'step over the epoch\'s wall clock {step_ms[key]:.3f}')
-        del run
+        # the device's busy time by kernel over PROFILED_STEPS more steps
+        # through the CLI's loader, and its share of their wall clock
+        trainer, dataset, wall = run.trainer, run.dataset, []
+
+        def loader_steps():
+            loader = PrefetchIterator(LenDataset(dataset, PROFILED_STEPS),
+                                      transform=trainer._device_batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for batch in loader:
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t1) * 1e3)
+
+        loader_steps()
+        rows, busy = _device_profile(loader_steps)
+        if rows is None:
+            print(f'cli {key} profile: the trace holds no device time: not '
+                  'measured')
+        else:
+            profiles[key] = dict(busy_ms=busy, wall_ms=wall[-1],
+                                 rows=rows[:12])
+            print(f'cli {key} profile [{gpu}]: device busy {busy:.3f} ms over '
+                  f'{PROFILED_STEPS} steps through the loader '
+                  f'({busy / PROFILED_STEPS:.3f} a step) of their '
+                  f'{wall[-1]:.3f} ms wall clock: busy share '
+                  f'{busy / wall[-1]:.4f}')
+            for name, ms, count in rows[:12]:
+                print(f'  {ms:9.3f} ms {ms / busy:7.2%} x{count:<5d} '
+                      f'{name[:90]}')
+        del run, trainer, dataset
         torch.cuda.empty_cache()
+
+    # A few steps of Run C's command at 33 draws a level.
+    flags, steps = CLI_MANY
+    _kernels.reset_launches()
+    run = cli.main([scene] + CLI_BASE + flags + ['--factor-train', '1',
+                                                 '--iters', str(steps),
+                                                 '--workspace',
+                                                 os.path.join(root, 'many')])
+    launches['many'] = dict(_kernels.launches)
+    for name in names:
+        want = steps if name in ('K6', 'K7') else 0
+        got = launches['many'].get(names[name], 0)
+        checks.true(f'cli {" ".join(flags)} launches {name}', got == want,
+                    f'{got} (expected {want})')
+    parts = run.trainer.train_step(run.trainer._device_batch(
+        run.dataset._next_train()))
+    checks.true(f'cli {" ".join(flags)} losses finite after {steps} steps',
+                all(bool(torch.isfinite(v).all()) for v in parts.values()),
+                ', '.join(f'{k} {float(v):.5f}' for k, v in parts.items()))
+    del run, parts
+    torch.cuda.empty_cache()
 
     # (a) K6 and K7 in every mode on each run's last recorded (table, x).
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -1772,6 +1890,34 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
                     'flips', 'unexplained', 'k6_max_abs_err',
                     'k7_max_abs_err', 'k7_used')}
                 del d, u, g
+        # more draws a level than a warp has lanes, in the run's own mode
+        x = x_all[:STOCHASTIC_POINTS[0]].contiguous()
+        exact_run = sum(k == hashgrid_cuda.encoders.EXACT
+                        for k, _ in plan_run)
+        for n_samples in STOCHASTIC_MANY:
+            plan = hashgrid_cuda.encoders.stochastic_plan(
+                config, interp_run, n_samples, exact_run)
+            u = torch.rand(hashgrid_cuda.encoders.uniform_shape(
+                config.n_levels, x.shape[0], interp_run, n_samples),
+                generator=gen, device=dev)
+            g = torch.randn((x.shape[0], config.out_dim), generator=gen,
+                            device=dev)
+            failures, d = hashgrid_cuda.check_stochastic(
+                table, x, u, config, interp_run, n_samples, plan, g)
+            tag = (f'{key} {interp_run} n_samples={n_samples} '
+                   f'exact={exact_run} N={x.shape[0]}')
+            checks.true(f'K6+K7 {tag}', not failures,
+                        f'{d["flips"]} flips ({d["unexplained"]} '
+                        f'unexplained); K6 max_abs_err '
+                        f'{d["k6_max_abs_err"]:.3e}; K7 max_abs_err '
+                        f'{d["k7_max_abs_err"]:.3e} (worst uses '
+                        f'{d["k7_used"]:.3f} of its tolerance)'
+                        + ('; ' + '; '.join(failures) if failures else ''))
+            held[tag] = {k: d[k] for k in (
+                'flips', 'unexplained', 'k6_max_abs_err', 'k7_max_abs_err',
+                'k7_used')}
+            del d, u, g
+            torch.cuda.empty_cache()
         # the run's own mode at the CLI's N: times, bounds, shapes
         u_run = torch.rand(hashgrid_cuda.encoders.uniform_shape(
             config.n_levels, x_all.shape[0], interp_run, n_run),
@@ -1851,7 +1997,8 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
     print(f'stochastic phase: {time.perf_counter() - phase_start:.1f} s')
     return dict(launches=launches, ms_per_step=step_ms, eval_mse=mse,
                 eval_chunks=eval_chunks, held=held, unbiased=unbiased,
-                names=names)
+                names=names, profiles=profiles,
+                window_probe={k: v['probe'] for k, v in timed.items()})
 
 
 def main():

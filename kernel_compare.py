@@ -17,24 +17,38 @@ tree's K5's), and K1s in its four instantiations (simplex or trilinear
 atoms; the training form, bf16 out with the atoms written, or the eval
 form, fp32 out) on the (table, x) a flagship step hands it (N = 131,072)
 and on the last step's of a short run of the train CLI (README's command,
-the ray-ordered samples of N = 524,288 a step). Each kernel's old and new
-outputs are compared (largest
-absolute difference; 0 means bit-equal; for K5 whether the selections,
-count, points and coefs, are bit-equal), then both are timed by CUDA
-events, old, new, new, old, ... for --rounds rounds, and by
-torch.profiler's device time a call (all of a call's kernels and
-memsets; events carry a call's host work where it exceeds its device
-time). Prints one line per kernel and writes
+the ray-ordered samples of N = 524,288 a step), and K6 (training form,
+rows written) and K7 on the last step's (table, x) of short runs of the
+CLI's stochastic estimators: Run C (--sampled-backward 0: the TPU grid's
+simplex encode of 2 draws) and Run D (--grid-preset reference
+--stochastic-exact-levels 4: 16 x 2^19 x 2, trilinear, narrow rows), K7
+fed this tree's K6 rows. Each kernel's old and new outputs are compared
+(largest absolute difference; 0 means bit-equal; for K5 whether the
+selections, count, points and coefs, are bit-equal; for K7 the worst
+element's share of hashgrid_cuda.stochastic_backward_tolerance, at most
+1), then both are timed by CUDA events, old, new, new, old, ... for
+--rounds rounds, and by torch.profiler's device time a call (all of a
+call's kernels and memsets; events carry a call's host work where it
+exceeds its device time); K7 with one index_add_ of the pre-weighted
+drawn rows timed in the same rounds, its library yardstick. Then, for this
+tree alone, K6's parts on the same inputs (the draws with their rows
+written, the gathers and blend, the stores, each launched alone; on Run D
+also the levels a narrow thread walks: 1, levels slowest, and 4, a
+32-byte sector a point, beside the library's choice of all 16), K7's
+scatter of each level alone and the distinct rows a tile of K7's points
+(a block's on wide rows, a warp's on narrow rows) names per level. --only takes a regular expression of the cases to run (e.g.
+'K6|K7'). Prints one line per kernel and writes
 chiprun_out/kernel_compare.json.
 """
 import argparse
 import importlib
 import json
 import os
+import re
 import sys
 import types
 
-from chip_smoke import _cuda_ms, _gpu_line, _kernel_ms
+from chip_smoke import _cuda_ms, _gpu_line, _kernel_ms, k7_yardstick
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
@@ -129,6 +143,141 @@ def _cli_samples(iters=30):
     finally:
         hashgrid_cuda._atoms_call = atoms
     return rec['atoms'], run.trainer.field.config.grid_config
+
+
+# The CLI's stochastic estimators (chip_smoke.py's phase 11 runs C and D).
+STOCHASTIC_RUNS = {'C': ['--sampled-backward', '0'],
+                   'D': ['--grid-preset', 'reference',
+                         '--stochastic-exact-levels', '4']}
+
+
+def _stochastic_samples(iters=30):
+    """{run: (table, x, config, interp, n_samples, plan)}: what the last of
+    `iters` steps of each of STOCHASTIC_RUNS hands K6 (this tree's
+    package), on the sphere scene of chip_smoke.py's phase 10."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.utils import fixtures
+    from chip_smoke import CLI_SCENE, WORK_DIR
+    root = os.path.join(WORK_DIR, 'compare_stochastic')
+    scene = os.path.join(root, 'sphere')
+    fixtures.make_synthetic_scene(scene, **CLI_SCENE)
+    out, call = {}, hashgrid_cuda._stochastic_call
+    for run, flags in STOCHASTIC_RUNS.items():
+        rec = {}
+
+        def rec_call(table, x, u, config, interp, n_samples, plan, rows,
+                     **kw):
+            if rows:
+                rec['last'] = (table.detach().clone(), x.clone(), config,
+                               interp, n_samples, plan)
+            return call(table, x, u, config, interp, n_samples, plan, rows,
+                        **kw)
+
+        hashgrid_cuda._stochastic_call = rec_call
+        try:
+            cli.main([scene, '--proposal', '--factor-train', '1', *flags,
+                      '--iters', str(iters),
+                      '--workspace', os.path.join(root, run)])
+        finally:
+            hashgrid_cuda._stochastic_call = call
+        out[run] = rec['last']
+    return out
+
+
+def _stochastic_cases(pkg, seed, samples):
+    """K6 (training form) and K7 through pkg's wrappers on each run's
+    recorded (table, x), with u and g made from seed and K7 fed this
+    tree's K6 rows; K7's compare is the worst share of its tolerance, and
+    its fourth element the index_add_ yardstick."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda as ours
+    g = torch.Generator(device='cuda').manual_seed(seed + 1)
+    cases = {}
+    for run, (table, x, config, interp, n_samples, plan) in samples.items():
+        n = x.shape[0]
+        u = torch.rand(ours.encoders.uniform_shape(
+            config.n_levels, n, interp, n_samples), generator=g,
+            device='cuda')
+        cot = torch.randn((n, config.out_dim), generator=g, device='cuda')
+        _, idx, w = ours._stochastic_call(table, x, u, config, interp,
+                                          n_samples, plan, True)
+        tol = ours.stochastic_backward_tolerance(cot, idx, w, plan, config,
+                                                 n_samples)
+
+        def used(a, b, tol=tol):
+            return float(((a - b).abs() / tol.clamp(min=1e-38)).max())
+
+        cases[f'K6 cli {run} step N={n}'] = (
+            lambda table=table, x=x, u=u, config=config, interp=interp,
+            n_samples=n_samples, plan=plan: pkg.hashgrid_cuda.
+            _stochastic_call(table, x, u, config, interp, n_samples, plan,
+                             True), 20, None)
+        cases[f'K7 cli {run} step N={n}'] = (
+            lambda cot=cot, idx=idx, w=w, plan=plan, config=config,
+            n_samples=n_samples: pkg.hashgrid_cuda._stochastic_scatter_call(
+                cot, idx, w, plan, config, n_samples), 20, used,
+            k7_yardstick(ours.encoders, cot, idx, w, plan, config,
+                         n_samples))
+    return cases
+
+
+def _timed(fn, reps=20):
+    """(events ms, device ms) a call of fn."""
+    by_kernel = _kernel_ms(fn)
+    return _cuda_ms(fn, reps), (None if by_kernel is None
+                                else sum(by_kernel.values()))
+
+
+def _stochastic_parts(gpu, samples, seed):
+    """This tree's K6 parts (and, on narrow rows, its level groupings) and
+    K7's levels alone on each run's recorded inputs, and the distinct rows
+    a tile of K7's points names per level."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    g = torch.Generator(device='cuda').manual_seed(seed + 2)
+    out = {}
+    for run, (table, x, config, interp, n_samples, plan) in samples.items():
+        n, f = x.shape[0], config.n_features
+        u = torch.rand(hg.encoders.uniform_shape(
+            config.n_levels, n, interp, n_samples), generator=g,
+            device='cuda')
+        res = out[run] = {'K6': {}, 'K7': {}}
+        wide = f % 4 == 0 and f >= 32
+        variants = [(part, 0) for part in hg.K6_PARTS] + (
+            [] if wide else [('all', 1), ('all', 4)])
+        for part, group in variants:
+            ms, dev = _timed(lambda part=part, group=group: hg._stochastic_call(
+                table, x, u, config, interp, n_samples, plan, True, part,
+                group))
+            res['K6'][f'{part} group {group}'] = dict(ms=ms, device_ms=dev)
+            print(f'K6 part cli {run} [{gpu}] {part}'
+                  + (f' (levels a thread {group})' if group else '')
+                  + f': {ms:.4f} ms by events, {dev} ms device')
+        _, idx, w = hg._stochastic_call(table, x, u, config, interp,
+                                        n_samples, plan, True)
+        cot = torch.randn((n, config.out_dim), generator=g, device='cuda')
+        dtable = torch.zeros(hg._table_shape(config), device='cuda')
+        # K7's tiles: 32 points of every row of a level (wide), a warp's
+        # 32 points of one row (narrow)
+        tile = 32
+        for l, (_, rows, first, _) in enumerate(
+                hg.encoders.plan_starts(plan)):
+            m = n // tile * tile
+            t = idx[first:first + rows, :m].reshape(rows, -1, tile)
+            t = (t.permute(1, 0, 2).reshape(m // tile, -1) if wide
+                 else t.reshape(-1, tile)).sort(dim=1).values
+            distinct = int((t[:, 1:] != t[:, :-1]).sum()) + t.shape[0]
+            ms, dev = _timed(lambda l=l: hg._stochastic_scatter_call(
+                cot, idx, w, plan, config, n_samples, l, dtable))
+            res['K7'][l] = dict(entries=rows * m, distinct=distinct, ms=ms,
+                                device_ms=dev)
+            print(f'K7 level {l} cli {run} [{gpu}] N={n}: {rows * m} rows, '
+                  f'{distinct} distinct in tiles of {tile} points; '
+                  f'{ms:.4f} ms by events, {dev} ms device')
+        del idx, w, cot, dtable, u
+        torch.cuda.empty_cache()
+    return out
 
 
 def _same_selection(a, b):
@@ -229,6 +378,8 @@ def main():
                                                          'parent'))
     parser.add_argument('--rounds', type=int, default=4)
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--only', default='',
+                        help='regular expression of the cases to run')
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -239,26 +390,44 @@ def main():
         print(f'kernel_compare: no {PKG} under {args.parent}',
               file=sys.stderr)
         return 2
+    only = re.compile(args.only)
     sides = {'old': _load(os.path.abspath(args.parent)), 'new': _load(HERE)}
     for pkg in sides.values():
         pkg.kernels.build_all()
     gpu = _gpu_line()
     result = {'gpu': gpu, 'rounds': args.rounds, 'kernels': {}}
-    step_samples = _step_samples(args.seed)
-    flagship = _flagship_samples(args.seed)
-    cli_samples = _cli_samples()
-    cases = {side: _cases(pkg, args.seed, step_samples, flagship,
-                          cli_samples)
-             for side, pkg in sides.items()}
-    for name in cases['new']:
-        (old, reps, compare), (new, _, _) = (cases['old'][name],
-                                             cases['new'][name])
+    cases = {side: {} for side in sides}
+    def wanted(names):
+        return any(only.search(name) for name in names)
+
+    if wanted(('K1 TPU_GRID', 'K1 reference', 'K2 TPU_GRID', 'K3f', 'K3b',
+               'K4f', 'K4b', 'K5 flagship', 'K2s flagship', 'K1s simplex',
+               'K1s trilinear')):
+        step_samples = _step_samples(args.seed)
+        flagship = _flagship_samples(args.seed)
+        cli_samples = _cli_samples()
+        for side, pkg in sides.items():
+            cases[side].update(_cases(pkg, args.seed, step_samples,
+                                      flagship, cli_samples))
+    stochastic = None
+    if wanted([f'{k} cli {run} step' for k in ('K6', 'K7')
+               for run in STOCHASTIC_RUNS]):
+        stochastic = _stochastic_samples()
+        for side, pkg in sides.items():
+            cases[side].update(_stochastic_cases(pkg, args.seed, stochastic))
+    for name in [k for k in cases['new'] if only.search(k)]:
+        old, reps, compare, *library = cases['old'][name]
+        new = cases['new'][name][0]
         diff = (compare or _max_diff)(old(), new())
-        times = {'old': [], 'new': []}
-        device = {'old': [], 'new': []}
+        sided = {'old': old, 'new': new}
+        if library:
+            sided['library'] = library[0]
+        times = {k: [] for k in sided}
+        device = {k: [] for k in sided}
         for r in range(args.rounds):
-            for side in (('old', 'new') if r % 2 == 0 else ('new', 'old')):
-                fn = old if side == 'old' else new
+            order = list(sided) if r % 2 == 0 else list(sided)[::-1]
+            for side in order:
+                fn = sided[side]
                 times[side].append(_cuda_ms(fn, reps))
                 by_kernel = _kernel_ms(fn)
                 device[side].append(None if by_kernel is None
@@ -270,17 +439,28 @@ def main():
                                        median_ms=med, device_ms=device,
                                        median_device_ms=dev_med)
         what = ('selections differ' if diff else 'selections equal') \
-            if compare is _same_selection else f'max |new - old| {diff:.3e}'
-        dev_text = ('device ms not measured' if None in dev_med.values()
+            if compare is _same_selection else (
+                f'worst |new - old| uses {diff:.3f} of the tolerance'
+                if compare else f'max |new - old| {diff:.3e}')
+        dev_text = ('device ms not measured'
+                    if None in (dev_med['old'], dev_med['new'])
                     else f'device old {dev_med["old"]:.4f} ms, new '
                          f'{dev_med["new"]:.4f} ms (new/old '
                          f'{dev_med["new"] / dev_med["old"]:.3f})')
+        lib_text = '' if not library else (
+            f'; index_add_ {med["library"]:.4f} ms by events, '
+            f'{dev_med["library"]} ms device')
         print(f'{name} [{gpu}]: old {med["old"]:.4f} ms, new '
               f'{med["new"]:.4f} ms (new/old {med["new"] / med["old"]:.3f}) '
-              f'by events; {dev_text}; {what}; rounds old '
+              f'by events; {dev_text}{lib_text}; {what}; rounds old '
               f'{[round(v, 4) for v in times["old"]]} new '
               f'{[round(v, 4) for v in times["new"]]}')
         torch.cuda.empty_cache()
+    if stochastic is not None:
+        del cases
+        torch.cuda.empty_cache()
+        result['stochastic_parts'] = _stochastic_parts(gpu, stochastic,
+                                                       args.seed)
     os.makedirs(os.path.join(HERE, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(HERE, 'chiprun_out', 'kernel_compare.json'),
               'w') as f:

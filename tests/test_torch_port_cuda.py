@@ -1208,22 +1208,74 @@ def test_stochastic_kernels_ragged_and_tied(cuda, features, interp,
                              residual, 1, n, 42, cuda, kind='ties')
 
 
+@pytest.mark.parametrize('n_samples', [33, 64])
 @pytest.mark.parametrize('features', [128, 2])
-def test_stochastic_kernels_cap_the_rows_a_level(cuda, features):
-    """K6 draws at most 32 rows a level (STOCHASTIC_MAX_ROWS): 32 draws
-    hold against the plain version; 33, which the JAX package and the
-    plain version accept, raise on the card before any launch."""
-    config = _flagship_grid(features)
-    cap = hashgrid_cuda._STOCHASTIC_MAX_ROWS
-    _assert_stochastic_holds(config, 'trilinear', cap, False, 1, 333, 46,
-                             cuda)
-    table, x, u, _, _ = _stochastic_case(config, 'trilinear', cap + 1, False,
-                                         0, 333, 46, cuda)
-    _kernels.reset_launches()
-    with pytest.raises(ValueError, match=f'at most {cap} rows'):
-        hashgrid_cuda.hashgrid_encode(table, x, config, u=u,
-                                      n_samples=cap + 1)
-    assert sum(_kernels.launches.values()) == 0
+def test_stochastic_kernels_cap_the_rows_a_level(cuda, features, n_samples):
+    """No cap on the rows a level: 33 and 64 draws (more than a warp's 32
+    lanes, which K6 once capped them at) hold against the plain version,
+    with one exact level, K6's rounds carrying the blend in order."""
+    _assert_stochastic_holds(_flagship_grid(features), 'trilinear',
+                             n_samples, False, 1, 333, 46, cuda)
+
+
+@pytest.mark.parametrize('group', [1, 3, 4, 16])
+def test_stochastic_narrow_groups_match_plain(cuda, group):
+    """K6's narrow rows in any grouping of the levels a thread walks (1:
+    levels slowest; 4: a 32-byte sector a point at F = 2; 16, the
+    library's choice: the whole point; 3 leaves a ragged last group) are
+    bit-equal to the plain version."""
+    config = HashGridConfig()
+    table, x, u, _, plan = _stochastic_case(config, 'trilinear', 2, False, 4,
+                                            5000, 47, cuda)
+    want = hashgrid_cuda.stochastic_encode_plain(table, x, u, config,
+                                                 'trilinear', 2, plan)
+    got = hashgrid_cuda._stochastic_call(table, x, u, config, 'trilinear', 2,
+                                         plan, True, group=group)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('preset', ['reference', 'tpu'])
+def test_stochastic_scatter_levels_alone_match_plain(cuda, preset):
+    """K7 with every level scattered alone into a zeroed gradient (how its
+    atomics are timed level by level) sums to the plain scatter within
+    its term-count tolerance, as the whole launch does: the narrow rows'
+    warp merge on the reference preset, the wide rows' tile grouping on
+    the TPU grid."""
+    config = HashGridConfig() if preset == 'reference' \
+        else hashgrid_cuda.encoders.TPU_GRID
+    table, x, u, g, plan = _stochastic_case(config, 'trilinear', 3, False, 1,
+                                            20000, 48, cuda)
+    _, idx, w = hashgrid_cuda.stochastic_encode_plain(table, x, u, config,
+                                                      'trilinear', 3, plan)
+    want = hashgrid_cuda.encoders.stochastic_scatter_plain(g, idx, w, plan,
+                                                           config, 3)
+    tol = hashgrid_cuda.stochastic_backward_tolerance(g, idx, w, plan,
+                                                      config, 3)
+    got = hashgrid_cuda._stochastic_scatter_call(g, idx, w, plan, config, 3)
+    assert bool(((got - want).abs() <= tol).all())
+    alone = torch.zeros_like(got)
+    for level in range(config.n_levels):
+        hashgrid_cuda._stochastic_scatter_call(g, idx, w, plan, config, 3,
+                                               level, alone)
+    assert bool(((alone - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize('parts', ['draws', 'gathers', 'stores'])
+def test_stochastic_parts_launch(cuda, parts):
+    """K6's parts, launched alone for timing, run on both kernels; the
+    draws write the rows the encode writes."""
+    for config, interp in ((_flagship_grid(128), 'simplex'),
+                           (HashGridConfig(), 'trilinear')):
+        table, x, u, _, plan = _stochastic_case(config, interp, 2, False, 1,
+                                                3000, 49, cuda)
+        _, idx, w = hashgrid_cuda._stochastic_call(table, x, u, config,
+                                                   interp, 2, plan, True)
+        _, idx_p, w_p = hashgrid_cuda._stochastic_call(
+            table, x, u, config, interp, 2, plan, True, parts=parts)
+        torch.cuda.synchronize()
+        if parts == 'draws':
+            assert torch.equal(idx_p, idx) and torch.equal(w_p, w)
 
 
 def test_stochastic_encode_under_autograd(cuda):

@@ -132,13 +132,15 @@ def _jax_rows(x, jc, u, plan, interp, n_samples):
 
 
 # (interp, n_features, n_samples, residual): trilinear wide and narrow at
-# 1, 2 and 3 samples, simplex at 1 and 2, residual with both interps;
-# each at exact_levels 0, 1 and L.
+# 1, 2, 3 and 33 samples (more rows a level than a 32-lane warp holds:
+# the kernels fold them in rounds), simplex at 1 and 2, residual with both
+# interps; each at exact_levels 0, 1 and L.
 MODES = [('trilinear', 8, 1, False), ('trilinear', 8, 2, False),
          ('trilinear', 8, 3, False), ('trilinear', 2, 1, False),
          ('trilinear', 2, 2, False), ('trilinear', 2, 3, False),
          ('simplex', 8, 1, False), ('simplex', 8, 2, False),
-         ('trilinear', 8, 2, True), ('simplex', 8, 2, True)]
+         ('trilinear', 8, 2, True), ('simplex', 8, 2, True),
+         ('trilinear', 8, 33, False), ('trilinear', 2, 33, False)]
 
 
 def _mode_id(mode):
@@ -280,18 +282,25 @@ def test_stochastic_rows_store_only_the_weights_k7_reads(
                 w[wfirst:wfirst + rows].sum(dim=0).numpy(), 1.0, atol=1e-6)
 
 
+def _defines(source):
+    with open(os.path.join(_kernels.CSRC, source)) as f:
+        return dict(line.split()[1:3] for line in f
+                    if line.startswith('#define '))
+
+
 def test_rows_format_constants_match_the_kernels_header():
-    """The kinds and the row cap the host plans with are the ones
-    csrc/hashgrid_stochastic.cuh defines for K6 and K7."""
-    path = os.path.join(_kernels.CSRC, 'hashgrid_stochastic.cuh')
-    with open(path) as f:
-        defines = dict(line.split()[1:3] for line in f
-                       if line.startswith('#define '))
+    """The kinds the host plans with are the ones
+    csrc/hashgrid_stochastic.cuh defines for K6 and K7, and the parts of
+    K6 the host names are hashgrid_stochastic.cu's."""
+    defines = _defines('hashgrid_stochastic.cuh')
     assert int(defines['KIND_DRAWS']) == encoders.DRAWS
     assert int(defines['KIND_RESIDUAL']) == encoders.RESIDUAL
     assert int(defines['KIND_EXACT']) == encoders.EXACT
-    assert int(defines['STOCHASTIC_MAX_ROWS']) \
-        == hashgrid_cuda._STOCHASTIC_MAX_ROWS
+    parts = _defines('hashgrid_stochastic.cu')
+    assert hashgrid_cuda.K6_PARTS == {
+        'all': int(parts['K6_PART_ALL']), 'draws': int(parts['K6_PART_DRAW']),
+        'gathers': int(parts['K6_PART_DRAW']) | int(parts['K6_PART_GATHER']),
+        'stores': int(parts['K6_PART_STORE'])}
 
 
 @pytest.mark.parametrize('kw,f', [
