@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
-flagship training step, the train CLI and its stochastic-corner estimators
-on one CUDA card.
+flagship training step, the train CLI and its stochastic-corner estimators,
+and the render CLI with its baked preview, on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -148,6 +148,35 @@ Phases, each failing loudly:
      after a probe of the profiler's trace (K6's calls traced bare and
      opened by the marker launches every trace here opens with); K6's and
      K7's launch shapes.
+ 12. the render CLI, autolabel_tpu_torch.render.__main__.frames (the
+     tiles main writes; the card's machine has no cv2 for the mp4), on
+     phase 10's scene, every 8th test frame (2 frames a path) at the
+     CLI's default 480 x 360: the dense default (512 samples a ray, 11
+     chunks of 16,384 rays a frame: K1s eval and K3f once a chunk) and
+     --proposal (K4f too) on Run B's workspace, Run D's at --num-steps 32
+     (K1, narrow rows) and --baked at its defaults on Run B's (the bake's
+     192^3 density queries through K1s, then K8 3 + 4 times a frame and
+     no field kernel). Each path runs in turns with the plain versions
+     (plain, kernels, kernels, plain), every count set to 0 just before
+     and read just after each run (the plain runs must launch no kernel),
+     with the second frame's ms of each run, and the dense run's peak
+     memory; the kernels' outputs against
+     the plain run's by phase 6's limits, classes equal but at near ties
+     of the logits, the baked tiles' depth and semantic quadrants equal
+     (the plain versions render the dense path at 2,048 rays a chunk:
+     their gathers at 16,384 would not fit). K8 held alone against
+     splat_render_plain by splat_cuda.check_splat's rules (pixels flip
+     only at a .5 boundary, z, depth, classes and splat_hit equal, tied
+     colours within (count - 1) ulp) on the baked scene and on its splats
+     without SH, at 480 x 360 and 1280 x 720 from two test cameras, its
+     boundary and tie counts printed; K8 timed by events and device time
+     beside its byte bound (the bytes this frame's data needs: the valid
+     flags, the valid splats' points, the winners' colour, SH and class,
+     and the passes' state) and the plain version, and its scatter stage
+     (a)-(c) beside three scatter_reduce_ calls (the fill passes have no
+     one-call counterpart); so again on two full clouds of 2^19 valid
+     splats at 480 x 360, one with tied winners, each also held by
+     check_splat's rules.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -2001,6 +2030,451 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
                 window_probe={k: v['probe'] for k, v in timed.items()})
 
 
+# The render CLI (phase 12): render.__main__.frames on phase 10's scene,
+# 2 frames a path at the CLI's default 480 x 360 (every RENDER_STRIDE-th of
+# the 16 test frames), on Run B's workspace (fused heads, proposal net,
+# simplex) and, for K1, Run D's (reference preset, trilinear).
+RENDER_STRIDE = 8
+RENDER_PATHS = {'dense': ('B', []), 'proposal': ('B', ['--proposal']),
+                'trilinear': ('D', ['--num-steps', '32']),
+                'baked': ('B', ['--baked'])}
+# The plain versions render the dense path in chunks of this many rays (the
+# kernels' 16,384 a chunk at 512 samples a ray is 8,388,608 points, whose
+# plain gathers would not fit the card); rays are independent.
+PLAIN_RAY_BATCH = 2048
+K8_SIZES = ((480, 360), (1280, 720))
+
+
+def _semantic_flips(ours, ref):
+    """Pixels whose class differs, and of them those whose reference's top
+    two logits lie within the render limit (5e-2 of the largest |logit|)
+    of each other, which a rounding can flip."""
+    import numpy as np
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    near = (top2[..., 1] - top2[..., 0]) <= 5e-2 * np.abs(ref).max()
+    differ = ours.argmax(-1) != ref.argmax(-1)
+    return int(differ.sum()), int((differ & ~near).sum())
+
+
+def _render_cli_phase(dev, gpu, checks, results):
+    """Phase 12 (see the module docstring). Adds K8 to `results`; returns
+    what the output file keeps."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core.dataset import SceneDataset
+    from autolabel_tpu_torch.ops import (_kernels, hashgrid_cuda, heads_cuda,
+                                         splat_cuda)
+    from autolabel_tpu_torch.render import __main__ as render_cli
+    from autolabel_tpu_torch.render import baked as baked_module
+    phase_start = time.perf_counter()
+    scene = os.path.join(WORK_DIR, 'cli', 'sphere')
+
+    def model_dir(run):
+        base = os.path.join(WORK_DIR, 'cli' if run == 'B' else 'stochastic',
+                            run.lower() if run == 'B' else run, 'sphere')
+        (name,) = os.listdir(base)
+        return os.path.join(base, name)
+
+    names = {'K1': hashgrid_cuda.NAME, 'K1s': hashgrid_cuda.ATOMS_NAME,
+             'K3f': heads_cuda.HEADS, 'K4f': heads_cuda.MLP3,
+             'K8': splat_cuda.NAME}
+    others = (hashgrid_cuda.BWD_NAME, hashgrid_cuda.SELECT_NAME,
+              hashgrid_cuda.SAMPLED_BWD_NAME, hashgrid_cuda.STOCHASTIC_NAME,
+              hashgrid_cuda.STOCHASTIC_BWD_NAME, heads_cuda.HEADS_BWD,
+              heads_cuda.MLP3_BWD)
+    testset = SceneDataset('test', scene, size=(FRAME_W, FRAME_H),
+                           lazy=True, load_semantic=False)
+    n_frames = len(testset.indices[::RENDER_STRIDE])
+    chunks = -(-FRAME_W * FRAME_H // render_cli.MAX_RAY_BATCH)
+    # the kernels each path's frames launch (K1s or K1 for the encode)
+    expected = {'dense': {'K1s': chunks, 'K3f': chunks},
+                'proposal': {'K1s': chunks, 'K3f': chunks, 'K4f': chunks},
+                'trilinear': {'K1': chunks},
+                'baked': {'K8': 3 + baked_module.fill_passes_for(FRAME_W,
+                                                                 2)}}
+
+    def run(path, plain, profile=False):
+        """One run of frames(): tiles, the outputs render() made, each
+        frame's ms, the launches (the bake's apart) and the peak memory;
+        with `profile`, the second frame under torch.profiler instead of
+        timed."""
+        ws, extra = RENDER_PATHS[path]
+        flags = render_cli.read_args(
+            [scene, '--model-dir', model_dir(ws), '--out', os.devnull,
+             '--stride', str(RENDER_STRIDE)] + extra)
+        outputs, bake_info = [], {}
+        compute, bake = render_cli.compute_semantics, baked_module.bake
+
+        def record(out, classes, transform):
+            outputs.append({k: out[k] for k in ('image', 'depth', 'semantic',
+                                                'semantic_features')})
+            return compute(out, classes, transform)
+
+        def timed_bake(field, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scene_ = bake(field, **kwargs)
+            torch.cuda.synchronize()
+            bake_info.update(s=time.perf_counter() - t0, scene=scene_,
+                             launches=dict(_kernels.launches),
+                             queries=kwargs['resolution'] ** 3)
+            return scene_
+
+        saved = (render_cli.MAX_RAY_BATCH, splat_cuda.splat_render)
+        render_cli.compute_semantics = record
+        baked_module.bake = timed_bake
+        plain_ctx = (_plain_kernels(hashgrid_cuda, heads_cuda) if plain
+                     else contextlib.nullcontext())
+        tiles, frame_ms, profiled = [], [], {}
+        try:
+            if plain:
+                render_cli.MAX_RAY_BATCH = PLAIN_RAY_BATCH
+                splat_cuda.splat_render = splat_cuda.splat_render_plain
+            with plain_ctx:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_bytes = torch.cuda.memory_allocated()
+                _kernels.reset_launches()
+                gen = render_cli.frames(flags)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        if profile and len(tiles) == 1:
+                            got = []
+                            rows, busy = _device_profile(
+                                lambda: got.append(next(gen)))
+                            (_, tile), = got
+                            profiled.update(rows=rows, busy_ms=busy)
+                        else:
+                            _, tile = next(gen)  # numpy: synchronised
+                    except StopIteration:
+                        break
+                    frame_ms.append((time.perf_counter() - t0) * 1e3)
+                    tiles.append(tile)
+                launches = dict(_kernels.launches)
+                peak = torch.cuda.max_memory_allocated()
+        finally:
+            render_cli.compute_semantics, baked_module.bake = compute, bake
+            render_cli.MAX_RAY_BATCH, splat_cuda.splat_render = saved
+        if 'launches' in bake_info:
+            before = bake_info.pop('launches')
+            bake_info['bake_launches'] = before
+            launches = {k: v - before.get(k, 0) for k, v in launches.items()
+                        if v - before.get(k, 0)}
+        return dict(tiles=tiles, outputs=outputs, frame_ms=frame_ms,
+                    launches=launches, peak_bytes=peak,
+                    base_bytes=base_bytes, profiled=profiled, **bake_info)
+
+    out = {}
+    for path in RENDER_PATHS:
+        # in turns: plain, kernels (counted, checked), kernels, plain
+        turns = [run(path, True), run(path, False), run(path, False),
+                 run(path, True), run(path, False, profile=True)]
+        plain, ours = turns[0], turns[1]
+        for i in (0, 3):
+            # a swap that missed a call site would compare the kernels
+            # with themselves: the plain runs launch nothing
+            ran = {k: v for k, v in {**turns[i]['launches'],
+                                     **turns[i].get('bake_launches', {})
+                                     }.items() if v}
+            checks.true(f'render cli {path} plain run {i} launches no '
+                        'kernel', not ran, f'{ran}')
+        launches = ours['launches']
+        for key, per_frame in expected[path].items():
+            want = per_frame * n_frames
+            checks.true(f'render cli {path} launches {key}',
+                        launches.get(names[key], 0) == want,
+                        f'{launches.get(names[key], 0)} (expected {want}: '
+                        f'{per_frame} a frame x {n_frames} frames)')
+        stray = {k: v for k, v in launches.items()
+                 if k not in {names[key] for key in expected[path]}}
+        checks.true(f'render cli {path} launches no other kernel',
+                    not stray and not any(launches.get(k) for k in others),
+                    f'{stray}')
+        checks.true(f'render cli {path} tiles',
+                    len(ours['tiles']) == len(plain['tiles']) == n_frames
+                    and all(t.shape == (720, 960, 3) and t.dtype == np.uint8
+                            for t in ours['tiles']),
+                    f'{len(ours["tiles"])} tiles')
+        errors = {}
+        for i, (a, b) in enumerate(zip(ours['outputs'], plain['outputs'])):
+            for key in ('image', 'depth', 'semantic', 'semantic_features'):
+                err = np.abs(a[key] - b[key])
+                scale = 1.0 if key == 'image' else float(
+                    np.abs(b[key]).max())
+                mean, p999 = float(err.mean()), float(np.quantile(err, 0.999))
+                errors[f'frame {i} {key}'] = dict(mean_abs=mean, p99_9=p999,
+                                                  max=float(err.max()))
+                checks.true(f'render cli {path} frame {i} {key} vs plain',
+                            bool(np.isfinite(a[key]).all())
+                            and mean < 5e-3 * scale and p999 < 5e-2 * scale,
+                            f'mean_abs={mean:.3e} p99.9={p999:.3e} '
+                            f'max={float(err.max()):.3e} (scale {scale:.3e})')
+            differ, unexplained = _semantic_flips(a['semantic'],
+                                                  b['semantic'])
+            checks.true(f'render cli {path} frame {i} classes vs plain',
+                        unexplained == 0, f'{differ} pixels differ, '
+                        f'{unexplained} of them not at a near tie')
+        for i, (a, b) in enumerate(zip(ours['tiles'], plain['tiles'])):
+            d = np.abs(a[:360].astype(np.float64) - b[:360]) / 255.0
+            mean, p999 = float(d.mean()), float(np.quantile(d, 0.999))
+            checks.true(f'render cli {path} tile {i} rgb | depth vs plain',
+                        mean < 5e-3 and p999 < 5e-2,
+                        f'mean_abs={mean:.3e} p99.9={p999:.3e}')
+            if path == 'baked':
+                # K8's rules: depth and classes equal; the semantic and
+                # depth quadrants of the tile therefore too
+                checks.true(f'render cli baked tile {i} depth and semantic '
+                            'quadrants equal to plain',
+                            np.array_equal(a[:360, 480:], b[:360, 480:])
+                            and np.array_equal(a[360:], b[360:]))
+        frame_ms = {'plain': turns[0]['frame_ms'][1:]
+                    + turns[3]['frame_ms'][1:],
+                    'kernels': turns[1]['frame_ms'][1:]
+                    + turns[2]['frame_ms'][1:]}
+        prof = turns[4]['profiled']
+        wall = float(np.median(frame_ms['kernels']))
+        if prof.get('rows') is None:
+            print(f'render cli {path} profile: the trace holds no device '
+                  'time: not measured')
+        else:
+            print(f'render cli {path} profile [{gpu}]: device busy '
+                  f'{prof["busy_ms"]:.3f} ms of a {wall:.3f} ms frame '
+                  f'(median wall, unprofiled): busy share '
+                  f'{prof["busy_ms"] / wall:.4f}')
+            for name, ms, count in prof['rows'][:8]:
+                print(f'  {ms:9.3f} ms {ms / prof["busy_ms"]:7.2%} '
+                      f'x{count:<5d} {name[:90]}')
+        out[path] = dict(launches=launches, errors=errors,
+                         frame_ms=frame_ms, profile=prof,
+                         first_frame_ms={'kernels': ours['frame_ms'][0],
+                                         'plain': plain['frame_ms'][0]},
+                         peak_bytes=ours['peak_bytes'],
+                         base_bytes=ours['base_bytes'],
+                         plain_peak_bytes=plain['peak_bytes'])
+        print(f'render cli {path} [{gpu}]: ms a frame (the second of each '
+              f'run; in turns) kernels '
+              f'{[round(v, 3) for v in frame_ms["kernels"]]}, plain '
+              f'{[round(v, 3) for v in frame_ms["plain"]]}; first frame '
+              f'{ours["frame_ms"][0]:.1f} ms; peak memory '
+              f'{ours["peak_bytes"] / 1e9:.3f} GB allocated ('
+              f'{ours["base_bytes"] / 1e9:.3f} before the run; plain '
+              f'{plain["peak_bytes"] / 1e9:.3f} at {PLAIN_RAY_BATCH} rays a '
+              'chunk)')
+        if path == 'baked':
+            scene_k, scene_p = ours['scene'], plain['scene']
+            same = (scene_k.n_valid == scene_p.n_valid
+                    and torch.equal(scene_k.points, scene_p.points))
+            checks.true('render cli baked: the bake through the kernels '
+                        'keeps the plain bake\'s cells', same,
+                        f'{scene_k.n_valid} and {scene_p.n_valid} splats')
+            rgb_err = float((scene_k.rgb - scene_p.rgb).abs().max())
+            bake_k1s = ours['bake_launches'].get(names['K1s'], 0)
+            chunk = 65536
+            want = -(-ours['queries'] // chunk) + -(-scene_k.n_valid // chunk)
+            checks.true('render cli baked: the bake\'s K1s launches',
+                        bake_k1s == want,
+                        f'{bake_k1s} (expected {want}: the density sweep\'s '
+                        'chunks and the shading chunks)')
+            out[path].update(bake_s=ours['s'], plain_bake_s=plain['s'],
+                             bake_queries=ours['queries'],
+                             splats=scene_k.n_valid, bake_rgb_err=rgb_err,
+                             bake_launches=ours['bake_launches'])
+            print(f'render cli bake [{gpu}]: {ours["queries"]} density '
+                  f'queries, {scene_k.n_valid} splats, {ours["s"]:.3f} s '
+                  f'(plain {plain["s"]:.3f} s); shading max |kernels - '
+                  f'plain| {rgb_err:.3e}')
+            out[path]['k8'] = _k8_measure(dev, gpu, checks, results,
+                                          scene_k, testset)
+        del turns, plain, ours
+        torch.cuda.empty_cache()
+    print(f'render cli phase: {time.perf_counter() - phase_start:.1f} s')
+    return dict(paths=out, names=names, frames=n_frames, chunks=chunks)
+
+
+def _k8_splat_bytes(scene_args, K, T, h, w):
+    """The splat bytes K8 must read for this frame's data: the valid flags
+    (a byte a splat), the valid splats' points and the winners' colour,
+    SH and class (only they are shaded); with the winners' count and the
+    plain projection (z, pid, ok, shaded) the yardstick scatters."""
+    import torch
+    from autolabel_tpu_torch.ops import splat_cuda
+    points, rgb, sh, semantic, valid = scene_args
+    z, _, _, pid, ok, shaded = splat_cuda.project_plain(
+        points, rgb, sh, valid, K, T, h, w)
+    zbuf, _, _ = splat_cuda.scatter_plain(z, pid, ok, shaded, semantic,
+                                          h * w)
+    winners = int((ok & (z <= zbuf[pid] * torch.tensor(
+        splat_cuda.WIN_FACTOR, device=z.device))).sum())
+    n_valid = int(valid.sum())
+    nbytes = (points.shape[0] + 12 * n_valid
+              + winners * (12 + 4 + (36 if sh is not None else 0)))
+    return nbytes, dict(n_valid=n_valid, winners=winners,
+                        splat_bytes=nbytes), (z, pid, ok, shaded)
+
+
+def _k8_time(gpu, tag, scene_args, K, T, h, w, cell, plain_reps=5):
+    """K8 on one frame: a frame and its scatter stage (a)-(c) alone by
+    events and by device time, each beside its byte bound, the plain
+    version, and the three scatter_reduce_ calls of the same stage. The
+    bounds: the splat bytes (_k8_splat_bytes), then for the frame each
+    pass reading and writing the frame's 6 words a pixel, for the stage
+    the outputs written once (image, depth, class, splat_hit: 21 bytes a
+    pixel)."""
+    from autolabel_tpu_torch.ops import splat_cuda
+    from autolabel_tpu_torch.render.baked import fill_passes_for
+    passes = fill_passes_for(w, 2)
+    frame = lambda: splat_cuda.splat_render(*scene_args, K, T, h, w, passes,
+                                            cell)
+    stage = lambda: splat_cuda.splat_render(*scene_args, K, T, h, w, 0, cell)
+    plain = lambda: splat_cuda.splat_render_plain(*scene_args, K, T, h, w,
+                                                  passes, cell)
+    n = h * w
+    splat_bytes, data, (z, pid, ok, shaded) = _k8_splat_bytes(
+        scene_args, K, T, h, w)
+    data['frame_bytes'] = passes * n * 6 * 4 * 2
+    bound = _bound(splat_bytes + data['frame_bytes'], 0, PEAK_FP32)
+    stage_bound = _bound(splat_bytes + n * 21, 0, PEAK_FP32)
+    # scatter_plain: the three scatter_reduce_ calls (amin, sum, amax)
+    # with the gather and casts between them
+    library = lambda: splat_cuda.scatter_plain(z, pid, ok, shaded,
+                                               scene_args[3], n)
+    out = dict(ms=_cuda_ms(frame, 50), stage_ms=_cuda_ms(stage, 50),
+               plain_ms=_cuda_ms(plain, plain_reps),
+               library_ms=_cuda_ms(library, 50))
+    device = _kernel_ms(frame)
+    stage_device = _kernel_ms(stage)
+    library_device = _kernel_ms(library)
+    total = lambda d: None if d is None else sum(d.values())
+    out.update(device_ms=total(device), device_split=device,
+               stage_device_ms=total(stage_device),
+               library_device_ms=total(library_device), bound=bound,
+               stage_bound_ms=stage_bound[0], passes=passes, **data)
+    share = lambda ms, b: 'not measured' if ms is None else f'{b / ms:.1%}'
+    print(f'kernel K8 [{gpu}] {tag}: {scene_args[0].shape[0]} splats '
+          f'({data["n_valid"]} valid, {data["winners"]} winners) {w}x{h}, '
+          f'{passes} passes: {out["ms"]:.4f} ms by events, '
+          f'{out["device_ms"]} ms device ({device}), plain '
+          f'{out["plain_ms"]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: '
+          f'{data["splat_bytes"]} splat bytes, {data["frame_bytes"]} frame '
+          f'bytes; {share(out["device_ms"], bound[0])} of it by device '
+          f'time); the scatter stage (a)-(c) {out["stage_ms"]:.4f} ms by '
+          f'events, {out["stage_device_ms"]} ms device (bound '
+          f'{stage_bound[0]:.4f}, '
+          f'{share(out["stage_device_ms"], stage_bound[0])}) against three '
+          f'scatter_reduce_ calls {out["library_ms"]:.4f} ms by events, '
+          f'{out["library_device_ms"]} ms device; the fill passes have no '
+          'one-call counterpart')
+    return out
+
+
+def _full_cloud(dev, K, T, w, h, k, ties, z_range):
+    """k splats, every one valid, spread over the frame of camera (K, T)
+    at depths in z_range: a full cloud at the CLI's --max-splats, about 3
+    splats a pixel at 480 x 360; with `ties` every splat is repeated 3
+    times, so most pixels hold tied winners. Colours, SH and classes (6)
+    random, from a seed."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device=dev).manual_seed(13 + ties)
+    m = -(-k // 3) if ties else k
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)
+    u, v = rand(m) * (w - 1), rand(m) * (h - 1)
+    z = z_range[0] + rand(m) * (z_range[1] - z_range[0])
+    cam = torch.stack([(u - float(K[0, 2])) * z / float(K[0, 0]),
+                       (v - float(K[1, 2])) * z / float(K[1, 1]), z], 1)
+    R = torch.tensor(np.asarray(T)[:3, :3], dtype=torch.float32, device=dev)
+    t = torch.tensor(np.asarray(T)[:3, 3], dtype=torch.float32, device=dev)
+    points = (cam - t) @ R  # R^T (cam - t), row-wise
+    if ties:
+        points = points.repeat_interleave(3, dim=0)[:k]
+    points = points.contiguous()
+    return (points, rand(k, 3),
+            torch.randn(k, 3, 3, generator=g, device=dev) * 0.3,
+            torch.randint(0, 6, (k,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.ones(k, dtype=torch.bool, device=dev))
+
+
+def _k8_measure(dev, gpu, checks, results, scene, testset):
+    """K8 held alone against its plain version by check_splat's rules, on
+    the baked scene and on a second scene of the same splats without SH
+    (each class its colour), at 480 x 360 and 1280 x 720 from the test
+    frames' cameras; then timed on the baked scene at 480 x 360 (_k8_time),
+    and held and timed on two full clouds of the bake's max_points, every
+    splat valid, at the baked splats' depths: one of distinct splats and
+    one of every splat three times (tied winners)."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.ops import splat_cuda
+    from autolabel_tpu_torch.render.baked import fill_passes_for
+    b = scene
+    flat_rgb = torch.rand(b.rgb.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    scenes = {'baked': (b.points, b.rgb, b.sh, b.semantic, b.valid),
+              'no sh': (b.points, flat_rgb, None, b.semantic, b.valid)}
+
+    def hold(tag, args, K, T, w, h):
+        r = splat_cuda.check_splat(*args, K, T, h, w, fill_passes_for(w, 2),
+                                   b.cell_size)
+        checks.true(f'K8 {tag} vs plain', r['ok'],
+                    f'{r["in_frame"]} splats in the frame, '
+                    f'{r["boundary"]} within 2 ulp of a .5 boundary, '
+                    f'{r["flips"]} flips ({r["flips_off_boundary"]} '
+                    f'off it), {r["ties"]} tied pixels (most '
+                    f'{r["max_count"]}), image max_abs_err '
+                    f'{r["max_abs_err"]:.3e}')
+        return r
+
+    held = {}
+    for name, args in scenes.items():
+        for w, h in K8_SIZES:
+            camera = testset.camera.scale((w, h))
+            for index in testset.indices[::RENDER_STRIDE]:
+                T = np.linalg.inv(testset.poses[index])
+                tag = f'{name} {w}x{h} frame {index}'
+                held[tag] = hold(tag, args, camera.camera_matrix, T, w, h)
+    # timing at the CLI's frame on the first test camera
+    w, h = FRAME_W, FRAME_H
+    K = testset.camera.scale((w, h)).camera_matrix
+    T = np.linalg.inv(testset.poses[0])
+    out = _k8_time(gpu, 'baked scene', scenes['baked'], K, T, h, w,
+                   b.cell_size)
+    z, _, _, _, ok, _ = splat_cuda.project_plain(
+        b.points, b.rgb, b.sh, b.valid, K, T, h, w)
+    z_range = (float(z[ok].min()), float(z[ok].max()))
+    full = {}
+    for ties in (False, True):
+        tag = 'full cloud' + (', tied' if ties else '')
+        args = _full_cloud(dev, K, T, w, h, b.points.shape[0], ties, z_range)
+        full[tag] = _k8_time(gpu, tag, args, K, T, h, w, b.cell_size,
+                             plain_reps=3)
+        r = held[f'{tag} {w}x{h} frame 0'] = hold(
+            f'{tag} {w}x{h} frame 0', args, K, T, w, h)
+        full[tag].update(ties=r['ties'], max_count=r['max_count'],
+                         in_frame=r['in_frame'])
+        checks.true(f'K8 {tag}: every splat valid, tied winners '
+                    f'{"present" if ties else "counted"}',
+                    full[tag]['n_valid'] == b.points.shape[0]
+                    and (r['ties'] > 0 or not ties),
+                    f'{full[tag]["n_valid"]} valid, {r["ties"]} tied pixels')
+        del args
+    results['K8'] = dict(
+        max_abs_err=max(r['max_abs_err'] for r in held.values()),
+        **{k: out[k] for k in ('ms', 'plain_ms', 'bound', 'library_ms',
+                               'stage_ms', 'stage_bound_ms',
+                               'stage_device_ms', 'device_ms',
+                               'device_split', 'library_device_ms')},
+        boundary=sum(r['boundary'] for r in held.values()),
+        flips=sum(r['flips'] for r in held.values()),
+        ties=sum(r['ties'] for r in held.values()),
+        full_cloud={tag: {k: v[k] for k in (
+            'ms', 'device_ms', 'bound', 'stage_ms', 'stage_device_ms',
+            'stage_bound_ms', 'library_ms', 'library_device_ms', 'plain_ms',
+            'winners', 'ties')} for tag, v in full.items()})
+    return dict(held=held, baked=out, full=full)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -2682,6 +3156,12 @@ def main():
                                    os.path.join(WORK_DIR, 'cli', 'sphere'))
     st_launches = stochastic['launches']
 
+    # ---- 12. the render CLI: dense, proposal, trilinear and baked
+    torch.cuda.empty_cache()
+    render_cli = _render_cli_phase(dev, gpu, checks, results)
+    rc_launches = {path: v['launches']
+                   for path, v in render_cli['paths'].items()}
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -2709,13 +3189,18 @@ def main():
         ('K7 hashgrid_stochastic_bwd',
          'autolabel_tpu_torch/csrc/hashgrid_stochastic_bwd.cu',
          'autolabel_tpu/ops/encoders.py:761', 'K7'),
+        ('K8 splat_render', 'autolabel_tpu_torch/csrc/splat_render.cu',
+         'autolabel_tpu/render/baked.py:146', 'K8'),
     ]
     kernel_names.update(new_names)
     kernel_names.update({k: stochastic['names'][k] for k in ('K6', 'K7')})
+    kernel_names['K8'] = render_cli['names']['K8']
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
-    # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7.
+    # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7,
+    # phase 12's baked frames for K8.
     main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
+                       rc_launches['baked'] if key == 'K8' else
                        fl_launches['xla'] if key in new_names
                        else train_launches) for *_, key in table_rows}
     kernels = [{
@@ -2730,6 +3215,8 @@ def main():
         'launches_cli_pallas': cli_launches['B'].get(kernel_names[key], 0),
         'launches_cli_stochastic': st_launches['C'].get(kernel_names[key], 0),
         'launches_cli_reference': st_launches['D'].get(kernel_names[key], 0),
+        **{f'launches_render_cli_{path}': v.get(kernel_names[key], 0)
+           for path, v in rc_launches.items()},
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -2741,7 +3228,10 @@ def main():
                                         'l2_floor_device_ms', 'device_ms',
                                         'device_split', 'library_device_ms',
                                         'cli', 'flips', 'reference',
-                                        'unbiased_ratio')
+                                        'unbiased_ratio', 'stage_ms',
+                                        'stage_bound_ms',
+                                        'stage_device_ms', 'boundary',
+                                        'ties', 'full_cloud')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -2773,6 +3263,8 @@ def main():
                                 if k != 'names'},
                    'cli': {k: v for k, v in cli_run.items() if k != 'names'},
                    'stochastic': {k: v for k, v in stochastic.items()
+                                  if k != 'names'},
+                   'render_cli': {k: v for k, v in render_cli.items()
                                   if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)

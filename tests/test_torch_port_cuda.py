@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+from autolabel_tpu_torch.ops import (_kernels, hashgrid_cuda, heads_cuda,
+                                     splat_cuda)
 from autolabel_tpu_torch.ops.encoders import HashGridConfig
 from autolabel_tpu_torch.ops.mlp import dot, mlp_init
 
@@ -1346,3 +1347,119 @@ def test_stochastic_kernels_are_unbiased(cuda, preset):
         se = float(torch.sqrt(var.sum() / draws))
         bias = float((mean - want).norm())
         assert bias <= 4 * se, (k, bias, se)
+
+
+# -- K8, the baked preview's splat render -----------------------------------
+
+def _splat_scene(kind, with_sh, device, camera=None, k=65536):
+    """Splat clouds for K8: 'random' (a dense cloud in front of the
+    camera, some splats invalid or behind it), 'ties' (every splat
+    repeated 3 times, so pixels hold tied winners) and 'edges' (a few
+    splats landing on the frame's edge pixels of `camera` = (K, T, width,
+    height), with footprints of several pixels, read across the edges by
+    the fill passes)."""
+    rng = np.random.default_rng(11)
+    if kind == 'edges':
+        K, T, width, height = camera
+        w1, h1 = width - 1, height - 1
+        px = np.concatenate([np.zeros(8), np.full(8, w1),
+                             rng.uniform(0, w1, 16)])
+        py = np.concatenate([rng.uniform(0, h1, 16), np.zeros(8),
+                             np.full(8, h1)])
+        z = rng.uniform(2.5, 3.5, len(px))
+        cam = np.stack([(px - K[0, 2]) * z / K[0, 0],
+                        (py - K[1, 2]) * z / K[1, 1], z], 1)
+        points = (cam - T[:3, 3]) @ T[:3, :3]  # R^T (cam - t), row-wise
+        cell = 4.0 * 3.0 / K[0, 0]  # a footprint radius of 2 pixels
+    else:
+        points = rng.uniform(-1.0, 1.0, (k, 3))
+        points[:, 2] += 2.5
+        points[: k // 64, 2] = -1.0  # behind the camera
+        cell = 0.02
+        if kind == 'ties':
+            points = np.repeat(points[:k // 3], 3, axis=0)
+    n = len(points)
+    sh = torch.tensor(rng.normal(size=(n, 3, 3)) * 0.3, dtype=torch.float32,
+                      device=device) if with_sh else None
+    return (torch.tensor(points, dtype=torch.float32, device=device),
+            torch.tensor(rng.uniform(0, 1, (n, 3)), dtype=torch.float32,
+                         device=device), sh,
+            torch.tensor(rng.integers(0, 6, n), dtype=torch.int32,
+                         device=device),
+            torch.tensor(rng.uniform(size=n) < 0.95, device=device), cell)
+
+
+def _splat_camera(width, height):
+    K = np.array([[0.9 * width, 0, width / 2], [0, 0.9 * width, height / 2],
+                  [0, 0, 1]])
+    T = np.eye(4)
+    T[:3, :3] = np.linalg.qr(np.eye(3) + 0.05 * np.random.default_rng(
+        12).normal(size=(3, 3)))[0]
+    T[:3, 3] = [0.05, -0.02, 0.1]
+    return K, T
+
+
+@pytest.mark.parametrize('width, height', [(64, 48), (480, 360),
+                                           (1280, 720)])
+@pytest.mark.parametrize('with_sh', [True, False])
+@pytest.mark.parametrize('kind', ['random', 'ties', 'edges'])
+def test_splat_kernel_matches_plain(cuda, kind, with_sh, width, height):
+    """K8 against its plain version by splat_cuda.check_splat's rules, at
+    BakedRenderer's pass count for the width; 3 + passes launches."""
+    K, T = _splat_camera(width, height)
+    points, rgb, sh, semantic, valid, cell = _splat_scene(
+        kind, with_sh, cuda, (K, T, width, height))
+    from autolabel_tpu_torch.render.baked import fill_passes_for
+    passes = fill_passes_for(width, 2)
+    _kernels.reset_launches()
+    result = splat_cuda.check_splat(points, rgb, sh, semantic, valid, K, T,
+                                    height, width, passes, cell)
+    assert _kernels.launches[splat_cuda.NAME] == 3 + passes
+    assert result['ok'], result
+    assert result['in_frame'] > 0
+    if kind == 'ties':
+        assert result['ties'] > 0
+
+
+@pytest.mark.parametrize('passes', [0, 1, 2])
+def test_splat_kernel_few_passes(cuda, passes):
+    """With no pass resolve writes the outputs; with one the first pass
+    is the last."""
+    points, rgb, sh, semantic, valid, cell = _splat_scene(
+        'random', True, cuda, k=4096)
+    K, T = _splat_camera(64, 48)
+    result = splat_cuda.check_splat(points, rgb, sh, semantic, valid, K, T,
+                                    48, 64, passes, cell)
+    assert result['ok'], result
+
+
+def test_splat_kernel_is_what_the_renderer_launches(cuda):
+    from autolabel_tpu_torch.render.baked import BakedRenderer, BakedScene
+    points, rgb, sh, semantic, valid, cell = _splat_scene(
+        'random', True, cuda, k=4096)
+    scene = BakedScene(points=points, rgb=rgb, semantic=semantic,
+                       valid=valid, cell_size=cell, sh=sh)
+    K, T = _splat_camera(64, 48)
+    _kernels.reset_launches()
+    out = BakedRenderer(scene).render(K, T, (64, 48))
+    assert _kernels.launches[splat_cuda.NAME] == 3 + 4
+    want = splat_cuda.splat_render_plain(points, rgb, sh, semantic, valid,
+                                         K, T, 48, 64, 4, cell)
+    assert torch.equal(out['depth'], want[1])
+    assert torch.equal(out['semantic'], want[2])
+    assert out['image'].device.type == 'cuda'
+
+
+def test_splat_kernel_rejects_bad_inputs(cuda):
+    points, rgb, sh, semantic, valid, cell = _splat_scene(
+        'random', False, cuda, k=64)
+    K, T = _splat_camera(64, 48)
+    with pytest.raises(ValueError):
+        splat_cuda.splat_render(points, rgb, sh, semantic.long(), valid, K,
+                                T, 48, 64, 4, cell)
+    with pytest.raises(ValueError):
+        splat_cuda.splat_render(points, rgb.cpu(), sh, semantic, valid, K,
+                                T, 48, 64, 4, cell)
+    with pytest.raises(ValueError):
+        splat_cuda.splat_render(points[:, :2], rgb, sh, semantic, valid, K,
+                                T, 48, 64, 4, cell)

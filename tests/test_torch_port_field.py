@@ -180,10 +180,11 @@ for info in pkgutil.walk_packages(autolabel_tpu_torch.__path__,
     importlib.import_module(info.name)
 from autolabel_tpu_torch.ops import _kernels
 new = set(sys.modules) - before
-# JAX and the JAX package never; cv2, PIL and h5py (which a CUDA host
-# may lack) only at the call that needs them
+# JAX and the JAX package never; cv2, PIL, h5py, matplotlib, sklearn and
+# pandas (which a CUDA host may lack) only at the call that needs them
 bad = sorted(m for m in new if m.split('.')[0] in (
-    'jax', 'autolabel_tpu', 'cv2', 'PIL', 'h5py'))
+    'jax', 'autolabel_tpu', 'cv2', 'PIL', 'h5py', 'matplotlib', 'sklearn',
+    'pandas'))
 print('BAD', bad)
 print('BUILT', len(_kernels._libs))
 print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
@@ -198,7 +199,10 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'train.metrics', 'train.trainer', 'train.checkpoints',
                    'train.loader', 'train.tb_events', 'train.__main__',
                    'core.dataset', 'core.sampler', 'utils', 'utils.images',
-                   'utils.fixtures', 'bridge'):
+                   'utils.fixtures', 'bridge', 'render.__main__',
+                   'render.baked', 'ops.splat_cuda', 'visualization',
+                   'constants', 'features.fallback',
+                   'features.feature_utils'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 
