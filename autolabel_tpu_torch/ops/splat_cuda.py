@@ -26,9 +26,11 @@ lands on, its depth and the fill passes' gate are the JAX package's.
 torch ops: scatter_reduce_ amin / sum / amax and torch.roll) on CPU
 tensors and launches K8 on CUDA tensors, or raises. The camera
 (`intrinsics` (3, 3), `T_CW` (4, 4), world to camera) is host data, read
-as fp32.
+as fp32. K8 runs the fill passes on tiles with a halo in shared memory;
+`fill_tiled_plain` is a plain mirror of that scheme, for the tests.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -43,6 +45,17 @@ NEAR = 0.05  # splats at z <= NEAR are behind the camera
 # (1.0 + 1e-4) rounded to fp32 (bits 0x3f800347, WIN_FACTOR_BITS in the
 # kernel).
 WIN_FACTOR = np.float32(1.0 + 1e-4)
+# The fill kernel's output tile (TILE x TILE pixels a block) and the most
+# passes one launch runs, its halo's width (the kernel's #defines).
+TILE = 32
+HALO_MAX = 8
+
+
+def launches_for(passes):
+    """K8's launches a frame: the memset of the accumulators, project,
+    winners and one fill launch for every HALO_MAX passes (at least one:
+    with no pass it resolves the frame alone)."""
+    return 3 + max(1, -(-passes // HALO_MAX))
 
 
 def _camera(intrinsics, T_CW):
@@ -67,12 +80,13 @@ def _centre(T):
     """The camera centre -R^T t of the fp32 world -> camera T, three fp32
     values as host floats, by _fma_chain's arithmetic on scalars (a
     product of two fp32 values is exact in double); K8 takes these."""
+    t = T.tolist()
     out = []
     for j in range(3):
-        acc = np.float32(float(-T[0, j]) * float(T[0, 3]))
+        acc = float(np.float32(-t[0][j] * t[0][3]))
         for i in (1, 2):
-            acc = np.float32(float(-T[i, j]) * float(T[i, 3]) + float(acc))
-        out.append(float(acc))
+            acc = float(np.float32(-t[i][j] * t[i][3] + acc))
+        out.append(acc)
     return out
 
 
@@ -201,6 +215,85 @@ def fill_plain(state, intrinsics, fill_passes, cell_size):
     return image, depth, classes
 
 
+def fill_tiled_plain(state, intrinsics, fill_passes, cell_size, tile=TILE,
+                     halo_max=HALO_MAX):
+    """fill_plain by K8's fill scheme, for the tests: the frame cut into
+    tile x tile tiles, each read with a halo of P = min(passes left,
+    halo_max) pixels a side, rows and columns modulo H and W; P passes over
+    the tile and halo, on a region that shrinks by a pixel a side a pass;
+    a state of (depth, the pixel whose image and class a pixel shows, -1
+    for none) carried from one group of passes to the next; the image and
+    class looked up once at the end."""
+    image, depth, classes, hit = state
+    height, width = depth.shape
+    n, dev = height * width, depth.device
+    K, _ = _camera(intrinsics, np.eye(4))
+    focal = torch.tensor(np.float32(0.5) * (K[0, 0] + K[1, 1]), device=dev)
+    cell = torch.tensor(np.float32(cell_size), device=dev)
+    carried_d = depth.reshape(n)
+    carried_s = torch.where(hit.reshape(n), torch.arange(n, device=dev), -1)
+    ty = torch.arange(0, height, tile, device=dev)
+    tx = torch.arange(0, width, tile, device=dev)
+    inner = torch.arange(tile, device=dev)
+    gy, gx = ty[:, None] + inner, tx[:, None] + inner  # the tiles' pixels
+    inside = (gy < height)[:, None, :, None] & (gx < width)[None, :, None, :]
+    tiles = (gy[:, None, :, None] * width + gx[None, :, None, :])[inside]
+    done = 0
+    while True:
+        halo = min(fill_passes - done, halo_max)
+        span = torch.arange(-halo, tile + halo, device=dev)
+        rows = (ty[:, None] + span) % height
+        cols = (tx[:, None] + span) % width
+        region = rows[:, None, :, None] * width + cols[None, :, None, :]
+        d, s = carried_d[region], carried_s[region]  # (tiles y, x, R, R)
+        r = tile + 2 * halo
+        for k in range(1, halo + 1):
+            ring = float(done + k)
+            own = (..., slice(k, r - k), slice(k, r - k))
+            own_d, own_s = d[own], s[own]
+            own_hit = own_s >= 0
+            margin = torch.maximum(3.0 * cell, own_d * 0.05)
+            beat = torch.where(own_hit, own_d - margin,
+                               torch.full_like(own_d, BIG))
+            best_d = torch.full_like(own_d, BIG)
+            best_s, took = own_s, torch.zeros_like(own_hit)
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    if dx == 0 and dy == 0:
+                        continue
+                    # jnp.roll(a, (dy, dx))[y, x] = a[y - dy, x - dx]
+                    at = (..., slice(k - dy, r - k - dy),
+                          slice(k - dx, r - k - dx))
+                    nd, ns = d[at], s[at]
+                    rad_px = cell * focal / (2.0 * torch.clamp(nd, min=1e-6))
+                    reach = torch.where(own_hit, rad_px,
+                                        2.0 * rad_px) + 0.5 >= ring
+                    take = (ns >= 0) & reach & (
+                        nd < torch.minimum(beat, best_d))
+                    best_d = torch.where(take, nd, best_d)
+                    best_s = torch.where(take, ns, best_s)
+                    took = took | take
+            d, s = d.clone(), s.clone()
+            d[own] = torch.where(took, best_d, own_d)
+            s[own] = best_s
+        keep = (..., slice(halo, halo + tile), slice(halo, halo + tile))
+        carried_d, carried_s = carried_d.clone(), carried_s.clone()
+        carried_d[tiles] = d[keep][inside]
+        carried_s[tiles] = s[keep][inside]
+        done += halo
+        if done == fill_passes:
+            break
+    hit = carried_s >= 0
+    source = carried_s.clamp(min=0)
+    flat = image.reshape(n, -1)
+    image = torch.where(hit[:, None], flat[source], torch.ones_like(flat))
+    cls = classes.reshape(n)[source]
+    cls = torch.where(hit, torch.clamp(cls - 1, min=0), torch.zeros_like(cls))
+    return (image.reshape(height, width, -1),
+            torch.where(hit, carried_d, torch.zeros_like(carried_d)).reshape(
+                height, width), cls.reshape(height, width))
+
+
 def splat_render_plain(points, rgb, sh, semantic, valid, intrinsics, T_CW,
                        height, width, fill_passes=2, cell_size=0.0):
     """The plain version of K8, on any device: (image, depth, classes,
@@ -218,9 +311,10 @@ def _camera_words(intrinsics, T_CW):
     """The 19 floats the kernel takes: fx, fy, cx, cy, T_CW's rotation
     (row-major) and translation, and the camera centre."""
     K, T = _camera(intrinsics, T_CW)
-    return np.ascontiguousarray(np.concatenate(
-        [[K[0, 0], K[1, 1], K[0, 2], K[1, 2]], T[:3, :3].ravel(),
-         T[:3, 3], _centre(T)]), dtype=np.float32)
+    k, t = K.tolist(), T.tolist()
+    return np.array([k[0][0], k[1][1], k[0][2], k[1][2], *t[0][:3],
+                     *t[1][:3], *t[2][:3], t[0][3], t[1][3], t[2][3],
+                     *_centre(T)], np.float32)
 
 
 def _check_inputs(points, rgb, sh, semantic, valid):
@@ -241,6 +335,32 @@ def _check_inputs(points, rgb, sh, semantic, valid):
             raise ValueError(f'{NAME}: {name} must be contiguous')
 
 
+@functools.cache
+def _launcher():
+    """K8's C entry point, its signature set once, when it loads."""
+    fn = _kernels.library(_SOURCE).splat_render
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                            ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p] * 7)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _layout(k, n, passes):
+    """Word offsets of K8's one int32 allocation: the workspace (colour sums
+    and counts 4 n, z keys n, classes n, each splat's pixel k and z k),
+    the fill launches' carried sources (2 n, only past HALO_MAX passes),
+    then the outputs image 3 n, depth n, classes n and splat_hit (n bytes);
+    and its length in words."""
+    carry = 6 * n + 2 * k
+    image = carry + (2 * n if passes > HALO_MAX else 0)
+    splat_hit = image + 5 * n
+    return dict(carry=carry, image=image, depth=image + 3 * n,
+                classes=image + 4 * n, splat_hit=splat_hit), \
+        splat_hit + -(-n // 4)
+
+
 def _splat_call(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
                 width, fill_passes, cell_size):
     """K8: (image, depth, classes, splat_hit, work); work holds each
@@ -250,35 +370,31 @@ def _splat_call(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
     if height <= 0 or width <= 0 or fill_passes < 0:
         raise ValueError(f'{NAME}: bad frame {width} x {height} or passes '
                          f'{fill_passes}')
-    lib = _kernels.library(_SOURCE)
+    fn = _launcher()
     k, n, dev = points.shape[0], height * width, points.device
-    lib.splat_render_workspace_words.argtypes = [ctypes.c_longlong] * 2
-    lib.splat_render_workspace_words.restype = ctypes.c_longlong
-    work = torch.empty(lib.splat_render_workspace_words(k, n),
-                       dtype=torch.int32, device=dev)
-    image = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    classes = torch.empty((height, width), dtype=torch.int32, device=dev)
-    splat_hit = torch.empty((height, width), dtype=torch.bool, device=dev)
+    at, words = _layout(k, n, fill_passes)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
     camera = _camera_words(intrinsics, T_CW)
-    K, _ = _camera(intrinsics, T_CW)
-    focal = np.float32(0.5) * (K[0, 0] + K[1, 1])
-    fn = lib.splat_render
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                            ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p] * 6)
-    fn.restype = ctypes.c_int
+    focal = np.float32(0.5) * (camera[0] + camera[1])  # fill_plain's
     status = fn(points.data_ptr(), rgb.data_ptr(),
                 None if sh is None else sh.data_ptr(), semantic.data_ptr(),
                 valid.data_ptr(), k, camera.ctypes.data, height, width,
-                fill_passes, float(np.float32(cell_size)), float(focal),
-                work.data_ptr(), image.data_ptr(), depth.data_ptr(),
-                classes.data_ptr(), splat_hit.data_ptr(),
+                fill_passes, float(np.float32(cell_size)), float(focal), base,
+                base + 4 * at['carry'], base + 4 * at['image'],
+                base + 4 * at['depth'], base + 4 * at['classes'],
+                base + 4 * at['splat_hit'],
                 torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(status, NAME)
-    _kernels.launches[NAME] += 3 + fill_passes
-    return image, depth, classes, splat_hit, work
+    _kernels.launches[NAME] += launches_for(fill_passes)
+    floats = buf.view(torch.float32)
+    return (floats.as_strided((height, width, 3), (3 * width, 3, 1),
+                              at['image']),
+            floats.as_strided((height, width), (width, 1), at['depth']),
+            buf.as_strided((height, width), (width, 1), at['classes']),
+            buf.view(torch.bool).as_strided((height, width), (width, 1),
+                                            4 * at['splat_hit']),
+            buf[6 * n:6 * n + 2 * k])
 
 
 def splat_render(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
@@ -302,6 +418,70 @@ def near_half(x):
     return off <= 2.0 * ulp.double()
 
 
+def _expected(z, pid, ok, shaded, semantic, intrinsics, height, width,
+              fill_passes, cell_size):
+    """The plain version's outputs for splats landing on `pid` (n for
+    none), and each pixel's image tolerance: where splats tie in a pixel
+    their colour sum depends on the order of the atomics, so there within
+    (count - 1) ulp of the largest term, carried through the fill passes
+    with the colour it belongs to. Returns (image, depth, classes,
+    splat_hit, tolerance, the winners' counts)."""
+    n = height * width
+    zbuf, sums, sem = scatter_plain(z, pid, ok, shaded, semantic, n)
+    # the largest winning term of each pixel and channel, and its count
+    win = ok & (z <= zbuf[pid] * torch.tensor(WIN_FACTOR, device=z.device))
+    largest = torch.zeros((n + 1, 3), dtype=torch.float32,
+                          device=z.device).scatter_reduce_(
+                              0, pid[:, None].expand(-1, 3),
+                              shaded * win.float()[:, None], 'amax')
+    cnt = sums[:n, 3:]
+    ulp = torch.nextafter(largest[:n], torch.tensor(np.inf,
+                                                    device=z.device)) \
+        - largest[:n]
+    tol = torch.clamp(cnt - 1.0, min=0.0) * ulp
+    image, depth, classes, hit = resolve_plain(zbuf, sums, sem, height,
+                                               width)
+    # the tolerance rides through the passes as 3 more image channels
+    state = (torch.cat([image, tol.reshape(height, width, 3)], dim=2),
+             depth, classes, hit)
+    image, depth, classes = fill_plain(state, intrinsics, fill_passes,
+                                       cell_size)
+    tol = image[..., 3:] * (depth > 0)[..., None]
+    return image[..., :3], depth, classes, hit, tol, cnt
+
+
+def image_tolerance(points, rgb, sh, semantic, valid, intrinsics, T_CW,
+                    height, width, fill_passes=2, cell_size=0.0):
+    """Each pixel's image tolerance by check_splat's tie rule, on the plain
+    version's pixels: how far two K8 frames' colours may lie apart is
+    twice it."""
+    z, _, _, pid, ok, shaded = project_plain(points, rgb, sh, valid,
+                                             intrinsics, T_CW, height, width)
+    return _expected(z, pid, ok, shaded, semantic, intrinsics, height, width,
+                     fill_passes, cell_size)[4]
+
+
+def bound_bytes(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
+                width):
+    """The bytes a K8 frame must move for this frame's data, each counted
+    once: it reads a byte of `valid` a splat row, the valid splats' points
+    (12 bytes) and the winners' colour (12), SH (36, with SH) and class (4),
+    and writes 21 bytes a pixel (image 12, depth 4, class 4, splat_hit 1).
+    Returns (bytes, the counts)."""
+    z, _, _, pid, ok, _ = project_plain(points, rgb, None, valid,
+                                        intrinsics, T_CW, height, width)
+    zbuf, _, _ = scatter_plain(z, pid, ok, rgb, semantic, height * width)
+    winners = int((ok & (z <= zbuf[pid] * torch.tensor(
+        WIN_FACTOR, device=z.device))).sum())
+    n_valid = int(valid.sum())
+    splat_bytes = (points.shape[0] + 12 * n_valid
+                   + winners * (12 + (36 if sh is not None else 0) + 4))
+    pixel_bytes = 21 * height * width
+    return splat_bytes + pixel_bytes, dict(
+        n_valid=n_valid, winners=winners, splat_bytes=splat_bytes,
+        pixel_bytes=pixel_bytes)
+
+
 def check_splat(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
                 width, fill_passes=2, cell_size=0.0):
     """K8 against the plain version on the same CUDA inputs, by its rules:
@@ -309,10 +489,8 @@ def check_splat(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
     within 2 ulp of k + 0.5 (`boundary`; those that differ are `flips`);
     a valid splat's z is bit-equal; fed K8's own pixels, the plain version
     gives the same depth, classes and splat_hit, and the same image except
-    where splats tie in a pixel, whose colour sum depends on the atomics'
-    order: there within (count - 1) ulp of the largest term, carried
-    through the fill passes with the colour it belongs to. Returns a dict of counts and
-    errors with 'ok'."""
+    where splats tie in a pixel, there within the tie rule's tolerance
+    (`_expected`). Returns a dict of counts and errors with 'ok'."""
     image, depth, classes, splat_hit, work = _splat_call(
         points, rgb, sh, semantic, valid, intrinsics, T_CW, height, width,
         fill_passes, cell_size)
@@ -326,28 +504,9 @@ def check_splat(points, rgb, sh, semantic, valid, intrinsics, T_CW, height,
     flips = pid_k != pid_plain
     ok_k = pid_k >= 0
     pid_fed = torch.where(ok_k, pid_k, torch.full_like(pid_k, n))
-    zbuf, sums, sem = scatter_plain(z, pid_fed, ok_k, shaded, semantic, n)
-    # the largest winning term of each pixel and channel, and its count
-    win = ok_k & (z <= zbuf[pid_fed] * torch.tensor(WIN_FACTOR,
-                                                    device=z.device))
-    largest = torch.zeros((n + 1, 3), dtype=torch.float32,
-                          device=z.device).scatter_reduce_(
-                              0, pid_fed[:, None].expand(-1, 3),
-                              shaded * win.float()[:, None], 'amax')
-    cnt = sums[:n, 3:]
-    ulp = torch.nextafter(largest[:n], torch.tensor(np.inf,
-                                                    device=z.device)) \
-        - largest[:n]
-    tol = torch.clamp(cnt - 1.0, min=0.0) * ulp
-    want_image, want_depth, want_classes, want_hit = resolve_plain(
-        zbuf, sums, sem, height, width)
-    # the tolerance rides through the passes as 3 more image channels
-    state = (torch.cat([want_image, tol.reshape(height, width, 3)], dim=2),
-             want_depth, want_classes, want_hit)
-    want_image, want_depth, want_classes = fill_plain(
-        state, intrinsics, fill_passes, cell_size)
-    tol = want_image[..., 3:] * (want_depth > 0)[..., None]
-    want_image = want_image[..., :3]
+    want_image, want_depth, want_classes, want_hit, tol, cnt = _expected(
+        z, pid_fed, ok_k, shaded, semantic, intrinsics, height, width,
+        fill_passes, cell_size)
     err = (image - want_image).abs()
     result = dict(
         splats=k, in_frame=int(ok.sum()), boundary=int(boundary.sum()),

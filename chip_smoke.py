@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
 flagship training step, the train CLI and its stochastic-corner estimators,
-and the render CLI with its baked preview, on one CUDA card.
+the render CLI with its baked preview, and the interactive preview, on one
+CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -155,7 +156,7 @@ Phases, each failing loudly:
      chunks of 16,384 rays a frame: K1s eval and K3f once a chunk) and
      --proposal (K4f too) on Run B's workspace, Run D's at --num-steps 32
      (K1, narrow rows) and --baked at its defaults on Run B's (the bake's
-     192^3 density queries through K1s, then K8 3 + 4 times a frame and
+     192^3 density queries through K1s, then K8's 4 launches a frame and
      no field kernel). Each path runs in turns with the plain versions
      (plain, kernels, kernels, plain), every count set to 0 just before
      and read just after each run (the plain runs must launch no kernel),
@@ -170,13 +171,30 @@ Phases, each failing loudly:
      colours within (count - 1) ulp) on the baked scene and on its splats
      without SH, at 480 x 360 and 1280 x 720 from two test cameras, its
      boundary and tie counts printed; K8 timed by events and device time
-     beside its byte bound (the bytes this frame's data needs: the valid
-     flags, the valid splats' points, the winners' colour, SH and class,
-     and the passes' state) and the plain version, and its scatter stage
-     (a)-(c) beside three scatter_reduce_ calls (the fill passes have no
-     one-call counterpart); so again on two full clouds of 2^19 valid
-     splats at 480 x 360, one with tied winners, each also held by
+     (split into the tiled fill and the scatter stage) and its wrapper's
+     host time, beside its byte bound counted once (splat_cuda.bound_bytes:
+     the valid flags, the valid splats' points, the winners' colour, SH
+     and class read, 21 bytes a pixel written; the earlier count, which
+     also charged the passes' state, beside it), the plain version and
+     the three scatter_reduce_ calls of its scatter stage (the fill passes
+     have no one-call counterpart); so again on two full clouds of 2^19
+     valid splats at 480 x 360, one with tied winners, each also held by
      check_splat's rules.
+ 13. the interactive preview, the port's counterpart of
+     benchmarks/preview_fps.py at its defaults (the configuration the GUI
+     backend serves): the flagship field (hg+freq, TPU_GRID, hidden 128,
+     colour 128, semantic 64, 6 classes, bound 2, proposal) with seeded
+     weights, baked at 128^3 into 2^18 splats (alpha threshold 0, so the
+     budget is full; degree-1 SH); 30 orbit poses (radius 2.5, height 1,
+     looking at the origin) at 1280 x 720, focal 0.9 w, 8 fill passes.
+     BakedRenderer's ms a frame over the 30 poses fenced by one fetch,
+     every count set to 0 just before and read just after (K8 4 times a
+     frame, nothing else); one frame's device time by kernel and busy
+     share; GovernedPreviewRenderer at 30 fps over 90 frames after its
+     warm-up, its fps and level; IncrementalBaker (128^3, 2^18 splats, 16
+     blocks): one block's refresh after the cold start; K8 held by
+     check_splat's rules from 2 poses and timed as in phase 12 at 1280 x
+     720.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -2090,8 +2108,8 @@ def _render_cli_phase(dev, gpu, checks, results):
     expected = {'dense': {'K1s': chunks, 'K3f': chunks},
                 'proposal': {'K1s': chunks, 'K3f': chunks, 'K4f': chunks},
                 'trilinear': {'K1': chunks},
-                'baked': {'K8': 3 + baked_module.fill_passes_for(FRAME_W,
-                                                                 2)}}
+                'baked': {'K8': splat_cuda.launches_for(
+                    baked_module.fill_passes_for(FRAME_W, 2))}}
 
     def run(path, plain, profile=False):
         """One run of frames(): tiles, the outputs render() made, each
@@ -2292,79 +2310,83 @@ def _render_cli_phase(dev, gpu, checks, results):
     return dict(paths=out, names=names, frames=n_frames, chunks=chunks)
 
 
-def _k8_splat_bytes(scene_args, K, T, h, w):
-    """The splat bytes K8 must read for this frame's data: the valid flags
-    (a byte a splat), the valid splats' points and the winners' colour,
-    SH and class (only they are shaded); with the winners' count and the
-    plain projection (z, pid, ok, shaded) the yardstick scatters."""
+def _k8_host_us(fn, reps=50):
+    """The wrapper's host time a call: perf_counter around the enqueue, the
+    device drained before each call and no synchronise inside; the median
+    of reps calls, in microseconds."""
+    import numpy as np
     import torch
-    from autolabel_tpu_torch.ops import splat_cuda
-    points, rgb, sh, semantic, valid = scene_args
-    z, _, _, pid, ok, shaded = splat_cuda.project_plain(
-        points, rgb, sh, valid, K, T, h, w)
-    zbuf, _, _ = splat_cuda.scatter_plain(z, pid, ok, shaded, semantic,
-                                          h * w)
-    winners = int((ok & (z <= zbuf[pid] * torch.tensor(
-        splat_cuda.WIN_FACTOR, device=z.device))).sum())
-    n_valid = int(valid.sum())
-    nbytes = (points.shape[0] + 12 * n_valid
-              + winners * (12 + 4 + (36 if sh is not None else 0)))
-    return nbytes, dict(n_valid=n_valid, winners=winners,
-                        splat_bytes=nbytes), (z, pid, ok, shaded)
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def _k8_parts(device):
+    """K8's device ms by part from a trace's kernels: the tiled fill (the
+    resolve and every pass), and the scatter stage (the memset, project,
+    winners)."""
+    if device is None:
+        return None, None
+    fill = sum(ms for name, ms in device.items() if 'fill_kernel' in name)
+    return fill, sum(device.values()) - fill
 
 
 def _k8_time(gpu, tag, scene_args, K, T, h, w, cell, plain_reps=5):
-    """K8 on one frame: a frame and its scatter stage (a)-(c) alone by
-    events and by device time, each beside its byte bound, the plain
-    version, and the three scatter_reduce_ calls of the same stage. The
-    bounds: the splat bytes (_k8_splat_bytes), then for the frame each
-    pass reading and writing the frame's 6 words a pixel, for the stage
-    the outputs written once (image, depth, class, splat_hit: 21 bytes a
-    pixel)."""
+    """K8 on one frame by events and by device time (split into the fill
+    and the scatter stage), its wrapper's host time, beside the frame's
+    count-once byte bound (splat_cuda.bound_bytes), the plain version,
+    and the three scatter_reduce_ calls of the scatter stage. The earlier
+    count of the bound, which also charged the passes' state (6 words a
+    pixel read and written a pass), is printed beside it."""
     from autolabel_tpu_torch.ops import splat_cuda
     from autolabel_tpu_torch.render.baked import fill_passes_for
     passes = fill_passes_for(w, 2)
     frame = lambda: splat_cuda.splat_render(*scene_args, K, T, h, w, passes,
                                             cell)
-    stage = lambda: splat_cuda.splat_render(*scene_args, K, T, h, w, 0, cell)
     plain = lambda: splat_cuda.splat_render_plain(*scene_args, K, T, h, w,
                                                   passes, cell)
     n = h * w
-    splat_bytes, data, (z, pid, ok, shaded) = _k8_splat_bytes(
-        scene_args, K, T, h, w)
-    data['frame_bytes'] = passes * n * 6 * 4 * 2
-    bound = _bound(splat_bytes + data['frame_bytes'], 0, PEAK_FP32)
-    stage_bound = _bound(splat_bytes + n * 21, 0, PEAK_FP32)
+    nbytes, data = splat_cuda.bound_bytes(*scene_args, K, T, h, w)
+    bound = _bound(nbytes, 0, PEAK_FP32)
+    state_bound = _bound(data['splat_bytes'] + passes * n * 6 * 4 * 2, 0,
+                        PEAK_FP32)
+    points, rgb, sh, semantic, valid = scene_args
+    z, _, _, pid, ok, shaded = splat_cuda.project_plain(
+        points, rgb, sh, valid, K, T, h, w)
     # scatter_plain: the three scatter_reduce_ calls (amin, sum, amax)
     # with the gather and casts between them
-    library = lambda: splat_cuda.scatter_plain(z, pid, ok, shaded,
-                                               scene_args[3], n)
-    out = dict(ms=_cuda_ms(frame, 50), stage_ms=_cuda_ms(stage, 50),
-               plain_ms=_cuda_ms(plain, plain_reps),
-               library_ms=_cuda_ms(library, 50))
+    library = lambda: splat_cuda.scatter_plain(z, pid, ok, shaded, semantic,
+                                               n)
+    out = dict(ms=_cuda_ms(frame, 50), plain_ms=_cuda_ms(plain, plain_reps),
+               library_ms=_cuda_ms(library, 50), host_us=_k8_host_us(frame))
     device = _kernel_ms(frame)
-    stage_device = _kernel_ms(stage)
     library_device = _kernel_ms(library)
     total = lambda d: None if d is None else sum(d.values())
+    fill, scatter = _k8_parts(device)
     out.update(device_ms=total(device), device_split=device,
-               stage_device_ms=total(stage_device),
+               fill_device_ms=fill, scatter_device_ms=scatter,
                library_device_ms=total(library_device), bound=bound,
-               stage_bound_ms=stage_bound[0], passes=passes, **data)
+               state_bound_ms=state_bound[0], passes=passes, **data)
     share = lambda ms, b: 'not measured' if ms is None else f'{b / ms:.1%}'
-    print(f'kernel K8 [{gpu}] {tag}: {scene_args[0].shape[0]} splats '
+    print(f'kernel K8 [{gpu}] {tag}: {points.shape[0]} splats '
           f'({data["n_valid"]} valid, {data["winners"]} winners) {w}x{h}, '
-          f'{passes} passes: {out["ms"]:.4f} ms by events, '
-          f'{out["device_ms"]} ms device ({device}), plain '
-          f'{out["plain_ms"]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: '
-          f'{data["splat_bytes"]} splat bytes, {data["frame_bytes"]} frame '
-          f'bytes; {share(out["device_ms"], bound[0])} of it by device '
-          f'time); the scatter stage (a)-(c) {out["stage_ms"]:.4f} ms by '
-          f'events, {out["stage_device_ms"]} ms device (bound '
-          f'{stage_bound[0]:.4f}, '
-          f'{share(out["stage_device_ms"], stage_bound[0])}) against three '
-          f'scatter_reduce_ calls {out["library_ms"]:.4f} ms by events, '
-          f'{out["library_device_ms"]} ms device; the fill passes have no '
-          'one-call counterpart')
+          f'{passes} passes, {splat_cuda.launches_for(passes)} launches: '
+          f'{out["ms"]:.4f} ms by events, {out["device_ms"]} ms device '
+          f'(fill {fill}, scatter stage {scatter}; {device}), wrapper host '
+          f'{out["host_us"]:.1f} us; plain {out["plain_ms"]:.4f} ms; bound '
+          f'{bound[0]:.4f} ms ({bound[1]}: {data["splat_bytes"]} splat '
+          f'bytes, {data["pixel_bytes"]} output bytes, each once; '
+          f'{share(out["device_ms"], bound[0])} of it by device time; the '
+          f'earlier count with the passes\' state {state_bound[0]:.4f} ms); '
+          f'three scatter_reduce_ calls '
+          f'{out["library_ms"]:.4f} ms by events, '
+          f'{out["library_device_ms"]} ms device')
     return out
 
 
@@ -2396,6 +2418,31 @@ def _full_cloud(dev, K, T, w, h, k, ties, z_range):
             torch.ones(k, dtype=torch.bool, device=dev))
 
 
+# What the kernels line and the output file keep of a K8 timing.
+K8_KEYS = ('ms', 'device_ms', 'device_split', 'fill_device_ms',
+           'scatter_device_ms', 'host_us', 'bound',
+           'state_bound_ms', 'library_ms', 'library_device_ms', 'plain_ms',
+           'winners', 'n_valid', 'passes')
+
+
+def _k8_hold(checks, tag, args, K, T, w, h, cell):
+    """K8 held against its plain version by check_splat's rules at
+    BakedRenderer's passes for the width."""
+    from autolabel_tpu_torch.ops import splat_cuda
+    from autolabel_tpu_torch.render.baked import fill_passes_for
+    r = splat_cuda.check_splat(*args, K, T, h, w, fill_passes_for(w, 2), cell)
+    checks.true(f'K8 {tag} vs plain', r['ok'],
+                f'{r["in_frame"]} splats in the frame, '
+                f'{r["boundary"]} within 2 ulp of a .5 boundary, '
+                f'{r["flips"]} flips ({r["flips_off_boundary"]} '
+                f'off it), {r["ties"]} tied pixels (most '
+                f'{r["max_count"]}), image max_abs_err '
+                f'{r["max_abs_err"]:.3e}; depth, classes, splat_hit equal: '
+                f'{r["depth_equal"]}, {r["classes_equal"]}, '
+                f'{r["splat_hit_equal"]}')
+    return r
+
+
 def _k8_measure(dev, gpu, checks, results, scene, testset):
     """K8 held alone against its plain version by check_splat's rules, on
     the baked scene and on a second scene of the same splats without SH
@@ -2407,7 +2454,6 @@ def _k8_measure(dev, gpu, checks, results, scene, testset):
     import numpy as np
     import torch
     from autolabel_tpu_torch.ops import splat_cuda
-    from autolabel_tpu_torch.render.baked import fill_passes_for
     b = scene
     flat_rgb = torch.rand(b.rgb.shape, generator=torch.Generator(
         device=dev).manual_seed(9), device=dev)
@@ -2415,16 +2461,7 @@ def _k8_measure(dev, gpu, checks, results, scene, testset):
               'no sh': (b.points, flat_rgb, None, b.semantic, b.valid)}
 
     def hold(tag, args, K, T, w, h):
-        r = splat_cuda.check_splat(*args, K, T, h, w, fill_passes_for(w, 2),
-                                   b.cell_size)
-        checks.true(f'K8 {tag} vs plain', r['ok'],
-                    f'{r["in_frame"]} splats in the frame, '
-                    f'{r["boundary"]} within 2 ulp of a .5 boundary, '
-                    f'{r["flips"]} flips ({r["flips_off_boundary"]} '
-                    f'off it), {r["ties"]} tied pixels (most '
-                    f'{r["max_count"]}), image max_abs_err '
-                    f'{r["max_abs_err"]:.3e}')
-        return r
+        return _k8_hold(checks, tag, args, K, T, w, h, b.cell_size)
 
     held = {}
     for name, args in scenes.items():
@@ -2461,18 +2498,151 @@ def _k8_measure(dev, gpu, checks, results, scene, testset):
         del args
     results['K8'] = dict(
         max_abs_err=max(r['max_abs_err'] for r in held.values()),
-        **{k: out[k] for k in ('ms', 'plain_ms', 'bound', 'library_ms',
-                               'stage_ms', 'stage_bound_ms',
-                               'stage_device_ms', 'device_ms',
-                               'device_split', 'library_device_ms')},
+        **{k: out[k] for k in K8_KEYS},
         boundary=sum(r['boundary'] for r in held.values()),
         flips=sum(r['flips'] for r in held.values()),
         ties=sum(r['ties'] for r in held.values()),
-        full_cloud={tag: {k: v[k] for k in (
-            'ms', 'device_ms', 'bound', 'stage_ms', 'stage_device_ms',
-            'stage_bound_ms', 'library_ms', 'library_device_ms', 'plain_ms',
-            'winners', 'ties')} for tag, v in full.items()})
+        full_cloud={tag: {k: v[k] for k in K8_KEYS + ('ties',)}
+                    for tag, v in full.items()})
     return dict(held=held, baked=out, full=full)
+
+
+# The interactive preview (phase 13): benchmarks/preview_fps.py at its
+# defaults, the configuration the GUI backend serves frames from
+# (autolabel_tpu/backend.py:169-190): the flagship field baked at 128^3
+# into 2^18 splats, 1280 x 720 frames (8 fill passes), 30 orbit poses.
+PREVIEW_SIZE = (1280, 720)
+PREVIEW_RESOLUTION, PREVIEW_SPLATS = 128, 2 ** 18
+PREVIEW_FRAMES, PREVIEW_GOVERNED = 30, 90
+PREVIEW_BLOCKS = 4  # IncrementalBaker blocks timed after its cold start
+
+
+def _preview_pose(i, frames):
+    """preview_fps.py's orbit camera i of `frames`: radius 2.5, height 1,
+    looking at the origin; its world -> camera transform."""
+    import numpy as np
+    angle = 2 * np.pi * i / frames
+    pos = np.array([2.5 * np.cos(angle), 2.5 * np.sin(angle), 1.0])
+    T_WC = np.eye(4)
+    T_WC[:3, :3], T_WC[:3, 3] = _look_at(pos), pos
+    return np.linalg.inv(T_WC)
+
+
+def _preview_phase(dev, seed, gpu, checks, results):
+    """Phase 13 (see the module docstring). Adds the preview's timing to
+    K8's `results`; returns what the output file keeps."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.models.field import Field, FieldConfig
+    from autolabel_tpu_torch.ops import _kernels, splat_cuda
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    from autolabel_tpu_torch.render.baked import (BakedRenderer,
+                                                  GovernedPreviewRenderer,
+                                                  IncrementalBaker, bake,
+                                                  fill_passes_for)
+    phase_start = time.perf_counter()
+    field = Field(FieldConfig(encoding='hg+freq', hidden_dim=128,
+                              hidden_dim_color=128, hidden_dim_semantic=64,
+                              semantic_classes=6, bound=2.0, grid=TPU_GRID,
+                              proposal=True),
+                  device=dev, generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = bake(field, resolution=PREVIEW_RESOLUTION,
+                 max_points=PREVIEW_SPLATS, alpha_threshold=0.0,
+                 view_dependent=True)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    checks.true('preview bake fills the splat budget',
+                scene.n_valid == PREVIEW_SPLATS,
+                f'{scene.n_valid} valid of {PREVIEW_SPLATS}')
+    w, h = PREVIEW_SIZE
+    focal = 0.9 * w
+    K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1.0]])
+    poses = [_preview_pose(i, PREVIEW_FRAMES) for i in range(PREVIEW_FRAMES)]
+    passes = fill_passes_for(w, 2)
+    # the fixed budget: BakedRenderer over every splat, fenced by one
+    # fetch as preview_fps.py does, after a first frame and fetch
+    renderer = BakedRenderer(scene)
+    out = renderer.render(K, poses[0], (w, h))
+    float(out['depth'].sum())
+    _kernels.reset_launches()
+    start = time.perf_counter()
+    for pose in poses:
+        out = renderer.render(K, pose, (w, h))
+    float(out['depth'].sum())
+    fixed_ms = (time.perf_counter() - start) / PREVIEW_FRAMES * 1e3
+    launches = dict(_kernels.launches)
+    want = PREVIEW_FRAMES * splat_cuda.launches_for(passes)
+    checks.true('preview launches K8', launches == {splat_cuda.NAME: want},
+                f'{launches} (expected {want}: {PREVIEW_FRAMES} frames x '
+                f'{splat_cuda.launches_for(passes)}, no other kernel)')
+    image, depth, sem = out['image'], out['depth'], out['semantic']
+    checks.true('preview frame', image.shape == (h, w, 3)
+                and bool(torch.isfinite(image).all())
+                and float(image.min()) >= 0 and float(image.max()) <= 1
+                and float(depth.min()) >= 0 and int(sem.min()) >= 0
+                and int(sem.max()) < 6 and bool(out['splat_hit'].any()),
+                f'{int(out["splat_hit"].sum())} pixels hit, '
+                f'{int((depth > 0).sum())} covered after the passes')
+    rows, busy = _device_profile(lambda: renderer.render(K, poses[1],
+                                                         (w, h)))
+    # the governor at 30 fps over 90 frames after its warm-up, fenced
+    governed = GovernedPreviewRenderer(scene, target_fps=30.0)
+    governed.warmup(K, (w, h))
+    _kernels.reset_launches()
+    start = time.perf_counter()
+    for i in range(PREVIEW_GOVERNED):
+        out = governed.render(K, poses[i % PREVIEW_FRAMES], (w, h))
+    float(out['depth'].sum())
+    governed_s = time.perf_counter() - start
+    governed_launches = dict(_kernels.launches)
+    # the backend's slab refresh: one block after the cold start's sweep
+    baker = IncrementalBaker(field, resolution=PREVIEW_RESOLUTION,
+                             max_points=PREVIEW_SPLATS, view_dependent=True)
+    t0 = time.perf_counter()
+    baker.update_next_block()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(PREVIEW_BLOCKS):
+        baker.update_next_block()
+    torch.cuda.synchronize()
+    block_s = (time.perf_counter() - t0) / PREVIEW_BLOCKS
+    args = (scene.points, scene.rgb, scene.sh, scene.semantic, scene.valid)
+    held = {f'preview {w}x{h} pose {i}': _k8_hold(
+        checks, f'preview {w}x{h} pose {i}', args, K, poses[i], w, h,
+        scene.cell_size) for i in (0, PREVIEW_FRAMES // 2)}
+    timed = _k8_time(gpu, f'preview {w}x{h}', args, K, poses[0], h, w,
+                     scene.cell_size, plain_reps=3)
+    fps = PREVIEW_GOVERNED / governed_s
+    print(f'preview [{gpu}]: bake {bake_s:.3f} s ({PREVIEW_RESOLUTION}^3, '
+          f'{scene.n_valid} splats); fixed budget {fixed_ms:.4f} ms a frame '
+          f'({1e3 / fixed_ms:.1f} fps, {PREVIEW_FRAMES} frames, one fence); '
+          f'governed at 30 fps: {fps:.2f} fps over {PREVIEW_GOVERNED} '
+          f'frames, level {governed.level}, launches {governed_launches}; '
+          f'IncrementalBaker block refresh {block_s:.4f} s (cold start '
+          f'{cold_s:.3f} s, {baker.n_blocks} blocks)')
+    if rows is None:
+        print('preview profile: the trace holds no device time: not measured')
+    else:
+        print(f'preview profile [{gpu}]: device busy {busy:.4f} ms of a '
+              f'{fixed_ms:.4f} ms frame: busy share {busy / fixed_ms:.4f}')
+        for name, ms, count in rows[:8]:
+            print(f'  {ms:9.4f} ms {ms / busy:7.2%} x{count:<5d} {name[:90]}')
+    k8 = results['K8']
+    results['K8'] = dict(
+        {k: timed[k] for k in K8_KEYS},
+        max_abs_err=max([k8['max_abs_err']]
+                        + [r['max_abs_err'] for r in held.values()]),
+        boundary=k8['boundary'] + sum(r['boundary'] for r in held.values()),
+        flips=k8['flips'] + sum(r['flips'] for r in held.values()),
+        ties=k8['ties'] + sum(r['ties'] for r in held.values()),
+        render_cli=k8)
+    return dict(launches=launches, governed_launches=governed_launches,
+                bake_s=bake_s, splats=scene.n_valid, fixed_ms=fixed_ms,
+                governed_fps=fps, governed_level=governed.level,
+                block_s=block_s, cold_start_s=cold_s, profile=rows,
+                busy_ms=busy, held=held, k8=timed)
 
 
 def main():
@@ -3162,6 +3332,10 @@ def main():
     rc_launches = {path: v['launches']
                    for path, v in render_cli['paths'].items()}
 
+    # ---- 13. the interactive preview at 1280 x 720, 2^18 splats
+    torch.cuda.empty_cache()
+    preview = _preview_phase(dev, args.seed, gpu, checks, results)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -3198,9 +3372,9 @@ def main():
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
     # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7,
-    # phase 12's baked frames for K8.
+    # phase 13's fixed-budget preview frames for K8.
     main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
-                       rc_launches['baked'] if key == 'K8' else
+                       preview['launches'] if key == 'K8' else
                        fl_launches['xla'] if key in new_names
                        else train_launches) for *_, key in table_rows}
     kernels = [{
@@ -3217,6 +3391,8 @@ def main():
         'launches_cli_reference': st_launches['D'].get(kernel_names[key], 0),
         **{f'launches_render_cli_{path}': v.get(kernel_names[key], 0)
            for path, v in rc_launches.items()},
+        'launches_preview_governed': preview['governed_launches'].get(
+            kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -3228,10 +3404,10 @@ def main():
                                         'l2_floor_device_ms', 'device_ms',
                                         'device_split', 'library_device_ms',
                                         'cli', 'flips', 'reference',
-                                        'unbiased_ratio', 'stage_ms',
-                                        'stage_bound_ms',
-                                        'stage_device_ms', 'boundary',
-                                        'ties', 'full_cloud')
+                                        'unbiased_ratio', 'boundary',
+                                        'ties', 'fill_device_ms',
+                                        'scatter_device_ms', 'host_us',
+                                        'state_bound_ms', 'render_cli')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -3266,6 +3442,7 @@ def main():
                                   if k != 'names'},
                    'render_cli': {k: v for k, v in render_cli.items()
                                   if k != 'names'},
+                   'preview': preview,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

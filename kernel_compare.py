@@ -22,15 +22,24 @@ rows written) and K7 on the last step's (table, x) of short runs of the
 CLI's stochastic estimators: Run C (--sampled-backward 0: the TPU grid's
 simplex encode of 2 draws) and Run D (--grid-preset reference
 --stochastic-exact-levels 4: 16 x 2^19 x 2, trilinear, narrow rows), K7
-fed this tree's K6 rows. Each kernel's old and new outputs are compared
+fed this tree's K6 rows, and K8 (the splat render) on frames of scenes
+baked from the flagship field with seeded weights: the render CLI's
+--baked defaults at 480 x 360 (4 passes), full and tied clouds of 2^19
+valid splats there, and the interactive preview (2^18 splats, 1280 x 720,
+8 passes). Each kernel's old and new outputs are compared
 (largest absolute difference; 0 means bit-equal; for K5 whether the
 selections, count, points and coefs, are bit-equal; for K7 the worst
 element's share of hashgrid_cuda.stochastic_backward_tolerance, at most
-1), then both are timed by CUDA events, old, new, new, old, ... for
+1; for K8 depth, classes and splat_hit equal and the image's worst share
+of twice the tie rule's tolerance), then both are timed by CUDA events,
+old, new, new, old, ... for
 --rounds rounds, and by torch.profiler's device time a call (all of a
 call's kernels and memsets; events carry a call's host work where it
 exceeds its device time); K7 with one index_add_ of the pre-weighted
-drawn rows timed in the same rounds, its library yardstick. Then, for this
+drawn rows timed in the same rounds, its library yardstick, and K8 with
+the three scatter_reduce_ calls of its scatter stage, its device time
+split into the fill (the resolve and the passes) and the scatter stage,
+and its wrapper's host time a call. Then, for this
 tree alone, K6's parts on the same inputs (the draws with their rows
 written, the gathers and blend, the stores, each launched alone; on Run D
 also the levels a narrow thread walks: 1, levels slowest, and 4, a
@@ -48,12 +57,13 @@ import re
 import sys
 import types
 
-from chip_smoke import _cuda_ms, _gpu_line, _kernel_ms, k7_yardstick
+from chip_smoke import (_cuda_ms, _gpu_line, _k8_host_us, _kernel_ms,
+                        k7_yardstick)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
 MODULES = ('ops._kernels', 'ops.encoders', 'ops.hashgrid_cuda',
-           'ops.heads_cuda', 'ops.mlp')
+           'ops.heads_cuda', 'ops.mlp', 'ops.splat_cuda')
 
 
 def _load(root):
@@ -220,6 +230,104 @@ def _stochastic_cases(pkg, seed, samples):
             k7_yardstick(ours.encoders, cot, idx, w, plan, config,
                          n_samples))
     return cases
+
+
+def _k8_samples(seed):
+    """{case: (splat args, K, T, height, width, passes, cell)}: K8's frames
+    on scenes made by this tree's package from the flagship field with
+    seeded weights (chip_smoke.py's phase 13): the baked scene (the render
+    CLI's --baked defaults: 192^3, 2^19 rows, adaptive threshold) at 480 x
+    360, 4 passes; chip_smoke.py's full and tied clouds of 2^19 valid
+    splats there; the preview (128^3, 2^18 splats, threshold 0) at 1280 x
+    720, 8 passes. Cameras: phase 13's first orbit pose, focal 0.9 w."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.models.field import Field, FieldConfig
+    from autolabel_tpu_torch.ops import splat_cuda
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    from autolabel_tpu_torch.render.baked import bake, fill_passes_for
+    from chip_smoke import (PREVIEW_RESOLUTION, PREVIEW_SIZE, PREVIEW_SPLATS,
+                            _full_cloud, _preview_pose)
+    dev = torch.device('cuda')
+    field = Field(FieldConfig(encoding='hg+freq', hidden_dim=128,
+                              hidden_dim_color=128, hidden_dim_semantic=64,
+                              semantic_classes=6, bound=2.0, grid=TPU_GRID,
+                              proposal=True),
+                  device=dev, generator=torch.Generator().manual_seed(seed))
+    T = _preview_pose(0, 30)
+
+    def camera(w, h):
+        return np.array([[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2],
+                         [0, 0, 1.0]])
+
+    def args(scene):
+        return (scene.points, scene.rgb, scene.sh, scene.semantic,
+                scene.valid)
+
+    cli = bake(field, resolution=192, max_points=2 ** 19)
+    preview = bake(field, resolution=PREVIEW_RESOLUTION,
+                   max_points=PREVIEW_SPLATS, alpha_threshold=0.0)
+    w, h = 480, 360
+    K = camera(w, h)
+    z, _, _, _, ok, _ = splat_cuda.project_plain(
+        cli.points, cli.rgb, cli.sh, cli.valid, K, T, h, w)
+    z_range = (float(z[ok].min()), float(z[ok].max()))
+    out = {f'baked scene {w}x{h}': (args(cli), K, T, h, w,
+                                    fill_passes_for(w, 2), cli.cell_size)}
+    for ties in (False, True):
+        tag = f'{"tied " if ties else ""}full cloud {w}x{h}'
+        out[tag] = (_full_cloud(dev, K, T, w, h, 2 ** 19, ties, z_range), K,
+                    T, h, w, fill_passes_for(w, 2), cli.cell_size)
+    w, h = PREVIEW_SIZE
+    out[f'preview {w}x{h}'] = (args(preview), camera(w, h), T, h, w,
+                               fill_passes_for(w, 2), preview.cell_size)
+    return out
+
+
+def _k8_cases(pkg, samples):
+    """K8 through pkg's wrapper on each of _k8_samples' frames. Its compare
+    holds old and new to K8's rules against each other: depth, classes and
+    splat_hit equal (else inf), and the image's worst share of twice the
+    tie rule's tolerance (each frame lies within it of the plain
+    version); the three scatter_reduce_ calls of the scatter stage are the
+    library yardstick."""
+    import torch
+    from autolabel_tpu_torch.ops import splat_cuda as ours
+    cases = {}
+    for tag, (args, K, T, h, w, passes, cell) in samples.items():
+        tol = 2 * ours.image_tolerance(*args, K, T, h, w, passes, cell)
+
+        def used(a, b, tol=tol):
+            if not all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])):
+                return float('inf')
+            err = (a[0] - b[0]).abs()
+            if not torch.equal(a[0][tol == 0], b[0][tol == 0]):
+                return float('inf')
+            return float((err / tol.clamp(min=1e-38)).max())
+
+        z, _, _, pid, ok, shaded = ours.project_plain(
+            args[0], args[1], args[2], args[4], K, T, h, w)
+        cases[f'K8 {tag} passes={passes}'] = (
+            lambda args=args, K=K, T=T, h=h, w=w, passes=passes, cell=cell:
+            pkg.splat_cuda.splat_render(*args, K, T, h, w, passes, cell),
+            50, used,
+            lambda z=z, pid=pid, ok=ok, shaded=shaded, sem=args[3], n=h * w:
+            ours.scatter_plain(z, pid, ok, shaded, sem, n),
+            'three scatter_reduce_ calls')
+    return cases
+
+
+def _k8_split(rounds):
+    """Median device ms of K8's fill (resolve_kernel and fill_kernel, the
+    parent's one launch a pass or the tiled fill) and of the rest (memset,
+    project, winners) over the rounds' traces."""
+    import numpy as np
+    if any(r is None for r in rounds):
+        return None
+    fill = [sum(ms for k, ms in r.items() if 'fill_kernel' in k
+                or 'resolve_kernel' in k) for r in rounds]
+    rest = [sum(r.values()) - f for r, f in zip(rounds, fill)]
+    return dict(fill=float(np.median(fill)), scatter=float(np.median(rest)))
 
 
 def _timed(fn, reps=20):
@@ -415,6 +523,11 @@ def main():
         stochastic = _stochastic_samples()
         for side, pkg in sides.items():
             cases[side].update(_stochastic_cases(pkg, args.seed, stochastic))
+    if wanted([f'K8 {tag}' for tag in ('baked scene', 'full cloud',
+                                       'tied full cloud', 'preview')]):
+        k8 = _k8_samples(args.seed)
+        for side, pkg in sides.items():
+            cases[side].update(_k8_cases(pkg, k8))
     for name in [k for k in cases['new'] if only.search(k)]:
         old, reps, compare, *library = cases['old'][name]
         new = cases['new'][name][0]
@@ -424,20 +537,26 @@ def main():
             sided['library'] = library[0]
         times = {k: [] for k in sided}
         device = {k: [] for k in sided}
+        split = {k: [] for k in sided}
+        host = {k: [] for k in ('old', 'new')}
         for r in range(args.rounds):
             order = list(sided) if r % 2 == 0 else list(sided)[::-1]
             for side in order:
                 fn = sided[side]
                 times[side].append(_cuda_ms(fn, reps))
                 by_kernel = _kernel_ms(fn)
+                split[side].append(by_kernel)
                 device[side].append(None if by_kernel is None
                                     else sum(by_kernel.values()))
+                if name.startswith('K8') and side in host:
+                    host[side].append(_k8_host_us(fn))
         med = {k: float(np.median(v)) for k, v in times.items()}
         dev_med = {k: None if None in v else float(np.median(v))
                    for k, v in device.items()}
         result['kernels'][name] = dict(max_diff_old_new=diff, ms=times,
                                        median_ms=med, device_ms=device,
-                                       median_device_ms=dev_med)
+                                       median_device_ms=dev_med,
+                                       device_split=split)
         what = ('selections differ' if diff else 'selections equal') \
             if compare is _same_selection else (
                 f'worst |new - old| uses {diff:.3f} of the tolerance'
@@ -447,14 +566,25 @@ def main():
                     else f'device old {dev_med["old"]:.4f} ms, new '
                          f'{dev_med["new"]:.4f} ms (new/old '
                          f'{dev_med["new"] / dev_med["old"]:.3f})')
+        lib_name = library[1] if len(library) > 1 else 'index_add_'
         lib_text = '' if not library else (
-            f'; index_add_ {med["library"]:.4f} ms by events, '
+            f'; {lib_name} {med["library"]:.4f} ms by events, '
             f'{dev_med["library"]} ms device')
         print(f'{name} [{gpu}]: old {med["old"]:.4f} ms, new '
               f'{med["new"]:.4f} ms (new/old {med["new"] / med["old"]:.3f}) '
               f'by events; {dev_text}{lib_text}; {what}; rounds old '
               f'{[round(v, 4) for v in times["old"]]} new '
               f'{[round(v, 4) for v in times["new"]]}')
+        if host['new']:
+            parts = {side: _k8_split(split[side]) for side in ('old', 'new')}
+            result['kernels'][name].update(host_us=host, parts=parts)
+            print(f'{name} [{gpu}]: device ms a part (medians; fill = '
+                  f'resolve and passes, scatter = memset, project, winners) '
+                  f'{parts}; wrapper host us old '
+                  f'{float(np.median(host["old"])):.1f}, new '
+                  f'{float(np.median(host["new"])):.1f} (rounds old '
+                  f'{[round(v, 1) for v in host["old"]]} new '
+                  f'{[round(v, 1) for v in host["new"]]})')
         torch.cuda.empty_cache()
     if stochastic is not None:
         del cases

@@ -257,6 +257,95 @@ def test_win_factor_and_big_are_the_kernels_constants():
         np.uint32))
 
 
+def _kernel_defines():
+    with open(os.path.join(REPO, 'autolabel_tpu_torch', 'csrc',
+                           'splat_render.cu')) as f:
+        return {name: int(value) for name, value in re.findall(
+            r'#define (\w+) (\d+)\n', f.read())}
+
+
+def test_tile_and_halo_are_the_kernels_constants():
+    """The plain mirror of the fill's tiles and launch rule use the
+    kernel's tile and halo cap."""
+    defines = _kernel_defines()
+    assert defines['TILE'] == splat_cuda.TILE
+    assert defines['HALO_MAX'] == splat_cuda.HALO_MAX
+
+
+@pytest.mark.parametrize('passes, want', [
+    (0, 4), (1, 4), (4, 4), (splat_cuda.HALO_MAX, 4),
+    (splat_cuda.HALO_MAX + 1, 5), (2 * splat_cuda.HALO_MAX, 5),
+    (2 * splat_cuda.HALO_MAX + 1, 6)])
+def test_launches_for(passes, want):
+    """The memset, project, winners and a fill launch a HALO_MAX passes,
+    at least one (with no pass it is the resolve)."""
+    assert splat_cuda.launches_for(passes) == want
+
+
+def _resolved(kind, width, height):
+    """A scene's resolved state (the fill passes' input) on a camera of its
+    own scaled to a width x height frame, with its cell size."""
+    points, rgb, sh, semantic, valid, cell = _clouds(kind, False)
+    w0, h0 = _SIZE[kind]
+    K = _K[kind] * np.array([[width / w0], [height / h0], [1.0]])
+    z, _, _, pid, ok, shaded = splat_cuda.project_plain(
+        torch.as_tensor(points), torch.as_tensor(rgb), None,
+        torch.as_tensor(valid), K, _camera_pose(kind), height, width)
+    zbuf, sums, sem = splat_cuda.scatter_plain(
+        z, pid, ok, shaded, torch.as_tensor(semantic), height * width)
+    return splat_cuda.resolve_plain(zbuf, sums, sem, height, width), K, cell
+
+
+@pytest.mark.parametrize('passes', [0, 1, 4, 8, splat_cuda.HALO_MAX + 1])
+@pytest.mark.parametrize('width, height', [(1, 1), (5, 3), (33, 17),
+                                           (64, 48)])
+@pytest.mark.parametrize('kind', ['random', 'two_plane', 'edge'])
+def test_fill_tiled_plain_matches_fill_plain(kind, width, height, passes):
+    """K8's fill scheme (tiles of TILE pixels with a halo read modulo H
+    and W, a (depth, source) state, passes in groups of HALO_MAX), mirrored
+    in torch, gives fill_plain's outputs bit for bit: on frames of one
+    pixel, smaller than the halo (wrapping several times), not a multiple
+    of the tile, and of 2 x 2 tiles; also on tiles of 8 with a cap of 3,
+    where more tiles and groups meet."""
+    state, K, cell = _resolved(kind, width, height)
+    want = splat_cuda.fill_plain(state, K, passes, cell)
+    for tile, halo_max in ((splat_cuda.TILE, splat_cuda.HALO_MAX), (8, 3)):
+        got = splat_cuda.fill_tiled_plain(state, K, passes, cell, tile,
+                                          halo_max)
+        for name, a, b in zip(('image', 'depth', 'classes'), got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, b), (name, tile, int((a != b).sum()))
+    assert width * height < 100 or state[3].any()
+
+
+def test_bound_bytes_counts_what_the_frame_needs():
+    """A frame of 4 x 3 pixels and 5 splat rows, counted by hand: rows 0-3
+    valid (row 4 padding), row 3 behind the camera, rows 0 and 1 on pixel
+    (1, 1) with row 1 nearer (row 0 loses), row 2 alone on pixel (2, 0).
+    So 5 bytes of valid flags, 4 valid points of 12 bytes, 2 winners of
+    rgb 12, SH 36 and class 4, and 12 pixels of 21 bytes."""
+    K = np.array([[10.0, 0, 2], [0, 10.0, 1], [0, 0, 1]])
+    points = torch.tensor([[-0.1, 0.0, 1.0], [-0.2, 0.0, 2.0],
+                           [0.0, -0.1, 1.0], [0.0, 0.0, -1.0],
+                           [0.0, 0.0, 0.0]])
+    rgb = torch.rand(5, 3, generator=torch.Generator().manual_seed(0))
+    sh = torch.zeros(5, 3, 3)
+    semantic = torch.tensor([1, 2, 3, 4, 0], dtype=torch.int32)
+    valid = torch.tensor([True, True, True, True, False])
+    z, _, _, pid, ok, _ = splat_cuda.project_plain(points, rgb, None, valid,
+                                                   K, np.eye(4), 3, 4)
+    assert pid[:3].tolist() == [5, 5, 2] and ok.tolist() == [
+        True, True, True, False, False]
+    nbytes, counts = splat_cuda.bound_bytes(points, rgb, sh, semantic, valid,
+                                            K, np.eye(4), 3, 4)
+    assert counts == dict(n_valid=4, winners=2, splat_bytes=5 + 48 + 104,
+                          pixel_bytes=252)
+    assert nbytes == 5 + 48 + 2 * (12 + 36 + 4) + 12 * 21
+    nbytes, counts = splat_cuda.bound_bytes(points, rgb, None, semantic,
+                                            valid, K, np.eye(4), 3, 4)
+    assert nbytes == 5 + 48 + 2 * (12 + 4) + 12 * 21
+
+
 def test_near_half_marks_only_boundary_values():
     x = torch.tensor([0.5, 1.5, np.nextafter(np.float32(2.5), 3),
                       2.5 + 4 * 2 ** -22, 3.2, -0.5, 100.5, 100.25],

@@ -1405,7 +1405,8 @@ def _splat_camera(width, height):
 @pytest.mark.parametrize('kind', ['random', 'ties', 'edges'])
 def test_splat_kernel_matches_plain(cuda, kind, with_sh, width, height):
     """K8 against its plain version by splat_cuda.check_splat's rules, at
-    BakedRenderer's pass count for the width; 3 + passes launches."""
+    BakedRenderer's pass count for the width; launches_for(passes)
+    launches (4: memset, project, winners, one tiled fill)."""
     K, T = _splat_camera(width, height)
     points, rgb, sh, semantic, valid, cell = _splat_scene(
         kind, with_sh, cuda, (K, T, width, height))
@@ -1414,7 +1415,8 @@ def test_splat_kernel_matches_plain(cuda, kind, with_sh, width, height):
     _kernels.reset_launches()
     result = splat_cuda.check_splat(points, rgb, sh, semantic, valid, K, T,
                                     height, width, passes, cell)
-    assert _kernels.launches[splat_cuda.NAME] == 3 + passes
+    assert _kernels.launches[splat_cuda.NAME] == splat_cuda.launches_for(
+        passes) == 4
     assert result['ok'], result
     assert result['in_frame'] > 0
     if kind == 'ties':
@@ -1423,13 +1425,33 @@ def test_splat_kernel_matches_plain(cuda, kind, with_sh, width, height):
 
 @pytest.mark.parametrize('passes', [0, 1, 2])
 def test_splat_kernel_few_passes(cuda, passes):
-    """With no pass resolve writes the outputs; with one the first pass
-    is the last."""
+    """With no pass the fill kernel resolves the frame alone; with one the
+    first pass is the last."""
     points, rgb, sh, semantic, valid, cell = _splat_scene(
         'random', True, cuda, k=4096)
     K, T = _splat_camera(64, 48)
     result = splat_cuda.check_splat(points, rgb, sh, semantic, valid, K, T,
                                     48, 64, passes, cell)
+    assert result['ok'], result
+
+
+@pytest.mark.parametrize('passes', [0, 1, 4, 8, splat_cuda.HALO_MAX + 1,
+                                    2 * splat_cuda.HALO_MAX + 3])
+@pytest.mark.parametrize('width, height', [(1, 1), (5, 3), (33, 17),
+                                           (64, 48)])
+def test_splat_kernel_tiles(cuda, width, height, passes):
+    """The fill's tiles and halo: frames of one pixel, smaller than the
+    halo (rows and columns wrap several times), not a multiple of the tile
+    and of 2 x 2 tiles; passes beyond HALO_MAX carried between launches."""
+    K, T = _splat_camera(width, height)
+    points, rgb, sh, semantic, valid, _ = _splat_scene(
+        'random', True, cuda, k=8192)
+    cell = 0.3  # footprints of several pixels, so the passes adopt
+    _kernels.reset_launches()
+    result = splat_cuda.check_splat(points, rgb, sh, semantic, valid, K, T,
+                                    height, width, passes, cell)
+    assert _kernels.launches[splat_cuda.NAME] == splat_cuda.launches_for(
+        passes)
     assert result['ok'], result
 
 
@@ -1442,7 +1464,7 @@ def test_splat_kernel_is_what_the_renderer_launches(cuda):
     K, T = _splat_camera(64, 48)
     _kernels.reset_launches()
     out = BakedRenderer(scene).render(K, T, (64, 48))
-    assert _kernels.launches[splat_cuda.NAME] == 3 + 4
+    assert _kernels.launches[splat_cuda.NAME] == splat_cuda.launches_for(4)
     want = splat_cuda.splat_render_plain(points, rgb, sh, semantic, valid,
                                          K, T, 48, 64, 4, cell)
     assert torch.equal(out['depth'], want[1])
