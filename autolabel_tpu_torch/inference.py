@@ -44,9 +44,11 @@ class InferenceModel:
     @classmethod
     def from_checkpoint(cls, field, model_dir, **kwargs):
         """Load <model_dir>/checkpoints' params (the 'model' entry, as the
-        JAX package does) into `field` and wrap it."""
-        params, _ = model_utils.load_checkpoint(
-            os.path.join(model_dir, 'checkpoints'))
+        JAX package does) into `field` and wrap it. A reference torch
+        checkpoint is imported, and the field swapped for its reference
+        form (geo_relu, the source lattice): model_utils.load_into_field."""
+        field, params, _ = model_utils.load_into_field(
+            field, os.path.join(model_dir, 'checkpoints'))
         return cls(field, params, **kwargs)
 
     def render(self, batch):
@@ -70,6 +72,57 @@ class InferenceModel:
             geos.append(geo.cpu().numpy())
         return {'sigma': np.concatenate(sigmas),
                 'geo_feat': np.concatenate(geos)}
+
+    def _query_features(self, points):
+        _, geo = self.field.density(points)
+        _, features = self.field.semantic(geo)
+        return features.float()
+
+    @torch.inference_mode()
+    def jittered_semantic_features(self, points, n_samples=10, sigma=0.02,
+                                   seed=0, noise=None):
+        """Jitter-averaged, L2-normalized semantic features at (N, 3)
+        points, in the JAX package's order: the query at the points with
+        weight 1, then the n_samples - 1 jittered queries added one by one
+        with weight 1 / n_samples each (the reference's quirk), then
+        feats / max(|feats|, 1e-9); in chunks of 50,000 points.
+
+        The jitter is sigma times standard normals drawn on the field's
+        device by a torch.Generator seeded from `seed` and the chunk's
+        start. JAX's PRNG stream cannot be reproduced, so `noise`, when
+        given, is the (n_samples - 1, N, 3) jitter itself, added as it is
+        (sigma is then unused)."""
+        points = torch.as_tensor(np.asarray(points, dtype=np.float32))
+        if noise is not None:
+            noise = torch.as_tensor(np.asarray(noise, dtype=np.float32))
+            if tuple(noise.shape) != (n_samples - 1,) + tuple(points.shape):
+                raise ValueError(
+                    f'noise must be (n_samples - 1, N, 3) = '
+                    f'{(n_samples - 1,) + tuple(points.shape)}, got '
+                    f'{tuple(noise.shape)}')
+        device = self.field.device
+        # fp32(1 / n), the weight JAX's fp32 product takes
+        scale = float(np.float32(1.0 / n_samples))
+        out = []
+        for start in range(0, len(points), self._chunk):
+            chunk = points[start:start + self._chunk].to(device)
+            if noise is None:
+                # (seed, start) mixed into 32 bits: the CPU generator
+                # keeps only the low 32 of a seed
+                generator = torch.Generator(device=device)
+                generator.manual_seed(int(np.random.SeedSequence(
+                    [seed, start]).generate_state(1)[0]))
+            feats = self._query_features(chunk)
+            for i in range(n_samples - 1):
+                if noise is None:
+                    jitter = torch.randn(chunk.shape, generator=generator,
+                                         device=device) * sigma
+                else:
+                    jitter = noise[i, start:start + self._chunk].to(device)
+                feats = feats + self._query_features(chunk + jitter) * scale
+            norm = torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+            out.append((feats / torch.clamp(norm, min=1e-9)).cpu().numpy())
+        return np.concatenate(out)
 
     @torch.inference_mode()
     def semantic(self, geo_feat):

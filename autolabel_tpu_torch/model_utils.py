@@ -6,9 +6,11 @@ decode the training configuration from it), so the strings are identical
 to the JAX package's and both packages share workspaces.
 """
 import argparse
+import dataclasses
 import os
 import pickle
 
+from autolabel_tpu_torch import torch_import
 from autolabel_tpu_torch.models.field import Field, FieldConfig
 from autolabel_tpu_torch.ops.encoders import TPU_GRID
 from autolabel_tpu_torch.train import checkpoints
@@ -139,14 +141,66 @@ def create_model(min_bounds, max_bounds, n_classes, flags, device=None,
                  device=device, generator=generator)
 
 
-def load_checkpoint(checkpoint_dir, config=None):
-    """(params, ema_params) numpy trees from a checkpoint dir; prefers
-    best.pth. Reference torch checkpoints are not imported yet."""
-    del config  # names the FieldConfig for torch imports, a later slice
+def _read_payload(checkpoint_dir):
+    """The checkpoint dir's payload (best.pth preferred)."""
     payload = checkpoints.load_checkpoint(checkpoint_dir)
     if payload is None:
         raise FileNotFoundError(f"No checkpoints in {checkpoint_dir}")
+    return payload
+
+
+def _trees(payload, config, checkpoint_dir):
+    """(params, ema_params) of a payload; a reference torch checkpoint's
+    imported onto the param tree of `config`."""
+    if torch_import.looks_like_torch_state(payload):
+        if config is None:
+            raise ValueError(
+                f'{checkpoint_dir} holds a reference torch checkpoint; '
+                'pass the FieldConfig (or use load_into_field) to '
+                'import it')
+        payload = torch_import.convert_torch_payload(payload, config)
     return payload['model'], payload.get('ema', payload['model'])
+
+
+def load_checkpoint(checkpoint_dir, config=None):
+    """(params, ema_params) numpy trees from a checkpoint dir; prefers
+    best.pth. A reference torch checkpoint is imported onto the param tree
+    of `config` (torch_import.convert_torch_payload), whose field must
+    have geo_relu and the source lattice: load_into_field builds it."""
+    return _trees(_read_payload(checkpoint_dir), config, checkpoint_dir)
+
+
+def load_into_field(field, checkpoint_dir):
+    """(field, params, ema) from a checkpoint dir. For a reference torch
+    checkpoint the field is rebuilt on its device with the reference's
+    conventions: geo_relu, the 'xla' heads (the fused kernel does not
+    relu the geometric features) and the reference's own grid under the
+    source lattice, variant 'tcnn' for hg+freq and 'torch_ngp' for hg,
+    whatever grid preset `field` has; its params are then the imported
+    tables and weights. A checkpoint whose semantic head has another class
+    count than `field` gets a field of its count."""
+    payload = _read_payload(checkpoint_dir)
+    if torch_import.looks_like_torch_state(payload):
+        config = field.config
+        grid = dataclasses.replace(config, grid=None).grid_config
+        if grid is not None:
+            variant = ('tcnn' if config.encoding == 'hg+freq'
+                       else 'torch_ngp')
+            grid = dataclasses.replace(grid, variant=variant)
+        field = Field(dataclasses.replace(config, geo_relu=True,
+                                          heads_impl='xla',
+                                          grid_impl='xla', grid=grid),
+                      device=field.device)
+    params, ema = _trees(payload, field.config, checkpoint_dir)
+    classes = params['semantic_out'][-1].shape[1]
+    if classes != field.config.semantic_classes:
+        # The checkpoint's head sets the class count, as the JAX package's
+        # params carry their own shapes (its language CLIs build a
+        # 606-class field whatever the workspace holds).
+        field = Field(dataclasses.replace(field.config,
+                                          semantic_classes=classes),
+                      device=field.device)
+    return field, params, ema
 
 
 def read_params(workspace):

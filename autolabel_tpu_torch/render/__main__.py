@@ -34,6 +34,7 @@ from autolabel_tpu_torch.core.dataset import SceneDataset
 from autolabel_tpu_torch.device import resolve_device
 from autolabel_tpu_torch.features.feature_utils import get_feature_extractor
 from autolabel_tpu_torch.inference import InferenceModel
+from autolabel_tpu_torch.utils import require
 from autolabel_tpu_torch.utils.images import resize_nearest_cv2
 
 TILE = (960, 720)  # the video's frame (width, height), whatever --size is
@@ -91,16 +92,6 @@ def read_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _require(module, what):
-    """Import `module` at the call, or raise naming it and what needs it."""
-    import importlib
-    try:
-        return importlib.import_module(module)
-    except ImportError as e:
-        raise RuntimeError(f'{what} needs {module}, which is not '
-                           'installed') from e
-
-
 class FeatureTransformer:
     """PCA visualisation and text features from the features.hdf attrs
     contract (the features' pickled PCA, min and range)."""
@@ -108,7 +99,7 @@ class FeatureTransformer:
     def __init__(self, scene_path, feature_name, classes, checkpoint=None,
                  allow_fallback=False):
         import pickle
-        h5py = _require('h5py', 'the feature tile (features.hdf)')
+        h5py = require('h5py', 'the feature tile (features.hdf)')
         with h5py.File(os.path.join(scene_path, 'features.hdf'), 'r') as f:
             features = f[f'features/{feature_name}']
             try:
@@ -194,7 +185,7 @@ def _classes(flags, dataset):
     holds."""
     if flags.label_map is None:
         return flags.classes
-    pandas = _require('pandas', '--label-map')
+    pandas = require('pandas', '--label-map')
     label_map = pandas.read_csv(flags.label_map)
     classes_in_scene = dataset.scene.metadata.get('classes', None)
     if classes_in_scene is not None:
@@ -286,7 +277,7 @@ def main(argv=None, device=None):
     raises without one) or a torch device ('cpu' in the tests)."""
     flags = read_args(argv)
     resolve_device(device)
-    cv2 = _require('cv2', 'the mp4 writer')
+    cv2 = require('cv2', 'the mp4 writer')
     writer = cv2.VideoWriter(flags.out, cv2.VideoWriter_fourcc(*'mp4v'),
                              flags.fps, TILE)
     try:

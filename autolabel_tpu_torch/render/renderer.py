@@ -372,7 +372,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
 
 class StagedRenderer:
     """Memory-bounded full-frame rendering: rays in chunks of
-    max_ray_batch, the last chunk padded by repeating the last ray."""
+    max_ray_batch, the last chunk as long as the rays left (rays render
+    independently; the JAX package pads it to keep one compiled shape,
+    which nothing here needs)."""
 
     def __init__(self, field, options=None, max_ray_batch=4096):
         self.field = field
@@ -391,21 +393,13 @@ class StagedRenderer:
                                                                      width))
 
         o, d, dn = flat(rays_o, 3), flat(rays_d, 3), flat(direction_norms, 1)
-        n = o.shape[0]
-        chunk = self.max_ray_batch
-        padded = ((n + chunk - 1) // chunk) * chunk
-        if padded != n:
-            pad = padded - n
-            o = torch.cat([o, o[-1:].expand(pad, 3)])
-            d = torch.cat([d, d[-1:].expand(pad, 3)])
-            dn = torch.cat([dn, dn[-1:].expand(pad, 1)])
         o, d, dn = o.to(dev), d.to(dev), dn.to(dev)
+        chunk = self.max_ray_batch
         outs = []
-        for start in range(0, padded, chunk):
+        for start in range(0, o.shape[0], chunk):
             sl = slice(start, start + chunk)
             outs.append(render_rays(self.field, o[sl], d[sl], dn[sl],
                                     options=self.options))
-        merged = {k: torch.cat([out[k] for out in outs])[:n]
-                  for k in outs[0]}
+        merged = {k: torch.cat([out[k] for out in outs]) for k in outs[0]}
         return {k: v.reshape(*lead_shape, *v.shape[1:])
                 for k, v in merged.items()}

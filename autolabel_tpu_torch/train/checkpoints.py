@@ -4,8 +4,11 @@ Counterpart of autolabel_tpu/train/checkpoints.py. Files live at
 <scene>/nerf/<model-hash>/checkpoints/*.pth; the loader prefers best.pth,
 else the lexicographically-last file. Payloads are plain pickles of numpy
 pytrees {'model', 'ema', 'global_step', ['optimizer']}, so checkpoints
-written by either package load in the other. Reference torch.save
-archives are not read by the port yet.
+written by either package load in the other. Reference (torch-ngp)
+torch.save archives, zip or legacy, are read by torch.load with
+weights_only=True, which refuses arbitrary globals as the JAX package's
+torch-free reader (utils/torch_zip.py) does; their tensors come back as
+numpy arrays (torch_import.py maps them onto the param tree).
 """
 import glob
 import os
@@ -74,18 +77,40 @@ class _PayloadUnpickler(pickle.Unpickler):
         return type(name, (_Opaque,), {'__module__': module})
 
 
+def load_torch_file(path):
+    """A torch.save archive (zip or legacy) with every tensor as a numpy
+    array. weights_only admits tensors, containers, numbers and strings,
+    and refuses any other global (an nn.Module, say) with an
+    UnpicklingError. The globals the JAX package's reader admits beside
+    the tensors' (OrderedDict, torch.Size) are on weights_only's own
+    list, so no safe_globals are added."""
+    return _tensors_to_numpy(torch.load(path, map_location='cpu',
+                                        weights_only=True))
+
+
+def _tensors_to_numpy(tree):
+    """Tensors -> numpy arrays (bfloat16 widened to float32, which numpy
+    lacks; exact), containers rebuilt, every other value kept."""
+    if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:
+            tree = tree.float()
+        return tree.detach().numpy()
+    if isinstance(tree, dict):
+        return type(tree)((k, _tensors_to_numpy(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors_to_numpy(v) for v in tree)
+    return tree
+
+
 def load_checkpoint_file(path):
-    """A pickled numpy payload written by either package."""
+    """The payload of a checkpoint file: a pickled numpy payload written by
+    either package, or a reference torch.save archive."""
     if zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f'{path} is a torch.save archive (a reference checkpoint); the '
-            'port does not import those yet')
+        return load_torch_file(path)
     with open(path, 'rb') as f:
         payload = _PayloadUnpickler(f).load()
     if isinstance(payload, int):  # legacy torch.save magic number
-        raise NotImplementedError(
-            f'{path} is a legacy torch.save file; the port does not import '
-            'those yet')
+        return load_torch_file(path)
     return payload
 
 

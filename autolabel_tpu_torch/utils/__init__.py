@@ -9,14 +9,28 @@ contains::
     features.hdf nerf/<model-hash>/{params.pkl, checkpoints/*.pth}
 
 Image sizes come from utils.images (a PNG's header; PIL for other files)
-in place of cv2.
+in place of cv2, and labelme polygons are filled by utils.raster.fill_poly,
+bit-equal to cv2.fillPoly.
 """
+import importlib
 import json
 import os
 
 import numpy as np
 
 from autolabel_tpu_torch.utils import images
+from autolabel_tpu_torch.utils.raster import fill_poly
+
+
+def require(module, what):
+    """Import `module` at the call, or raise naming it and what needs it
+    (for the packages the port does not depend on: cv2, PIL, pandas,
+    h5py, matplotlib, sklearn)."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise RuntimeError(f'{what} needs {module}, which is not '
+                           'installed') from e
 
 
 def _numeric_sorted(names):
@@ -135,11 +149,14 @@ class Scene:
         return np.loadtxt(os.path.join(self.path, 'bbox.txt'))[:6].reshape(2, 3)
 
     def gt_masks(self, size):
-        """Labelme-annotated GT masks: rasterising their polygons belongs
-        to the evaluation slice, which is not ported yet."""
-        raise NotImplementedError(
-            'Scene.gt_masks (labelme polygons rasterised to masks) is not '
-            'ported yet')
+        """Labelme-annotated GT masks as (frame_number, HxW array) pairs."""
+        gt_dir = os.path.join(self.path, 'gt_masks')
+        if not os.path.exists(gt_dir):
+            return []
+        masks = [(int(f.split('.')[0]),
+                  _read_gt_mask(os.path.join(gt_dir, f), size))
+                 for f in os.listdir(gt_dir)]
+        return sorted(masks, key=lambda m: m[0])
 
     @property
     def metadata(self):
@@ -160,4 +177,19 @@ class Scene:
 def transform_points(T, points):
     """Apply a 4x4 rigid transform to (..., 3) points."""
     return points @ T[:3, :3].T + T[:3, 3]
+
+
+def _read_gt_mask(path, size):
+    """Rasterize a labelme polygon annotation JSON into a (h, w) uint8 mask
+    (every polygon filled with 1, as cv2.fillPoly does in the JAX
+    package)."""
+    with open(path, 'rt') as f:
+        data = json.load(f)
+    mask = np.zeros((size[1], size[0]), dtype=np.uint8)
+    scaling = np.array(
+        [size[0] / data['imageWidth'], size[1] / data['imageHeight']])
+    for shape in data['shapes']:
+        polygon = (np.stack(shape['points']) * scaling).astype(np.int32)
+        fill_poly(mask, polygon, 1)
+    return mask
 

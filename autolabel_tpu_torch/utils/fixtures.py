@@ -6,12 +6,19 @@ make_synthetic_scene is tests/synthetic.py's shaded sphere seen from a
 camera ring, make_room_scene tests/room.py's textured room with four
 occluding objects in five classes. Same geometry and the same uint8 and
 uint16 truncations, so the files decode to the same pixels; they are
-written by utils.images.write_png, and neither writes gt_masks (labelme
-polygons, traced with cv2.findContours and used only by evaluation).
+written by utils.images.write_png.
 
-Depth images are uint16 millimetre z-depth, poses OpenCV T_CW. To write one
-from the shell: python -m autolabel_tpu_torch.utils.fixtures {sphere,room}
-<scene dir>.
+With annotate=True they also write what evaluation reads: labelme
+polygons in gt_masks/*.json (the outline of the sphere, or of the room's
+red ball, projected from its analytic silhouette: the JAX fixtures'
+cv2.findContours polygons are not reproduced), gt_semantic/ for every
+frame, and with mesh_points > 0 a mesh.ply of that many points on the
+objects' surfaces with their classes in mesh_labels.npy (stored in the
+ngp axis order the 3D evaluator permutes back).
+
+Depth images are uint16 millimetre z-depth, poses OpenCV T_CW. To write an
+annotated one from the shell: python -m autolabel_tpu_torch.utils.fixtures
+{sphere,room} <scene dir>.
 """
 import json
 import os
@@ -19,6 +26,75 @@ import os
 import numpy as np
 
 from autolabel_tpu_torch.utils.images import write_png
+from autolabel_tpu_torch.utils.ply import write_ply_pointcloud
+
+OUTLINE_VERTICES = 64
+
+
+def sphere_outline(T_WC, camera_matrix, center, radius,
+                   n=OUTLINE_VERTICES):
+    """The (n, 2) pixel polygon of a sphere's silhouette (pixel i's centre
+    at i, as labelme and cv2 index pixels), or None unless the whole
+    sphere lies in front of the camera: the circle where the rays from the
+    camera touch the sphere, projected."""
+    position = T_WC[:3, 3] - center
+    distance = np.linalg.norm(position)
+    R = T_WC[:3, :3]
+    if (R.T @ -position)[2] <= radius + 1e-3 or distance <= radius:
+        return None
+    axis = position / distance
+    u = np.cross(axis, [0.0, 0.0, 1.0])
+    if np.linalg.norm(u) < 1e-6:
+        u = np.cross(axis, [1.0, 0.0, 0.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(axis, u)
+    theta = 2 * np.pi * np.arange(n) / n
+    rho = radius * np.sqrt(1.0 - (radius / distance) ** 2)
+    circle = (center + axis * radius ** 2 / distance
+              + rho * (np.cos(theta)[:, None] * u
+                       + np.sin(theta)[:, None] * v))
+    cam = (circle - T_WC[:3, 3]) @ R
+    pixels = cam[:, :2] / cam[:, 2:] * np.diag(camera_matrix)[:2] \
+        + camera_matrix[:2, 2]
+    return pixels - 0.5
+
+
+def write_gt_mask(scene_dir, index, polygon, width, height, label):
+    """A labelme annotation of one polygon."""
+    with open(os.path.join(scene_dir, 'gt_masks', f'{index}.json'),
+              'w') as f:
+        json.dump({'imageWidth': width, 'imageHeight': height,
+                   'shapes': [{'label': label,
+                               'points': polygon.tolist()}]}, f)
+
+
+def write_mesh(scene_dir, points, labels):
+    """mesh.ply and mesh_labels.npy; the points are stored as (z, x, y),
+    which the 3D evaluator's ngp permutation (x, y, z) -> (y, z, x) turns
+    back into world coordinates."""
+    write_ply_pointcloud(os.path.join(scene_dir, 'mesh.ply'),
+                         points[:, [2, 0, 1]])
+    np.save(os.path.join(scene_dir, 'mesh_labels.npy'),
+            np.asarray(labels, np.int64))
+
+
+def sphere_points(rng, n, center, radius):
+    """n points uniform on a sphere's surface."""
+    d = rng.normal(size=(n, 3))
+    return center + radius * d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def box_points(rng, n, bmin, bmax):
+    """n points uniform on a box's surface."""
+    extent = bmax - bmin
+    areas = np.array([extent[1] * extent[2], extent[0] * extent[2],
+                      extent[0] * extent[1]])
+    axis = rng.choice(3, size=n, p=areas / areas.sum())
+    points = bmin + rng.uniform(size=(n, 3)) * extent
+    side = rng.integers(0, 2, n)
+    rows = np.arange(n)
+    points[rows, axis] = np.where(side == 1, bmax[axis], bmin[axis])
+    return points
 
 # -- the sphere (tests/synthetic.py) ------------------------------------------
 
@@ -90,9 +166,17 @@ def make_synthetic_scene(scene_dir,
                          width=48,
                          height=36,
                          camera_distance=1.6,
-                         label_every=3):
+                         label_every=3,
+                         annotate=False,
+                         mesh_points=0):
+    """annotate: also gt_masks/ (the sphere's outline, every label_every
+    frames) and gt_semantic/; mesh_points: that many points on the sphere
+    in mesh.ply, class 2."""
     os.makedirs(scene_dir, exist_ok=True)
-    for sub in ('rgb', 'depth', 'pose', 'semantic'):
+    subs = ('rgb', 'depth', 'pose', 'semantic')
+    if annotate:
+        subs += ('gt_masks', 'gt_semantic')
+    for sub in subs:
         os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
 
     focal = 0.8 * width
@@ -124,6 +208,19 @@ def make_synthetic_scene(scene_dir,
         if i % label_every == 0:
             write_png(os.path.join(scene_dir, 'semantic', f'{i}.png'),
                       semantic)
+        if annotate:
+            write_png(os.path.join(scene_dir, 'gt_semantic', f'{i}.png'),
+                      semantic)
+            outline = sphere_outline(T_WC, camera_matrix, np.zeros(3),
+                                     SPHERE_RADIUS)
+            if i % label_every == 0 and outline is not None:
+                write_gt_mask(scene_dir, i, outline, width, height,
+                              'sphere')
+    if mesh_points:
+        rng = np.random.default_rng(0)
+        write_mesh(scene_dir, sphere_points(rng, mesh_points, np.zeros(3),
+                                            SPHERE_RADIUS),
+                   np.full(mesh_points, 2))
     return scene_dir
 
 
@@ -253,9 +350,17 @@ def render_room_frame(T_WC, camera_matrix, width, height):
 
 
 def make_room_scene(scene_dir, n_frames=96, width=160, height=120,
-                    label_every=4):
+                    label_every=4, annotate=False, mesh_points=0):
+    """annotate: also gt_masks/, the red ball's outline (class 2, not cut
+    by what occludes it) every 2 label_every frames where the ball lies
+    wholly in front of the camera; mesh_points: that many points on the
+    two balls' and two boxes' surfaces, a quarter each, with their
+    classes."""
     os.makedirs(scene_dir, exist_ok=True)
-    for sub in ('rgb', 'depth', 'pose', 'semantic', 'gt_semantic'):
+    subs = ('rgb', 'depth', 'pose', 'semantic', 'gt_semantic')
+    if annotate:
+        subs += ('gt_masks',)
+    for sub in subs:
         os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
 
     focal = 0.75 * width
@@ -290,6 +395,22 @@ def make_room_scene(scene_dir, n_frames=96, width=160, height=120,
         if i % label_every == 0:
             write_png(os.path.join(scene_dir, 'semantic', f'{i}.png'),
                       semantic)
+        center, radius, _, _ = SPHERES[0]
+        outline = sphere_outline(T_WC, camera_matrix, center, radius)
+        if annotate and i % (2 * label_every) == 0 and outline is not None:
+            write_gt_mask(scene_dir, i, outline, width, height, 'red ball')
+    if mesh_points:
+        rng = np.random.default_rng(0)
+        counts = np.diff(np.linspace(0, mesh_points, 5).astype(int))
+        points, labels = [], []
+        for (center, radius, _, cls), n in zip(SPHERES, counts[:2]):
+            points.append(sphere_points(rng, n, center, radius))
+            labels.append(np.full(n, cls))
+        for (bmin, bmax, _, cls), n in zip(BOXES, counts[2:]):
+            points.append(box_points(rng, n, bmin, bmax))
+            labels.append(np.full(n, cls))
+        write_mesh(scene_dir, np.concatenate(points),
+                   np.concatenate(labels))
     return scene_dir
 
 
@@ -297,5 +418,6 @@ if __name__ == '__main__':
     # python -m autolabel_tpu_torch.utils.fixtures {sphere,room} <scene dir>
     import sys
     kind, out = sys.argv[1], sys.argv[2]
-    {'sphere': make_synthetic_scene, 'room': make_room_scene}[kind](out)
+    {'sphere': make_synthetic_scene, 'room': make_room_scene}[kind](
+        out, annotate=True, mesh_points=65536)
     print('wrote', out)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
 flagship training step, the train CLI and its stochastic-corner estimators,
-the render CLI with its baked preview, and the interactive preview, on one
-CUDA card.
+the render CLI with its baked preview, the interactive preview, and
+evaluation (the closed-set and open-vocabulary CLIs and a reference
+checkpoint's import), on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -195,6 +196,32 @@ Phases, each failing loudly:
      blocks): one block's refresh after the cold start; K8 held by
      check_splat's rules from 2 poses and timed as in phase 12 at 1280 x
      720.
+ 14. evaluation, on the sphere scene written again by utils.fixtures at
+     1280 x 960 (16 frames; the CLIs evaluate at factor 4, 320 x 240) with
+     labelme masks, gt semantic maps and a mesh of 262,144 surface points,
+     phase 10's geometry and bbox. (b) autolabel_tpu_torch.evaluate.main on
+     Run B's workspace (K1s eval form and K3f once a chunk of 8,182 rays)
+     in turns with the plain versions (plain, kernels, kernels, plain),
+     every count set to 0 just before each run and read just after (the
+     plain runs launch nothing), the classes of each evaluated frame equal
+     to the plain run's but at near ties, the per-class IoU, mIoU and ms
+     per evaluated frame. (c) language.evaluate.main with --allow-fallback
+     on a workspace of seeded full-width weights (CLI defaults with
+     --features lseg --feature-dim 512, the 606-class head, 'xla' heads)
+     and a two-row label map, in 2D (K1s once a chunk) and with --pc (K1s
+     10 times a 50,000-point chunk, 60 in all); then the 3D query alone
+     (jittered_semantic_features over the 262,144 points, 10 queries a
+     point) in turns with the plain versions on the same seeds, its
+     features held by phase 6's limits and its labels equal but at near
+     ties of the similarities; ms per chunk, points/s, one chunk's busy
+     share and the peak memory. (d) seeded params of the reference's
+     hg+freq model (16 x 2 x 2^19 on the tcnn lattice) written by
+     torch_export.export_torch_checkpoint and loaded by
+     InferenceModel.from_checkpoint (geo_relu, the tcnn variant, the
+     params back bit-equal but the colour net's 16 SH-folded rows); K1 on
+     that lattice held against its plain version at N = 524,288 and timed
+     beside its bound; two 480 x 360 frames from phase 5's cameras (K1
+     once a chunk, no other kernel) held against the plain render.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -2645,6 +2672,457 @@ def _preview_phase(dev, seed, gpu, checks, results):
                 busy_ms=busy, held=held, k8=timed)
 
 
+# Evaluation (phase 14): the sphere scene again at ScanNet's frame scale
+# (the CLIs evaluate at factor 4: 320 x 240), with labelme masks, gt
+# semantic maps and a mesh of ScanNet-mesh scale (6 chunks of the 3D query).
+EVAL_SCENE = dict(n_frames=16, width=1280, height=960)
+EVAL_MESH_POINTS = 262144
+EVAL_CHUNK = 50000  # InferenceModel's chunk of the 3D query
+EVAL_BATCH = 8182  # the evaluation CLIs' default --batch-size
+JITTER_SAMPLES, JITTER_SIGMA = 10, 0.02
+LABEL_MAP = 'id,prompt\n1,background\n2,sphere|ball\n'
+# The reference checkpoint: the reference's hg+freq model (16 levels of up
+# to 2^19 rows of 2 features on the tcnn lattice), at phase 5's cameras.
+REFERENCE_CLASSES = 2
+REFERENCE_N = 524288
+
+
+@contextlib.contextmanager
+def _recording(model_class, keys, profile_at=None):
+    """Record every InferenceModel.render of the block: the outputs' `keys`
+    and the frame's ms (render returns numpy arrays: synchronised). The
+    render of index `profile_at` is traced instead of timed: its device
+    time by kernel goes into the third dict ('rows', 'busy_ms')."""
+    outputs, frame_ms, profile = [], [], {}
+    render = model_class.render
+
+    def wrapped(self, batch):
+        if len(outputs) == profile_at:
+            out = []
+            profile['rows'], profile['busy_ms'] = _device_profile(
+                lambda: out.append(render(self, batch)))
+            out = out[0]
+        else:
+            t0 = time.perf_counter()
+            out = render(self, batch)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        outputs.append({k: out[k] for k in keys})
+        return out
+
+    model_class.render = wrapped
+    try:
+        yield outputs, frame_ms, profile
+    finally:
+        model_class.render = render
+
+
+def _print_profile(gpu, tag, rows, busy, wall_ms, unit):
+    """A traced call's device busy time against the untraced `wall_ms` of
+    one `unit`, and its top kernels. Returns the busy share, or None when
+    the trace holds no device time."""
+    if rows is None:
+        print(f'{tag} profile: the trace holds no device time: not measured')
+        return None
+    share = busy / wall_ms
+    print(f'{tag} profile [{gpu}]: one {unit} device busy {busy:.3f} ms of '
+          f'a {wall_ms:.3f} ms {unit}: busy share {share:.4f}')
+    for name, ms, count in rows[:8]:
+        print(f'  {ms:9.3f} ms {ms / busy:7.2%} x{count:<5d} {name[:90]}')
+    return share
+
+
+def _hold_maps(checks, tag, ours, ref, keys):
+    """Phase 6's limits on each map (mean |d| < 5e-3, 99.9th percentile <
+    5e-2 of the largest |ref|, 1 for the image); the classes equal but at
+    near ties of the logits. Returns the errors."""
+    import numpy as np
+    errors = {}
+    for key in keys:
+        err = np.abs(ours[key] - ref[key])
+        scale = 1.0 if key == 'image' else float(np.abs(ref[key]).max())
+        mean, p999 = float(err.mean()), float(np.quantile(err, 0.999))
+        errors[key] = dict(mean_abs=mean, p99_9=p999, max=float(err.max()))
+        checks.true(f'{tag} {key} vs plain',
+                    bool(np.isfinite(ours[key]).all())
+                    and mean < 5e-3 * scale and p999 < 5e-2 * scale,
+                    f'mean_abs={mean:.3e} p99.9={p999:.3e} '
+                    f'max={float(err.max()):.3e} (scale {scale:.3e})')
+    if 'semantic' in keys:
+        differ, unexplained = _semantic_flips(ours['semantic'],
+                                              ref['semantic'])
+        checks.true(f'{tag} classes vs plain', unexplained == 0,
+                    f'{differ} differ, {unexplained} of them not at a near '
+                    'tie')
+        errors['class_flips'] = differ
+    return errors
+
+
+def _eval_phase(dev, seed, gpu, checks, results):
+    """Phase 14 (see the module docstring). Adds K1's tcnn hold and the 3D
+    query's times to `results`; returns what the output file keeps."""
+    import dataclasses
+    import shutil
+    import types
+
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch import bridge, evaluation, model_utils
+    from autolabel_tpu_torch import evaluate as eval_cli
+    from autolabel_tpu_torch import inference, torch_export
+    from autolabel_tpu_torch.core import rays
+    from autolabel_tpu_torch.language import evaluate as language_cli
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.train import checkpoints
+    from autolabel_tpu_torch.utils import Scene, fixtures
+    phase_start = time.perf_counter()
+    root = os.path.join(WORK_DIR, 'eval')
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, 'sphere')
+    t0 = time.perf_counter()
+    fixtures.make_synthetic_scene(scene, annotate=True,
+                                  mesh_points=EVAL_MESH_POINTS, **EVAL_SCENE)
+    scene_s = time.perf_counter() - t0
+    with open(os.path.join(scene, 'bbox.txt')) as a, open(os.path.join(
+            WORK_DIR, 'cli', 'sphere', 'bbox.txt')) as b:
+        checks.true('eval scene: the bbox of phase 10\'s scene',
+                    a.read() == b.read())
+    names = {'K1': hashgrid_cuda.NAME, 'K1s': hashgrid_cuda.ATOMS_NAME,
+             'K3f': heads_cuda.HEADS}
+    width, height = EVAL_SCENE['width'] // 4, EVAL_SCENE['height'] // 4
+    chunks = -(-width * height // EVAL_BATCH)
+    n_masks = len(os.listdir(os.path.join(scene, 'gt_masks')))
+    n_frames = EVAL_SCENE['n_frames']
+    model_class = inference.InferenceModel
+
+    def expect(tag, launches, want):
+        """`launches` are `want` exactly: no other kernel."""
+        got = {k: v for k, v in launches.items() if v}
+        want = {names[k]: v for k, v in want.items()}
+        checks.true(f'{tag} launches', got == want,
+                    f'{got} (expected {want})')
+
+    # (b) the closed set on Run B's workspace (K1s eval form and K3f), in
+    # turns with the plain versions
+    run_b = os.path.join(WORK_DIR, 'cli', 'b')
+    per_class = []
+    workspace = eval_cli.evaluate_workspace
+
+    def evaluate_recorded(*args):
+        params, ious = workspace(*args)
+        per_class.append(ious)
+        return params, ious
+
+    def closed(plain, profile_at=None):
+        ctx = (_plain_kernels(hashgrid_cuda, heads_cuda) if plain
+               else contextlib.nullcontext())
+        eval_cli.evaluate_workspace = evaluate_recorded
+        try:
+            with ctx, _recording(model_class, ('semantic',),
+                                 profile_at) as (outs, ms, profile):
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                t0 = time.perf_counter()
+                run = eval_cli.main([scene, '--workspace', run_b], dev)
+                wall = time.perf_counter() - t0
+                launches = dict(_kernels.launches)
+        finally:
+            eval_cli.evaluate_workspace = workspace
+        return dict(run=run, outputs=outs, frame_ms=ms, wall_s=wall,
+                    launches=launches, profile=profile)
+
+    # the second kernels turn traces its second frame
+    turns = [closed(True), closed(False), closed(False, 1), closed(True)]
+    for i, turn in enumerate(turns):
+        checks.true(f'eval closed run {i}: one model scored',
+                    len(turn['run'].json_entries) == 1
+                    and len(turn['outputs']) == n_masks,
+                    f'{len(turn["run"].json_entries)} entries, '
+                    f'{len(turn["outputs"])} frames of {n_masks} masks')
+    for i in (0, 3):
+        ran = {k: v for k, v in turns[i]['launches'].items() if v}
+        checks.true(f'eval closed plain run {i} launches no kernel', not ran,
+                    f'{ran}')
+    closed_launches = turns[1]['launches']
+    expect('eval closed', closed_launches,
+           {'K1s': n_masks * chunks, 'K3f': n_masks * chunks})
+    closed_errors = [_hold_maps(checks, f'eval closed frame {i}', a, b,
+                                ('semantic',))
+                     for i, (a, b) in enumerate(zip(turns[1]['outputs'],
+                                                    turns[0]['outputs']))]
+    miou = turns[1]['run'].json_entries[0]['iou']
+    ious = per_class[1]
+    checks.true('eval closed IoU', all(0.0 <= v <= 1.0 for v in
+                                       ious.values()) and sorted(ious) == [1],
+                f'{ious}')
+    closed_ms = {'kernels': turns[1]['frame_ms'] + turns[2]['frame_ms'],
+                 'plain': turns[0]['frame_ms'] + turns[3]['frame_ms']}
+    print(f'eval closed [{gpu}]: {n_masks} frames of {width}x{height}, '
+          f'{chunks} chunks of {EVAL_BATCH} rays a frame; per-class IoU '
+          f'{ious} (plain {per_class[0]}), mIoU {miou:.6f}; ms per evaluated '
+          f'frame (in turns) kernels '
+          f'{[round(v, 3) for v in closed_ms["kernels"]]}, plain '
+          f'{[round(v, 3) for v in closed_ms["plain"]]}; the CLI\'s wall '
+          f'{[round(t["wall_s"], 3) for t in turns]} s')
+    closed_profile = turns[2]['profile']
+    closed_share = _print_profile(
+        gpu, 'eval closed', closed_profile['rows'],
+        closed_profile['busy_ms'], float(np.median(closed_ms['kernels'])),
+        'frame')
+    del turns
+    torch.cuda.empty_cache()
+
+    # (c) open vocabulary: a --features lseg --feature-dim 512 workspace of
+    # seeded full-width weights with the 606-class head
+    flags = model_utils.model_flag_parser().parse_args(
+        ['--features', 'lseg', '--feature-dim', '512'])
+    bbox = np.loadtxt(os.path.join(scene, 'bbox.txt'))
+    gen = torch.Generator().manual_seed(seed + 14)
+    field = model_utils.create_model(bbox[:3], bbox[3:6],
+                                     language_cli.SCANNET_N_CLASSES, flags,
+                                     device=dev, generator=gen)
+    with torch.no_grad():
+        field.encoder['grid'].copy_(
+            torch.randn(field.encoder['grid'].shape, generator=gen) * 0.5)
+    language_root = os.path.join(root, 'language')
+    language_ws = os.path.join(language_root, 'sphere',
+                               model_utils.model_hash(flags))
+    tree = bridge.params_to_numpy(field)
+    checkpoints.save_checkpoint(os.path.join(language_ws, 'checkpoints',
+                                             'best.pth'),
+                                {'params': tree, 'ema': tree, 'step': 0},
+                                include_optimizer=False)
+    model_utils.write_params(language_ws, flags)
+    label_map = os.path.join(root, 'label_map.csv')
+    with open(label_map, 'w') as f:
+        f.write(LABEL_MAP)
+    del field, tree
+    language_out = {}
+    language_launches = {}
+    for leg, extra in (('2d', []), ('3d', ['--pc'])):
+        out = os.path.join(root, f'language_{leg}.json')
+        # the 2D leg traces its second frame
+        with _recording(model_class, (), 1 if leg == '2d' else None) as (
+                _, ms, profile):
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            language_cli.main([scene, '--workspace', language_root,
+                               '--label-map', label_map, '--allow-fallback',
+                               '--out', out] + extra, dev)
+            wall = time.perf_counter() - t0
+            language_launches[leg] = dict(_kernels.launches)
+        with open(out) as f:
+            scores = json.load(f)
+        values = [v for record in scores['iou'] + scores['acc']
+                  for v in record.values()]
+        checks.true(f'eval language {leg} scores',
+                    len(scores['iou']) == 1 and 'sphere' in scores['iou'][0]
+                    and all(v is None or 0.0 <= v <= 1.0 for v in values),
+                    f'{scores}')
+        language_out[leg] = dict(scores=scores, wall_s=wall, frame_ms=ms)
+        print(f'eval language {leg} [{gpu}]: {scores}; {wall:.3f} s'
+              + (f'; ms a frame {[round(v, 3) for v in ms]}' if ms else ''))
+        if profile:
+            language_out[leg].update(profile)
+            language_out[leg]['busy_share'] = _print_profile(
+                gpu, f'eval language {leg}', profile['rows'],
+                profile['busy_ms'], float(np.median(ms)), 'frame')
+    n_chunks = 1 + -(-(EVAL_MESH_POINTS - EVAL_CHUNK) // EVAL_CHUNK)
+    expect('eval language 2d', language_launches['2d'],
+           {'K1s': n_frames * chunks})
+    expect('eval language 3d', language_launches['3d'],
+           {'K1s': n_chunks * JITTER_SAMPLES})
+
+    # the 3D query alone, in turns with the plain versions (the same seeds,
+    # so the same jitter on the card)
+    served = model_utils.create_model(bbox[:3], bbox[3:6],
+                                      language_cli.SCANNET_N_CLASSES, flags,
+                                      device=dev)
+    model = model_class.from_checkpoint(served, language_ws)
+    evaluator = evaluation.OpenVocabEvaluator3D(features='lseg',
+                                                allow_fallback=True)
+    evaluator.reset(model, language_cli.read_label_map(label_map))
+    points, _ = evaluator._read_gt_pointcloud(
+        types.SimpleNamespace(scene=Scene(scene)))
+
+    def query(plain):
+        ctx = (_plain_kernels(hashgrid_cuda, heads_cuda) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            feats = np.concatenate([
+                model.jittered_semantic_features(
+                    points[:EVAL_CHUNK], JITTER_SAMPLES, JITTER_SIGMA,
+                    seed=0),
+                model.jittered_semantic_features(
+                    points[EVAL_CHUNK:], JITTER_SAMPLES, JITTER_SIGMA,
+                    seed=1)])
+            s = time.perf_counter() - t0
+            return dict(features=feats, s=s, launches=dict(_kernels.launches),
+                        peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+    q = [query(True), query(False), query(False), query(True)]
+    for i in (0, 3):
+        ran = {k: v for k, v in q[i]['launches'].items() if v}
+        checks.true(f'eval 3d query plain run {i} launches no kernel',
+                    not ran, f'{ran}')
+    expect('eval 3d query', q[1]['launches'],
+           {'K1s': n_chunks * JITTER_SAMPLES})
+    feats, plain_feats = q[1]['features'], q[0]['features']
+    checks.true('eval 3d query features', feats.shape == (
+        EVAL_MESH_POINTS, 512) and bool(np.isfinite(feats).all()),
+        f'{feats.shape}')
+    text = evaluator.text_features[:, :feats.shape[-1]]
+    query_errors = _hold_maps(checks, 'eval 3d query',
+                              {'semantic_features': feats,
+                               'semantic': feats @ text.T},
+                              {'semantic_features': plain_feats,
+                               'semantic': plain_feats @ text.T},
+                              ('semantic_features', 'semantic'))
+    query_ms = {'kernels': [t['s'] * 1e3 / n_chunks for t in (q[1], q[2])],
+                'plain': [t['s'] * 1e3 / n_chunks for t in (q[0], q[3])]}
+    rate = EVAL_MESH_POINTS / min(q[1]['s'], q[2]['s'])
+    chunk_ms = min(query_ms['kernels'])
+    rows, busy = _device_profile(lambda: model.jittered_semantic_features(
+        points[:EVAL_CHUNK], JITTER_SAMPLES, JITTER_SIGMA, seed=0))
+    print(f'eval 3d query [{gpu}]: {EVAL_MESH_POINTS} points, '
+          f'{JITTER_SAMPLES} queries a point, {n_chunks} chunks: ms per '
+          f'{EVAL_CHUNK}-point chunk (in turns) kernels '
+          f'{[round(v, 3) for v in query_ms["kernels"]]}, plain '
+          f'{[round(v, 3) for v in query_ms["plain"]]}; {rate:.1f} points/s '
+          f'({rate * JITTER_SAMPLES:.1f} queries/s); peak memory '
+          f'{q[1]["peak_bytes"] / 1e9:.3f} GB above the model (plain '
+          f'{q[0]["peak_bytes"] / 1e9:.3f})')
+    query_share = _print_profile(gpu, 'eval 3d query', rows, busy, chunk_ms,
+                                 'chunk')
+    results['K1s']['eval_3d'] = dict(chunk_ms=query_ms, points_per_s=rate,
+                                     busy_ms=busy, busy_share=query_share,
+                                     errors=query_errors)
+    del q, model, served, evaluator
+    torch.cuda.empty_cache()
+
+    # (d) a reference checkpoint: the port's export of seeded params of the
+    # reference's hg+freq model, imported by from_checkpoint
+    lo, hi = np.full(3, -1.0), np.full(3, 1.0)  # bound 2, phase 5's
+    reference_flags = model_utils.model_flag_parser().parse_args(
+        ['--grid-preset', 'reference'])
+    base = model_utils.model_config(lo, hi, REFERENCE_CLASSES,
+                                    reference_flags)
+    grid = dataclasses.replace(base.grid_config, variant='tcnn')
+    config = dataclasses.replace(base, grid=grid, geo_relu=True)
+    gen = torch.Generator().manual_seed(seed + 15)
+    source = Field(config, device=dev, generator=gen)
+    with torch.no_grad():
+        table = torch.randn(source.encoder['grid'].shape, generator=gen) * 0.5
+        for level, size in enumerate(grid.level_sizes):
+            table[level, size:] = 0.0  # beyond the reference's buffer
+        source.encoder['grid'].copy_(table)
+    tree = bridge.params_to_numpy(source)
+    reference_ws = os.path.join(root, 'reference', 'sphere', 'g15_hg+freq')
+    os.makedirs(os.path.join(reference_ws, 'checkpoints'))
+    torch_export.export_torch_checkpoint(
+        os.path.join(reference_ws, 'checkpoints', 'ngp_ep0001.pth'), tree,
+        config)
+    del source
+    served = Field(base, device=dev)
+    model = model_class.from_checkpoint(served, reference_ws,
+                                        num_steps=NUM_STEPS,
+                                        max_ray_batch=MAX_RAY_BATCH)
+    imported = model.field.config
+    checks.true('eval reference: the field comes back with geo_relu and the '
+                'tcnn lattice', imported.geo_relu and imported.grid == grid
+                and imported.grid_config.variant == 'tcnn'
+                and imported.heads_impl == 'xla',
+                f'{imported}')
+    back = bridge.params_to_numpy(model.field)
+    same = [name for name in ('sigma_net', 'semantic_features',
+                              'semantic_out')
+            if all(np.array_equal(a, b) for a, b in zip(back[name],
+                                                        tree[name]))]
+    # the colour net's 16 SH rows pass through the direction fold and its
+    # inverse, which rounds them again in fp32 (as in the JAX tests)
+    colour = (all(np.array_equal(a, b) for a, b in zip(
+        back['color_net'][1:], tree['color_net'][1:]))
+        and np.array_equal(back['color_net'][0][16:],
+                           tree['color_net'][0][16:])
+        and np.allclose(back['color_net'][0][:16], tree['color_net'][0][:16],
+                        rtol=1e-4, atol=1e-7))
+    checks.true('eval reference: params exported and re-imported bit-equal '
+                '(the colour net\'s 16 SH-folded rows within rtol 1e-4)',
+                len(same) == 3 and colour and np.array_equal(
+                    back['encoder']['grid'], tree['encoder']['grid']),
+                f'bit-equal {same}, colour net {colour}')
+    table = model.field.encoder['grid'].detach()
+    x = torch.rand((REFERENCE_N, 3), generator=torch.Generator().manual_seed(
+        seed + 16)).to(dev)
+    enc = hashgrid_cuda.hashgrid_encode(table, x, grid)
+    enc_plain = hashgrid_cuda.hashgrid_encode_plain(table, x, grid)
+    k1_err = checks.close(f'K1 encode tcnn 16x2x2^19 N={REFERENCE_N}', enc,
+                          enc_plain, atol=1e-5, rtol=0.0)
+    k1_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(table, x, grid),
+                     20)
+    k1_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_plain(
+        table, x, grid), 3)
+    # the table's bytes are its levels' rows: the kernel hashes modulo a
+    # level's size and reads no padding row beyond it
+    table_bytes = (sum(grid.level_sizes) * grid.n_features
+                   * table.element_size())
+    k1_bound = _bound(_nbytes(x, enc) + table_bytes,
+                      16 * REFERENCE_N * grid.out_dim, PEAK_FP32)
+    results['K1']['tcnn'] = dict(n=REFERENCE_N, max_abs_err=k1_err,
+                                 ms=k1_ms, plain_ms=k1_plain,
+                                 bound_ms=k1_bound[0], bound_by=k1_bound[1])
+    print(f'K1 [{gpu}] tcnn 16x2x2^19 N={REFERENCE_N}: {k1_ms:.4f} ms, plain '
+          f'{k1_plain:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})')
+    del enc, enc_plain, x
+    frames = [_frame(rays, (3.2, -2.4, 1.2)), _frame(rays, (-2.8, -3.0, 0.8))]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    renders = [model.render(batch) for batch in frames]
+    reference_s = time.perf_counter() - t0
+    reference_launches = dict(_kernels.launches)
+    render_chunks = -(-FRAME_W * FRAME_H // MAX_RAY_BATCH)
+    expect('eval reference render', reference_launches,
+           {'K1': render_chunks * len(frames)})
+    with _plain_kernels(hashgrid_cuda, heads_cuda):
+        _kernels.reset_launches()
+        plain_renders = [model.render(batch) for batch in frames]
+        ran = {k: v for k, v in _kernels.launches.items() if v}
+    checks.true('eval reference plain render launches no kernel', not ran,
+                f'{ran}')
+    reference_errors = [
+        _hold_maps(checks, f'eval reference frame {i}', a, b,
+                   ('image', 'depth', 'semantic', 'semantic_features'))
+        for i, (a, b) in enumerate(zip(renders, plain_renders))]
+    weights = [float(r['weights_sum'].mean()) for r in renders]
+    print(f'eval reference [{gpu}]: {len(frames)} frames of '
+          f'{FRAME_W}x{FRAME_H} at {NUM_STEPS} samples, {reference_s:.3f} s; '
+          f'mean weights_sum {weights}')
+    print(f'eval phase: {time.perf_counter() - phase_start:.1f} s (scene '
+          f'written in {scene_s:.1f} s)')
+    return dict(launches={'closed': closed_launches,
+                          '2d': language_launches['2d'],
+                          '3d': language_launches['3d'],
+                          'reference': reference_launches},
+                names=names, closed_ms=closed_ms, closed_iou=ious,
+                closed_profile=closed_profile['rows'],
+                closed_busy_ms=closed_profile['busy_ms'],
+                closed_busy_share=closed_share,
+                closed_miou=miou, closed_errors=closed_errors,
+                language=language_out,
+                query_ms=query_ms, points_per_s=rate, query_busy_ms=busy,
+                query_profile=rows, query_errors=query_errors,
+                reference_errors=reference_errors,
+                reference_weights_sum=weights, reference_s=reference_s,
+                scene_s=scene_s)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3336,6 +3814,11 @@ def main():
     torch.cuda.empty_cache()
     preview = _preview_phase(dev, args.seed, gpu, checks, results)
 
+    # ---- 14. evaluation: closed set, open vocabulary, reference checkpoint
+    torch.cuda.empty_cache()
+    evaluation = _eval_phase(dev, args.seed, gpu, checks, results)
+    ev_launches = evaluation['launches']
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -3393,6 +3876,8 @@ def main():
            for path, v in rc_launches.items()},
         'launches_preview_governed': preview['governed_launches'].get(
             kernel_names[key], 0),
+        **{f'launches_eval_{leg}': v.get(kernel_names[key], 0)
+           for leg, v in ev_launches.items()},
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -3407,7 +3892,8 @@ def main():
                                         'unbiased_ratio', 'boundary',
                                         'ties', 'fill_device_ms',
                                         'scatter_device_ms', 'host_us',
-                                        'state_bound_ms', 'render_cli')
+                                        'state_bound_ms', 'render_cli',
+                                        'tcnn', 'eval_3d')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -3443,6 +3929,8 @@ def main():
                    'render_cli': {k: v for k, v in render_cli.items()
                                   if k != 'names'},
                    'preview': preview,
+                   'evaluation': {k: v for k, v in evaluation.items()
+                                  if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

@@ -1485,3 +1485,70 @@ def test_splat_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         splat_cuda.splat_render(points[:, :2], rgb, sh, semantic, valid, K,
                                 T, 48, 64, 4, cell)
+
+
+# -- evaluation: the reference's lattices at full size, the 3D query ---------
+
+@pytest.mark.parametrize('variant', ['tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('domain', ['unit', 'outside'])
+def test_encode_kernel_on_the_reference_lattices(cuda, variant, domain):
+    """K1 on an imported reference checkpoint's grid: 16 levels of up to
+    2^19 rows of 2 features, level sizes rounded to 8 (tcnn) or not
+    powers of two, positions offset by half a cell; rows beyond a level's
+    size zero, as torch_import packs them."""
+    import dataclasses
+    if variant == 'tcnn':
+        config = dataclasses.replace(HashGridConfig(), variant='tcnn')
+    else:
+        config = HashGridConfig.from_desired_resolution(
+            2 ** 18, variant='torch_ngp')
+    rng = np.random.default_rng(14)
+    table = rng.normal(0.0, 0.5, (config.n_levels, config.table_size,
+                                  config.n_features)).astype(np.float32)
+    for level, size in enumerate(config.level_sizes):
+        table[level, size:] = 0.0
+    table = torch.tensor(table, device=cuda)
+    x = _points(rng, 65536, cuda, domain)
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode(table, x, config)
+    assert _kernels.launches[hashgrid_cuda.NAME] == 1
+    want = hashgrid_cuda.hashgrid_encode_plain(table, x, config)
+    # the same products and sums in the same order and rounding
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('given_noise', [True, False])
+def test_jittered_features_on_the_card(cuda, monkeypatch, given_noise):
+    """jittered_semantic_features through K1s (eval form) against the plain
+    encode on the same jitter: given as noise, or drawn by the card's
+    generator from the same seed. K1s's fp32 encode is bit-equal to the
+    plain one and the heads are the same torch.matmul, so the features
+    agree to fp32 rounding."""
+    from autolabel_tpu_torch.inference import InferenceModel
+    from autolabel_tpu_torch.models.field import Field, FieldConfig
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    field = Field(FieldConfig(encoding='hg+freq', hidden_dim_semantic=64,
+                              semantic_classes=6, bound=2.0, grid=TPU_GRID,
+                              grid_interp='simplex'),
+                  device=cuda, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        field.encoder['grid'].normal_(0.0, 0.5)
+    model = InferenceModel(field)
+    model._chunk = 4096
+    rng = np.random.default_rng(15)
+    n = 10000
+    points = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    noise = (rng.normal(size=(9, n, 3)) * 0.02).astype(np.float32) \
+        if given_noise else None
+    _kernels.reset_launches()
+    got = model.jittered_semantic_features(points, 10, 0.02, seed=3,
+                                           noise=noise)
+    assert _kernels.launches[hashgrid_cuda.ATOMS_NAME] == 3 * 10
+    monkeypatch.setattr(hashgrid_cuda, 'hashgrid_encode',
+                        hashgrid_cuda.hashgrid_encode_plain)
+    _kernels.reset_launches()
+    want = model.jittered_semantic_features(points, 10, 0.02, seed=3,
+                                            noise=noise)
+    assert not any(_kernels.launches.values())
+    assert got.shape == (n, 64) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

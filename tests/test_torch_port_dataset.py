@@ -268,8 +268,10 @@ def test_scene_matches_jax(scene):
     assert np.array_equal(ours.camera.camera_matrix, ref.camera.camera_matrix)
     assert ours.camera.size == ref.camera.size
     assert ours.n_classes == ref.n_classes == 2
-    with pytest.raises(NotImplementedError):
-        ours.gt_masks((W, H))
+    masks, ref_masks = ours.gt_masks((W, H)), ref.gt_masks((W, H))
+    assert [i for i, _ in masks] == [i for i, _ in ref_masks] and masks
+    for (_, a), (_, b) in zip(masks, ref_masks):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_index_sampler_matches_jax():
