@@ -1,7 +1,7 @@
 """Host-side ray-batch datasets.
 
 Counterpart of autolabel_tpu/core/dataset.py (LenDataset, LazyImageLoader,
-BaseDataset, SceneDataset), kept as the port's own copy. These run on the
+BaseDataset, SceneDataset, DynamicDataset), kept as the port's own copy. These run on the
 host and feed the training step: an infinite iterator over ray batches
 (origins, jittered unit directions + norms, rgb, depth in meters, shifted
 semantic labels, optional teacher features) assembled in 512-ray chunks;
@@ -13,9 +13,18 @@ packages the same batches.
 Images are read by utils.images in place of cv2 and PIL, with each
 library's nearest-neighbour rule where the JAX package uses it: cv2's for
 colour and depth, PIL's for semantic labels. Teacher features need h5py,
-imported at the call. DynamicDataset (online mapping) is not ported yet.
+imported at the call.
+
+DynamicDataset (online mapping) grows frame by frame and keeps a buffer of
+ready batches filled by a thread. Unlike the JAX package's, one lock
+guards its frame lists and rng, so the thread never reads a frame that
+add_frame is evicting, and an error in the thread is raised by __iter__
+instead of ending the thread silently (JAX's __iter__ then waits
+forever).
 """
+import collections
 import os
+import threading
 
 import numpy as np
 
@@ -334,5 +343,136 @@ class SceneDataset(BaseDataset):
         self.feature_width = W
         self.feature_height = H
         self.feature_dim = C
+        scale = np.array([W / self.camera.size[0], H / self.camera.size[1]])
+        self._scale_to_feature_xy = lambda xy: (xy * scale).astype(int)
+
+
+class DynamicDataset(BaseDataset):
+    """Incrementally growing dataset for online (SLAM keyframe) mapping
+    (autolabel_tpu/core/dataset.py:361-445).
+
+    Frames arrive through add_frame; beyond `capacity`, a frame drawn from
+    self.rng is evicted (reservoir-style). A thread keeps up to
+    prefetch_buffer_size batches ready. Images are float64, semantics
+    uint16 (SceneDataset's are uint8). stop() ends and joins the thread.
+    """
+
+    prefetch_buffer_size = 25
+
+    def __init__(self, batch_size, camera, capacity=None):
+        super().__init__(batch_size, camera)
+        self.capacity = capacity
+        self.poses = []
+        self.rotations = []
+        self.origins = []
+        self.images = []
+        self.depths = []
+        self.features = []
+        self.semantics = []
+        self.n_examples = 0
+        self.prefetch_buffer = collections.deque()
+        self.stopped = False
+        self._error = None
+        # The frame lists (and self.rng) are read by the prefetch thread
+        # and changed by add_frame: one lock guards them. The buffer and
+        # the flags have a condition of their own, so taking a batch never
+        # waits for one being assembled.
+        self._frames_lock = threading.Lock()
+        self._ready = threading.Condition()
+        self._prefetch_thread = threading.Thread(target=self._prefetch,
+                                                 daemon=True)
+        self._prefetch_thread.start()
+
+    def stop(self):
+        with self._ready:
+            self.stopped = True
+            self._ready.notify_all()
+        self._prefetch_thread.join()
+
+    def _prefetch(self):
+        try:
+            while True:
+                with self._ready:
+                    self._ready.wait_for(lambda: self.stopped or (
+                        self.n_examples > 0 and len(self.prefetch_buffer)
+                        < self.prefetch_buffer_size))
+                    if self.stopped:
+                        return
+                with self._frames_lock:
+                    batch = self._next_train()
+                with self._ready:
+                    self.prefetch_buffer.append(batch)
+                    self._ready.notify_all()
+        except Exception as e:  # raised again by __iter__
+            with self._ready:
+                self._error = e
+                self._ready.notify_all()
+
+    def __iter__(self):
+        """The prefetched batches, waiting for each; raises the prefetch
+        thread's error, and ends once the dataset is stopped and the
+        buffer is empty."""
+        while True:
+            with self._ready:
+                self._ready.wait_for(lambda: self.prefetch_buffer
+                                     or self._error is not None
+                                     or self.stopped)
+                if self._error is not None:
+                    raise RuntimeError(
+                        'the prefetch thread failed') from self._error
+                if not self.prefetch_buffer:
+                    return
+                batch = self.prefetch_buffer.popleft()
+                self._ready.notify_all()
+            yield batch
+
+    def add_frame(self, T_CW, rgb, depth, features):
+        """Append one frame: rgb uint8 (H, W, 3), depth uint16 (H, W) in
+        millimetres, features (h, w, D) of the frame's teacher."""
+        if depth.dtype != np.uint16:
+            raise TypeError(f'depth must be uint16, not {depth.dtype}')
+        if rgb.dtype != np.uint8:
+            raise TypeError(f'rgb must be uint8, not {rgb.dtype}')
+        with self._frames_lock:
+            if len(self.features) == 0:
+                self._init_features(features)
+            if features.ndim != 3 or features.shape[0] != self.feature_height:
+                raise ValueError(
+                    f'features must be ({self.feature_height}, w, D), not '
+                    f'{features.shape}')
+            if self.pixel_indices is None:
+                self.resolution = rgb.shape[0] * rgb.shape[1]
+                self.pixel_indices = np.arange(self.resolution)
+
+            T_WC = self._convert_pose(T_CW)
+            self.poses.append(T_WC)
+            self.rotations.append(np.ascontiguousarray(T_WC[:3, :3]))
+            self.origins.append(T_WC[:3, 3])
+            self.images.append(rgb.reshape(-1, 3) / 255.0)
+            self.depths.append(depth.reshape(-1))
+            self.features.append(
+                features.reshape(self.feature_height * self.feature_width,
+                                 -1))
+            self.semantics.append(np.zeros(self.resolution, dtype=np.uint16))
+            self.n_examples = len(self.images)
+
+            if self.capacity is not None and len(self.poses) > self.capacity:
+                drop = int(self.rng.integers(0, len(self.poses)))
+                for store in (self.poses, self.rotations, self.origins,
+                              self.images, self.depths, self.features,
+                              self.semantics):
+                    del store[drop]
+                self.n_examples = len(self.images)
+        with self._ready:
+            self._ready.notify_all()
+
+    def __len__(self):
+        return self.n_examples
+
+    def _init_features(self, features):
+        H, W, D = features.shape
+        self.feature_height = H
+        self.feature_width = W
+        self.feature_dim = D
         scale = np.array([W / self.camera.size[0], H / self.camera.size[1]])
         self._scale_to_feature_xy = lambda xy: (xy * scale).astype(int)

@@ -1,4 +1,5 @@
-"""The offline trainer (SimpleTrainer).
+"""The offline trainer (SimpleTrainer) and the interactive one
+(InteractiveTrainer).
 
 Counterpart of autolabel_tpu/train/trainer.py's SimpleTrainer: a step is
 render_rays (training form) -> compute_losses -> backward -> the
@@ -20,7 +21,12 @@ estimator of the JAX trainer trains: the exact encode, the sampled
 backward and the stochastic-corner and residual encodes (stochastic_corners
 without the sampled backward). Not ported, and refused rather than
 ignored: the device mesh and pose refinement.
+
+InteractiveTrainer (the GUI backend's) takes one step at a time at a
+constant lr, an EMA tick every EMA_EVERY steps of its own count, and
+bounds the steps queued on the card to MAX_INFLIGHT.
 """
+import collections
 import contextlib
 import dataclasses
 import os
@@ -304,3 +310,55 @@ class SimpleTrainer:
         gt_rgb = torch.as_tensor(np.asarray(data['pixels']),
                                  device=out['image'].device)
         return out, float(torch.mean((out['image'] - gt_rgb) ** 2))
+
+
+class InteractiveTrainer(SimpleTrainer):
+    """Single-step trainer for the paint -> train -> preview loop
+    (autolabel_tpu/train/trainer.py:439-485): a constant lr unless `iters`
+    is given, and an EMA tick whenever the local `step` (reset by init)
+    reaches a multiple of EMA_EVERY."""
+
+    EMA_EVERY = 100
+
+    # How many launched but unfinished steps may be queued on the card.
+    # Launches return at once, so the message pump could queue steps far
+    # faster than the card runs them, and a preview request would then
+    # wait for the whole backlog. The window keeps the host ahead of the
+    # card without a sync every step, and bounds a preview's wait to
+    # about MAX_INFLIGHT steps.
+    MAX_INFLIGHT = 8
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault('iters', None)  # constant lr
+        super().__init__(*args, **kwargs)
+        self.iterator = None
+        self.step = 0
+        self._inflight = collections.deque()
+
+    def init(self, dataloader):
+        self.iterator = iter(dataloader)
+        self.step = 0
+
+    def take_step(self, draws=None):
+        """One step on the next batch (the occupancy grid updated first on
+        its cadence); returns its loss parts as 0-dim device tensors.
+        draws: the render's uniforms, as train_step takes them."""
+        losses = self.train_step(next(self.iterator), draws)
+        self.step += 1
+        if self.step % self.EMA_EVERY == 0:
+            self._ema_step()
+        # A CUDA event marks the step's end; on the CPU every step has
+        # ended when it returns, and the deque only keeps its bound.
+        event = None
+        if self.field.device.type == 'cuda':
+            event = torch.cuda.Event()
+            event.record()
+        self._inflight.append(event)
+        while len(self._inflight) > self.MAX_INFLIGHT:
+            oldest = self._inflight.popleft()
+            if oldest is not None:
+                oldest.synchronize()
+        return losses
+
+    def dataset_updated(self, loader):
+        self.iterator = iter(loader)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
 flagship training step, the train CLI and its stochastic-corner estimators,
-the render CLI with its baked preview, the interactive preview, and
+the render CLI with its baked preview, the interactive preview,
 evaluation (the closed-set and open-vocabulary CLIs and a reference
-checkpoint's import), on one CUDA card.
+checkpoint's import), and the interactive labelling backend (the GUI's
+backend process, the user simulation, online mapping), on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -221,7 +222,28 @@ Phases, each failing loudly:
      params back bit-equal but the colour net's 16 SH-folded rows); K1 on
      that lattice held against its plain version at N = 524,288 and timed
      beside its bound; two 480 x 360 frames from phase 5's cameras (K1
-     once a chunk, no other kernel) held against the plain render.
+     once a chunk, no other kernel) held against the plain render;
+ 15. the interactive labelling backend, on the room fixture written at
+     1280 x 960 (16 frames; the backend reads it at factor 4, 320 x 240).
+     (a) gui.BackendClient spawns the backend child at the GUI's defaults
+     (its entry wraps gui.run_backend to stamp each step, each request's
+     parts and one traced stretch of 5 steps, and to report its launch
+     counts when it stops): the first preview after the spawn, ms a loop
+     iteration, the steps pending on the card after each step (the
+     bounded window), the busy share, 10 previews' round trips with their
+     parts (the wait for the loop, the queued steps, the render, the
+     fetch, the send, the Pipe), a repainted label PNG taken up, best.pth
+     written; then in process best.pth resumed, its preview held against
+     the plain versions and served through InferenceModel. (b)
+     --baked-preview in process: the first request's bake, 10 round trips
+     between steps, a slab refresh. (c) --heads-impl pallas --proposal
+     --occupancy-grid in process: 10 steps and 2 previews (K3f, K3b, K4f,
+     K4b). (d) simulate_user.main on the room at 160 x 120 with dense gt
+     maps, its flags cut (USER_SIM_CUT): ms a round, the mIoU curve. (e)
+     DynamicDataset at scripts/ros/node.py's training configuration,
+     frames of 256 x 192 with RandomFeatureExtractor's 512-d features fed
+     from a thread past the capacity of 325 while 3 bursts of 100 steps
+     train: ms a step, the share spent waiting for a batch.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -3123,6 +3145,654 @@ def _eval_phase(dev, seed, gpu, checks, results):
                 scene_s=scene_s)
 
 
+# The interactive backend (phase 15): the GUI's backend process at the
+# GUI's defaults on the room fixture written at ScanNet's 1280 x 960 (the
+# backend reads it at factor 4: 320 x 240), the user-in-the-loop
+# simulation on the room at its own 160 x 120 with dense labels, and the
+# online mapping node's training configuration on DynamicDataset.
+BACKEND_SCENE = dict(n_frames=16, width=1280, height=960)
+BACKEND_FLAGS = []  # the GUI's defaults
+# The child traces 5 steps early on and drops the trace before the timed
+# requests begin (reading a trace stalls its loop for about 12 s).
+BACKEND_TRACE_AT, BACKEND_TRACE_STEPS = 30, 5
+BACKEND_TRAIN_S = 3.0  # training after the trace, before the requests
+BACKEND_REQUESTS, BACKEND_PAUSE_S = 10, 0.25
+REPAINT_FRAME, REPAINT_CLASS = 1, 3
+# simulate_user's defaults (warmup 15000, 250 iterations a round, 1500
+# annotations) cut to fit the phase's time.
+USER_SIM_CUT = ['--warmup', '400', '--iters-per-round', '25',
+                '--max-annotations', '100']
+USER_SIM_SCENE = dict(label_every=1)  # every frame's gt map in semantic/
+# scripts/ros/node.py's training loop (:129-160, :182): 256 x 192 frames,
+# capacity 325, 100-step bursts; its --bound default 2.5.
+ONLINE_SIZE, ONLINE_INTRINSICS = (256, 192), (205.0, 205.0, 128.0, 96.0)
+ONLINE_CAPACITY, ONLINE_BATCH = 325, 2048
+ONLINE_BURSTS, ONLINE_BURST_STEPS = 3, 100
+ONLINE_FRAMES, ONLINE_DISTINCT = 360, 36
+
+
+def _sync():
+    """Wait for the card (nothing to wait for before CUDA is used)."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class _StampedConnection:
+    """The child's end of the Pipe, stamping each message received and
+    each send (time.monotonic, comparable across the two processes)."""
+
+    def __init__(self, connection):
+        self._connection = connection
+        self.received, self.sent = [], []
+
+    def poll(self, *args):
+        return self._connection.poll(*args)
+
+    def recv(self):
+        message = self._connection.recv()
+        self.received.append((time.monotonic(), message[0], message[1]))
+        return message
+
+    def send(self, message):
+        t0 = time.monotonic()
+        self._connection.send(message)
+        self.sent.append((t0, time.monotonic(), message[1]['image_index']))
+
+
+def _backend_child(flags, connection, device):
+    """Phase 15 (a)'s child: gui.run_backend as the GUI starts it, with
+    its steps, requests and one traced stretch stamped; when it stops, its
+    launches and stamps go to <scene>/backend_child.json."""
+    import gc
+    sys.path.insert(0, HERE)
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from autolabel_tpu_torch import backend, gui
+    from autolabel_tpu_torch.ops import _kernels
+    from autolabel_tpu_torch.train.trainer import InteractiveTrainer
+    steps, pending, parts, trace = [], [], [], {}
+    take_step = InteractiveTrainer.take_step
+    test_step = InteractiveTrainer.test_step
+    fetch, classes = backend._fetch_frame, backend._classes
+
+    def stamped_step(self, draws=None):
+        n = len(steps)
+        if n == BACKEND_TRACE_AT and torch.cuda.is_initialized():
+            _sync()
+            trace['prof'] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+            trace['prof'].start()
+            for _ in range(TRACE_MARKERS):
+                torch.cuda._sleep(1000)
+            trace['t0'] = time.monotonic()
+        elif n == BACKEND_TRACE_AT + BACKEND_TRACE_STEPS:
+            if 'prof' in trace:
+                _sync()
+                trace['wall_ms'] = (time.monotonic() - trace['t0']) * 1e3
+                prof = trace.pop('prof')
+                prof.stop()
+                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0
+                        and MARKER not in e.key]
+                rows.sort(key=lambda r: -r[1])
+                trace['rows'] = rows[:12]
+                trace['busy_ms'] = sum(r[1] for r in rows)
+                del prof
+                gc.collect()
+            trace['done'] = time.monotonic()
+            # the parent times its requests only after this
+            open(os.path.join(flags.scene, 'backend_trace.done'), 'w').close()
+        out = take_step(self, draws)
+        steps.append(time.monotonic())
+        pending.append(sum(e is not None and not e.query()
+                           for e in self._inflight))
+        return out
+
+    def timed_test_step(self, data):
+        t0 = time.monotonic()
+        _sync()  # the queued steps, drained
+        t1 = time.monotonic()
+        out = test_step(self, data)
+        _sync()
+        parts.append({'step': len(steps), 'drain_ms': (t1 - t0) * 1e3,
+                      'render_ms': (time.monotonic() - t1) * 1e3})
+        return out
+
+    def timed_fetch(rgb, depth):
+        t0 = time.monotonic()
+        out = fetch(rgb, depth)
+        parts[-1]['fetch_ms'] = (time.monotonic() - t0) * 1e3
+        return out
+
+    def timed_classes(semantic):
+        t0 = time.monotonic()
+        out = classes(semantic)
+        parts[-1]['classes_ms'] = (time.monotonic() - t0) * 1e3
+        return out
+
+    InteractiveTrainer.take_step = stamped_step
+    InteractiveTrainer.test_step = timed_test_step
+    backend._fetch_frame, backend._classes = timed_fetch, timed_classes
+    stamped = _StampedConnection(connection)
+    started = time.monotonic()
+    loop = gui.run_backend(flags, stamped, device)
+    semantics = loop.train_dataset.semantics[REPAINT_FRAME]
+    report = {'launches': dict(_kernels.launches), 'steps': steps,
+              'pending': pending, 'parts': parts,
+              'received': [r for r in stamped.received if r[1] != 'image'],
+              'sent': stamped.sent, 'started': started,
+              'global_step': loop.trainer.global_step,
+              'painted': int((semantics == REPAINT_CLASS).sum()),
+              'max_inflight': loop.trainer.MAX_INFLIGHT,
+              'trace': {k: trace[k] for k in ('rows', 'busy_ms', 'wall_ms',
+                                              'done') if k in trace}}
+    with open(os.path.join(flags.scene, 'backend_child.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def _wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f'{what}: not within {timeout} s')
+        time.sleep(0.002)
+
+
+def _median(values):
+    import numpy as np
+    return float(np.median(values)) if len(values) else None
+
+
+def _pcts(values, qs=(50, 90)):
+    import numpy as np
+    return [float(v) for v in np.percentile(values, qs)] if len(values) \
+        else None
+
+
+def _request(loop, conn, index):
+    """('get_image', index) to an in-process TrainingLoop, pumped once,
+    its reply read meanwhile on a thread (a preview outgrows the pipe's
+    buffer, so the loop's send waits for the read). Returns the reply."""
+    import threading
+    conn.send(('get_image', index))
+    got = []
+    reader = threading.Thread(target=lambda: got.append(conn.recv()),
+                              daemon=True)
+    reader.start()
+    loop._check_messages()
+    reader.join(60)
+    if not got:
+        raise TimeoutError(f'no reply to get_image {index}')
+    return got[0]
+
+
+def _backend_size():
+    """The backend's frame size: the scene's at factor 4."""
+    return BACKEND_SCENE['width'] // 4, BACKEND_SCENE['height'] // 4
+
+
+def _backend_child_leg(gpu, checks, scene, flags, names):
+    """Phase 15 (a): the backend in a spawned child through
+    gui.BackendClient; its report and the parent's round trips."""
+    import numpy as np
+    from autolabel_tpu_torch import gui, model_utils
+    from autolabel_tpu_torch.utils import Scene
+    from autolabel_tpu_torch.utils.images import (resize_nearest_pil,
+                                                  write_png)
+    best = os.path.join(scene, 'nerf', model_utils.model_hash(flags),
+                        'checkpoints', 'best.pth')
+    w, h = _backend_size()
+    previews, sends = [], []
+    t_start = time.monotonic()
+    client = gui.BackendClient(flags, previews.append, target=_backend_child)
+    try:
+        client.request_preview(0)
+        sends.append(time.monotonic())
+        _wait(lambda: client.poll() or previews, 600, 'the first preview')
+        first_s = time.monotonic() - t_start
+        replies = [time.monotonic()]
+        _wait(lambda: os.path.exists(os.path.join(
+            scene, 'backend_trace.done')), 300, 'the child\'s trace')
+        time.sleep(BACKEND_TRAIN_S)
+        n_frames = BACKEND_SCENE['n_frames']
+        for k in range(BACKEND_REQUESTS):
+            index = (2 * k + 3) % n_frames
+            count = len(previews)
+            client.request_preview(index)
+            sends.append(time.monotonic())
+            _wait(lambda: client.poll() or len(previews) > count, 120,
+                  f'preview {index}')
+            replies.append(time.monotonic())
+            checks.true(f'backend child preview {index}',
+                        previews[-1]['image_index'] == index
+                        and previews[-1]['rgb'].shape == (h, w, 3)
+                        and previews[-1]['semantic'].dtype == np.int32
+                        and bool(np.isfinite(previews[-1]['depth']).all()))
+            time.sleep(BACKEND_PAUSE_S)
+        frame_names = Scene(scene).image_names()
+        painted = np.zeros((BACKEND_SCENE['height'], BACKEND_SCENE['width']),
+                           np.uint8)
+        painted[:, :BACKEND_SCENE['width'] // 2] = REPAINT_CLASS
+        write_png(os.path.join(scene, 'semantic',
+                               f'{frame_names[REPAINT_FRAME]}.png'), painted)
+        client.labels_changed(REPAINT_FRAME)
+        client.save_checkpoint()
+        _wait(lambda: os.path.exists(best), 120, 'best.pth')
+        time.sleep(0.5)
+    finally:
+        exitcode = client.stop()
+    checks.true('backend child stops cleanly', exitcode == 0,
+                f'exit code {exitcode}')
+    with open(os.path.join(scene, 'backend_child.json')) as f:
+        report = json.load(f)
+    want = int((resize_nearest_pil(painted, (w, h))
+                == REPAINT_CLASS).sum())
+    checks.true('backend child takes up update_image',
+                report['painted'] == want,
+                f'{report["painted"]} pixels of class {REPAINT_CLASS} in '
+                f'frame {REPAINT_FRAME} (expected {want})')
+    launches = report['launches']
+    n_steps = len(report['steps'])
+    for key in ('K1s', 'K5', 'K2s'):
+        got = launches.get(names[key], 0)
+        checks.true(f'backend child launches {key}', got >= n_steps,
+                    f'{got} launches over {n_steps} steps')
+    # the loop: step-end stamps; an iteration that served a request is
+    # counted apart
+    stamps = np.array(report['steps'])
+    served = {p['step'] for p in report['parts']}
+    gaps = np.diff(stamps) * 1e3
+    plain_gaps = [g for i, g in enumerate(gaps) if i + 1 not in served]
+    pending = np.array(report['pending'])
+    trace = report['trace']
+    # each request's parts, in order (one request in flight at a time);
+    # the first is the spawn's
+    rtt = (np.array(replies) - np.array(sends)) * 1e3
+    received = [r[0] for r in report['received'] if r[1] == 'get_image']
+    checks.true('backend child answered each request once',
+                len(report['parts']) == len(report['sent']) == len(sends)
+                == len(received),
+                f'{len(report["parts"])} renders, {len(report["sent"])} '
+                f'sent, {len(received)} received of {len(sends)}')
+    requests = [dict(part, index=sent[2],
+                     wait_ms=(got - asked) * 1e3,
+                     send_ms=(sent[1] - sent[0]) * 1e3,
+                     to_parent_ms=(back - sent[1]) * 1e3, rtt_ms=float(ms))
+                for part, sent, got, asked, back, ms in zip(
+                    report['parts'], report['sent'], received, sends,
+                    replies, rtt)][1:]
+    rtt = rtt[1:]
+    busy_share = untraced_share = None
+    if trace.get('rows'):
+        # device busy over the traced stretch's wall, and over the same
+        # steps' untraced median wall
+        busy_share = trace['busy_ms'] / trace['wall_ms']
+        untraced_share = trace['busy_ms'] / (BACKEND_TRACE_STEPS
+                                             * _median(plain_gaps))
+        checks.true('backend child trace dropped before the timed requests',
+                    trace['done'] < sends[1],
+                    f'{(sends[1] - trace["done"]):.3f} s before')
+    summary = dict(
+        first_preview_s=first_s, steps=n_steps,
+        loop_ms=_pcts(plain_gaps), loop_ms_all=_pcts(gaps),
+        window_max=int(pending.max()), window_median=float(
+            np.median(pending)), window_full=float((pending >= 8).mean()),
+        busy_share=busy_share, untraced_busy_share=untraced_share,
+        trace_busy_ms=trace.get('busy_ms'),
+        trace_wall_ms=trace.get('wall_ms'), trace_rows=trace.get('rows'),
+        rtt_ms=[float(v) for v in rtt], rtt_p50_p90=_pcts(rtt),
+        request_parts=requests, launches=launches,
+        global_step=report['global_step'])
+    print(f'backend child [{gpu}]: first preview {first_s:.3f} s after '
+          f'the spawn; {n_steps} steps; ms a loop iteration (p50, p90) '
+          f'{summary["loop_ms"]} without a request, {summary["loop_ms_all"]}'
+          f' all; window of {report["max_inflight"]}: pending steps max '
+          f'{summary["window_max"]}, median {summary["window_median"]}, '
+          f'full {summary["window_full"]:.4f} of the steps')
+    if busy_share is None:
+        print('backend child profile: the trace holds no device time: not '
+              'measured')
+    else:
+        print(f'backend child profile [{gpu}]: {BACKEND_TRACE_STEPS} steps '
+              f'from step {BACKEND_TRACE_AT}: device busy '
+              f'{trace["busy_ms"]:.3f} of {trace["wall_ms"]:.3f} ms traced: '
+              f'busy share {busy_share:.4f}; of the untraced '
+              f'{BACKEND_TRACE_STEPS} x {_median(plain_gaps):.3f} ms: '
+              f'{untraced_share:.4f}')
+        for name, ms, count in trace['rows'][:8]:
+            print(f'  {ms:9.3f} ms {ms / trace["busy_ms"]:7.2%} x{count:<5d} '
+                  f'{name[:90]}')
+    print(f'backend child preview round trip [{gpu}] over {len(rtt)} '
+          f'requests: ms {[round(float(v), 3) for v in rtt]}, p50/p90 '
+          f'{summary["rtt_p50_p90"]}')
+    for key in ('wait_ms', 'drain_ms', 'render_ms', 'fetch_ms', 'classes_ms',
+                'send_ms', 'to_parent_ms'):
+        values = [p[key] for p in requests if key in p]
+        print(f'  {key}: p50/p90 {_pcts(values)}')
+    return summary, painted
+
+
+def _backend_phase(dev, seed, gpu, checks):
+    """Phase 15 (see the module docstring). Returns what the output file
+    keeps; its 'launches' are each leg's counts by kernel name."""
+    import multiprocessing
+    import shutil
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch import gui, inference, model_utils, simulate_user
+    from autolabel_tpu_torch.backend import TrainingLoop
+    from autolabel_tpu_torch.core.dataset import DynamicDataset
+    from autolabel_tpu_torch.features.fallback import RandomFeatureExtractor
+    from autolabel_tpu_torch.ops import (_kernels, hashgrid_cuda, heads_cuda,
+                                         splat_cuda)
+    from autolabel_tpu_torch.render.baked import fill_passes_for
+    from autolabel_tpu_torch.render.renderer import RenderOptions
+    from autolabel_tpu_torch.train.losses import LossOptions
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    from autolabel_tpu_torch.utils import Camera, fixtures
+    phase_start = time.perf_counter()
+    root = os.path.join(WORK_DIR, 'backend')
+    shutil.rmtree(root, ignore_errors=True)
+    names = {'K1s': hashgrid_cuda.ATOMS_NAME,
+             'K5': hashgrid_cuda.SELECT_NAME,
+             'K2s': hashgrid_cuda.SAMPLED_BWD_NAME,
+             'K3f': heads_cuda.HEADS, 'K3b': heads_cuda.HEADS_BWD,
+             'K4f': heads_cuda.MLP3, 'K4b': heads_cuda.MLP3_BWD,
+             'K8': splat_cuda.NAME}
+    scene = os.path.join(root, 'room')
+    t0 = time.perf_counter()
+    fixtures.make_room_scene(scene, **BACKEND_SCENE)
+    scene_s = time.perf_counter() - t0
+    flags = gui.read_args([scene] + BACKEND_FLAGS)
+    w, h = _backend_size()
+    out = {'scene_s': scene_s, 'launches': {}}
+
+    # (a) the backend in a spawned child, at the GUI's defaults
+    torch.cuda.empty_cache()
+    child, painted = _backend_child_leg(gpu, checks, scene, flags, names)
+    out['child'] = child
+    out['launches']['backend'] = child['launches']
+
+    # the child's best.pth: resumed in process (the plain-version hold),
+    # and served by InferenceModel
+    conn, loop_end = multiprocessing.Pipe()
+    loop = TrainingLoop(scene, flags, loop_end, device=dev)
+    workspace = loop.workspace
+    checks.true('backend best.pth resumes', loop.trainer.global_step > 0,
+                f'global step {loop.trainer.global_step}')
+    data = loop.train_dataset._get_test(0)
+    with torch.no_grad():
+        maps = {}
+        for tag, ctx in (('kernels', contextlib.nullcontext()),
+                         ('plain', _plain_kernels(hashgrid_cuda,
+                                                  heads_cuda))):
+            with ctx:
+                rgb, depth, logits, _ = loop.trainer.test_step(data)
+            maps[tag] = {'image': rgb.cpu().numpy(),
+                         'depth': depth.cpu().numpy(),
+                         'semantic': logits.cpu().numpy()}
+    out['preview_vs_plain'] = _hold_maps(
+        checks, 'backend preview frame 0', maps['kernels'], maps['plain'],
+        ('image', 'depth', 'semantic'))
+    reply = _request(loop, conn, 0)
+    payload = reply[1]
+    checks.true('backend payload', reply[0] == 'image' and set(payload)
+                == {'image_index', 'rgb', 'depth', 'semantic', 'features'}
+                and payload['rgb'].shape == (h, w, 3)
+                and payload['rgb'].dtype == np.float32
+                and payload['depth'].dtype == np.float32
+                and payload['semantic'].dtype == np.int32
+                and payload['features'] is None)
+    model = inference.InferenceModel.from_checkpoint(
+        model_utils.create_model(loop.train_dataset.min_bounds,
+                                 loop.train_dataset.max_bounds,
+                                 loop.train_dataset.n_classes, flags,
+                                 device=dev), workspace, num_steps=128)
+    served = model.render({k: data[k] for k in ('rays_o', 'rays_d',
+                                                'direction_norms')})
+    checks.true('backend best.pth serves through InferenceModel',
+                served['image'].shape == (h, w, 3)
+                and bool(np.isfinite(served['image']).all()))
+    del model, loop
+    torch.cuda.empty_cache()
+
+    # (b) --baked-preview, in process: the first request's bake, round
+    # trips between steps, one slab refresh
+    flags_b = gui.read_args([scene, '--baked-preview'] + BACKEND_FLAGS)
+    conn, loop_end = multiprocessing.Pipe()
+    loop = TrainingLoop(scene, flags_b, loop_end, device=dev)
+    _sync()
+    _kernels.reset_launches()
+    loop.trainer.init(loop.train_dataset)
+    for _ in range(5):
+        loop.trainer.take_step()
+    t0 = time.perf_counter()
+    first = _request(loop, conn, 0)
+    first_bake_s = time.perf_counter() - t0
+    baked_rtt = []
+    frames = 1
+    for k in range(BACKEND_REQUESTS):
+        for _ in range(3):
+            loop.trainer.take_step()
+            loop._maybe_update_bake()
+        t0 = time.perf_counter()
+        reply = _request(loop, conn,
+                         (2 * k + 3) % BACKEND_SCENE['n_frames'])
+        baked_rtt.append((time.perf_counter() - t0) * 1e3)
+        frames += 1
+        checks.true(f'backend baked preview {k}', reply[0] == 'image'
+                    and reply[1]['rgb'].shape == (h, w, 3)
+                    and reply[1]['features'] is None
+                    and bool(np.isfinite(reply[1]['rgb']).all()))
+    _sync()
+    slab_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loop._baker.update_next_block()
+        _sync()
+        slab_ms.append((time.perf_counter() - t0) * 1e3)
+    baked_launches = dict(_kernels.launches)
+    passes = 2 + loop._governed.level
+    want = frames * splat_cuda.launches_for(fill_passes_for(w, passes))
+    checks.true('backend baked launches K8',
+                baked_launches.get(names['K8'], 0) == want
+                and first[0] == 'image',
+                f'{baked_launches.get(names["K8"], 0)} (expected {want}: '
+                f'{frames} frames)')
+    out['baked'] = dict(first_bake_s=first_bake_s, rtt_ms=baked_rtt,
+                        rtt_p50_p90=_pcts(baked_rtt), slab_ms=slab_ms,
+                        splats=int(loop._baker._valid.sum()),
+                        launches=baked_launches)
+    out['launches']['backend_baked'] = baked_launches
+    print(f'backend baked [{gpu}]: first request (the bake at 128^3 into '
+          f'2^18 splats, then the frame) {first_bake_s:.3f} s; round trip '
+          f'ms {[round(v, 3) for v in baked_rtt]} (p50/p90 '
+          f'{out["baked"]["rtt_p50_p90"]}); one slab refresh ms '
+          f'{[round(v, 3) for v in slab_ms]}')
+    del loop
+    torch.cuda.empty_cache()
+
+    # (c) --heads-impl pallas --proposal --occupancy-grid, in process
+    flags_c = gui.read_args([scene, '--heads-impl', 'pallas', '--proposal',
+                             '--occupancy-grid'] + BACKEND_FLAGS)
+    conn, loop_end = multiprocessing.Pipe()
+    loop = TrainingLoop(scene, flags_c, loop_end, device=dev)
+    _sync()
+    _kernels.reset_launches()
+    loop.trainer.init(loop.train_dataset)
+    losses = [loop.trainer.take_step() for _ in range(10)]
+    replies = [_request(loop, conn, 0), _request(loop, conn, 5)]
+    pallas_launches = dict(_kernels.launches)
+    checks.true('backend pallas leg', all(
+        r[0] == 'image' and bool(np.isfinite(r[1]['rgb']).all())
+        for r in replies) and all(bool(torch.isfinite(l['total']))
+                                  for l in losses))
+    for key in ('K1s', 'K5', 'K2s', 'K3f', 'K3b', 'K4f', 'K4b'):
+        checks.true(f'backend pallas leg launches {key}',
+                    pallas_launches.get(names[key], 0) >= 10,
+                    f'{pallas_launches.get(names[key], 0)}')
+    out['launches']['backend_pallas'] = pallas_launches
+    del loop
+    torch.cuda.empty_cache()
+
+    # (d) simulate_user on the room at 160 x 120, dense labels
+    sim_scene = fixtures.make_room_scene(os.path.join(root, 'room_sim'),
+                                         **USER_SIM_SCENE)
+    stamps = {'annotate': [], 'evaluate': []}
+    user_class = simulate_user.UserSimulation
+    annotate, evaluate = user_class.annotate, user_class.evaluate
+
+    def stamped(name, fn):
+        def wrapped(self, *args):
+            stamps[name].append(time.perf_counter())
+            return fn(self, *args)
+        return wrapped
+
+    user_class.annotate = stamped('annotate', annotate)
+    user_class.evaluate = stamped('evaluate', evaluate)
+    try:
+        _sync()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        user = simulate_user.main([sim_scene, '--workspace',
+                                   os.path.join(root, 'ws')] + USER_SIM_CUT,
+                                  dev)
+        user_s = time.perf_counter() - t0
+    finally:
+        user_class.annotate, user_class.evaluate = annotate, evaluate
+    user_launches = dict(_kernels.launches)
+    rounds = np.diff(stamps['annotate']) * 1e3
+    curve = [list(r) for r in user.results]
+    checks.true('user simulation', os.path.exists(user.result_path)
+                and all(0.0 <= r[2] <= 1.0 for r in curve)
+                and int((user.dataset.semantics > 0).sum()) >= int(
+                    USER_SIM_CUT[USER_SIM_CUT.index('--max-annotations')
+                                 + 1]),
+                f'{len(stamps["annotate"])} rounds, mIoU curve {curve}')
+    out['user_sim'] = dict(seconds=user_s, rounds=len(stamps['annotate']),
+                           round_ms=_pcts(rounds), curve=curve,
+                           cut=USER_SIM_CUT, launches=user_launches)
+    out['launches']['user_sim'] = user_launches
+    print(f'user simulation [{gpu}]: {len(stamps["annotate"])} rounds in '
+          f'{user_s:.3f} s (flags cut: {" ".join(USER_SIM_CUT)}); ms a round '
+          f'(p50, p90, with a 10-frame evaluation every 5th) '
+          f'{out["user_sim"]["round_ms"]}; mIoU curve (round, pixels, '
+          f'mIoU) {curve}')
+    del user
+    torch.cuda.empty_cache()
+
+    # (e) DynamicDataset at the online node's configuration
+    w, h = ONLINE_SIZE  # the node's frames and render intrinsics
+    fx, fy, cx, cy = ONLINE_INTRINSICS
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    extractor = RandomFeatureExtractor(512)
+    distinct = []
+    for i in range(ONLINE_DISTINCT):
+        angle = 2 * np.pi * i / ONLINE_DISTINCT
+        pos = np.array([0.95 * np.cos(angle), 0.95 * np.sin(angle),
+                        0.9 + 0.35 * np.sin(3 * angle)])
+        target = np.array([-0.9 * np.cos(angle), -0.9 * np.sin(angle), 0.8])
+        T_WC = fixtures.look_at_cv(pos, target)
+        rgb, depth, _ = fixtures.render_room_frame(T_WC, K, w, h)
+        rgb8 = (rgb * 255).astype(np.uint8)
+        feats = extractor(np.transpose(rgb8 / 255.0, [2, 0, 1])[None])[0]
+        feats = feats / np.maximum(np.linalg.norm(feats, axis=-1,
+                                                  keepdims=True), 1e-9)
+        distinct.append((np.linalg.inv(T_WC), rgb8,
+                         (depth * 1000).astype(np.uint16), feats))
+    node = types.SimpleNamespace(encoding='hg+freq', geometric_features=15,
+                                 feature_dim=512, features='lseg')
+    bound = 2.5
+    field = model_utils.create_model(np.full(3, -bound), np.full(3, bound),
+                                     2, node, device=dev)
+    trainer = SimpleTrainer(
+        'ngp', field, lr=1e-2, iters=None,
+        loss_options=LossOptions(rgb_weight=1.0, depth_weight=0.025,
+                                 semantic_weight=0.0, feature_weight=0.5,
+                                 feature_loss=True),
+        render_options=RenderOptions(num_steps=128, perturb=True),
+        workspace=None, ema_decay=0.95, max_ray_batch=ONLINE_BATCH)
+    dataset = DynamicDataset(ONLINE_BATCH, Camera(K, (w, h)),
+                             capacity=ONLINE_CAPACITY)
+    fed = []
+
+    def feed():
+        for i in range(ONLINE_FRAMES):
+            dataset.add_frame(*distinct[i % ONLINE_DISTINCT])
+            fed.append(len(dataset))
+            time.sleep(0.005)
+
+    class Timed:
+        """The dataset's batches, with the time spent waiting for each."""
+        wait_s = 0.0
+
+        def __iter__(self):
+            iterator = iter(dataset)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(iterator)
+                Timed.wait_s += time.perf_counter() - t0
+                yield batch
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    try:
+        for frame in distinct[:6]:
+            dataset.add_frame(*frame)
+        _sync()
+        _kernels.reset_launches()
+        feeder.start()
+        bursts = []
+        for _ in range(ONLINE_BURSTS):
+            Timed.wait_s = 0.0
+            t0 = time.perf_counter()
+            loss = trainer.train_iterations(Timed(), ONLINE_BURST_STEPS)
+            total = float(loss['total'])
+            wall = time.perf_counter() - t0
+            bursts.append(dict(ms_step=wall / ONLINE_BURST_STEPS * 1e3,
+                               wait_share=Timed.wait_s / wall,
+                               frames=len(dataset), loss=total))
+        online_launches = dict(_kernels.launches)
+        feeder.join(120)
+    finally:
+        dataset.stop()
+    checks.true('online feeder and prefetch thread end',
+                not feeder.is_alive() and not dataset._prefetch_thread
+                .is_alive())
+    checks.true('online eviction holds the capacity',
+                len(fed) == ONLINE_FRAMES and max(fed) == ONLINE_CAPACITY
+                and len(dataset) == ONLINE_CAPACITY
+                and all(len(getattr(dataset, k)) == ONLINE_CAPACITY
+                        for k in ('poses', 'images', 'depths', 'features',
+                                  'semantics')),
+                f'{6 + len(fed)} frames fed, {len(dataset)} kept, at most '
+                f'{max(fed)}')
+    checks.true('online bursts', all(np.isfinite(b['loss']) for b in bursts),
+                f'{bursts}')
+    out['online'] = dict(bursts=bursts, launches=online_launches,
+                         frames_fed=6 + len(fed))
+    out['launches']['online'] = online_launches
+    print(f'online [{gpu}]: DynamicDataset (capacity {ONLINE_CAPACITY}, '
+          f'{w}x{h}, lseg 512 from RandomFeatureExtractor), {ONLINE_BURSTS} '
+          f'bursts of {ONLINE_BURST_STEPS} steps at batch {ONLINE_BATCH} x '
+          '128 samples '
+          f'while {6 + len(fed)} frames arrive: ' + '; '.join(
+              f'{b["ms_step"]:.3f} ms a step, waiting {b["wait_share"]:.4f} '
+              f'of it, {b["frames"]} frames' for b in bursts))
+    del trainer, field, dataset
+    torch.cuda.empty_cache()
+    out['phase_s'] = time.perf_counter() - phase_start
+    print(f'backend phase: {out["phase_s"]:.1f} s (room scene {scene_s:.1f} '
+          's)')
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3819,6 +4489,10 @@ def main():
     evaluation = _eval_phase(dev, args.seed, gpu, checks, results)
     ev_launches = evaluation['launches']
 
+    # ---- 15. the interactive backend, the user simulation, online mapping
+    torch.cuda.empty_cache()
+    interactive = _backend_phase(dev, args.seed, gpu, checks)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -3878,6 +4552,8 @@ def main():
             kernel_names[key], 0),
         **{f'launches_eval_{leg}': v.get(kernel_names[key], 0)
            for leg, v in ev_launches.items()},
+        **{f'launches_{leg}': v.get(kernel_names[key], 0)
+           for leg, v in interactive['launches'].items()},
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -3931,6 +4607,7 @@ def main():
                    'preview': preview,
                    'evaluation': {k: v for k, v in evaluation.items()
                                   if k != 'names'},
+                   'interactive': interactive,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

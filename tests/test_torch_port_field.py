@@ -202,7 +202,8 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'utils.fixtures', 'bridge', 'render.__main__',
                    'render.baked', 'ops.splat_cuda', 'visualization',
                    'constants', 'features.fallback',
-                   'features.feature_utils'):
+                   'features.feature_utils', 'backend', 'gui',
+                   'simulate_user'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 
