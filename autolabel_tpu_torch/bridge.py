@@ -6,7 +6,10 @@ numpy arrays: 'sigma_net', 'color_net', 'semantic_features',
 'encoder' is {'grid': (L, T, F)} or {}. The Field's state_dict uses the
 same keys flattened ('sigma_net.0', 'encoder.grid', ...), shapes and
 layouts, so the conversion is a renaming. The same conversion carries any
-tree of that layout, the trainer's EMA copy of the params included.
+tree of that layout, the trainer's EMA copy of the params included. Joint
+pose refinement's deltas, {'pose': {'rot': (N, 3), 't': (N, 3)}} in a
+tree, are 'pose.rot' and 'pose.t' in the trainer's state; they are not
+Field state, so params_from_numpy and load_params leave them out.
 """
 import numpy as np
 import torch
@@ -47,8 +50,8 @@ def state_to_numpy(state):
     for name, p in state.items():
         group, _, index = name.partition('.')
         value = p.detach().cpu().numpy()
-        if group == 'encoder':
-            tree.setdefault('encoder', {})[index] = value
+        if group in ('encoder',) + _NON_FIELD_KEYS:
+            tree.setdefault(group, {})[index] = value
         else:
             tree.setdefault(group, []).append((int(index), value))
     tree.setdefault('encoder', {})

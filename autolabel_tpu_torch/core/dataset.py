@@ -100,6 +100,10 @@ class BaseDataset:
         self.sample_chunk_size = min(512, batch_size)
         self.index_sampler = IndexSampler()
         self.rng = np.random.default_rng()
+        # When set, train batches also carry 'frame_idx' and camera-frame
+        # 'rays_d_cam', from which pose refinement rebuilds the world rays
+        # under learnable poses (train/pose_refine.py).
+        self.emit_frame_rays = False
 
     def __iter__(self):
         if self.split == 'train':
@@ -132,6 +136,11 @@ class BaseDataset:
             features = np.zeros((batch_size, self.feature_dim),
                                 dtype=np.float32)
             out['features'] = features
+        if self.emit_frame_rays:
+            frame_idx = np.zeros(batch_size, dtype=np.int32)
+            rays_d_cam = np.zeros((batch_size, 3), dtype=np.float32)
+            out['frame_idx'] = frame_idx
+            out['rays_d_cam'] = rays_d_cam
 
         for chunk in range(chunks):
             balanced = (self.index_sampler.has_semantics and
@@ -150,9 +159,21 @@ class BaseDataset:
             semantics[s:e] = (
                 self.semantics[image_index][ray_indices].astype(np.int32) - 1)
             ray_o[s:e] = self.origins[image_index][None]
-            dirs, norms = self._compute_direction(image_index, ray_indices,
-                                                  randomize=True)
-            ray_d[s:e] = dirs
+            if self.emit_frame_rays:
+                # Camera-frame directions, and the world rays from the same
+                # jittered draw under one rotation.
+                dirs_c, norms = compute_directions(
+                    np.eye(3), ray_indices, self.w, self.camera.fx,
+                    self.camera.fy, self.camera.cx, self.camera.cy,
+                    rng=self.rng)
+                rays_d_cam[s:e] = dirs_c
+                frame_idx[s:e] = image_index
+                ray_d[s:e] = dirs_c @ self.rotations[image_index].T
+            else:
+                dirs, norms = self._compute_direction(image_index,
+                                                      ray_indices,
+                                                      randomize=True)
+                ray_d[s:e] = dirs
             direction_norms[s:e] = norms
 
             if self.features is not None:

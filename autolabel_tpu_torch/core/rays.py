@@ -30,6 +30,18 @@ def convert_pose(T_CW):
     return nerf_matrix_to_ngp(T_WC, scale=1.0)
 
 
+def ngp_pose_to_scene(T_ngp):
+    """Inverse of convert_pose: ngp T_WC -> scene-file T_CW (OpenCV
+    world-to-camera), so registered or refined poses can be written back
+    in the scene's pose/*.txt convention."""
+    T_ngp = np.asarray(T_ngp, np.float64)
+    T_WC_gl = np.eye(4)
+    # Undo nerf_matrix_to_ngp's row cycle and column flips.
+    T_WC_gl[_NGP_ROW_PERM, :] = T_ngp[:3] * _NGP_COL_SIGN[None, :]
+    T_WC_gl[3] = (0.0, 0.0, 0.0, 1.0)
+    return np.linalg.inv(T_WC_gl @ np.linalg.inv(CV_TO_OPENGL))
+
+
 def compute_directions(R_WC, ray_indices, w, fx, fy, cx, cy, rng=None):
     """World-space unit ray directions for flat pixel indices.
 

@@ -153,30 +153,45 @@ class Field(nn.Module):
     # -- encodings ---------------------------------------------------------
 
     def _normalized(self, x):
+        """(x + bound) / (2 bound) clipped to [0, 1] as jnp.clip clips:
+        a point on a face of the box (the first sample of a ray) passes
+        half of its gradient, where torch.clamp would pass all of it. The
+        ends are 0-dim CPU tensors, which act as scalars on any device and
+        need no copy to the card."""
         bound = self.config.bound
-        return torch.clamp((x + bound) / (2.0 * bound), 0.0, 1.0)
+        v = (x + bound) / (2.0 * bound)
+        return torch.minimum(torch.maximum(v, torch.tensor(0.0)),
+                             torch.tensor(1.0))
 
     def _grid_encode(self, normalized, u=None, sampled_backward=0,
                      backward_points=1.0, n_samples=1, exact_levels=0,
-                     residual=False):
+                     residual=False, level_window=None):
         """The hash-grid encode of normalized points, as JAX
         Field._grid_encode routes a key: exact (fp32) without u; with the
         uniforms u and sampled_backward the exact-forward / sampled-backward
         encode (in the compute dtype); with u alone the stochastic-corner
         encode of n_samples draws or (residual) the residual encode, the
         finest exact_levels levels exact (fp32). The kernels on the card,
-        the plain versions on the CPU."""
+        the plain versions on the CPU. level_window: one factor a level
+        (renderer.RenderOptions.level_window) scaling its feature block; a
+        zero freezes that level's table."""
         c = self.config
-        return hashgrid_cuda.hashgrid_encode(
+        out = hashgrid_cuda.hashgrid_encode(
             self.encoder['grid'], normalized, c.grid_config,
             interp=c.grid_interp, u=u, sampled_backward=sampled_backward,
             backward_points=backward_points, n_samples=n_samples,
             exact_levels=exact_levels, residual=residual)
+        if level_window is not None:
+            w = torch.as_tensor(level_window, dtype=out.dtype,
+                                device=out.device)
+            out = out * w.repeat_interleave(c.grid_config.n_features)
+        return out
 
     def encode(self, x, **estimator):
         """Positional encoding of (N, 3) points in [-bound, bound]; exact
         unless `estimator` (u, sampled_backward, backward_points, n_samples,
-        exact_levels, residual: see _grid_encode) asks for an estimator."""
+        exact_levels, residual: see _grid_encode) asks for an estimator;
+        level_window scales the grid's levels."""
         return torch.cat([s.float() for s in self._encode_segments(
             x, **estimator)], dim=-1)
 

@@ -12,7 +12,9 @@ and the sampled scatter (sampled_scatter_plain); and the stochastic-corner
 and residual encodes (JAX's _encode_stochastic,
 _encode_stochastic_simplex and _encode_residual): the rows they draw
 (stochastic_rows), the blend of those rows (blend_drawn_rows) and its
-table gradient (stochastic_scatter_plain). The JAX package draws its
+table gradient (stochastic_scatter_plain); and the gradient of every one
+of these encodes for the points (hashgrid_encode_point_grad_plain, with
+its rounding bound point_grad_tolerance). The JAX package draws its
 uniforms from a PRNG key; here every estimator takes them as a tensor
 `u`, of the shape uniform_shape gives.
 """
@@ -743,6 +745,102 @@ def stochastic_scatter_plain(g, idx, w, plan, config, n_samples=1):
                               g_l if kind == DRAWS
                               else w[wfirst + r][:, None] * g_l)
     return cot
+
+
+def _frac_cotangent(frac_l, coef, interp, absolute=False):
+    """One level's cotangent of the fractions (3, N) from coef (A, N), the
+    loss's derivative by each atom's weight, through the weights' own
+    derivatives (JAX's autodiff rules): the trilinear corner products,
+    or the simplex weights (1 - s1, s1 - s2, s2 - s3, s3) with s2 = sum -
+    s1 - s3, s1 = max and s3 = min sharing their cotangent evenly among
+    tied axes (jnp.max, jnp.min). With `absolute`, every term's magnitude
+    instead (coef then holds magnitudes): the sum that bounds the
+    roundings."""
+    sign = (lambda v: v) if absolute else torch.neg
+    if interp == 'simplex':
+        c0, c1, c2, c3 = coef
+        if absolute:
+            d1, d2, d3 = c0 + c1, c1 + c2, c2 + c3
+            ct1, ct3 = d1 + d2, d3 + d2
+        else:
+            d1, d2, d3 = c1 - c0, c2 - c1, c3 - c2
+            ct1, ct3 = d1 - d2, d3 - d2
+        is1 = (frac_l == frac_l.amax(dim=0)).float()
+        is3 = (frac_l == frac_l.amin(dim=0)).float()
+        return (d2 + is1 * (ct1 / is1.sum(dim=0))) \
+            + is3 * (ct3 / is3.sum(dim=0))
+    one = 1.0 - frac_l
+    out = torch.zeros_like(frac_l)
+    for a, (ox, oy, oz) in enumerate(_CORNERS):
+        wx = frac_l[0] if ox else one[0]
+        wy = frac_l[1] if oy else one[1]
+        wz = frac_l[2] if oz else one[2]
+        c = coef[a]
+        # w = (wx * wy) * wz, differentiated in reverse
+        cz = c * (wx * wy)
+        cxy = c * wz
+        cx, cy = cxy * wy, cxy * wx
+        out[0] += cx if ox else sign(cx)
+        out[1] += cy if oy else sign(cy)
+        out[2] += cz if oz else sign(cz)
+    return out
+
+
+def hashgrid_encode_point_grad_plain(g, table, x, config, interp='trilinear',
+                                     plan=None, rows=None, absolute=False):
+    """The cotangent (N, 3) of x of the hash-grid encode for its cotangent g
+    (N, L * F): JAX's VJP of encoders.hashgrid_encode for x, written out
+    (not autograd), the plain version of the point-gradient kernel (K2x).
+
+    Per level l and atom a, coef_a = <g_l, row_a>; the level's fraction
+    cotangent follows from the weights' derivatives (_frac_cotangent),
+    times the level's scale (pos = scale * x + offset; floor carries no
+    gradient). With `plan` (stochastic_plan) the stochastic and residual
+    encodes: DRAWS levels contribute nothing (a comparison picks the row);
+    a RESIDUAL level's output w_m f_m + (1 - w_m) f_J gives coef_a =
+    <g_l, f_m - f_J> on the atoms whose weight equals the maximum w_m,
+    shared evenly among them, f_m and f_J the level's two drawn rows of
+    `rows` (stochastic_rows' indices); EXACT levels as the exact encode.
+    With `absolute`, the sum of every term's magnitude (|g|, |table|),
+    which bounds the roundings (point_grad_tolerance)."""
+    cell, frac, stride, use_dense, size = _grid_geometry(x, config)
+    scales = torch.as_tensor(level_geometry(config)[0], device=x.device)
+    f = config.n_features
+    g = g.float()
+    if absolute:
+        g, table = g.abs(), table.abs()
+    n_atoms = 4 if interp == 'simplex' else 8
+    starts = plan_starts(plan) if plan is not None else \
+        [(EXACT, n_atoms, None, None)] * config.n_levels
+    dx = torch.zeros((3, x.shape[0]), dtype=torch.float32, device=x.device)
+    for l, (kind, _, first, _) in enumerate(starts):
+        if kind == DRAWS:
+            continue
+        idx, w = _level_atoms(cell, frac, stride, use_dense, size, l, interp)
+        g_l = g[:, l * f:(l + 1) * f]
+        if kind == EXACT:
+            coef = torch.stack([(table[l][i] * g_l).sum(dim=-1) for i in idx])
+        else:
+            dots = [(table[l][rows[first + r].long()] * g_l).sum(dim=-1)
+                    for r in range(2)]
+            tie = (w == w.amax(dim=0)).float()
+            diff = dots[0] + dots[1] if absolute else dots[0] - dots[1]
+            coef = diff * (tie / tie.sum(dim=0))
+        dx += scales[l] * _frac_cotangent(frac[:, l], coef, interp, absolute)
+    return dx.T.contiguous()
+
+
+def point_grad_tolerance(g, table, x, config, interp='trilinear', plan=None,
+                         rows=None):
+    """Per element of the point gradient, how far two fp32 evaluations of
+    it in different orders can lie apart: 2 k 2^-24 times the sum of its
+    terms' magnitudes, k = F + 4 A + 8 roundings a term can pass through
+    (a level's dot of F products, the A atoms' sums, the weight
+    derivative's products, the scale and the levels' sum)."""
+    n_atoms = 4 if interp == 'simplex' else 8
+    k = config.n_features + 4 * n_atoms + 8 + config.n_levels
+    return 2.0 * k * 2.0 ** -24 * hashgrid_encode_point_grad_plain(
+        g, table, x, config, interp, plan, rows, absolute=True)
 
 
 def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,

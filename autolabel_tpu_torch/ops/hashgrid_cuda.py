@@ -23,11 +23,14 @@ residual encodes with their table gradient.
   gradient, the scatter of those rows (`_StochasticEncode`), in the rows
   format of csrc/hashgrid_stochastic.cuh (encoders.plan_starts).
 
+- K2x (csrc/hashgrid_point_grad.cu): the encode's gradient for the points,
+  which camera registration and pose refinement need, for the exact
+  trilinear and simplex encodes and the stochastic and residual ones
+  (`point_grad`, which each Function above calls); the sampled encode's
+  is zero, as in the JAX package.
+
 On CPU tensors the wrappers compute the plain PyTorch versions
-(ops/encoders.py); on CUDA tensors they launch the kernels or raise. The
-gradient for x, which only pose refinement needs, is not ported: asking
-for it of an exact or stochastic encode on the card raises; the sampled
-encode's is zero, as in the JAX package.
+(ops/encoders.py); on CUDA tensors they launch the kernels or raise.
 """
 import ctypes
 import functools
@@ -44,6 +47,7 @@ SELECT_NAME = 'select_points'
 SAMPLED_BWD_NAME = 'hashgrid_sampled_bwd'
 STOCHASTIC_NAME = 'hashgrid_stochastic'
 STOCHASTIC_BWD_NAME = 'hashgrid_stochastic_bwd'
+POINT_GRAD_NAME = 'hashgrid_point_grad'
 _SOURCE = 'hashgrid_encode.cu'
 _BWD_SOURCE = 'hashgrid_bwd.cu'
 _ATOMS_SOURCE = 'hashgrid_atoms.cu'
@@ -51,6 +55,7 @@ _SELECT_SOURCE = 'select_points.cu'
 _SAMPLED_BWD_SOURCE = 'hashgrid_sampled_bwd.cu'
 _STOCHASTIC_SOURCE = 'hashgrid_stochastic.cu'
 _STOCHASTIC_BWD_SOURCE = 'hashgrid_stochastic_bwd.cu'
+_POINT_GRAD_SOURCE = 'hashgrid_point_grad.cu'
 _MAX_LEVELS = 32  # MAX_LEVELS in hashgrid_common.cuh
 # K6's parts (K6_PART_* in hashgrid_stochastic.cu): the encode, or one part
 # of its work alone for timing it
@@ -342,26 +347,117 @@ def hashgrid_encode_backward(g, x, config):
     return _launch_backward(g, x, config)
 
 
+# -- K2x: the encode's gradient for the points -----------------------------
+
+def hashgrid_encode_point_grad_plain(g, table, x, config, interp='trilinear',
+                                     plan=None, rows=None):
+    """The plain PyTorch version of K2x, on any device."""
+    return encoders.hashgrid_encode_point_grad_plain(g, table, x, config,
+                                                     interp, plan, rows)
+
+
+@functools.cache
+def _point_grad_launcher():
+    """K2x's C entry point, its signature set once, when it loads."""
+    fn = _kernels.library(_POINT_GRAD_SOURCE).hashgrid_point_grad
+    fn.argtypes = ([ctypes.c_void_p] * 13
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _point_grad_call(g, table, x, config, interp, plan, rows):
+    """K2x: dx (N, 3) fp32 for the encode's fp32 cotangent g."""
+    _check_inputs(POINT_GRAD_NAME, x, config, table, _table_shape(config))
+    n = x.shape[0]
+    if g.dtype != torch.float32 or tuple(g.shape) != (n, config.out_dim) \
+            or not g.is_contiguous() or g.device != x.device \
+            or g.data_ptr() % 16:
+        raise ValueError(f'{POINT_GRAD_NAME}: g must be a contiguous, '
+                         f'16-byte aligned ({n}, {config.out_dim}) float32 '
+                         'tensor on the device of x')
+    if plan is None:  # every level exact, its rows from the cell
+        plan = ((encoders.EXACT, 0),) * config.n_levels
+    starts = encoders.plan_starts(plan)
+    if rows is not None:
+        if rows.device != x.device or rows.dtype != torch.int32 \
+                or rows.dim() != 2 or rows.shape[1] != n \
+                or rows.shape[0] != sum(r for _, r in plan) \
+                or not rows.is_contiguous():
+            raise ValueError(f'{POINT_GRAD_NAME}: rows must be contiguous '
+                             f'int32 (S, {n}) on the device of x, S the '
+                             'plan\'s rows')
+    elif any(k == encoders.RESIDUAL for k, _ in plan):
+        raise ValueError(f'{POINT_GRAD_NAME}: a residual level needs its '
+                         'drawn rows')
+    levels = config.n_levels
+    kinds = (ctypes.c_int * levels)(*[k for k, *_ in starts])
+    firsts = (ctypes.c_int * levels)(*[first for _, _, first, _ in starts])
+    dx = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    status = _point_grad_launcher()(
+        x.data_ptr(), table.data_ptr(), g.data_ptr(),
+        None if rows is None else rows.data_ptr(), dx.data_ptr(),
+        *[a.ctypes.data for a in _geometry(config)], kinds, firsts,
+        float(config.pos_offset), n, levels, config.table_size,
+        config.n_features, _atom_count(interp),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(status, POINT_GRAD_NAME)
+    _kernels.launches[POINT_GRAD_NAME] += 1
+    return dx
+
+
+def point_grad(g, table, x, config, interp='trilinear', plan=None, rows=None):
+    """The encode's gradient for x (N, 3), for its cotangent g (N, L * F):
+    K2x on the card, its plain version on the CPU. plan: the stochastic
+    encode's (encoders.stochastic_plan), None for the exact encode; rows:
+    the (S, N) int32 rows a forward kernel wrote in the plan's layout
+    (K1s's atoms as (L * A, N), K6's drawn rows), which the kernel reads in
+    place of hashing; a RESIDUAL level needs them."""
+    if x.device.type == 'cpu' and table.device.type == 'cpu':
+        return hashgrid_encode_point_grad_plain(g, table, x, config, interp,
+                                                plan, rows)
+    return _point_grad_call(g.float().contiguous(), table.detach(), x,
+                            config, interp, plan, rows)
+
+
+def point_grad_launch_shape(config, n, interp='trilinear'):
+    """K2x's launch shape for n points, as its C library plans it: blocks,
+    threads, static shared bytes, blocks per SM, registers and points a
+    block, keyed by the kernel the feature width selects."""
+    fn = _kernels.library(_POINT_GRAD_SOURCE).hashgrid_point_grad_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    _kernels.check(fn(config.n_features, _atom_count(interp), n, out),
+                   POINT_GRAD_NAME)
+    keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
+            'points')
+    name = 'point_grad_rows_kernel' if out[6] else 'point_grad_lanes_kernel'
+    return {f'K2x {name}<{_atom_count(interp)}>': dict(zip(keys, out))}
+
+
 class _Encode(torch.autograd.Function):
-    """The encode kernel, and the scatter kernel as its table gradient."""
+    """The encode kernel; the scatter kernel as its table gradient and K2x
+    as its gradient for x."""
 
     @staticmethod
     def forward(ctx, table, x, config):
         ctx.config = config
-        ctx.save_for_backward(x)
-        return _launch(table, x, config)
+        ctx.save_for_backward(table, x)
+        return _launch(table.detach(), x, config)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                'the gradient of the hash-grid encode for x (pose '
-                'refinement) is not ported')
-        dtable = None
+        table, x = ctx.saved_tensors
+        dtable = dx = None
         if ctx.needs_input_grad[0]:
             dtable = _launch_backward(g, x, ctx.config)
-        return dtable, None, None
+        if ctx.needs_input_grad[1]:
+            dx = point_grad(g, table, x, ctx.config)
+        return dtable, dx, None
 
 
 # -- K1s, K5, K2s: the simplex encode and the sampled backward -------------
@@ -896,26 +992,26 @@ class _SimplexEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, x, config):
-        out, idx, w = _atoms_call(table, x, config, 'simplex', torch.float32,
-                                  True)
+        out, idx, w = _atoms_call(table.detach(), x, config, 'simplex',
+                                  torch.float32, True)
         ctx.config = config
-        ctx.save_for_backward(idx, w)
+        ctx.save_for_backward(idx, w, table, x)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                'the gradient of the hash-grid encode for x (pose '
-                'refinement) is not ported')
-        dtable = None
+        idx, w, table, x = ctx.saved_tensors
+        c = ctx.config
+        dtable = dx = None
         if ctx.needs_input_grad[0]:
-            idx, w = ctx.saved_tensors
-            c = ctx.config
             dtable = _sampled_scatter_call(g.contiguous(), idx, w, None,
                                            (4,) * c.n_levels, c, None, None,
                                            None)
-        return dtable, None, None
+        if ctx.needs_input_grad[1]:
+            dx = point_grad(g, table, x, c, 'simplex',
+                            ((encoders.EXACT, 4),) * c.n_levels,
+                            idx.view(-1, idx.shape[2]))
+        return dtable, dx, None
 
 
 class _SampledEncode(torch.autograd.Function):
@@ -1226,25 +1322,30 @@ class _StochasticEncode(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, x, u, config, interp, n_samples, plan):
-        out, idx, w = _stochastic_call(table, x, u, config, interp,
+        out, idx, w = _stochastic_call(table.detach(), x, u, config, interp,
                                        n_samples, plan, True)
-        ctx.save_for_backward(idx, w)
-        ctx.args = (plan, config, n_samples)
+        ctx.save_for_backward(idx, w, table, x)
+        ctx.args = (plan, config, interp, n_samples)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                'the gradient of the hash-grid encode for x (pose '
-                'refinement) is not ported')
-        dtable = None
+        idx, w, table, x = ctx.saved_tensors
+        plan, config, interp, n_samples = ctx.args
+        dtable = dx = None
         if ctx.needs_input_grad[0]:
-            idx, w = ctx.saved_tensors
-            plan, config, n_samples = ctx.args
             dtable = _stochastic_scatter_call(g.float().contiguous(), idx, w,
                                               plan, config, n_samples)
-        return dtable, None, None, None, None, None, None
+        if ctx.needs_input_grad[1]:
+            dx = point_grad(g, table, x, config, interp, plan, idx)
+        return dtable, dx, None, None, None, None, None
+
+
+def _records(table, x):
+    """Whether autograd records the encode: the table's gradient (training)
+    or the points' (registration, with the table frozen) is wanted."""
+    return torch.is_grad_enabled() and (table.requires_grad
+                                        or x.requires_grad)
 
 
 def hashgrid_encode(table, x, config, interp='trilinear', u=None,
@@ -1279,7 +1380,7 @@ def hashgrid_encode(table, x, config, interp='trilinear', u=None,
                                         exact_levels, residual)
         encoders.check_uniforms(u, encoders.uniform_shape(
             config.n_levels, x.shape[0], interp, n_samples, residual))
-        if torch.is_grad_enabled() and table.requires_grad:
+        if _records(table, x):
             return _StochasticEncode.apply(table, x, u.contiguous(), config,
                                            interp, n_samples, plan)
         return _stochastic_call(table.detach(), x, u.contiguous(), config,
@@ -1289,7 +1390,7 @@ def hashgrid_encode(table, x, config, interp='trilinear', u=None,
             raise NotImplementedError(
                 "simplex interpolation is implemented for the wide-row "
                 "(TPU_GRID-shaped) layout only")
-        if torch.is_grad_enabled() and table.requires_grad:
+        if _records(table, x):
             return _SimplexEncode.apply(table, x, config)
         # serving: K1s without atoms
         return _atoms_call(table.detach(), x, config, 'simplex',

@@ -14,7 +14,11 @@ from a PRNG key; here they come in as tensors (`draws`) or from a
 torch.Generator (`key`), so tests can feed JAX's own draws. With an
 occupancy grid, samples in empty or untrained cells get sigma 0 and, with
 options.occupancy_near_far, each ray's [near, far] shrinks to the
-occupied span. Level windows are not ported and raise.
+occupied span. options.level_window scales each grid level's features
+(the coarse-to-fine windows of joint pose refinement). The ops on the
+points' gradient path (the box intersection, the clip to the box) follow
+jnp's rules at ties: jnp.maximum and jnp.clip pass half the gradient to
+each tied side, where torch.clamp passes all of it.
 
 Output contract: image, depth, semantic, semantic_features,
 depth_variance, coordinates_map, weights_sum, and interlevel (a scalar)
@@ -33,9 +37,8 @@ MIN_NEAR = 0.05
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
-    """The JAX package's RenderOptions, defaults mirrored exactly. Level
-    windows, which are not ported, are carried so configs transfer; a
-    render that would use them raises."""
+    """The JAX package's RenderOptions, defaults mirrored exactly.
+    level_window: None (every level), or one factor a grid level."""
     num_steps: int = 128
     upsample_steps: int = 0
     perturb: bool = False
@@ -61,7 +64,7 @@ def ray_aabb_intersect(rays_o, rays_d, bound, min_near=MIN_NEAR):
     t1 = (bound - rays_o) * inv_d
     near = torch.minimum(t0, t1).amax(dim=-1)
     far = torch.maximum(t0, t1).amin(dim=-1)
-    near = torch.clamp(near, min=min_near)
+    near = torch.maximum(near, torch.tensor(min_near))
     far = torch.maximum(far, near + 1e-4)
     return near[..., None], far[..., None]
 
@@ -138,8 +141,11 @@ def _deltas(z, last):
 
 
 def _points(rays_o, rays_d, z, bound):
+    """The samples' points clipped to the box, as jnp.clip clips (0-dim
+    CPU tensors act as scalars on the card: no copy to it)."""
     xyz = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
-    return torch.clamp(xyz, -bound, bound)
+    return torch.minimum(torch.maximum(xyz, torch.tensor(-bound)),
+                         torch.tensor(bound))
 
 
 def _interlevel_loss(z_main, d_main, w_main, z_prop, d_prop, w_prop):
@@ -216,8 +222,6 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
     (density_grid (R, R, R), trained_mask (R, R, R), threshold) from
     OccupancyGrid.state() and its config.
     """
-    if options.level_window is not None:
-        raise NotImplementedError('level windows are not ported yet')
     c = field.config
     bound = c.bound
     n_rays = rays_o.shape[0]
@@ -254,6 +258,9 @@ def render_rays(field, rays_o, rays_d, direction_norms, key=None,
         enc = dict(opts, u=draws['u_enc'])
         if 'u_enc_upsample' in names:
             enc_upsample = dict(opts, u=draws['u_enc_upsample'])
+    if grid is not None and options.level_window is not None:
+        enc = dict(enc, level_window=options.level_window)
+        enc_upsample = dict(enc_upsample, level_window=options.level_window)
 
     near, far = ray_aabb_intersect(rays_o, rays_d, bound)
     if occupancy is not None and options.occupancy_near_far:

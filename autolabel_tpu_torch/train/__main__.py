@@ -14,8 +14,11 @@ the other trained. --eval renders the test split and prints
 
 It runs on the card; tests call main([...], device='cpu'). Flags the port
 does not cover raise and say what they need: --mesh-devices and
---mesh-model (data and grid parallelism), --pose-refine-experimental
-(joint pose refinement). --sampled-backward 0 trains through the
+--mesh-model (data and grid parallelism). The hidden
+--pose-refine-experimental trains the poses jointly with the field
+(train/pose_refine.py) and writes the refined poses (ngp frame: R, t and
+the frames' stems) to <model dir>/poses_refined.npz, as the JAX CLI
+does. --sampled-backward 0 trains through the
 stochastic-corner encode (--stochastic-corners, --stochastic-exact-levels,
 --stochastic-residual), as does the narrow reference grid
 (--grid-preset reference), which turns the sampled backward off as the JAX
@@ -41,6 +44,7 @@ from autolabel_tpu_torch.render.occupancy import (OccupancyGrid,
 from autolabel_tpu_torch.render.renderer import RenderOptions
 from autolabel_tpu_torch.train.loader import PrefetchIterator
 from autolabel_tpu_torch.train.losses import LossOptions
+from autolabel_tpu_torch.train.pose_refine import refined_poses
 from autolabel_tpu_torch.train.trainer import SimpleTrainer
 
 
@@ -141,11 +145,6 @@ def _refuse_unported(flags):
             '--mesh-devices / --mesh-model are not ported yet: data '
             'parallelism and the grid feature-axis sharding need a '
             'torch.distributed port of autolabel_tpu/parallel')
-    if flags.pose_refine:
-        raise NotImplementedError(
-            '--pose-refine-experimental is not ported yet: it needs '
-            'train/pose_refine.py, the encode\'s point gradient and level '
-            'windows')
 
 
 def main(argv=None, device=None):
@@ -199,6 +198,10 @@ def main(argv=None, device=None):
 
     model_dir = model_utils.model_dir(flags.scene, flags)
     model_utils.write_params(model_dir, flags)
+    pose_refine = None
+    if flags.pose_refine:
+        dataset.emit_frame_rays = True
+        pose_refine = (dataset.rotations, dataset.origins)
     trainer = SimpleTrainer('ngp',
                             field,
                             lr=flags.lr,
@@ -213,7 +216,8 @@ def main(argv=None, device=None):
                             sampled_warmup_fraction=(
                                 flags.sampled_warmup_fraction),
                             metrics=not flags.no_metrics,
-                            tensorboard=flags.tensorboard)
+                            tensorboard=flags.tensorboard,
+                            pose_refine=pose_refine)
 
     iters_per_epoch = min(1000, flags.iters)
     epochs = int(np.ceil(flags.iters / iters_per_epoch))
@@ -238,6 +242,17 @@ def main(argv=None, device=None):
         torch.cuda.synchronize(device)
     train_s = time.perf_counter() - start
     trainer.save_checkpoint(include_optimizer=flags.save_optimizer)
+
+    if pose_refine is not None:
+        R, t = refined_poses(
+            {k: v.detach().cpu().numpy() for k, v in trainer.pose.items()},
+            (np.asarray(dataset.rotations), np.asarray(dataset.origins)))
+        stems = [os.path.basename(p).split('.')[0]
+                 for p in dataset.scene.rgb_paths()]
+        path = os.path.join(model_dir, 'poses_refined.npz')
+        np.savez(path, R=R, t=t,
+                 frames=np.array([stems[i] for i in dataset.indices]))
+        print(f"refined poses (ngp frame) -> {path}")
 
     eval_mse = None
     if flags.eval:

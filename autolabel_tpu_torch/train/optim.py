@@ -11,9 +11,15 @@ count and the schedule's count unchanged, until more than 100 such steps
 come in a row, when the update is applied anyway. So the schedule counts
 applied updates, not steps.
 
+Camera refinement's 'pose' group (the per-frame pose deltas of
+train/pose_refine.py) takes no weight decay, and its updates are scaled by
+0 for the first max((iters or 10000) // 10, 1) applied updates, then by
+0.1 (the JAX package's optax.masked(scale_by_schedule) after the lr): the
+poses stay frozen while the field forms, then step at a tenth of its lr.
+Its schedule counts applied updates too.
+
 The whole update stays on the device (the skip is a select, not a host
-branch), so a training loop never waits for the card here. Camera
-refinement's 'pose' group is not ported.
+branch), so a training loop never waits for the card here.
 """
 import math
 
@@ -51,10 +57,9 @@ class Optimizer:
     def __init__(self, params, labels, lr=5e-3, iters=None,
                  weight_decay=1e-6, max_consecutive_errors=100):
         self.params = dict(params)
-        if 'pose' in labels.values():
-            raise NotImplementedError(
-                'the pose group (camera refinement) is not ported')
         self.decay = {name: labels[name] == 'net' for name in self.params}
+        self.pose = {name: labels[name] == 'pose' for name in self.params}
+        self.pose_warmup = max((iters or 10000) // 10, 1)
         self.schedule = lr_schedule(lr, iters)
         self.weight_decay = weight_decay
         self.max_consecutive_errors = max_consecutive_errors
@@ -102,14 +107,20 @@ class Optimizer:
         bc1 = 1.0 - torch.pow(b1, count.float())
         bc2 = 1.0 - torch.pow(b2, count.float())
         step_size = -self.lr(st['count']).float()
+        if any(self.pose.values()):
+            pose_scale = torch.where(st['count'] < self.pose_warmup,
+                                     torch.zeros_like(step_size),
+                                     torch.full_like(step_size, 0.1))
         for name, p in self.params.items():
             g = grads[name]
             if self.decay[name]:
                 g = g + self.weight_decay * p
             mu = (1.0 - B1) * g + B1 * st['mu'][name]
             nu = (1.0 - B2) * g ** 2 + B2 * st['nu'][name]
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-            p.copy_(torch.where(ok, p + step_size * update, p))
+            update = step_size * ((mu / bc1) / (torch.sqrt(nu / bc2) + EPS))
+            if self.pose[name]:
+                update = update * pose_scale
+            p.copy_(torch.where(ok, p + update, p))
             st['mu'][name].copy_(torch.where(ok, mu, st['mu'][name]))
             st['nu'][name].copy_(torch.where(ok, nu, st['nu'][name]))
         st['count'] = torch.where(ok, count, st['count'])

@@ -19,8 +19,13 @@ render's sigma; with tensorboard, each epoch's loss parts go to TensorBoard
 event files at <workspace>/run/<name> beside metrics.jsonl. Every
 estimator of the JAX trainer trains: the exact encode, the sampled
 backward and the stochastic-corner and residual encodes (stochastic_corners
-without the sampled backward). Not ported, and refused rather than
-ignored: the device mesh and pose refinement.
+without the sampled backward). With pose_refine=(R0, t0), joint pose
+refinement (train/pose_refine.py): per-frame deltas train beside the
+field's parameters under the optimizer's 'pose' group, the EMA covers
+them, the step rebuilds the rays from the refined poses, the encode is
+exact, and with a hash grid the estimator phases give way to the JAX
+trainer's coarse-to-fine level windows. Not ported, and refused rather
+than ignored: the device mesh.
 
 InteractiveTrainer (the GUI backend's) takes one step at a time at a
 constant lr, an EMA tick every EMA_EVERY steps of its own count, and
@@ -41,30 +46,37 @@ from autolabel_tpu_torch.train import checkpoints
 from autolabel_tpu_torch.train.losses import LossOptions, compute_losses
 from autolabel_tpu_torch.train.metrics import MetricsLogger
 from autolabel_tpu_torch.train.optim import Optimizer
+from autolabel_tpu_torch.train.pose_refine import (init_pose_params,
+                                                   refined_rays)
 from autolabel_tpu_torch.train.tb_events import TBEventWriter
 
 _BATCH_KEYS = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
                'semantic')
+_POSE_BATCH_KEYS = ('frame_idx', 'rays_d_cam')
 
 
-def _refuse_unported(mesh, pose_refine):
-    unported = {
-        'a device mesh (data parallelism)': mesh is not None,
-        'pose refinement': pose_refine is not None,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f'SimpleTrainer: {what} is not ported '
-                                      'yet')
+def _refuse_unported(mesh):
+    if mesh is not None:
+        raise NotImplementedError('SimpleTrainer: a device mesh (data '
+                                  'parallelism) is not ported yet')
 
 
 def phase_schedule(options, iters, exact_final_fraction=0.0,
-                   sampled_warmup_fraction=0.0):
+                   sampled_warmup_fraction=0.0, window_levels=None):
     """The JAX trainer's gather-annealing phases, [(first_step, render
     options)] ascending: [0, warmup) scatters one sampled row a level
     (only with sampled_warmup_fraction and sampled_backward == 2), then
     the given options, then from (1 - exact_final_fraction) * iters exact
-    gathers (only when an estimator is on)."""
+    gathers (only when an estimator is on). With window_levels L (joint
+    pose refinement on a grid of L levels) these phases are replaced by
+    the coarse-to-fine windows: from iters * k / (2 L) levels 0..k alone,
+    k < L, then from iters / 2 the given options."""
+    if iters is not None and window_levels:
+        L = window_levels
+        phases = [(int(iters * 0.5 * k / L), dataclasses.replace(
+            options, level_window=(1.0,) * (k + 1) + (0.0,) * (L - 1 - k)))
+            for k in range(L)]
+        return phases + [(int(iters * 0.5), options)]
     phases = [(0, options)]
     if (iters is not None and sampled_warmup_fraction > 0
             and options.sampled_backward == 2):
@@ -106,12 +118,34 @@ class SimpleTrainer:
                  pose_refine=None,
                  seed=0):
         self.render_options = render_options or RenderOptions(perturb=True)
-        _refuse_unported(mesh, pose_refine)
+        _refuse_unported(mesh)
         self.occupancy = occupancy
         self.occupancy_update_every = occupancy_update_every
+        # Joint camera refinement: pose_refine = (R0 (N, 3, 3) cam->world,
+        # t0 (N, 3) centres); per-frame SE(3) deltas train beside the
+        # field. The pose gradient flows through the encode's point
+        # gradient, which the sampled-backward and stochastic-corner
+        # encodes drop or draw, so the encode is exact, as in the JAX
+        # trainer.
+        self._pose_init = None
+        self.pose = {}
+        window_levels = None
+        if pose_refine is not None:
+            R0, t0 = pose_refine
+            dev = field.device
+            self._pose_init = (
+                torch.as_tensor(np.asarray(R0, np.float32), device=dev),
+                torch.as_tensor(np.asarray(t0, np.float32), device=dev))
+            self.pose = {k: v.requires_grad_(True) for k, v in
+                         init_pose_params(len(t0), dev).items()}
+            self.render_options = dataclasses.replace(
+                self.render_options, stochastic_corners=0,
+                sampled_backward=0)
+            grid = field.config.grid_config
+            window_levels = grid.n_levels if grid is not None else None
         self.phases = phase_schedule(self.render_options, iters,
                                      exact_final_fraction,
-                                     sampled_warmup_fraction)
+                                     sampled_warmup_fraction, window_levels)
         self.name = name
         self.field = field
         self.workspace = workspace
@@ -123,10 +157,14 @@ class SimpleTrainer:
                                if metrics and workspace is not None else None)
         self.tb_writer = (TBEventWriter(os.path.join(workspace, 'run', name))
                           if tensorboard and workspace is not None else None)
-        self.optimizer = Optimizer(field.named_parameters(),
-                                   field.param_labels(), lr=lr, iters=iters)
+        labels = dict(field.param_labels(),
+                      **{f'pose.{k}': 'pose' for k in self.pose})
+        self.optimizer = Optimizer(
+            [*field.named_parameters(),
+             *((f'pose.{k}', v) for k, v in self.pose.items())],
+            labels, lr=lr, iters=iters)
         self.ema = {k: v.detach().clone()
-                    for k, v in field.state_dict().items()}
+                    for k, v in self._param_state().items()}
         self.generator = torch.Generator(device=field.device).manual_seed(
             seed + 1)
         self._staged = StagedRenderer(
@@ -145,6 +183,12 @@ class SimpleTrainer:
     def checkpoint_dir(self):
         return os.path.join(self.workspace, 'checkpoints')
 
+    def _param_state(self):
+        """The field's state dict and the pose deltas ('pose.rot',
+        'pose.t'): what the EMA covers."""
+        return dict(self.field.state_dict(),
+                    **{f'pose.{k}': v for k, v in self.pose.items()})
+
     def _try_resume(self):
         payload = checkpoints.load_checkpoint(self.checkpoint_dir)
         if payload is None:
@@ -152,12 +196,24 @@ class SimpleTrainer:
         model = payload['model']
         ema = payload.get('ema', model)
         opt_state = payload.get('optimizer')
-        if 'pose' in model:
-            # Camera-refinement deltas: not field state; the saved moments
-            # cover a different param set, so they restart.
+        if ('pose' in model) != bool(self.pose):
+            # Resumed across a pose-refinement toggle (the model hash
+            # excludes the deltas): a checkpoint without them gains zero
+            # deltas, one with them loses them, and the saved moments
+            # cover another param set, so they restart.
             opt_state = None
         bridge.load_params(self.field, model)
         self.ema = bridge.params_from_numpy(ema, self.field.device)
+        dev = self.field.device
+        for k, p in self.pose.items():
+            saved = model.get('pose', {}).get(k)
+            with torch.no_grad():
+                p.copy_(torch.zeros_like(p) if saved is None else
+                        torch.as_tensor(np.asarray(saved), device=dev))
+            saved_ema = ema.get('pose', {}).get(k)
+            self.ema[f'pose.{k}'] = (
+                torch.zeros_like(p) if saved_ema is None else
+                torch.as_tensor(np.asarray(saved_ema), device=dev))
         # A checkpoint of another optimizer (the JAX package's optax state,
         # or none) restarts the moments.
         if opt_state is None or not self.optimizer.load_state_dict(opt_state):
@@ -171,7 +227,7 @@ class SimpleTrainer:
         if name is None:
             name = f'{self.name}_ep{self.epoch:04d}'
         path = os.path.join(self.checkpoint_dir, f'{name}.pth')
-        state = {'params': bridge.params_to_numpy(self.field),
+        state = {'params': bridge.state_to_numpy(self._param_state()),
                  'ema': bridge.state_to_numpy(self.ema),
                  'step': self.global_step,
                  'opt_state': self.optimizer.state_dict()}
@@ -186,7 +242,8 @@ class SimpleTrainer:
         PrefetchIterator applies it on its own thread, and the step again."""
         dev = self.field.device
         keys = _BATCH_KEYS + (('features',) if self.loss_options.feature_loss
-                              else ())
+                              else ()) + (_POSE_BATCH_KEYS if self.pose
+                                          else ())
         batch = {k: torch.as_tensor(data[k], device=dev) for k in keys}
         batch['direction_norms'] = batch['direction_norms'].reshape(-1)[:,
                                                                         None]
@@ -209,7 +266,12 @@ class SimpleTrainer:
         if self.occupancy is not None:
             occupancy = (*self.occupancy.state(),
                          self.occupancy.config.threshold)
-        outputs = render_rays(self.field, batch['rays_o'], batch['rays_d'],
+        rays_o, rays_d = batch['rays_o'], batch['rays_d']
+        if self.pose:
+            rays_o, rays_d = refined_rays(self.pose, self._pose_init,
+                                          batch['frame_idx'],
+                                          batch['rays_d_cam'])
+        outputs = render_rays(self.field, rays_o, rays_d,
                               batch['direction_norms'], key=self.generator,
                               options=self.step_options(),
                               occupancy=occupancy, draws=draws)
@@ -235,7 +297,7 @@ class SimpleTrainer:
 
     @torch.no_grad()
     def _ema_step(self):
-        for name, p in self.field.state_dict().items():
+        for name, p in self._param_state().items():
             e = self.ema[name]
             e.copy_(self.ema_decay * e + (1.0 - self.ema_decay) * p)
 
@@ -281,7 +343,8 @@ class SimpleTrainer:
         saved = {k: v.detach().clone()
                  for k, v in self.field.state_dict().items()}
         with torch.no_grad():
-            self.field.load_state_dict(state)
+            self.field.load_state_dict({k: v for k, v in state.items()
+                                        if not k.startswith('pose.')})
         try:
             yield
         finally:

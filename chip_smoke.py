@@ -3,8 +3,9 @@
 flagship training step, the train CLI and its stochastic-corner estimators,
 the render CLI with its baked preview, the interactive preview,
 evaluation (the closed-set and open-vocabulary CLIs and a reference
-checkpoint's import), and the interactive labelling backend (the GUI's
-backend process, the user simulation, online mapping), on one CUDA card.
+checkpoint's import), the interactive labelling backend (the GUI's
+backend process, the user simulation, online mapping), and camera
+registration with joint pose refinement, on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -244,6 +245,33 @@ Phases, each failing loudly:
      frames of 256 x 192 with RandomFeatureExtractor's 512-d features fed
      from a thread past the capacity of 325 while 3 bursts of 100 steps
      train: ms a step, the share spent waiting for a batch.
+ 16. camera registration and joint pose refinement. (a) K2x, the encode's
+     gradient for the points, against its plain version at N = 131,072
+     (points on 0, 1, cell faces and tied fractions): TPU_GRID simplex
+     (K1s's atoms as its rows) and trilinear, the tcnn lattice's narrow
+     rows (16 x 2 x 2^19), a stochastic leg (2 draws, the finest level
+     exact; K6's rows) and a residual leg, each within
+     encoders.point_grad_tolerance, timed by events beside its byte bound
+     (g on the levels it reads, the rows, each distinct table row once,
+     x and dx) and the plain version, with its launch shape. (b) One
+     registration step (2,048 rays of a sphere frame, 64 main and 32
+     proposal samples, a non-zero delta) on phase 5's full-width model
+     with the kernels against the plain versions (K4f kept in both, so
+     both place the same samples): the loss within 2e-2, the gradient for
+     (rot, t) within 5e-2 of its norm and no further from the fp32 plain
+     versions' than the bf16 plain versions' is (room 1.5); K1, K2x, K3f,
+     K3b and K4f once, no K2 and no K4b (the proposal places samples
+     through a stop-gradient). (c) The register CLI at its defaults
+     (2,048 rays, 400 iterations, lr 3e-3, 64 / 32 samples) on a room of
+     16 frames at 160 x 120 trained through the train CLI (--proposal
+     --heads-impl pallas, TPU_GRID simplex, hidden 128) for
+     POSE_TRAIN_ITERS iterations, a frame perturbed by 5 degrees and
+     7 cm: both errors halved; ms an iteration (p50), the CLI's seconds,
+     the busy share of 5 traced iterations, each kernel's launches (K1s,
+     K2x, K3f, K3b and K4f once an iteration, no table scatter, no K4b).
+     (d) The train CLI with --pose-refine-experimental for 200 steps on
+     the same room: every level window entered, frame 0's pose kept to
+     1e-6, the other deltas moved and finite, poses_refined.npz written.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -3793,6 +3821,406 @@ def _backend_phase(dev, seed, gpu, checks):
     return out
 
 
+# Camera registration and joint pose refinement (phase 16): K2x held in
+# each form of the encode at the slice's shapes; one registration step on
+# phase 5's model in turns with the plain versions; the register CLI at its
+# defaults on a room trained through the train CLI at full width; joint
+# refinement through the train CLI.
+POSE_N = 131072  # the register CLI's 2,048 rays x 64 main samples
+POSE_SCENE = dict(n_frames=16, width=160, height=120)
+POSE_TRAIN = ['--proposal', '--heads-impl', 'pallas', '--factor-train', '1',
+              '--no-metrics']
+POSE_TRAIN_ITERS = 2000
+# The registered frame. Frame 3 of this room does not recover from 5
+# degrees and 7 cm: its translation error grows to about 11 cm with the
+# kernels, with the port's plain versions on the CPU, and in the JAX
+# package's scripts/register.py given the same trained field
+# (register_witness.py, PERF.md); frame 8 recovers in all three.
+POSE_FRAME = 8
+# 5 degrees and 7 cm, as tests/test_pose_refine.py:93-97 perturbs a frame
+POSE_PERTURB = ['--perturb-deg', '5', '--perturb-cm', '7']
+POSE_JOINT_ITERS = 200
+POSE_TRACED = 5
+
+
+def _pose_points(gen, n, config):
+    """n points in the unit cube with 0, 1, faces of every level's cells
+    and tied fractions (two or three axes equal)."""
+    import torch
+    x = torch.rand((n, 3), generator=gen)
+    x[:8] = torch.tensor([[0., 0., 0.], [1., 1., 1.], [0., 1., 0.5],
+                          [1., 0., 0.999999], [0.5, 0.5, 0.5],
+                          [0.25, 0.25, 0.7], [0.3, 0.3, 0.3], [1., 0.5, 0.]])
+    for l, scale in enumerate(config.scales):
+        k = torch.randint(0, int(scale), (64, 3), generator=gen)
+        x[8 + 64 * l:8 + 64 * (l + 1)] = k.float() / scale
+    x[1024:2048, 1] = x[1024:2048, 0]
+    x[2048:3072] = x[2048:3072, :1]
+    return x
+
+
+def _k2x_bound(encoders, config, x, interp, plan, rows):
+    """K2x's least time: each input read once (x, g on the levels it reads,
+    each distinct table row those levels gather, and a residual level's two
+    drawn rows, which the function cannot recompute), dx written once; 2 F
+    operations an atom a level a point. An exact level's corners follow
+    from x, so the atom rows K1s or K6 hand the kernel are not charged."""
+    import torch
+    n, f = x.shape[0], config.n_features
+    a = 4 if interp == 'simplex' else 8
+    if plan is None:
+        plan = ((encoders.EXACT, a),) * config.n_levels
+    idx, _ = encoders._corner_idx_weights(x, config, interp)
+    levels = distinct = row_reads = atoms = 0
+    for l, (kind, count, first, _) in enumerate(encoders.plan_starts(plan)):
+        if kind == encoders.DRAWS:
+            continue
+        levels += 1
+        ids = idx[l] if kind == encoders.EXACT else rows[first:first + 2]
+        distinct += int(torch.unique(ids).numel())
+        atoms += a if kind == encoders.EXACT else 2
+        row_reads += 0 if kind == encoders.EXACT else 2
+    nbytes = (n * 3 * 4 * 2 + n * levels * f * 4 + row_reads * n * 4
+              + distinct * f * 4)
+    return _bound(nbytes, 2 * f * atoms * n, PEAK_FP32), nbytes
+
+
+def _pose_phase(dev, seed, gpu, checks, results, shapes):
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch import register as register_cli
+    from autolabel_tpu_torch.core import rays
+    from autolabel_tpu_torch.core.dataset import SceneDataset
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.ops import _kernels, encoders, hashgrid_cuda, \
+        heads_cuda
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
+    from autolabel_tpu_torch.render.renderer import RenderOptions
+    from autolabel_tpu_torch.train import __main__ as train_cli
+    from autolabel_tpu_torch.train import pose_refine
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    from autolabel_tpu_torch.utils import fixtures
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 16)
+    name = hashgrid_cuda.POINT_GRAD_NAME
+    out = {'forms': {}}
+
+    # (a) K2x against its plain version in each form, N = POSE_N
+    tcnn = dataclasses.replace(HashGridConfig(), variant='tcnn')
+    forms = [('TPU_GRID simplex', TPU_GRID, 'simplex', None),
+             ('TPU_GRID trilinear', TPU_GRID, 'trilinear', None),
+             ('tcnn 16x2x2^19 narrow rows', tcnn, 'trilinear', None),
+             ('TPU_GRID simplex stochastic 2 draws exact_levels 1', TPU_GRID,
+              'simplex', (2, False, 1)),
+             ('TPU_GRID simplex residual exact_levels 1', TPU_GRID,
+              'simplex', (2, True, 1))]
+    k2x_err = 0.0
+    for tag, config, interp, stochastic in forms:
+        x = _pose_points(gen, POSE_N, config).to(dev)
+        table = (torch.randn((config.n_levels, config.table_size,
+                              config.n_features), generator=gen)
+                 * 0.5).to(dev)
+        g = torch.randn((POSE_N, config.out_dim), generator=gen).to(dev)
+        plan = rows = None
+        if stochastic is not None:
+            n_samples, residual, exact = stochastic
+            u = torch.rand(encoders.uniform_shape(
+                config.n_levels, POSE_N, interp, n_samples, residual),
+                generator=gen).to(dev)
+            plan = encoders.stochastic_plan(config, interp, n_samples, exact,
+                                            residual)
+            _, rows, _ = hashgrid_cuda._stochastic_call(
+                table, x, u, config, interp, n_samples, plan, True)
+        elif interp == 'simplex':
+            _, idx, _ = hashgrid_cuda._atoms_call(table, x, config,
+                                                  'simplex', torch.float32,
+                                                  True)
+            plan = ((encoders.EXACT, 4),) * config.n_levels
+            rows = idx.view(-1, POSE_N)
+        args = (g, table, x, config, interp, plan, rows)
+        _kernels.reset_launches()
+        got = hashgrid_cuda._point_grad_call(*args)
+        torch.cuda.synchronize()
+        checks.true(f'K2x {tag} launched once',
+                    _kernels.launches[name] == 1)
+        want = hashgrid_cuda.hashgrid_encode_point_grad_plain(*args)
+        # Same terms in another order (warp butterflies, fused products):
+        # within 2 k 2^-24 of each element's terms' magnitudes.
+        tol = encoders.point_grad_tolerance(*args)
+        k2x_err = max(k2x_err, checks.within(f'K2x {tag} N={POSE_N}', got,
+                                             want, tol))
+        ms = _cuda_ms(lambda: hashgrid_cuda._point_grad_call(*args), 20)
+        plain_ms = _cuda_ms(
+            lambda: hashgrid_cuda.hashgrid_encode_point_grad_plain(*args), 3)
+        bound, nbytes = _k2x_bound(encoders, config, x, interp, plan, rows)
+        out['forms'][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                 bound_by=bound[1], bytes=nbytes,
+                                 share=bound[0] / ms)
+        print(f'kernel K2x [{gpu}] {tag} N={POSE_N}: {ms:.4f} ms by events, '
+              f'plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms '
+              f'({bound[1]}, {nbytes / 1e9:.4f} GB): {bound[0] / ms:.1%}')
+        shapes[f'K2x {tag}'] = hashgrid_cuda.point_grad_launch_shape(
+            config, POSE_N, interp)
+        _print_shapes(gpu, {f'{tag} N={POSE_N} {kernel}': sh
+                            for kernel, sh in shapes[f'K2x {tag}'].items()})
+        del x, table, g, rows, got, want, tol
+        torch.cuda.empty_cache()
+    main_form = out['forms']['TPU_GRID simplex']
+    results['K2x'] = dict(max_abs_err=k2x_err, ms=main_form['ms'],
+                          plain_ms=main_form['plain_ms'],
+                          bound=(main_form['bound_ms'],
+                                 main_form['bound_by']),
+                          library_ms=None, forms=out['forms'])
+
+    # (b) one registration step on phase 5's model, kernels against the
+    # plain versions: same params, pixels and delta
+    field = Field(_model_config(), device=dev, generator=gen)
+    with torch.no_grad():
+        field.encoder['grid'].copy_(
+            torch.randn(field.encoder['grid'].shape, generator=gen) * 0.5)
+    pos = (2.2, 2.6, -0.4)
+    frame = _scene_frame(rays, pos)
+    pick = np.random.default_rng(seed + 16).choice(FRAME_W * FRAME_H, 2048,
+                                                   replace=False)
+    dirs_cam, norms = rays.compute_directions(
+        np.eye(3), pick, FRAME_W, 400.0, 400.0, FRAME_W / 2, FRAME_H / 2)
+
+    def on_card(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    reg_in = (on_card(frame['pixels'].reshape(-1, 3)[pick]),
+              on_card(dirs_cam), on_card(norms),
+              on_card(_look_at(pos)), on_card(pos))
+    depth = on_card(frame['depth'].reshape(-1)[pick])
+    delta0 = {'rot': on_card([0.01, -0.02, 0.015]),
+              't': on_card([0.02, -0.01, 0.03])}
+    reg_opts = RenderOptions(num_steps=64, proposal_steps=32, perturb=False)
+
+    def reg_step(reg_field=field, inputs=reg_in, d=None):
+        delta = {k: v.clone().requires_grad_(True)
+                 for k, v in (d or delta0).items()}
+        with pose_refine.frozen(reg_field):
+            loss = pose_refine.registration_loss(reg_field, delta, *inputs,
+                                                 reg_opts, depth)
+            grads = torch.autograd.grad(loss, [delta['rot'], delta['t']])
+        return loss.detach(), torch.cat(grads)
+
+    _kernels.reset_launches()
+    loss_k, grad_k = reg_step()
+    torch.cuda.synchronize()
+    step_launches = dict(_kernels.launches)
+    # The plain run keeps K4f: the proposal's densities place the main
+    # samples by inverse CDF, and a bf16 rounding apart there moves
+    # samples across bins, which moves the pose gradient at a kink of the
+    # placement (seen: 10.6% of its norm on one seed, 0.2% on another).
+    # K4f is held against its plain version in phase 4.
+    fused_mlp3 = heads_cuda.fused_mlp3
+    _kernels.reset_launches()
+    with _plain_kernels(hashgrid_cuda, heads_cuda):
+        heads_cuda.fused_mlp3 = fused_mlp3
+        loss_p, grad_p = reg_step()
+    torch.cuda.synchronize()
+    plain_launches = dict(_kernels.launches)
+    checks.true('register step plain run launches K4f alone',
+                plain_launches == {heads_cuda.MLP3: 1}, str(plain_launches))
+    # and the fp32 plain versions throughout, the reference both are held
+    # to: the bf16 heads put each about 5% of the norm from it
+    with _plain_kernels(hashgrid_cuda, heads_cuda):
+        heads_cuda.fused_heads = heads_cuda.fused_heads_plain
+        heads_cuda.fused_mlp3 = fused_mlp3
+        _, grad_fp32 = reg_step()
+    # PERF.md section 2's step bars: bf16 operands in the heads on both
+    # sides, rounded at other places.
+    checks.close('register step loss', loss_k, loss_p, atol=1e-6, rtol=2e-2)
+    out['step_grad_rel_err'] = checks.rel_norm('register step grad (rot, t)',
+                                               grad_k, grad_p, 5e-2)
+    out['step_grad_fp32'] = checks.no_worse(
+        'register step grad (rot, t) against the fp32 plain versions',
+        grad_k, grad_p, grad_fp32, 1e-6, 1.5)
+    # The proposal net's weights place the samples through a
+    # stop-gradient (as JAX's renderer.py:241) and registration has no
+    # interlevel loss, so K4b does not run.
+    want_step = {hashgrid_cuda.NAME: 1, name: 1, heads_cuda.HEADS: 1,
+                 heads_cuda.HEADS_BWD: 1, heads_cuda.MLP3: 1,
+                 heads_cuda.MLP3_BWD: 0, hashgrid_cuda.BWD_NAME: 0}
+    for kernel, count in want_step.items():
+        checks.true(f'register step launches {kernel}',
+                    step_launches.get(kernel, 0) == count,
+                    f'{step_launches.get(kernel, 0)} (expected {count})')
+    out['step_launches'] = step_launches
+    del field
+    torch.cuda.empty_cache()
+
+    # (c) the register CLI at its defaults on a room trained at full width
+    root = os.path.join(WORK_DIR, 'pose')
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, 'room')
+    fixtures.make_room_scene(scene, **POSE_SCENE)
+    t0 = time.perf_counter()
+    trained = train_cli.main([scene, '--iters', str(POSE_TRAIN_ITERS)]
+                             + POSE_TRAIN)
+    torch.cuda.synchronize()
+    out['train_s'] = time.perf_counter() - t0
+    print(f'pose room [{gpu}]: {POSE_SCENE["n_frames"]} frames of '
+          f'{POSE_SCENE["width"]} x {POSE_SCENE["height"]}, trained '
+          f'{POSE_TRAIN_ITERS} iterations through the train CLI '
+          f'({" ".join(POSE_TRAIN)}) in {out["train_s"]:.1f} s')
+    stamps, captured = [], {}
+    register_camera = register_cli.register_camera
+
+    def timed(reg_field, pixels, dirs, norms_, R0, t0_, **kw):
+        captured.update(field=reg_field, inputs=(
+            on_card(pixels), on_card(dirs), on_card(norms_).reshape(-1, 1),
+            on_card(R0), on_card(t0_)), depth=kw.get('depth'))
+
+        def stamp(i, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        stamps.append(time.perf_counter())
+        return register_camera(reg_field, pixels, dirs, norms_, R0, t0_,
+                               callback=stamp, **kw)
+
+    register_cli.register_camera = timed
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        reg = register_cli.main([scene, '--model-dir', trained.model_dir,
+                                 '--frame-index', str(POSE_FRAME)]
+                                + POSE_PERTURB)
+        torch.cuda.synchronize()
+        out['register_s'] = time.perf_counter() - t0
+    finally:
+        register_cli.register_camera = register_camera
+    reg_launches = dict(_kernels.launches)
+    iters = int(register_cli.read_args(['s', '--model-dir', 'm']).iters)
+    iter_ms = np.diff(stamps) * 1e3
+    out['iter_ms'] = _quartiles(iter_ms)
+    ds = SceneDataset('test', scene, factor=1.0, batch_size=512, lazy=True,
+                      load_semantic=False)
+    R_gt = np.asarray(ds.rotations[POSE_FRAME], np.float64)
+    t_gt = np.asarray(ds.origins[POSE_FRAME], np.float64)
+
+    def rot_err(R):
+        return float(np.degrees(np.arccos(np.clip(
+            (np.trace(np.asarray(R, np.float64) @ R_gt.T) - 1) / 2, -1, 1))))
+
+    errors = dict(rot_deg=(rot_err(reg.R0), rot_err(reg.R)),
+                  t_m=(float(np.linalg.norm(reg.t0 - t_gt)),
+                       float(np.linalg.norm(reg.t - t_gt))))
+    out['errors'] = errors
+    for key, (before, after) in errors.items():
+        checks.true(f'register CLI halves the {key} error',
+                    after < 0.5 * before, f'{before:.4f} -> {after:.4f}')
+    want_reg = {hashgrid_cuda.ATOMS_NAME: iters, name: iters,
+                heads_cuda.HEADS: iters, heads_cuda.HEADS_BWD: iters,
+                heads_cuda.MLP3: iters, heads_cuda.MLP3_BWD: 0,
+                hashgrid_cuda.SAMPLED_BWD_NAME: 0}
+    for kernel, count in want_reg.items():
+        checks.true(f'register CLI launches {kernel}',
+                    reg_launches.get(kernel, 0) == count,
+                    f'{reg_launches.get(kernel, 0)} (expected {count})')
+    out['register_launches'] = reg_launches
+    # the busy share of POSE_TRACED iterations of the same registration
+    reg_field, inputs = captured['field'], captured['inputs']
+    depth = None if captured['depth'] is None else on_card(captured['depth'])
+    delta_out = {'rot': on_card(np.zeros(3)), 't': on_card(np.zeros(3))}
+
+    def iterations():
+        for _ in range(POSE_TRACED):
+            reg_step(reg_field, inputs, delta_out)
+
+    iterations()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iterations()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_profile(iterations)
+    out['busy_ms'], out['traced_wall_ms'] = busy, wall
+    if rows is None:
+        print('register profile: the trace holds no device time: not '
+              'measured')
+    else:
+        print(f'register profile [{gpu}]: device busy {busy:.3f} ms of '
+              f'{wall:.3f} ms wall over {POSE_TRACED} iterations: busy share '
+              f'{busy / wall:.4f}')
+        for kname, ms, count in rows[:10]:
+            print(f'  {ms:9.3f} ms {ms / busy:7.2%} x{count:<5d} '
+                  f'{kname[:90]}')
+    print(f'register CLI [{gpu}]: {len(iter_ms)} iterations (--iters '
+          f'{iters}), {out["iter_ms"]["median"]:.3f} ms an iteration (p50; '
+          f'q1 {out["iter_ms"]["q1"]:.3f}, q3 {out["iter_ms"]["q3"]:.3f}), '
+          f'{out["register_s"]:.2f} s the CLI; rotation error '
+          f'{errors["rot_deg"][0]:.3f} -> {errors["rot_deg"][1]:.3f} deg, '
+          f'translation {errors["t_m"][0] * 100:.2f} -> '
+          f'{errors["t_m"][1] * 100:.2f} cm; final loss {reg.loss:.5f}; '
+          'launches ' + ', '.join(f'{k} {v}' for k, v in
+                                  sorted(reg_launches.items())))
+    del reg_field, captured, inputs
+    torch.cuda.empty_cache()
+
+    # (d) joint refinement through the train CLI, the flagship estimator's
+    # flags (pose refinement makes the encode exact)
+    windows = set()
+    step_options = SimpleTrainer.step_options
+
+    def recording(self, step=None):
+        options = step_options(self, step)
+        windows.add(options.level_window)
+        return options
+
+    SimpleTrainer.step_options = recording
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        joint = train_cli.main([scene, '--iters', str(POSE_JOINT_ITERS),
+                                '--workspace', os.path.join(root, 'joint'),
+                                '--pose-refine-experimental'] + POSE_TRAIN)
+        torch.cuda.synchronize()
+        out['joint_s'] = time.perf_counter() - t0
+    finally:
+        SimpleTrainer.step_options = step_options
+    joint_launches = dict(_kernels.launches)
+    levels = TPU_GRID.n_levels
+    want_windows = {(1.0,) * (k + 1) + (0.0,) * (levels - 1 - k)
+                    for k in range(levels)} | {None}
+    checks.true('joint refinement entered every level window',
+                want_windows <= windows, str(sorted(map(str, windows))))
+    saved_path = os.path.join(joint.model_dir, 'poses_refined.npz')
+    checks.true('joint refinement wrote poses_refined.npz',
+                os.path.exists(saved_path))
+    saved = np.load(saved_path)
+    R0s = np.asarray(joint.dataset.rotations)
+    t0s = np.asarray(joint.dataset.origins)
+    anchor = max(float(np.abs(saved['R'][0] - R0s[0]).max()),
+                 float(np.abs(saved['t'][0] - t0s[0]).max()))
+    checks.true('joint refinement keeps frame 0', anchor <= 1e-6,
+                f'{anchor:.3e}')
+    pose = {k: v.detach().cpu().numpy() for k, v in
+            joint.trainer.pose.items()}
+    moved = min(float(np.abs(pose['rot'][1:]).max()),
+                float(np.abs(pose['t'][1:]).max()))
+    checks.true('joint refinement moved the other deltas, finite',
+                moved > 0 and all(np.isfinite(v).all()
+                                  for v in pose.values()),
+                f'{moved:.3e}')
+    out['joint_launches'] = joint_launches
+    out['joint_moved'] = {k: float(np.abs(v[1:]).max())
+                          for k, v in pose.items()}
+    print(f'joint refinement [{gpu}]: {POSE_JOINT_ITERS} steps in '
+          f'{out["joint_s"]:.1f} s ({out["joint_s"] / POSE_JOINT_ITERS * 1e3:.2f}'
+          f' ms a step with the CLI around it); largest delta rot '
+          f'{out["joint_moved"]["rot"]:.3e} t {out["joint_moved"]["t"]:.3e}; '
+          'launches ' + ', '.join(f'{k} {v}' for k, v in
+                                  sorted(joint_launches.items())))
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'phase 16: {out["phase_s"]:.1f} s')
+    out['names'] = {'K2x': name}
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -3838,7 +4266,6 @@ def main():
 
     g = torch.Generator().manual_seed(args.seed)
     results = {}
-
     # ---- 3. K1: hash-grid encode
     n1 = 524288
     x = torch.rand((n1, 3), generator=g)
@@ -4493,6 +4920,10 @@ def main():
     torch.cuda.empty_cache()
     interactive = _backend_phase(dev, args.seed, gpu, checks)
 
+    # ---- 16. camera registration and joint pose refinement
+    torch.cuda.empty_cache()
+    pose = _pose_phase(dev, args.seed, gpu, checks, results, shapes)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -4522,16 +4953,22 @@ def main():
          'autolabel_tpu/ops/encoders.py:761', 'K7'),
         ('K8 splat_render', 'autolabel_tpu_torch/csrc/splat_render.cu',
          'autolabel_tpu/render/baked.py:146', 'K8'),
+        ('K2x hashgrid_point_grad',
+         'autolabel_tpu_torch/csrc/hashgrid_point_grad.cu',
+         'autolabel_tpu/ops/hashgrid_pallas.py:141', 'K2x'),
     ]
     kernel_names.update(new_names)
     kernel_names.update({k: stochastic['names'][k] for k in ('K6', 'K7')})
     kernel_names['K8'] = render_cli['names']['K8']
+    kernel_names['K2x'] = pose['names']['K2x']
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
     # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7,
-    # phase 13's fixed-budget preview frames for K8.
+    # phase 13's fixed-budget preview frames for K8, phase 16's register
+    # CLI for K2x.
     main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
                        preview['launches'] if key == 'K8' else
+                       pose['register_launches'] if key == 'K2x' else
                        fl_launches['xla'] if key in new_names
                        else train_launches) for *_, key in table_rows}
     kernels = [{
@@ -4554,6 +4991,11 @@ def main():
            for leg, v in ev_launches.items()},
         **{f'launches_{leg}': v.get(kernel_names[key], 0)
            for leg, v in interactive['launches'].items()},
+        'launches_register_step': pose['step_launches'].get(
+            kernel_names[key], 0),
+        'launches_register': pose['register_launches'].get(
+            kernel_names[key], 0),
+        'launches_joint': pose['joint_launches'].get(kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -4569,7 +5011,7 @@ def main():
                                         'ties', 'fill_device_ms',
                                         'scatter_device_ms', 'host_us',
                                         'state_bound_ms', 'render_cli',
-                                        'tcnn', 'eval_3d')
+                                        'tcnn', 'eval_3d', 'forms')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 
@@ -4608,6 +5050,7 @@ def main():
                    'evaluation': {k: v for k, v in evaluation.items()
                                   if k != 'names'},
                    'interactive': interactive,
+                   'pose': {k: v for k, v in pose.items() if k != 'names'},
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

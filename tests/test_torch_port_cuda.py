@@ -444,13 +444,74 @@ def test_encode_backward_kernel_ragged_tiles(cuda, variant, features, domain,
     _assert_within_sum_orders(got, want, g, x, config)
 
 
-def test_encode_backward_refuses_the_point_gradient(cuda):
-    config = HashGridConfig(n_levels=2, n_features=8, log2_hashmap_size=8)
-    table = torch.zeros((2, 256, 8), device=cuda, requires_grad=True)
-    x = torch.rand((10, 3), device=cuda, requires_grad=True)
-    out = hashgrid_cuda.hashgrid_encode(table, x, config)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+# K2x, the encode's gradient for the points, in each form: (interp,
+# features, variant, the stochastic plan's (n_samples, residual,
+# exact_levels) or None for the exact encode)
+POINT_GRAD_FORMS = [
+    ('trilinear', 128, 'native', None), ('trilinear', 8, 'torch_ngp', None),
+    ('trilinear', 2, 'tcnn', None), ('simplex', 128, 'native', None),
+    ('simplex', 8, 'native', None), ('trilinear', 128, 'native', (2, False, 1)),
+    ('simplex', 128, 'native', (2, False, 1)),
+    ('trilinear', 2, 'tcnn', (3, False, 1)),
+    ('trilinear', 128, 'native', (2, True, 1)),
+    ('simplex', 128, 'native', (2, True, 0))]
+
+
+@pytest.mark.parametrize('n', [1, 9, 2000])
+@pytest.mark.parametrize('interp,features,variant,stochastic',
+                         POINT_GRAD_FORMS)
+@pytest.mark.parametrize('frozen', [False, True])
+def test_point_grad_kernel_matches_plain(cuda, interp, features, variant,
+                                         stochastic, n, frozen):
+    """K2x through each encode's autograd Function (K1, K1s or K6 forward),
+    points on corners, faces and tied fractions: the gradient for x within
+    point_grad_tolerance of the plain version fed the same rows, launched
+    once; with the table frozen (registration) the Function still records
+    and launches no table scatter, with it the scatter too."""
+    rng = np.random.default_rng(n)
+    config = _flagship_grid(features, variant)
+    x = _tie_points(rng, n, cuda)
+    table = torch.tensor(rng.uniform(-1, 1, (4, 4096, features)).astype(
+        np.float32), device=cuda, requires_grad=not frozen)
+    g = torch.tensor(rng.normal(size=(n, config.out_dim)).astype(np.float32),
+                     device=cuda)
+    kw, plan, rows = {}, None, None
+    if stochastic is not None:
+        n_samples, residual, exact = stochastic
+        u = torch.tensor(rng.random(hashgrid_cuda.encoders.uniform_shape(
+            4, n, interp, n_samples, residual)).astype(np.float32),
+            device=cuda)
+        kw = dict(u=u, n_samples=n_samples, residual=residual,
+                  exact_levels=exact)
+        plan = hashgrid_cuda.encoders.stochastic_plan(
+            config, interp, n_samples, exact, residual)
+        rows = hashgrid_cuda.stochastic_encode_plain(
+            table.detach(), x, u, config, interp, n_samples, plan)[1]
+    xr = x.clone().requires_grad_(True)
+    _kernels.reset_launches()
+    out = hashgrid_cuda.hashgrid_encode(table, xr, config, interp=interp,
+                                        **kw)
+    inputs = (xr,) if frozen else (xr, table)
+    got = torch.autograd.grad(out, inputs, g)[0]
+    torch.cuda.synchronize()
+    assert _kernels.launches[hashgrid_cuda.POINT_GRAD_NAME] == 1
+    scatters = sum(_kernels.launches[k] for k in (
+        hashgrid_cuda.BWD_NAME, hashgrid_cuda.SAMPLED_BWD_NAME,
+        hashgrid_cuda.STOCHASTIC_BWD_NAME))
+    assert scatters == (0 if frozen else 1)
+    args = (g, table.detach(), x, config, interp, plan, rows)
+    want = hashgrid_cuda.hashgrid_encode_point_grad_plain(*args)
+    tol = hashgrid_cuda.encoders.point_grad_tolerance(*args)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float(((got - want).abs() / tol.clamp(min=1e-30)).max())
+
+
+def test_point_grad_launch_shapes(cuda):
+    for features, kernel in ((128, 'rows'), (2, 'lanes')):
+        shapes = hashgrid_cuda.point_grad_launch_shape(
+            HashGridConfig(n_features=features), 131072, 'simplex')
+        (name, shape), = shapes.items()
+        assert kernel in name and shape['blocks'] > 0
 
 
 def _head_inputs(g, n, device):
@@ -1281,8 +1342,8 @@ def test_stochastic_parts_launch(cuda, parts):
 
 def test_stochastic_encode_under_autograd(cuda):
     """The stochastic encode under autograd: K6 once with its rows, K7 once;
-    the table gradient is the plain scatter's; the gradient for x raises
-    (pose refinement is not ported)."""
+    the table gradient is the plain scatter's; the gradient for x is K2x's
+    (held in test_point_grad_kernel_matches_plain)."""
     config = _flagship_grid(128)
     table, x, u, g, plan = _stochastic_case(config, 'simplex', 2, False, 1,
                                             3000, 43, cuda)
@@ -1304,8 +1365,9 @@ def test_stochastic_encode_under_autograd(cuda):
     xr = x.clone().requires_grad_(True)
     out = hashgrid_cuda.hashgrid_encode(table, xr, config, interp='simplex',
                                         u=u, n_samples=2)
-    with pytest.raises(NotImplementedError):
-        torch.autograd.grad(out.sum(), (table, xr))
+    _kernels.reset_launches()
+    torch.autograd.grad(out.sum(), (table, xr))
+    assert _kernels.launches[hashgrid_cuda.POINT_GRAD_NAME] == 1
 
 
 @pytest.mark.parametrize('preset', ['tpu_simplex', 'reference'])

@@ -203,11 +203,13 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'render.baked', 'ops.splat_cuda', 'visualization',
                    'constants', 'features.fallback',
                    'features.feature_utils', 'backend', 'gui',
-                   'simulate_user'):
+                   'simulate_user', 'mapping', 'mapping.ba', 'register',
+                   'train.pose_refine'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 
-@pytest.mark.parametrize('script', ['chip_smoke.py', 'bench_torch.py'])
+@pytest.mark.parametrize('script', ['chip_smoke.py', 'bench_torch.py',
+                                    'register_witness.py'])
 def test_card_scripts_import_only_the_port(script):
     """The card's scripts import nothing of JAX or the JAX package, at any
     depth: every import statement of their source, read as a syntax

@@ -310,8 +310,11 @@ def test_optimizer_matches_optax_with_a_nonfinite_step():
         _close_trees(bridge.state_to_numpy(ours), ref, rtol=1e-5)
     schedule = jax_optim.lr_schedule(5e-3, 20000)
     _close(opt.lr(), schedule(adam.count), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        optim.Optimizer(pf.named_parameters(), dict(labels, x='pose'))
+    # the 'pose' group (camera refinement) takes no weight decay; its
+    # schedule is held in tests/test_torch_port_pose_refine.py
+    assert not optim.Optimizer(pf.named_parameters(),
+                               dict(labels, **{'sigma_net.0': 'pose'})
+                               ).decay['sigma_net.0']
 
 
 def test_optimizer_gives_up_after_max_consecutive_nonfinite_steps():
@@ -536,8 +539,8 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
 # are ported (tests/test_torch_port_occupancy.py,
 # tests/test_torch_port_cli.py, tests/test_torch_port_stochastic.py).
 @pytest.mark.parametrize('kwargs', [
-    dict(mesh=object()), dict(pose_refine=(np.eye(3)[None], np.zeros(
-        (1, 3))))])
+    dict(mesh=object()), dict(mesh=object(), pose_refine=(
+        np.eye(3)[None], np.zeros((1, 3))))])
 def test_trainer_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):
         SimpleTrainer('t', _port_field(_params()), **kwargs)
