@@ -26,8 +26,9 @@ residual encodes with their table gradient.
 - K2x (csrc/hashgrid_point_grad.cu): the encode's gradient for the points,
   which camera registration and pose refinement need, for the exact
   trilinear and simplex encodes and the stochastic and residual ones
-  (`point_grad`, which each Function above calls); the sampled encode's
-  is zero, as in the JAX package.
+  (`point_grad`, which each Function above calls; on wide rows a
+  levels-slowest kernel writing per-level partials and their ordered sum,
+  one call); the sampled encode's is zero, as in the JAX package.
 
 On CPU tensors the wrappers compute the plain PyTorch versions
 (ops/encoders.py); on CUDA tensors they launch the kernels or raise.
@@ -60,6 +61,10 @@ _MAX_LEVELS = 32  # MAX_LEVELS in hashgrid_common.cuh
 # K6's parts (K6_PART_* in hashgrid_stochastic.cu): the encode, or one part
 # of its work alone for timing it
 K6_PARTS = {'all': 7, 'draws': 1, 'gathers': 3, 'stores': 4}
+# K2x's parts (K2X_PART_* in hashgrid_point_grad.cu): the gradient, or on
+# wide rows one part alone for timing it: g's stream, the table gathers,
+# the reduction with the partials' stores, the level sum
+K2X_PARTS = {'all': 7, 'g': 1, 'gathers': 2, 'reduce': 4, 'sum': 8}
 
 
 def hashgrid_encode_plain(table, x, config, **kwargs):
@@ -360,16 +365,30 @@ def hashgrid_encode_point_grad_plain(g, table, x, config, interp='trilinear',
 def _point_grad_launcher():
     """K2x's C entry point, its signature set once, when it loads."""
     fn = _kernels.library(_POINT_GRAD_SOURCE).hashgrid_point_grad
-    fn.argtypes = ([ctypes.c_void_p] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 14
                    + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _point_grad_call(g, table, x, config, interp, plan, rows):
-    """K2x: dx (N, 3) fp32 for the encode's fp32 cotangent g."""
+@functools.cache
+def _point_grad_partials(features):
+    """The fp32 partials K2x needs a point and level that carries a
+    gradient: 3 on wide rows, 0 on narrow rows."""
+    fn = _kernels.library(_POINT_GRAD_SOURCE).hashgrid_point_grad_workspace
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(features)
+
+
+def _point_grad_call(g, table, x, config, interp, plan, rows, parts='all'):
+    """K2x: dx (N, 3) fp32 for the encode's fp32 cotangent g. On wide rows
+    one level kernel writes each level's scaled cotangent to a partial
+    (levels carrying a gradient, N, 3) and a second launch sums them in
+    level order; one call, counted once. `parts` other than 'all' runs one
+    part of the work alone (K2X_PARTS) for timing it."""
     _check_inputs(POINT_GRAD_NAME, x, config, table, _table_shape(config))
     n = x.shape[0]
     if g.dtype != torch.float32 or tuple(g.shape) != (n, config.out_dim) \
@@ -395,13 +414,18 @@ def _point_grad_call(g, table, x, config, interp, plan, rows):
     levels = config.n_levels
     kinds = (ctypes.c_int * levels)(*[k for k, *_ in starts])
     firsts = (ctypes.c_int * levels)(*[first for _, _, first, _ in starts])
+    active = sum(k != encoders.DRAWS for k, *_ in starts)
     dx = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    partials = torch.empty(
+        _point_grad_partials(config.n_features) * active * n,
+        dtype=torch.float32, device=x.device)
     status = _point_grad_launcher()(
         x.data_ptr(), table.data_ptr(), g.data_ptr(),
         None if rows is None else rows.data_ptr(), dx.data_ptr(),
+        partials.data_ptr() if partials.numel() else None,
         *[a.ctypes.data for a in _geometry(config)], kinds, firsts,
         float(config.pos_offset), n, levels, config.table_size,
-        config.n_features, _atom_count(interp),
+        config.n_features, _atom_count(interp), K2X_PARTS[parts],
         torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check(status, POINT_GRAD_NAME)
     _kernels.launches[POINT_GRAD_NAME] += 1
@@ -422,21 +446,28 @@ def point_grad(g, table, x, config, interp='trilinear', plan=None, rows=None):
                             config, interp, plan, rows)
 
 
-def point_grad_launch_shape(config, n, interp='trilinear'):
-    """K2x's launch shape for n points, as its C library plans it: blocks,
-    threads, static shared bytes, blocks per SM, registers and points a
-    block, keyed by the kernel the feature width selects."""
+def point_grad_launch_shape(config, n, interp='trilinear', plan=None):
+    """K2x's launches for n points, as its C library plans them: blocks,
+    threads, shared bytes, blocks per SM, registers and points a block
+    (the level sum's: elements), keyed by kernel: on wide rows the level
+    kernel (a block of 4 warps of P = 32 / A points of one level, the
+    levels carrying a gradient slowest) and the level sum; on narrow rows
+    the points kernel (a thread a point)."""
     fn = _kernels.library(_POINT_GRAD_SOURCE).hashgrid_point_grad_shape
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 7)()
-    _kernels.check(fn(config.n_features, _atom_count(interp), n, out),
+    a = _atom_count(interp)
+    active = config.n_levels if plan is None else sum(
+        k != encoders.DRAWS for k, _ in plan)
+    out = (ctypes.c_int * 15)()
+    _kernels.check(fn(config.n_features, a, config.n_levels, active, n, out),
                    POINT_GRAD_NAME)
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
             'points')
-    name = 'point_grad_rows_kernel' if out[6] else 'point_grad_lanes_kernel'
-    return {f'K2x {name}<{_atom_count(interp)}>': dict(zip(keys, out))}
+    names = (f'point_grad_levels_kernel<{a}>', 'level_sum_kernel',
+             f'point_grad_points_kernel<{a}>')
+    return {f'K2x {names[out[1 + 7 * i]]}':
+            dict(zip(keys, out[2 + 7 * i:8 + 7 * i])) for i in range(out[0])}
 
 
 class _Encode(torch.autograd.Function):

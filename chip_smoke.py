@@ -251,9 +251,12 @@ Phases, each failing loudly:
      (K1s's atoms as its rows) and trilinear, the tcnn lattice's narrow
      rows (16 x 2 x 2^19), a stochastic leg (2 draws, the finest level
      exact; K6's rows) and a residual leg, each within
-     encoders.point_grad_tolerance, timed by events beside its byte bound
-     (g on the levels it reads, the rows, each distinct table row once,
-     x and dx) and the plain version, with its launch shape. (b) One
+     encoders.point_grad_tolerance and bit-equal across two calls, timed
+     by events and by the profiler's device time (on wide rows its level
+     kernel and level sum together) beside its byte bound (g on the
+     levels it reads, the rows, each distinct table row once, x and dx)
+     and the plain version, with its launch shapes; the same on the
+     inputs the register CLI's first iteration hands K2x in (c). (b) One
      registration step (2,048 rays of a sphere frame, 64 main and 32
      proposal samples, a non-zero delta) on phase 5's full-width model
      with the kernels against the plain versions (K4f kept in both, so
@@ -3885,8 +3888,123 @@ def _k2x_bound(encoders, config, x, interp, plan, rows):
     return _bound(nbytes, 2 * f * atoms * n, PEAK_FP32), nbytes
 
 
-def _pose_phase(dev, seed, gpu, checks, results, shapes):
+def _k2x_forms():
+    """Phase 16 (a)'s forms of K2x: (tag, grid config, interp, the
+    stochastic plan's (n_samples, residual, exact_levels) or None)."""
     import dataclasses
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
+    tcnn = dataclasses.replace(HashGridConfig(), variant='tcnn')
+    return [('TPU_GRID simplex', TPU_GRID, 'simplex', None),
+            ('TPU_GRID trilinear', TPU_GRID, 'trilinear', None),
+            ('tcnn 16x2x2^19 narrow rows', tcnn, 'trilinear', None),
+            ('TPU_GRID simplex stochastic 2 draws exact_levels 1', TPU_GRID,
+             'simplex', (2, False, 1)),
+            ('TPU_GRID simplex residual exact_levels 1', TPU_GRID,
+             'simplex', (2, True, 1))]
+
+
+def _k2x_inputs(gen, dev, config, interp, stochastic, n=POSE_N):
+    """K2x's (g, table, x, config, interp, plan, rows) for one form: n of
+    _pose_points, a N(0, 0.25) table and a N(0, 1) cotangent from gen; the
+    rows K1s (exact simplex: its atoms) or K6 (stochastic, residual: its
+    drawn rows) writes for them, None for the exact trilinear encode."""
+    import torch
+    from autolabel_tpu_torch.ops import encoders, hashgrid_cuda
+    x = _pose_points(gen, n, config).to(dev)
+    table = (torch.randn((config.n_levels, config.table_size,
+                          config.n_features), generator=gen) * 0.5).to(dev)
+    g = torch.randn((n, config.out_dim), generator=gen).to(dev)
+    plan = rows = None
+    if stochastic is not None:
+        n_samples, residual, exact = stochastic
+        u = torch.rand(encoders.uniform_shape(
+            config.n_levels, n, interp, n_samples, residual),
+            generator=gen).to(dev)
+        plan = encoders.stochastic_plan(config, interp, n_samples, exact,
+                                        residual)
+        _, rows, _ = hashgrid_cuda._stochastic_call(
+            table, x, u, config, interp, n_samples, plan, True)
+    elif interp == 'simplex':
+        _, idx, _ = hashgrid_cuda._atoms_call(table, x, config, 'simplex',
+                                              torch.float32, True)
+        plan = ((encoders.EXACT, 4),) * config.n_levels
+        rows = idx.view(-1, n)
+    return g, table, x, config, interp, plan, rows
+
+
+@contextlib.contextmanager
+def _first_point_grad(hashgrid_cuda, into):
+    """While open, records in `into['args']` the first (g, table, x,
+    config, interp, plan, rows) that an encode's backward hands
+    hashgrid_cuda.point_grad (g as the fp32 the wrapper passes K2x; g, x
+    and rows cloned, the table the frozen field's own)."""
+    point_grad = hashgrid_cuda.point_grad
+
+    def recording(g, table, x, config, interp='trilinear', plan=None,
+                  rows=None):
+        if 'args' not in into:
+            into['args'] = (g.float().contiguous().clone(), table.detach(),
+                            x.detach().clone(), config, interp, plan,
+                            None if rows is None else rows.clone())
+        return point_grad(g, table, x, config, interp, plan, rows)
+
+    hashgrid_cuda.point_grad = recording
+    try:
+        yield into
+    finally:
+        hashgrid_cuda.point_grad = point_grad
+
+
+def _k2x_form(checks, gpu, shapes, tag, args):
+    """K2x on args (g, table, x, config, interp, plan, rows): one call
+    (its two launches on wide rows counted once) within
+    encoders.point_grad_tolerance of the plain version, bit-equal to a
+    second call; its ms by events and the profiler's device ms (both
+    launches), the plain version's, its byte bound and launch shapes."""
+    import torch
+    from autolabel_tpu_torch.ops import _kernels, encoders, hashgrid_cuda
+    name = hashgrid_cuda.POINT_GRAD_NAME
+    g, table, x, config, interp, plan, rows = args
+    n = x.shape[0]
+    _kernels.reset_launches()
+    got = hashgrid_cuda._point_grad_call(*args)
+    torch.cuda.synchronize()
+    checks.true(f'K2x {tag} launched once', _kernels.launches[name] == 1)
+    again = hashgrid_cuda._point_grad_call(*args)
+    torch.cuda.synchronize()
+    checks.true(f'K2x {tag} bit-equal across two calls',
+                torch.equal(got, again))
+    want = hashgrid_cuda.hashgrid_encode_point_grad_plain(*args)
+    # Same terms in another order (partial dots reduced across lanes,
+    # fused products): within 2 k 2^-24 of each element's terms'
+    # magnitudes.
+    tol = encoders.point_grad_tolerance(*args)
+    err = checks.within(f'K2x {tag} N={n}', got, want, tol)
+    del again, want, tol
+    ms = _cuda_ms(lambda: hashgrid_cuda._point_grad_call(*args), 20)
+    by_kernel = _kernel_ms(lambda: hashgrid_cuda._point_grad_call(*args))
+    device_ms = sum_ms = None
+    if by_kernel is not None:
+        device_ms = sum(by_kernel.values())
+        sum_ms = sum(v for k, v in by_kernel.items() if 'level_sum' in k)
+    plain_ms = _cuda_ms(
+        lambda: hashgrid_cuda.hashgrid_encode_point_grad_plain(*args), 3)
+    bound, nbytes = _k2x_bound(encoders, config, x, interp, plan, rows)
+    dev_text = ('device not measured' if device_ms is None else
+                f'{device_ms:.4f} ms device (level sum {sum_ms:.4f})')
+    print(f'kernel K2x [{gpu}] {tag} N={n}: {ms:.4f} ms by events, '
+          f'{dev_text}, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms '
+          f'({bound[1]}, {nbytes / 1e9:.4f} GB): {bound[0] / ms:.1%}')
+    shapes[f'K2x {tag}'] = hashgrid_cuda.point_grad_launch_shape(
+        config, n, interp, plan)
+    _print_shapes(gpu, {f'{tag} N={n} {kernel}': sh
+                        for kernel, sh in shapes[f'K2x {tag}'].items()})
+    return dict(ms=ms, device_ms=device_ms, sum_device_ms=sum_ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                bytes=nbytes, share=bound[0] / ms, max_abs_err=err)
+
+
+def _pose_phase(dev, seed, gpu, checks, results, shapes):
     import shutil
     import numpy as np
     import torch
@@ -3894,9 +4012,8 @@ def _pose_phase(dev, seed, gpu, checks, results, shapes):
     from autolabel_tpu_torch.core import rays
     from autolabel_tpu_torch.core.dataset import SceneDataset
     from autolabel_tpu_torch.models.field import Field
-    from autolabel_tpu_torch.ops import _kernels, encoders, hashgrid_cuda, \
-        heads_cuda
-    from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
     from autolabel_tpu_torch.render.renderer import RenderOptions
     from autolabel_tpu_torch.train import __main__ as train_cli
     from autolabel_tpu_torch.train import pose_refine
@@ -3908,71 +4025,18 @@ def _pose_phase(dev, seed, gpu, checks, results, shapes):
     out = {'forms': {}}
 
     # (a) K2x against its plain version in each form, N = POSE_N
-    tcnn = dataclasses.replace(HashGridConfig(), variant='tcnn')
-    forms = [('TPU_GRID simplex', TPU_GRID, 'simplex', None),
-             ('TPU_GRID trilinear', TPU_GRID, 'trilinear', None),
-             ('tcnn 16x2x2^19 narrow rows', tcnn, 'trilinear', None),
-             ('TPU_GRID simplex stochastic 2 draws exact_levels 1', TPU_GRID,
-              'simplex', (2, False, 1)),
-             ('TPU_GRID simplex residual exact_levels 1', TPU_GRID,
-              'simplex', (2, True, 1))]
-    k2x_err = 0.0
-    for tag, config, interp, stochastic in forms:
-        x = _pose_points(gen, POSE_N, config).to(dev)
-        table = (torch.randn((config.n_levels, config.table_size,
-                              config.n_features), generator=gen)
-                 * 0.5).to(dev)
-        g = torch.randn((POSE_N, config.out_dim), generator=gen).to(dev)
-        plan = rows = None
-        if stochastic is not None:
-            n_samples, residual, exact = stochastic
-            u = torch.rand(encoders.uniform_shape(
-                config.n_levels, POSE_N, interp, n_samples, residual),
-                generator=gen).to(dev)
-            plan = encoders.stochastic_plan(config, interp, n_samples, exact,
-                                            residual)
-            _, rows, _ = hashgrid_cuda._stochastic_call(
-                table, x, u, config, interp, n_samples, plan, True)
-        elif interp == 'simplex':
-            _, idx, _ = hashgrid_cuda._atoms_call(table, x, config,
-                                                  'simplex', torch.float32,
-                                                  True)
-            plan = ((encoders.EXACT, 4),) * config.n_levels
-            rows = idx.view(-1, POSE_N)
-        args = (g, table, x, config, interp, plan, rows)
-        _kernels.reset_launches()
-        got = hashgrid_cuda._point_grad_call(*args)
-        torch.cuda.synchronize()
-        checks.true(f'K2x {tag} launched once',
-                    _kernels.launches[name] == 1)
-        want = hashgrid_cuda.hashgrid_encode_point_grad_plain(*args)
-        # Same terms in another order (warp butterflies, fused products):
-        # within 2 k 2^-24 of each element's terms' magnitudes.
-        tol = encoders.point_grad_tolerance(*args)
-        k2x_err = max(k2x_err, checks.within(f'K2x {tag} N={POSE_N}', got,
-                                             want, tol))
-        ms = _cuda_ms(lambda: hashgrid_cuda._point_grad_call(*args), 20)
-        plain_ms = _cuda_ms(
-            lambda: hashgrid_cuda.hashgrid_encode_point_grad_plain(*args), 3)
-        bound, nbytes = _k2x_bound(encoders, config, x, interp, plan, rows)
-        out['forms'][tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                                 bound_by=bound[1], bytes=nbytes,
-                                 share=bound[0] / ms)
-        print(f'kernel K2x [{gpu}] {tag} N={POSE_N}: {ms:.4f} ms by events, '
-              f'plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms '
-              f'({bound[1]}, {nbytes / 1e9:.4f} GB): {bound[0] / ms:.1%}')
-        shapes[f'K2x {tag}'] = hashgrid_cuda.point_grad_launch_shape(
-            config, POSE_N, interp)
-        _print_shapes(gpu, {f'{tag} N={POSE_N} {kernel}': sh
-                            for kernel, sh in shapes[f'K2x {tag}'].items()})
-        del x, table, g, rows, got, want, tol
+    for tag, config, interp, stochastic in _k2x_forms():
+        out['forms'][tag] = _k2x_form(
+            checks, gpu, shapes, tag,
+            _k2x_inputs(gen, dev, config, interp, stochastic))
         torch.cuda.empty_cache()
     main_form = out['forms']['TPU_GRID simplex']
-    results['K2x'] = dict(max_abs_err=k2x_err, ms=main_form['ms'],
-                          plain_ms=main_form['plain_ms'],
-                          bound=(main_form['bound_ms'],
-                                 main_form['bound_by']),
-                          library_ms=None, forms=out['forms'])
+    results['K2x'] = dict(
+        max_abs_err=max(f['max_abs_err'] for f in out['forms'].values()),
+        ms=main_form['ms'], device_ms=main_form['device_ms'],
+        plain_ms=main_form['plain_ms'],
+        bound=(main_form['bound_ms'], main_form['bound_by']),
+        library_ms=None, forms=out['forms'])
 
     # (b) one registration step on phase 5's model, kernels against the
     # plain versions: same params, pixels and delta
@@ -4086,9 +4150,10 @@ def _pose_phase(dev, seed, gpu, checks, results, shapes):
     try:
         _kernels.reset_launches()
         t0 = time.perf_counter()
-        reg = register_cli.main([scene, '--model-dir', trained.model_dir,
-                                 '--frame-index', str(POSE_FRAME)]
-                                + POSE_PERTURB)
+        with _first_point_grad(hashgrid_cuda, {}) as reg_k2x:
+            reg = register_cli.main([scene, '--model-dir', trained.model_dir,
+                                     '--frame-index', str(POSE_FRAME)]
+                                    + POSE_PERTURB)
         torch.cuda.synchronize()
         out['register_s'] = time.perf_counter() - t0
     finally:
@@ -4159,6 +4224,13 @@ def _pose_phase(dev, seed, gpu, checks, results, shapes):
           'launches ' + ', '.join(f'{k} {v}' for k, v in
                                   sorted(reg_launches.items())))
     del reg_field, captured, inputs
+    # K2x on what the CLI's first iteration handed it: TPU_GRID simplex,
+    # the ray-ordered main samples of 2,048 rays, K1s's atoms as rows
+    out['forms']['registration iteration'] = _k2x_form(
+        checks, gpu, shapes, 'registration iteration', reg_k2x['args'])
+    results['K2x']['max_abs_err'] = max(
+        f['max_abs_err'] for f in out['forms'].values())
+    del reg_k2x
     torch.cuda.empty_cache()
 
     # (d) joint refinement through the train CLI, the flagship estimator's

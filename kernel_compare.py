@@ -26,12 +26,18 @@ fed this tree's K6 rows, and K8 (the splat render) on frames of scenes
 baked from the flagship field with seeded weights: the render CLI's
 --baked defaults at 480 x 360 (4 passes), full and tied clouds of 2^19
 valid splats there, and the interactive preview (2^18 splats, 1280 x 720,
-8 passes). Each kernel's old and new outputs are compared
+8 passes), and K2x (the encode's gradient for the points) in
+chip_smoke.py's phase 16 (a) forms at N = 131,072, on Run D's lattice and
+plan, and on what the register CLI's first iteration hands it at its
+defaults (2,048 rays x 64 samples, TPU_GRID simplex) on chip_smoke.py's
+pose room trained 30 iterations (`--only K2x` runs these alone, about 4
+minutes with both builds). Each kernel's old and new outputs are compared
 (largest absolute difference; 0 means bit-equal; for K5 whether the
 selections, count, points and coefs, are bit-equal; for K7 the worst
 element's share of hashgrid_cuda.stochastic_backward_tolerance, at most
 1; for K8 depth, classes and splat_hit equal and the image's worst share
-of twice the tie rule's tolerance), then both are timed by CUDA events,
+of twice the tie rule's tolerance; for K2x the worst share of
+encoders.point_grad_tolerance), then both are timed by CUDA events,
 old, new, new, old, ... for
 --rounds rounds, and by torch.profiler's device time a call (all of a
 call's kernels and memsets; events carry a call's host work where it
@@ -45,7 +51,9 @@ written, the gathers and blend, the stores, each launched alone; on Run D
 also the levels a narrow thread walks: 1, levels slowest, and 4, a
 32-byte sector a point, beside the library's choice of all 16), K7's
 scatter of each level alone and the distinct rows a tile of K7's points
-(a block's on wide rows, a warp's on narrow rows) names per level. --only takes a regular expression of the cases to run (e.g.
+(a block's on wide rows, a warp's on narrow rows) names per level, and
+K2x's parts on each wide-rows form (g's stream, the gathers, the
+reduction with the partials' stores, the level sum, each alone). --only takes a regular expression of the cases to run (e.g.
 'K6|K7'). Prints one line per kernel and writes
 chiprun_out/kernel_compare.json.
 """
@@ -57,8 +65,8 @@ import re
 import sys
 import types
 
-from chip_smoke import (_cuda_ms, _gpu_line, _k8_host_us, _kernel_ms,
-                        k7_yardstick)
+from chip_smoke import (_cuda_ms, _gpu_line, _k2x_forms, _k8_host_us,
+                        _kernel_ms, k7_yardstick)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
@@ -388,6 +396,89 @@ def _stochastic_parts(gpu, samples, seed):
     return out
 
 
+# K2x's narrow-rows form on Run D's lattice (the reference preset, 16 x
+# 2^19 x 2, trilinear) and plan (2 draws, the 4 finest levels exact).
+K2X_RUN_D = 'reference 16x2x2^19 Run D plan'
+
+
+def _k2x_samples(seed, iters=30):
+    """{form: (g, table, x, config, interp, plan, rows)}: what K2x is handed
+    in chip_smoke.py's phase 16 (a) forms at N = 131,072 and on Run D's
+    lattice (points, tables and cotangents from seed; rows from this
+    tree's K1s or K6), and in the register CLI's first iteration at its
+    defaults (2,048 rays x 64 main samples, TPU_GRID simplex, K1s's atoms
+    as rows) on chip_smoke.py's pose room trained `iters` iterations
+    through the train CLI as phase 16 trains it."""
+    import shutil
+    import torch
+    from autolabel_tpu_torch import register as register_cli
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from autolabel_tpu_torch.ops.encoders import HashGridConfig
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.utils import fixtures
+    from chip_smoke import (POSE_FRAME, POSE_PERTURB, POSE_SCENE, POSE_TRAIN,
+                            WORK_DIR, _first_point_grad, _k2x_inputs)
+    gen = torch.Generator().manual_seed(seed + 16)
+    dev = torch.device('cuda')
+    forms = _k2x_forms() + [(K2X_RUN_D, HashGridConfig(), 'trilinear',
+                             (2, False, 4))]
+    out = {tag: _k2x_inputs(gen, dev, config, interp, stochastic)
+           for tag, config, interp, stochastic in forms}
+    root = os.path.join(WORK_DIR, 'compare_register')
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, 'room')
+    fixtures.make_room_scene(scene, **POSE_SCENE)
+    trained = cli.main([scene, '--iters', str(iters), '--workspace',
+                        os.path.join(root, 'ws')] + POSE_TRAIN)
+    with _first_point_grad(hashgrid_cuda, {}) as rec:
+        register_cli.main([scene, '--model-dir', trained.model_dir,
+                           '--frame-index', str(POSE_FRAME), '--iters', '1']
+                          + POSE_PERTURB)
+    out['registration iteration'] = rec['args']
+    return out
+
+
+def _k2x_name(tag, args):
+    return f'K2x {tag} N={args[2].shape[0]}'
+
+
+def _k2x_cases(pkg, samples):
+    """K2x through pkg's wrapper on each of _k2x_samples' forms; its compare
+    is the worst element's share of encoders.point_grad_tolerance (each
+    side lies within it of the plain version)."""
+    from autolabel_tpu_torch.ops import encoders as ours
+    cases = {}
+    for tag, args in samples.items():
+        tol = ours.point_grad_tolerance(*args)
+
+        def used(a, b, tol=tol):
+            return float(((a - b).abs() / tol.clamp(min=1e-38)).max())
+
+        cases[_k2x_name(tag, args)] = (
+            lambda args=args: pkg.hashgrid_cuda._point_grad_call(*args), 20,
+            used)
+    return cases
+
+
+def _k2x_parts(gpu, samples):
+    """This tree's K2x parts on each wide-rows form: g's stream, the
+    gathers, the reduction with the partials' stores and the level sum,
+    each alone, beside the whole call."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    out = {}
+    for tag, args in samples.items():
+        if not hg._point_grad_partials(args[3].n_features):
+            continue  # narrow rows: one kernel, no parts
+        res = out[tag] = {}
+        for part in hg.K2X_PARTS:
+            ms, dev = _timed(lambda part=part: hg._point_grad_call(
+                *args, parts=part))
+            res[part] = dict(ms=ms, device_ms=dev)
+            print(f'K2x part {tag} [{gpu}] {part}: {ms:.4f} ms by events, '
+                  f'{dev} ms device')
+    return out
+
+
 def _same_selection(a, b):
     """0.0 where two K5 outputs (sel, coef, count) draw the same points with
     bit-equal coefs, else 1.0."""
@@ -523,6 +614,13 @@ def main():
         stochastic = _stochastic_samples()
         for side, pkg in sides.items():
             cases[side].update(_stochastic_cases(pkg, args.seed, stochastic))
+    k2x = None
+    k2x_tags = [tag for tag, *_ in _k2x_forms()] + [
+        K2X_RUN_D, 'registration iteration']
+    if wanted([f'K2x {tag}' for tag in k2x_tags]):
+        k2x = _k2x_samples(args.seed)
+        for side, pkg in sides.items():
+            cases[side].update(_k2x_cases(pkg, k2x))
     if wanted([f'K8 {tag}' for tag in ('baked scene', 'full cloud',
                                        'tied full cloud', 'preview')]):
         k8 = _k8_samples(args.seed)
@@ -586,11 +684,15 @@ def main():
                   f'{[round(v, 1) for v in host["old"]]} new '
                   f'{[round(v, 1) for v in host["new"]]})')
         torch.cuda.empty_cache()
+    del cases
+    torch.cuda.empty_cache()
     if stochastic is not None:
-        del cases
-        torch.cuda.empty_cache()
         result['stochastic_parts'] = _stochastic_parts(gpu, stochastic,
                                                        args.seed)
+    if k2x is not None:
+        result['k2x_parts'] = _k2x_parts(gpu, {
+            tag: a for tag, a in k2x.items()
+            if only.search(_k2x_name(tag, a))})
     os.makedirs(os.path.join(HERE, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(HERE, 'chiprun_out', 'kernel_compare.json'),
               'w') as f:

@@ -507,11 +507,142 @@ def test_point_grad_kernel_matches_plain(cuda, interp, features, variant,
 
 
 def test_point_grad_launch_shapes(cuda):
-    for features, kernel in ((128, 'rows'), (2, 'lanes')):
-        shapes = hashgrid_cuda.point_grad_launch_shape(
-            HashGridConfig(n_features=features), 131072, 'simplex')
-        (name, shape), = shapes.items()
-        assert kernel in name and shape['blocks'] > 0
+    """Wide rows launch the level kernel (a block of 4 warps of 32 / A
+    points of one level, a level's blocks for each level that carries a
+    gradient) and the level sum; narrow rows one kernel, a thread a
+    point."""
+    for features, want in ((128, ('point_grad_levels_kernel',
+                                  'level_sum_kernel')),
+                           (2, ('point_grad_points_kernel',))):
+        config = HashGridConfig(n_features=features)
+        shapes = hashgrid_cuda.point_grad_launch_shape(config, 131072,
+                                                       'simplex')
+        assert len(shapes) == len(want)
+        for (name, shape), kernel in zip(shapes.items(), want):
+            assert kernel in name and shape['blocks'] > 0
+    plan = ((hashgrid_cuda.encoders.DRAWS, 2),) * 2 + (
+        (hashgrid_cuda.encoders.EXACT, 4),) * 2
+    shape = hashgrid_cuda.point_grad_launch_shape(
+        HashGridConfig(n_levels=4, n_features=128), 131072, 'simplex', plan)
+    assert shape['K2x point_grad_levels_kernel<4>']['blocks'] == \
+        2 * 131072 // 32
+
+
+def _point_grad_case(rng, n, config, interp, plan, device):
+    """(g, table, x, config, interp, plan, rows) for K2x: _tie_points, a
+    U(-1, 1) table, a N(0, 1) cotangent; a plan's rows from the plain
+    stochastic encode, an exact simplex encode's from the plain atoms."""
+    encoders = hashgrid_cuda.encoders
+    x = _tie_points(rng, n, device)
+    table = torch.tensor(rng.uniform(-1, 1, (
+        config.n_levels, config.table_size, config.n_features)).astype(
+            np.float32), device=device)
+    g = torch.tensor(rng.normal(size=(n, config.out_dim)).astype(
+        np.float32), device=device)
+    rows = None
+    if plan is not None:
+        u = torch.tensor(rng.random(encoders.uniform_shape(
+            config.n_levels, n, interp, 2)).astype(np.float32),
+            device=device)
+        rows = hashgrid_cuda.stochastic_encode_plain(
+            table, x, u, config, interp, 2, plan)[1]
+    elif interp == 'simplex':
+        idx, _ = encoders._corner_idx_weights(x, config, 'simplex')
+        rows = idx.reshape(-1, n).to(torch.int32).contiguous()
+        plan = ((encoders.EXACT, 4),) * config.n_levels
+    return g, table, x, config, interp, plan, rows
+
+
+def _assert_point_grad(args):
+    """K2x launched once, within point_grad_tolerance of the plain version
+    fed the same rows."""
+    _kernels.reset_launches()
+    got = hashgrid_cuda.point_grad(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches[hashgrid_cuda.POINT_GRAD_NAME] == 1
+    want = hashgrid_cuda.hashgrid_encode_point_grad_plain(*args)
+    tol = hashgrid_cuda.encoders.point_grad_tolerance(*args)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float(((got - want).abs() / tol.clamp(min=1e-30)).max())
+    return got
+
+
+# Point counts around K2x's tiles: P = 32 / A points a warp and 4 P a block
+# on wide rows (simplex 8 and 32, trilinear 4 and 16); 32 a warp and 128 a
+# block on narrow rows.
+POINT_GRAD_EDGES = [
+    ('simplex', 128, n) for n in (7, 8, 9, 31, 33)] + [
+    ('trilinear', 128, n) for n in (3, 4, 5, 15, 17)] + [
+    ('trilinear', 2, n) for n in (31, 32, 33, 127, 129)]
+
+
+@pytest.mark.parametrize('interp,features,n', POINT_GRAD_EDGES)
+def test_point_grad_tile_edges(cuda, interp, features, n):
+    """K2x at point counts one below, at and one above a warp's and a
+    block's points: every point within point_grad_tolerance."""
+    rng = np.random.default_rng(n)
+    config = _flagship_grid(features, 'tcnn' if features == 2 else 'native')
+    _assert_point_grad(_point_grad_case(rng, n, config, interp, None, cuda))
+
+
+@pytest.mark.parametrize('interp,features', [
+    ('trilinear', 4), ('simplex', 32), ('trilinear', 32),
+    ('simplex', 512), ('trilinear', 512)])
+def test_point_grad_feature_edges(cuda, interp, features):
+    """F = 4 (narrow rows), 32 and 512 (the ends of the wide rows): within
+    point_grad_tolerance."""
+    rng = np.random.default_rng(features)
+    config = _flagship_grid(features)
+    _assert_point_grad(_point_grad_case(rng, 300, config, interp, None,
+                                        cuda))
+
+
+@pytest.mark.parametrize('interp,features', [
+    ('trilinear', 128), ('simplex', 128), ('trilinear', 2)])
+def test_point_grad_draws_at_both_ends(cuda, interp, features):
+    """A plan whose first and last levels are DRAWS (no gradient, no
+    partial of theirs): the two exact levels between within
+    point_grad_tolerance."""
+    encoders = hashgrid_cuda.encoders
+    rng = np.random.default_rng(3)
+    a = 4 if interp == 'simplex' else 8
+    plan = ((encoders.DRAWS, 2), (encoders.EXACT, a), (encoders.EXACT, a),
+            (encoders.DRAWS, 2))
+    config = _flagship_grid(features, 'tcnn' if features == 2 else 'native')
+    _assert_point_grad(_point_grad_case(rng, 1000, config, interp, plan,
+                                        cuda))
+
+
+@pytest.mark.parametrize('interp,features,variant,stochastic',
+                         POINT_GRAD_FORMS)
+def test_point_grad_bit_equal_across_calls(cuda, interp, features, variant,
+                                           stochastic):
+    """Two K2x calls on the same inputs give the same bits: no atomics,
+    the levels summed in one order."""
+    encoders = hashgrid_cuda.encoders
+    rng = np.random.default_rng(5)
+    config = _flagship_grid(features, variant)
+    plan = None
+    if stochastic is not None:
+        n_samples, residual, exact = stochastic
+        plan = encoders.stochastic_plan(config, interp, n_samples, exact,
+                                        residual)
+    if plan is not None and (residual or n_samples != 2):
+        x = _tie_points(rng, 3000, cuda)
+        table = torch.tensor(rng.uniform(-1, 1, (4, 4096, features)).astype(
+            np.float32), device=cuda)
+        g = torch.tensor(rng.normal(size=(3000, config.out_dim)).astype(
+            np.float32), device=cuda)
+        u = torch.tensor(rng.random(encoders.uniform_shape(
+            4, 3000, interp, n_samples, residual)).astype(np.float32),
+            device=cuda)
+        rows = hashgrid_cuda.stochastic_encode_plain(
+            table, x, u, config, interp, n_samples, plan)[1]
+        args = (g, table, x, config, interp, plan, rows)
+    else:
+        args = _point_grad_case(rng, 3000, config, interp, plan, cuda)
+    first = _assert_point_grad(args)
+    assert torch.equal(first, hashgrid_cuda.point_grad(*args))
 
 
 def _head_inputs(g, n, device):
