@@ -70,3 +70,65 @@ def load_params(field, tree):
     """Load a JAX params tree into `field` in place (on its device)."""
     field.load_state_dict(params_from_numpy(tree, field.device))
     return field
+
+
+# -- the teacher towers' trees ------------------------------------------------
+#
+# The towers (features/) keep the JAX package's parameter trees as they are
+# (dicts, lists and None, with the same keys and layouts), so one pair of
+# conversions carries each of them (CLIP text, the DemoCLIP pixel tower, the
+# ViT, the ResNet with its FCN head, LSeg) across both ways.
+
+
+def tree_from_numpy(tree, device, dtype=torch.float32):
+    """A tree of numpy arrays (or tensors) -> the same tree of tensors on
+    `device` in `dtype`."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device, dtype) for v in tree]
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (or numpy arrays) -> the same tree of numpy
+    arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return None if tree is None else np.asarray(tree)
+
+
+def tree_leaves(tree):
+    """The leaves in jax.tree_util.tree_flatten's order: dict keys sorted,
+    lists in order, None an empty subtree."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(skeleton, leaves):
+    """`leaves` (tree_leaves' order) placed into a tree shaped like
+    `skeleton`."""
+    leaves = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return None if node is None else next(leaves)
+
+    tree = build(skeleton)
+    if next(leaves, None) is not None:
+        raise ValueError('more leaves than the skeleton holds')
+    return tree

@@ -99,7 +99,8 @@ class OpenVocabEvaluator:
                  stride=1,
                  save_figures=None,
                  time=False,
-                 allow_fallback=False):
+                 allow_fallback=False,
+                 device=None):
         self.name = name
         self.debug = debug
         self.stride = stride
@@ -107,7 +108,8 @@ class OpenVocabEvaluator:
         self.label_map = None
         self.features = features
         self.extractor = get_feature_extractor(
-            features, checkpoint, allow_fallback=allow_fallback)
+            features, checkpoint, allow_fallback=allow_fallback,
+            device=device)
         self.save_figures = save_figures
         self.time = time
 

@@ -1,1 +1,2 @@
-"""Teacher feature extractors: only the offline text stand-in is ported."""
+"""Teacher feature extractors: DINO ViT-S/8, FCN-ResNet50, LSeg with the
+CLIP text tower, the scene-trained DemoCLIP, and the offline stand-ins."""

@@ -1,31 +1,30 @@
 """Teacher-extractor dispatch (counterpart of
 autolabel_tpu/features/feature_utils.py).
 
-The teacher towers (DINO, FCN-ResNet50, LSeg with CLIP, the demo CLIP)
-are not ported yet (ROADMAP.md, queue 1 item 6): asking for one raises.
-The one exception is the JAX package's offline stand-in for LSeg's text
-encoder, which allow_fallback selects there when no CLIP weights are
-configured: with allow_fallback, 'lseg' returns HashTextEncoder(512)
-(testing only, not real vision-language features; no image tower), the
-JAX package's vectors for the same prompts. With CLIP weights configured
-(AUTOLABEL_CLIP_WEIGHTS), the JAX package would encode with them, so the
-port raises instead.
+allow_fallback gates the offline stand-ins: without it, missing teacher
+weights raise instead of writing random-projection features. device:
+None (the card; a tower raises without one) or a torch device; the
+stand-ins run on the host.
 """
-import os
-
-from autolabel_tpu_torch.features.fallback import HashTextEncoder
 
 TEACHERS = ('fcn50', 'dino', 'lseg', 'demo')
 
 
-def get_feature_extractor(features, checkpoint=None, allow_fallback=False):
-    del checkpoint  # names real teacher weights, which are not ported
-    if features not in TEACHERS:
-        raise NotImplementedError(f"Unknown feature extractor {features}")
-    if (features == 'lseg' and allow_fallback
-            and not os.environ.get('AUTOLABEL_CLIP_WEIGHTS')):
-        return HashTextEncoder(512)
-    raise NotImplementedError(
-        f"the '{features}' teacher is not ported yet (the teacher towers, "
-        "ROADMAP.md queue 1 item 6); with --allow-fallback, 'lseg' "
-        "encodes text with the hash stand-in")
+def get_feature_extractor(features, checkpoint=None, allow_fallback=False,
+                          device=None):
+    if features == 'fcn50':
+        from autolabel_tpu_torch.features.fcn50 import FCN50
+        return FCN50(allow_fallback=allow_fallback, device=device)
+    if features == 'dino':
+        from autolabel_tpu_torch.features.dino import Dino
+        return Dino(allow_fallback=allow_fallback, device=device)
+    if features == 'lseg':
+        from autolabel_tpu_torch.features.lseg import LSegFE
+        return LSegFE(checkpoint, allow_fallback=allow_fallback,
+                      device=device)
+    if features == 'demo':
+        # the scene-trained text + pixel teacher (features/demo_clip.py)
+        from autolabel_tpu_torch.features.demo_clip import DemoCLIPFE
+        return DemoCLIPFE(checkpoint, allow_fallback=allow_fallback,
+                          device=device)
+    raise NotImplementedError(f"Unknown feature extractor {features}")

@@ -11,9 +11,11 @@ tables (formatted here, no rich). It keeps the JAX CLI's 606-class
 semantic head (the reference's ScanNet checkpoints,
 scripts/language/evaluate.py:133). The label map is read with the csv
 module into the columns pandas.read_csv gives: id (int), prompt (str) and
-evaluated (int) where present. Only the hash text stand-in of the teacher
-towers is ported: --allow-fallback with lseg features; any other teacher
-raises.
+evaluated (int) where present. The label map's prompts are embedded by
+the workspace's teacher (params.features) through the port's dispatch:
+--feature-checkpoint names DemoCLIP's .npz (demo) or LSeg's weights
+(lseg); the other towers read their AUTOLABEL_* weights, and a teacher
+without weights raises unless --allow-fallback picks its stand-in.
 
 It runs on the card; tests call main([...], device='cpu').
 """
@@ -231,7 +233,8 @@ def main(argv=None, device=None):
                             debug=flags.debug,
                             save_figures=vis_path,
                             time=flags.time,
-                            allow_fallback=flags.allow_fallback)
+                            allow_fallback=flags.allow_fallback,
+                            device=device)
         if evaluator.features != params.features:
             raise ValueError(
                 f'{model_path} was trained with --features '

@@ -18,8 +18,9 @@ port does not depend on are imported at the call that needs them, and
 raise there naming what is missing: the mp4 writer needs cv2; a scene
 trained with --features needs h5py for its features.hdf and sklearn for
 the pickled PCA of the feature tile; --label-map needs pandas. --classes
-and --label-map encode text with a teacher, of which only the hash
-stand-in is ported (--allow-fallback with lseg features).
+and --label-map encode text with the scene's teacher through the port's
+dispatch (--checkpoint: DemoCLIP's .npz or LSeg's weights; the stand-ins
+only with --allow-fallback).
 
 It runs on the card; tests call main([...], device='cpu').
 """
@@ -97,7 +98,7 @@ class FeatureTransformer:
     contract (the features' pickled PCA, min and range)."""
 
     def __init__(self, scene_path, feature_name, classes, checkpoint=None,
-                 allow_fallback=False):
+                 allow_fallback=False, device=None):
         import pickle
         h5py = require('h5py', 'the feature tile (features.hdf)')
         with h5py.File(os.path.join(scene_path, 'features.hdf'), 'r') as f:
@@ -113,7 +114,8 @@ class FeatureTransformer:
         self.text_features = None
         if classes is not None:
             extractor = get_feature_extractor(
-                feature_name, checkpoint, allow_fallback=allow_fallback)
+                feature_name, checkpoint, allow_fallback=allow_fallback,
+                device=device)
             self.text_features = extractor.encode_text(classes)
 
     def __call__(self, p_features):
@@ -212,7 +214,7 @@ def frames(flags, device=None):
     if model_params.features is not None:
         feature_transform = FeatureTransformer(
             flags.scene, model_params.features, classes, flags.checkpoint,
-            allow_fallback=flags.allow_fallback)
+            allow_fallback=flags.allow_fallback, device=device)
 
     n_classes = dataset.n_classes if dataset.n_classes is not None else 2
     field = model_utils.create_model(dataset.min_bounds, dataset.max_bounds,

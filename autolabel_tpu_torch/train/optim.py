@@ -27,6 +27,31 @@ import numpy as np
 import torch
 
 B1, B2, EPS = 0.9, 0.99, 1e-15
+# optax.adam's defaults: pose refinement, the DemoCLIP teacher and the
+# feature autoencoder
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def adam_direction(grad, mu, nu, count):
+    """One optax.adam step (ADAM_B1, ADAM_B2, ADAM_EPS) out of place: the
+    new moments and the direction mu_hat / (sqrt(nu_hat) + eps) that the
+    update takes with -lr, the bias corrections at the count after this
+    update. count: the updates applied before this one (an int or a
+    tensor)."""
+    mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * grad
+    nu = ADAM_B2 * nu + (1.0 - ADAM_B2) * grad * grad
+    k = count + 1
+    mu_hat = mu / (1.0 - ADAM_B1 ** k)
+    nu_hat = nu / (1.0 - ADAM_B2 ** k)
+    return mu, nu, mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+
+
+def adam_update(param, grad, mu, nu, count, lr):
+    """adam_direction applied in place to param and its moments."""
+    new_mu, new_nu, direction = adam_direction(grad, mu, nu, count)
+    mu.copy_(new_mu)
+    nu.copy_(new_nu)
+    param.sub_(lr * direction)
 
 
 def lr_schedule(lr, iters=None):

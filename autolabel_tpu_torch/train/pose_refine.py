@@ -25,9 +25,7 @@ import torch
 
 from autolabel_tpu_torch.mapping.ba import rodrigues
 from autolabel_tpu_torch.render.renderer import RenderOptions, render_rays
-
-# optax.adam's defaults, which register_camera uses
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+from autolabel_tpu_torch.train.optim import adam_update
 
 
 def init_pose_params(n_frames, device=None):
@@ -74,19 +72,6 @@ def cosine_decay(lr, decay_steps, count, alpha=0.01):
     count = min(count, decay_steps)
     cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
     return lr * ((1.0 - alpha) * cosine + alpha)
-
-
-def adam_update(param, grad, mu, nu, count, lr):
-    """One optax.adam step in place (b1 0.9, b2 0.999, eps 1e-8): the
-    moments take grad, the bias corrections use the count after this
-    update, and the step is -lr times the corrected ratio. count: the
-    updates applied before this one."""
-    mu.mul_(ADAM_B1).add_((1.0 - ADAM_B1) * grad)
-    nu.mul_(ADAM_B2).add_((1.0 - ADAM_B2) * grad * grad)
-    k = count + 1
-    mu_hat = mu / (1.0 - ADAM_B1 ** k)
-    nu_hat = nu / (1.0 - ADAM_B2 ** k)
-    param.sub_(lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
 
 
 @contextlib.contextmanager

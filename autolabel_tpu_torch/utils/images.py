@@ -265,10 +265,11 @@ def _linear_taps(src, dst):
 
 
 def resize_linear_cv2(image, size):
-    """cv2.resize(image, size) (INTER_LINEAR) of an 8-bit image, size
-    (width, height): the same taps and weights, blended in float64 and
-    rounded to the nearest integer, where cv2 blends in 11-bit fixed point;
-    so every value lies within 1 of cv2's."""
+    """cv2.resize(image, size) (INTER_LINEAR), size (width, height): the
+    same taps and weights, blended in float64. An 8-bit image is rounded
+    to the nearest integer, where cv2 blends in 11-bit fixed point, so
+    every value lies within 1 of cv2's; a float image comes back float32,
+    within float32 rounding of cv2's float blend."""
     w, h = size
     y0, y1, fy = _linear_taps(image.shape[0], h)
     x0, x1, fx = _linear_taps(image.shape[1], w)
@@ -277,5 +278,7 @@ def resize_linear_cv2(image, size):
         fx, fy = fx[:, None], fy[:, None]
     rows = img[y0] * (1.0 - fy[:, None]) + img[y1] * fy[:, None]
     out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
+    if np.issubdtype(image.dtype, np.floating):
+        return out.astype(np.float32)
     return np.clip(np.rint(out), 0, 255).astype(image.dtype)
 

@@ -4,8 +4,10 @@ flagship training step, the train CLI and its stochastic-corner estimators,
 the render CLI with its baked preview, the interactive preview,
 evaluation (the closed-set and open-vocabulary CLIs and a reference
 checkpoint's import), the interactive labelling backend (the GUI's
-backend process, the user simulation, online mapping), and camera
-registration with joint pose refinement, on one CUDA card.
+backend process, the user simulation, online mapping), camera
+registration with joint pose refinement, and the teacher towers
+(DemoCLIP trained through its CLI, DINO, FCN-ResNet50, LSeg, the CLIP text
+tower, compute_feature_maps), on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -275,6 +277,33 @@ Phases, each failing loudly:
      (d) The train CLI with --pose-refine-experimental for 200 steps on
      the same room: every level window entered, frame 0's pose kept to
      1e-6, the other deltas moved and finite, poses_refined.npz written.
+ 17. the teacher towers (library calls in full fp32: cuBLAS, cuDNN,
+     scaled_dot_product_attention; no hand kernel). (a) python -m
+     autolabel_tpu_torch.train_demo_teacher at its defaults (1,500
+     iterations, crop 96, batch 8, frames stride 4) on a room of
+     make_room_scene's defaults (96 frames of 160 x 120), in process:
+     ms a step by events around every step (median, quartiles), the
+     CLI's seconds, its peak memory, the final loss, the busy share of 5
+     traced steps, and the held-out phrasings' pixel accuracy on frame 0
+     (tests/test_demo_clip.py's five, above 0.8). (b) Every tower at full
+     width with seeded weights, a batch of 2 frames of a 1,280 x 960 room
+     at compute_feature_maps' sizes: DINO ViT-S/8 and FCN-ResNet50 at
+     720 x 960, LSeg ViT-L/16 + DPT at 242 x 322 (run at half size), the
+     trained DemoCLIP pixel tower at 242 x 322, the CLIP ViT-B text tower
+     on 606 prompts x 77 tokens: ms a batch by events, the same forward
+     with TF32 allowed (the cost of full fp32), one traced batch's busy
+     share and top kernels (the attention backend among them), peak
+     memory, FLOPs and the share of the fp32 peak, and the fp32 output
+     against the same module in float64 on the card (relative norm at
+     most 1e-4, the largest element within 1e-3 of the largest |want|).
+     (c) The language CLI with --feature-checkpoint (the trained teacher,
+     no --allow-fallback) on a --features demo --feature-dim 512
+     workspace of seeded weights on phase 14's scene: scores in [0, 1],
+     the label map's embeddings within 1e-5 of DemoCLIPFE's on the CPU,
+     its launches. (d) compute_feature_maps' extraction and compression
+     (--autoencode, 64 codes) on the card for demo and dino on the room:
+     seconds a frame; the features.hdf write is not run (the line says
+     so).
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -4293,6 +4322,387 @@ def _pose_phase(dev, seed, gpu, checks, results, shapes):
     return out
 
 
+# Phase 17: the teacher towers. The trainer runs at the train_demo_teacher
+# CLI's defaults on a room of make_room_scene's defaults (96 frames of
+# 160 x 120); the towers at compute_feature_maps' sizes for a 1280 x 960
+# scene (phase 15's room, made anew when absent), a batch of 2.
+TEACHER_TRACED = 5
+TOWER_SCENE = BACKEND_SCENE
+TOWER_BATCH = 2
+TOWER_REPS = 5
+TEXT_PROMPTS = 606  # the language CLI's ScanNet label set
+# tests/test_demo_clip.py's held-out phrasings and its bar
+HELDOUT = {1: 'a wall with checkers', 2: 'sphere colored red',
+           3: 'box colored green', 4: 'sphere colored blue',
+           5: 'pillar colored yellow'}
+HELDOUT_MIN_ACC = 0.8
+# fp32 towers against the same module in float64 on the card. On an
+# NVIDIA H100 80GB HBM3 at 700 W, phase 17's fp32 readings are at most
+# 2.3e-6 by relative norm and 5.1e-6 by largest element, TF32's at least
+# 2.6e-4 and 9.0e-4: each limit sits about 10x above fp32 and 10x below
+# TF32, and the same forward with TF32 allowed must miss both (the
+# control)
+WITNESS_REL_NORM = 2e-5
+WITNESS_MAX = 5e-5  # of the witness's largest magnitude
+PEAK_TF32 = 495e12
+
+
+def _text_flops(config, batch):
+    n, w = config.context_length, config.width
+    block = 2 * n * w * 12 * w + 4 * n * n * w
+    return batch * (config.depth * block + 2 * w * config.embed_dim)
+
+
+def _pixel_flops(params, batch, h, w):
+    oh, ow = -(-h // 2), -(-w // 2)
+    return batch * sum(2 * oh * ow * p.shape[0] * p.shape[1] * p.shape[2]
+                       * p.shape[3] for p in params.values())
+
+
+def _tower(dev, gpu, checks, tag, run, forward, params, inputs, flops):
+    """One tower at full width: `run()` is the extractor's call (timed by
+    events, traced once, its peak memory); `forward(params, inputs)` the
+    fp32 forward it runs, held against float64 on the card. The same
+    forward with TF32 allowed is timed (the precision's cost) and held
+    against float64 too: it must miss both limits, or they could not tell
+    a tower that lost full precision. Where cuDNN and cuBLAS keep fp32
+    algorithms with TF32 allowed, its output is the fp32 one bit for bit
+    and there is nothing to tell."""
+    import torch
+
+    from autolabel_tpu_torch import bridge
+    from autolabel_tpu_torch.features.layers import full_precision
+    out = {'flops': flops}
+    with torch.no_grad():
+        out['ms'] = _cuda_ms(run, TOWER_REPS)
+        with full_precision(allow_tf32=True):
+            out['ms_tf32'] = _cuda_ms(lambda: forward(params, inputs),
+                                      TOWER_REPS)
+            tf32 = forward(params, inputs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
+        rows, busy = _device_profile(run)
+        out['busy_share'] = _print_profile(gpu, f'teacher {tag}', rows,
+                                           busy, out['ms'], 'batch')
+        out['top_kernels'] = [(name[:90], ms) for name, ms, _ in
+                              (rows or [])[:8]]
+        with full_precision():
+            got = forward(params, inputs)
+        wide = bridge.tree_from_numpy(params, dev, torch.float64)
+        want = forward(wide, inputs.double() if inputs.is_floating_point()
+                       else inputs)
+        del wide
+    out['rel_norm'] = checks.rel_norm(
+        f'teacher {tag} fp32 against float64', got, want, WITNESS_REL_NORM)
+    scale = want.abs().max().clamp(min=1e-30)
+    out['max_rel'] = float((got.double() - want).abs().max() / scale)
+    checks.true(f'teacher {tag} largest element against float64',
+                out['max_rel'] <= WITNESS_MAX,
+                f'{out["max_rel"]:.3e} of max|want| (tol {WITNESS_MAX})')
+    out['tf32_engaged'] = not torch.equal(tf32, got)
+    out['rel_norm_tf32'] = float((tf32.double() - want).norm()
+                                 / want.norm().clamp(min=1e-30))
+    out['max_rel_tf32'] = float((tf32.double() - want).abs().max() / scale)
+    checks.true(f'teacher {tag} TF32 control misses the float64 limits',
+                not out['tf32_engaged'] or (
+                    out['rel_norm_tf32'] > WITNESS_REL_NORM
+                    and out['max_rel_tf32'] > WITNESS_MAX),
+                f'TF32 rel_err={out["rel_norm_tf32"]:.3e} (limit '
+                f'{WITNESS_REL_NORM}), largest element '
+                f'{out["max_rel_tf32"]:.3e} (limit {WITNESS_MAX})'
+                + ('' if out['tf32_engaged'] else
+                   '; TF32 changed nothing: fp32 algorithms kept'))
+    del got, want, tf32
+    out['tflops'] = flops / out['ms'] / 1e9
+    out['peak_share'] = flops / (out['ms'] * 1e-3) / PEAK_FP32
+    out['peak_share_tf32'] = flops / (out['ms_tf32'] * 1e-3) / PEAK_TF32
+    print(f'teacher {tag} [{gpu}]: {out["ms"]:.3f} ms a batch fp32 '
+          f'({out["tflops"]:.2f} TFLOP/s, {out["peak_share"]:.2%} of the '
+          f'fp32 peak), {out["ms_tf32"]:.3f} ms with TF32 '
+          f'({out["peak_share_tf32"]:.2%} of the TF32 peak); '
+          f'{flops / 1e9:.1f} GFLOP; peak memory '
+          f'{out["peak_bytes"] / 1e9:.3f} GB')
+    torch.cuda.empty_cache()
+    return out
+
+
+def _teacher_phase(dev, seed, gpu, checks):
+    """Phase 17 (see the module docstring); returns what the output file
+    keeps."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch import bridge, evaluation, model_utils
+    from autolabel_tpu_torch import compute_feature_maps as cfm
+    from autolabel_tpu_torch import train_demo_teacher as teacher_cli
+    from autolabel_tpu_torch.features import (clip_text, demo_clip, dino,
+                                              fcn, layers, lseg_tower, vit)
+    from autolabel_tpu_torch.language import evaluate as language_cli
+    from autolabel_tpu_torch.ops import _kernels
+    from autolabel_tpu_torch.train import checkpoints
+    from autolabel_tpu_torch.utils import Scene, fixtures
+    from autolabel_tpu_torch.utils.images import read_png
+    phase_start = time.perf_counter()
+    root = os.path.join(WORK_DIR, 'teachers')
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+
+    # (a) DemoCLIP trained on the card through the CLI
+    room = os.path.join(root, 'room')
+    t0 = time.perf_counter()
+    fixtures.make_room_scene(room)
+    out['room_s'] = time.perf_counter() - t0
+    step = demo_clip.DemoTeacherTrainer.step
+    stamps, last = [], []
+
+    def stamped(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(self)
+        end.record()
+        stamps.append((start, end))
+        last[:] = [loss]
+        return loss
+
+    demo_clip.DemoTeacherTrainer.step = stamped
+    try:
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        teacher = teacher_cli.main([room], dev)
+        _sync()
+        cli_s = time.perf_counter() - t0
+    finally:
+        demo_clip.DemoTeacherTrainer.step = step
+    flags = teacher_cli.read_args([room])
+    a = {'cli_s': cli_s, 'iters': flags.iters,
+         'final_loss': float(last[0]),
+         'peak_bytes': torch.cuda.max_memory_allocated(),
+         'step_ms': _quartiles([s.elapsed_time(e) for s, e in stamps])}
+    checks.true('teacher trained: steps and a finite final loss',
+                len(stamps) == flags.iters
+                and np.isfinite(a['final_loss']),
+                f'{len(stamps)} steps stamped, loss {a["final_loss"]:.4f}')
+    # 5 more steps, traced, against their untraced wall
+    trainer = demo_clip.DemoTeacherTrainer(
+        room, iters=4 * TEACHER_TRACED, crop=flags.crop, lr=flags.lr,
+        seed=flags.seed, frames_stride=flags.frames_stride, device=dev)
+    trainer.step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(TEACHER_TRACED):
+        trainer.step()
+    _sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows, busy = _device_profile(
+        lambda: [trainer.step() for _ in range(TEACHER_TRACED)])
+    a['busy_share'] = _print_profile(gpu, 'teacher train', rows, busy, wall,
+                                     f'{TEACHER_TRACED} steps')
+    del trainer
+    # held-out phrasings on frame 0
+    fe = demo_clip.DemoCLIPFE(teacher, device=dev)
+    class_ids = sorted(HELDOUT)
+    text = fe.encode_text([HELDOUT[c] for c in class_ids])
+    rgb = read_png(os.path.join(room, 'rgb', '0.png'))[..., :3].astype(
+        np.float32) / 255.0
+    gt = read_png(os.path.join(room, 'gt_semantic', '0.png'))
+    feats = fe(rgb.transpose(2, 0, 1)[None])[0].float().cpu().numpy()
+    pred = np.argmax(feats @ text.T, axis=-1)
+    gt_ds = gt[::demo_clip.STRIDE, ::demo_clip.STRIDE][:feats.shape[0],
+                                                        :feats.shape[1]]
+    remap = {c: i for i, c in enumerate(class_ids)}
+    gt_idx = np.vectorize(lambda v: remap.get(v, -1))(gt_ds)
+    valid = gt_idx >= 0
+    a['heldout_acc'] = float((pred[valid] == gt_idx[valid]).mean())
+    checks.true('teacher held-out prompts classify frame 0',
+                a['heldout_acc'] > HELDOUT_MIN_ACC,
+                f'accuracy {a["heldout_acc"]:.4f} (bar {HELDOUT_MIN_ACC})')
+    print(f'teacher train [{gpu}]: CLI {cli_s:.2f} s for {flags.iters} '
+          f'iterations (crop {flags.crop}, batch {demo_clip.BATCH}, frames '
+          f'stride {flags.frames_stride}); ms a step {a["step_ms"]}; '
+          f'final loss {a["final_loss"]:.4f}; held-out accuracy '
+          f'{a["heldout_acc"]:.4f}; peak memory '
+          f'{a["peak_bytes"] / 1e9:.3f} GB; room {out["room_s"]:.1f} s')
+    out['train'] = a
+
+    # (b) every tower at full width, seeded weights
+    scene = os.path.join(WORK_DIR, 'backend', 'room')
+    if not os.path.exists(os.path.join(scene, 'rgb')):
+        scene = os.path.join(root, 'room_1280')
+        fixtures.make_room_scene(scene, **TOWER_SCENE)
+    paths = Scene(scene).rgb_paths()
+    gen = torch.Generator().manual_seed(seed + 17)
+
+    def frames(feature):
+        size = cfm.compute_size(paths[0], feature)
+        return torch.as_tensor(np.stack(
+            [cfm.load_frame(p, size) for p in paths[:TOWER_BATCH]]),
+            device=dev)
+
+    def size(x):
+        return f'{x.shape[2]}x{x.shape[3]}'
+
+    towers = {}
+    x720, x242 = frames('dino'), frames('demo')
+    dino_config = vit.DINO_VITS8
+    dino_params = vit.init_params(gen, dino_config, device=dev)
+    dino_fe = dino.Dino(params=dino_params, device=dev, config=dino_config)
+    hp, wp = x720.shape[2] // 8, x720.shape[3] // 8
+    towers['dino'] = _tower(
+        dev, gpu, checks, f'DINO ViT-S/8 {size(x720)}', lambda: dino_fe(x720),
+        lambda p, x: vit.encode_image(p, layers.normalise(x), dino_config),
+        dino_params, x720, vit.flops(dino_config, TOWER_BATCH, hp, wp))
+    fcn_params = fcn.init_params(gen, device=dev)
+    fcn_fe = fcn.FCN(fcn_params, dev)
+    towers['fcn'] = _tower(
+        dev, gpu, checks, f'FCN-ResNet50 {size(x720)}', lambda: fcn_fe(x720),
+        fcn.fcn_features, fcn_params, x720,
+        fcn.flops(fcn_params, TOWER_BATCH, *x720.shape[2:]))
+    del fcn_params, fcn_fe
+    lseg_config = lseg_tower.LSEG_VITL16
+    lseg_params = lseg_tower.init_params(gen, lseg_config, device=dev)
+    lseg_fe = lseg_tower.LSegImageEncoder(lseg_params, lseg_config, dev)
+    half = lseg_tower.half_size(x242 * 2.0 - 1.0)
+    towers['lseg'] = _tower(
+        dev, gpu, checks,
+        f'LSeg ViT-L/16+DPT {size(x242)} (run at {size(half)})',
+        lambda: lseg_fe(x242),
+        lambda p, x: lseg_tower.compute_features(p, x, lseg_config),
+        lseg_params, half, lseg_tower.flops(lseg_config, TOWER_BATCH,
+                                            *half.shape[2:]))
+    del lseg_params, lseg_fe
+    towers['pixel'] = _tower(
+        dev, gpu, checks, f'DemoCLIP pixel {size(x242)}', lambda: fe(x242),
+        lambda p, x: demo_clip.apply_pixel_tower(p, x.permute(0, 2, 3, 1)),
+        fe.params['pixel'], x242,
+        _pixel_flops(fe.params['pixel'], TOWER_BATCH, *x242.shape[2:]))
+    config = clip_text.CLIP_VIT_B
+    text_params = clip_text.init_params(gen, config, device=dev)
+    lengths = torch.randint(2, 12, (TEXT_PROMPTS,), generator=gen)
+    tokens = torch.randint(1, config.vocab_size - 2,
+                           (TEXT_PROMPTS, config.context_length),
+                           generator=gen)
+    tokens[torch.arange(config.context_length)[None] > lengths[:, None]] = 0
+    tokens[torch.arange(TEXT_PROMPTS), lengths] = config.vocab_size - 1
+    tokens = tokens.to(dev)
+    towers['clip_text'] = _tower(
+        dev, gpu, checks, f'CLIP ViT-B text {TEXT_PROMPTS}x77',
+        lambda: clip_text.encode_tokens(text_params, tokens, config),
+        lambda p, t: clip_text.encode_tokens(p, t, config), text_params,
+        tokens, _text_flops(config, TEXT_PROMPTS))
+    del text_params
+    out['towers'] = towers
+
+    # (c) the language CLI with the trained teacher, no --allow-fallback
+    eval_scene = os.path.join(WORK_DIR, 'eval', 'sphere')
+    lflags = model_utils.model_flag_parser().parse_args(
+        ['--features', 'demo', '--feature-dim', '512'])
+    bbox = np.loadtxt(os.path.join(eval_scene, 'bbox.txt'))
+    lgen = torch.Generator().manual_seed(seed + 14)
+    field = model_utils.create_model(bbox[:3], bbox[3:6],
+                                     language_cli.SCANNET_N_CLASSES, lflags,
+                                     device=dev, generator=lgen)
+    with torch.no_grad():
+        field.encoder['grid'].copy_(
+            torch.randn(field.encoder['grid'].shape, generator=lgen) * 0.5)
+    language_root = os.path.join(root, 'language')
+    ws = os.path.join(language_root, 'sphere', model_utils.model_hash(lflags))
+    tree = bridge.params_to_numpy(field)
+    checkpoints.save_checkpoint(os.path.join(ws, 'checkpoints', 'best.pth'),
+                                {'params': tree, 'ema': tree, 'step': 0},
+                                include_optimizer=False)
+    model_utils.write_params(ws, lflags)
+    del field, tree
+    label_map = os.path.join(root, 'label_map.csv')
+    with open(label_map, 'w') as f:
+        f.write(LABEL_MAP)
+    encoded = []
+    encode_text = demo_clip.DemoCLIPFE.encode_text
+
+    def recording(self, prompts):
+        emb = encode_text(self, prompts)
+        encoded.append((list(prompts), emb))
+        return emb
+
+    demo_clip.DemoCLIPFE.encode_text = recording
+    scores_path = os.path.join(root, 'language.json')
+    try:
+        _sync()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        language_cli.main([eval_scene, '--workspace', language_root,
+                           '--label-map', label_map, '--feature-checkpoint',
+                           teacher, '--out', scores_path], dev)
+        _sync()
+        c = {'wall_s': time.perf_counter() - t0,
+             'launches': dict(_kernels.launches)}
+    finally:
+        demo_clip.DemoCLIPFE.encode_text = encode_text
+    with open(scores_path) as f:
+        c['scores'] = json.load(f)
+    values = [v for record in c['scores']['iou'] + c['scores']['acc']
+              for v in record.values()]
+    checks.true('teacher language CLI scores in [0, 1]',
+                len(c['scores']['iou']) == 1 and values
+                and all(v is None or 0.0 <= v <= 1.0 for v in values),
+                f'{c["scores"]}')
+    prompts, emb = encoded[0]
+    ref = demo_clip.DemoCLIPFE(teacher, device='cpu').encode_text(prompts)
+    c['text_max_abs'] = float(np.abs(emb - ref).max())
+    checks.true('teacher language CLI text against DemoCLIPFE on the CPU',
+                c['text_max_abs'] <= 1e-5,
+                f'{prompts}: max |d| {c["text_max_abs"]:.3e} (tol 1e-5)')
+    print(f'teacher language CLI [{gpu}]: {c["scores"]}; {c["wall_s"]:.3f} '
+          f's; launches {c["launches"]}')
+    out['language'] = c
+
+    # (d) compute_feature_maps' extraction and compression, demo and dino
+    d = {}
+    for name, extractor, argv in (
+            ('demo', fe, ['--checkpoint', teacher]),
+            ('dino', dino_fe, [])):
+        cflags = cfm.read_args([scene, '--features', name, '--autoencode']
+                               + argv)
+        timings = []
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        maps = cfm.extract_features(extractor, Scene(scene), cflags, dev,
+                                    timings)
+        _sync()
+        total = time.perf_counter() - t0
+        extract = sum(s for _, s in timings)
+        n = len(paths)
+        d[name] = {'s_a_frame': total / n, 'extract_s_a_frame': extract / n,
+                   'compress_s': total - extract, 'shape': list(maps.shape),
+                   'peak_bytes': torch.cuda.max_memory_allocated()}
+        checks.true(f'teacher compute_feature_maps {name} codes',
+                    maps.shape[0] == n and maps.shape[-1] == cflags.dim
+                    and bool(torch.isfinite(maps.float()).all()),
+                    f'{tuple(maps.shape)} {maps.dtype}')
+        print(f'teacher compute_feature_maps {name} [{gpu}]: '
+              f'{total / n:.4f} s a frame ({extract / n:.4f} extraction, '
+              f'{total - extract:.3f} s compression of {n} frames; the raw '
+              f'maps in host memory; peak card memory '
+              f'{d[name]["peak_bytes"] / 1e9:.3f} GB)')
+        del maps
+    has_h5py = importlib.util.find_spec('h5py') is not None
+    print('teacher compute_feature_maps: the features.hdf write is not run '
+          + ('(h5py is not installed here)' if not has_h5py else
+             '(this phase times extraction and compression only)'))
+    out['feature_maps'] = d
+    out['phase_s'] = time.perf_counter() - phase_start
+    print(f'teacher phase: {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -4996,6 +5406,10 @@ def main():
     torch.cuda.empty_cache()
     pose = _pose_phase(dev, args.seed, gpu, checks, results, shapes)
 
+    # ---- 17. the teacher towers
+    torch.cuda.empty_cache()
+    teachers = _teacher_phase(dev, args.seed, gpu, checks)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -5068,6 +5482,8 @@ def main():
         'launches_register': pose['register_launches'].get(
             kernel_names[key], 0),
         'launches_joint': pose['joint_launches'].get(kernel_names[key], 0),
+        'launches_teacher_language': teachers['language']['launches'].get(
+            kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -5123,6 +5539,7 @@ def main():
                                   if k != 'names'},
                    'interactive': interactive,
                    'pose': {k: v for k, v in pose.items() if k != 'names'},
+                   'teachers': teachers,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

@@ -1745,3 +1745,104 @@ def test_jittered_features_on_the_card(cuda, monkeypatch, given_noise):
     assert not any(_kernels.launches.values())
     assert got.shape == (n, 64) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# -- the teacher towers (library calls, full fp32) on the card ---------------
+
+
+def _tower_cases():
+    from autolabel_tpu_torch.features import (clip_text, demo_clip, fcn,
+                                              lseg_tower, vit)
+
+    def text(gen):
+        config = clip_text.CLIPTextConfig(vocab_size=99, width=64, depth=2,
+                                          heads=4, context_length=16,
+                                          embed_dim=32)
+        tokens = torch.randint(1, 90, (5, 16), generator=gen)
+        tokens[:, 9:] = 0
+        tokens[:, 8] = 98
+        return (clip_text.init_params(gen, config),
+                lambda p, t: clip_text.encode_tokens(p, t, config), tokens)
+
+    def dino(gen):
+        config = vit.ViTConfig(width=96, depth=2, heads=3)
+        return (vit.init_params(gen, config, pos_grid=4),
+                lambda p, x: vit.encode_image(p, x, config),
+                torch.randn((2, 3, 40, 56), generator=gen))
+
+    def resnet(gen):
+        return (fcn.init_params(gen, depths=(1, 2, 1, 1), width=8, head=32),
+                fcn.fcn_features, torch.rand((2, 3, 45, 61), generator=gen))
+
+    def lseg(gen):
+        config = lseg_tower.LSegConfig(
+            vit=vit.ViTConfig(patch_size=16, width=64, depth=4, heads=4),
+            hooks=(0, 1, 2, 3), neck_dims=(16, 32, 64, 64), features=32,
+            out_dim=48)
+        return (lseg_tower.init_params(gen, config, pos_grid=4),
+                lambda p, x: lseg_tower.compute_features(p, x, config),
+                torch.randn((2, 3, 50, 70), generator=gen))
+
+    def pixel(gen):
+        return (demo_clip.init_pixel_params(gen),
+                demo_clip.apply_pixel_tower,
+                torch.rand((2, 33, 48, 3), generator=gen))
+
+    return {'clip_text': text, 'vit': dino, 'fcn': resnet, 'lseg': lseg,
+            'pixel': pixel}
+
+
+@pytest.mark.parametrize('tower', ['clip_text', 'vit', 'fcn', 'lseg',
+                                   'pixel'])
+def test_teacher_tower_on_card_matches_cpu(cuda, tower):
+    """fp32 on the card (TF32 off) against the same module on the CPU:
+    within 1e-4 of the output's largest magnitude."""
+    from autolabel_tpu_torch import bridge
+    from autolabel_tpu_torch.features.layers import full_precision
+    params, forward, x = _tower_cases()[tower](
+        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = forward(params, x)
+        with full_precision():
+            got = forward(bridge.tree_from_numpy(params, cuda), x.to(cuda))
+    assert got.device.type == 'cuda' and got.shape == want.shape
+    err = (got.cpu() - want).abs().max()
+    assert err <= 1e-4 * want.abs().max(), (err, want.abs().max())
+
+
+def test_demo_teacher_trains_on_card(cuda, tmp_path):
+    """Three steps on the card from the CPU run's init: the same batches,
+    losses within 1e-3 relative."""
+    from autolabel_tpu_torch.features import demo_clip
+    from autolabel_tpu_torch.utils import fixtures
+    scene = str(tmp_path / 'room')
+    fixtures.make_room_scene(scene, n_frames=4, width=80, height=60,
+                             label_every=1)
+    kwargs = dict(iters=3, crop=32, frames_stride=1, seed=1)
+    cpu = demo_clip.DemoTeacherTrainer(scene, device='cpu', **kwargs)
+    card = demo_clip.DemoTeacherTrainer(scene, device=cuda, **kwargs)
+    for _ in range(3):
+        a, b = float(cpu.step()), float(card.step())
+        assert abs(a - b) <= 1e-3 * abs(a), (a, b)
+    fe_path = str(tmp_path / 't.npz')
+    demo_clip.save_checkpoint(fe_path, card.trained(), card.prompt_bank)
+    fe = demo_clip.DemoCLIPFE(fe_path, device=cuda)
+    out = fe(np.random.default_rng(0).random((1, 3, 20, 30), np.float32))
+    assert out.device.type == 'cuda' and out.dtype == torch.float16
+    assert fe.encode_text(['red ball']).shape == (1, 512)
+
+
+@pytest.mark.parametrize('where', ['host', 'card'])
+def test_compress_features_on_card(cuda, where):
+    """The maps in host memory (as extract_features keeps them) or on the
+    card: the codes come back on the card."""
+    from autolabel_tpu_torch.compute_feature_maps import compress_features
+    maps = torch.randn((2, 16, 24, 64), generator=torch.Generator()
+                       .manual_seed(0)).to(torch.float16)
+    if where == 'card':
+        maps = maps.to(cuda)
+    codes = compress_features(maps, 8, epochs=2, batch_size=256,
+                              device=cuda)
+    assert codes.shape == (2, 16, 24, 8) and codes.device.type == 'cuda'
+    assert bool(torch.isfinite(codes.float()).all()) and bool(
+        (codes >= 0).all())

@@ -204,7 +204,12 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'constants', 'features.fallback',
                    'features.feature_utils', 'backend', 'gui',
                    'simulate_user', 'mapping', 'mapping.ba', 'register',
-                   'train.pose_refine'):
+                   'train.pose_refine', 'features.layers',
+                   'features.clip_text', 'features.demo_clip',
+                   'features.vit', 'features.dino', 'features.fcn',
+                   'features.fcn50', 'features.lseg_tower', 'features.lseg',
+                   'utils.feature_utils', 'models.autoencoder',
+                   'compute_feature_maps', 'train_demo_teacher'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 

@@ -230,21 +230,38 @@ def test_compute_semantics_with_hash_classes(jax_render, features_scene,
 
 @pytest.mark.parametrize('teacher', ['fcn50', 'dino', 'lseg', 'demo'])
 def test_unported_teachers_raise(teacher, monkeypatch):
-    monkeypatch.delenv('AUTOLABEL_CLIP_WEIGHTS', raising=False)
-    with pytest.raises(NotImplementedError, match='queue 1 item 6'):
+    """Every teacher is ported now: without its weights it raises (as
+    the JAX package's do), and with --allow-fallback the stand-ins take
+    over; lseg's text is the hash stand-in, the JAX package's vectors.
+    DemoCLIP has no stand-in."""
+    for var in ('AUTOLABEL_CLIP_WEIGHTS', 'AUTOLABEL_LSEG_WEIGHTS',
+                'AUTOLABEL_DINO_WEIGHTS', 'AUTOLABEL_FCN50_WEIGHTS',
+                'AUTOLABEL_DEMO_TEACHER'):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match='allow-fallback|checkpoint'):
         feature_utils.get_feature_extractor(teacher)
+    if teacher == 'demo':
+        with pytest.raises(RuntimeError, match='checkpoint'):
+            feature_utils.get_feature_extractor(teacher,
+                                                allow_fallback=True)
+        return
+    stand_in = feature_utils.get_feature_extractor(teacher,
+                                                   allow_fallback=True)
     if teacher == 'lseg':
-        stand_in = feature_utils.get_feature_extractor(
-            teacher, allow_fallback=True)
-        assert stand_in.encode_text(['x']).shape == (1, 512)
+        assert np.array_equal(stand_in.encode_text(['x']),
+                              JaxHashTextEncoder().encode_text(['x']))
+        # CLIP weights named but missing on disk: the stand-in still
         monkeypatch.setenv('AUTOLABEL_CLIP_WEIGHTS', '/nowhere')
-    with pytest.raises(NotImplementedError, match='queue 1 item 6'):
-        feature_utils.get_feature_extractor(teacher, allow_fallback=True)
+        assert feature_utils.get_feature_extractor(
+            teacher, allow_fallback=True).encode_text(['x']).shape == (1,
+                                                                       512)
 
 
 def test_teacher_without_fallback_raises_in_the_feature_tile(
-        features_scene):
-    with pytest.raises(NotImplementedError, match='queue 1 item 6'):
+        features_scene, monkeypatch):
+    for var in ('AUTOLABEL_CLIP_WEIGHTS', 'AUTOLABEL_LSEG_WEIGHTS'):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match='allow-fallback'):
         port_cli.FeatureTransformer(features_scene, 'lseg', ['chair'])
 
 
