@@ -26,7 +26,7 @@ SOURCES = ('hashgrid_encode.cu', 'hashgrid_bwd.cu', 'hashgrid_atoms.cu',
            'hashgrid_sampled_bwd.cu', 'select_points.cu',
            'hashgrid_stochastic.cu', 'hashgrid_stochastic_bwd.cu',
            'heads_fwd.cu', 'heads_bwd.cu', 'mlp3.cu', 'splat_render.cu',
-           'hashgrid_point_grad.cu')
+           'hashgrid_point_grad.cu', 'ba_normal.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

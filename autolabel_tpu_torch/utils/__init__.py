@@ -22,15 +22,21 @@ from autolabel_tpu_torch.utils import images
 from autolabel_tpu_torch.utils.raster import fill_poly
 
 
+class MissingDependency(ImportError, RuntimeError):
+    """A package the port does not depend on is needed and not installed.
+    An ImportError, as the JAX package's module-level import raises, and a
+    RuntimeError."""
+
+
 def require(module, what):
-    """Import `module` at the call, or raise naming it and what needs it
-    (for the packages the port does not depend on: cv2, PIL, pandas,
-    h5py, matplotlib, sklearn)."""
+    """Import `module` at the call, or raise MissingDependency naming it
+    and what needs it (for the packages the port does not depend on: cv2,
+    PIL, pandas, h5py, matplotlib, sklearn)."""
     try:
         return importlib.import_module(module)
     except ImportError as e:
-        raise RuntimeError(f'{what} needs {module}, which is not '
-                           'installed') from e
+        raise MissingDependency(f'{what} needs {module}, which is not '
+                                'installed') from e
 
 
 def _numeric_sorted(names):

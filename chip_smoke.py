@@ -5,9 +5,11 @@ the render CLI with its baked preview, the interactive preview,
 evaluation (the closed-set and open-vocabulary CLIs and a reference
 checkpoint's import), the interactive labelling backend (the GUI's
 backend process, the user simulation, online mapping), camera
-registration with joint pose refinement, and the teacher towers
+registration with joint pose refinement, the teacher towers
 (DemoCLIP trained through its CLI, DINO, FCN-ResNet50, LSeg, the CLIP text
-tower, compute_feature_maps), on one CUDA card.
+tower, compute_feature_maps), and mapping (bundle adjustment through K9,
+IncrementalSfM's cv2-free stages, the mapping CLI's scale and bounds), on
+one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -304,12 +306,37 @@ Phases, each failing loudly:
      (--autoencode, 64 codes) on the card for demo and dino on the room:
      seconds a frame; the features.hdf write is not run (the line says
      so).
+ 18. mapping. (a) K9 (csrc/ba_normal.cu, bundle adjustment's two LM
+     products) against the plain version (torch.func's vjp and jvp of
+     mapping.ba._residual) at a final bundle adjustment's size: 300
+     cameras on a seeded arc (one at theta = 0), 40,000 points each seen
+     by 9 frames (N = 360,000), 0.5 px noise, 2% outliers at 20-50 px,
+     Huber weights: r, the cost, g and the damped product on a seeded v at
+     refine_focal off and on, within 1e-5 by relative norm, and against
+     the plain version in float64 (K9's error at most 2x the plain fp32
+     version's); the same on observations at the depth clamp and at a
+     tie. (b) Each entry by events and device time, the plain product,
+     the yardstick (two torch.sparse.mm of a CSR J built once), the byte
+     bound. (c) bundle_adjust (30 LM steps, 50 CG iterations) in turns
+     plain, kernels, kernels, plain: seconds, LM and CG iterations, K9
+     launches an LM step, the final rms within 1e-3 px of the plain
+     solve's, rotations and centres after Sim(3) against the truth, one
+     traced LM step's busy share, and a refine_focal solve from a focal
+     10% wrong. (d) On the fixture room (make_room_scene's 96 frames),
+     tracks projected from its surfaces with 0.3 px noise and perturbed
+     poses: IncrementalSfM's _run_ba, _prune_outliers,
+     _drop_pose_outliers, _drop_tear_frames and write_colmap_model, then
+     the mapping CLI's ScaleEstimation and PoseSaver: pose/*.txt and
+     bbox.txt against the truth (Sim(3) scale within 2%, mean centre error
+     below 2 cm); and, in a child where `import cv2` fails, the cv2 front
+     end raising naming cv2.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
 """
 import argparse
 import contextlib
+import importlib.util
 import itertools
 import json
 import os
@@ -4703,6 +4730,617 @@ def _teacher_phase(dev, seed, gpu, checks):
     return out
 
 
+# Phase 18: mapping. K9 (csrc/ba_normal.cu, bundle adjustment's two LM
+# products) held against its plain version (torch.func's vjp and jvp of
+# mapping.ba._residual, JAX's mirror) at a final-BA size, in fp32 and
+# against the plain version in float64; the whole bundle_adjust in turns
+# with the plain products; then IncrementalSfM's cv2-free stages and the
+# mapping CLI's ScaleEstimation and PoseSaver on the fixture room.
+BA_CAMERAS, BA_POINTS, BA_VIEWS = 300, 40000, 9
+BA_INTR = (500.0, 500.0, 320.0, 240.0)
+BA_NOISE_PX, BA_OUTLIERS, BA_OUTLIER_PX = 0.5, 0.02, (20.0, 50.0)
+BA_PERTURB = (0.002, 0.02, 0.02)  # rad, m, m: poses and points
+BA_ITERS, BA_CG = 30, 50
+BA_TOL = 1e-5  # K9 against the plain fp32 version, by relative norm
+BA_ROOM = 2.0  # K9's float64 error at most this times the plain fp32's
+BA_RMS_TOL = 1e-3  # px, the kernel solve's final rms against the plain's
+BA_REPS = 20
+# K9's fp32 operations an observation, counted from csrc/ba_normal.cu's
+# kernel bodies with refine_focal off: an fma 2, any other add, multiply
+# or divide 1, and a sum into a camera, a point or the cost 1 an addend,
+# however the kernel reduces it (the warp scan's extra adds are not work
+# the function needs). project: Xc, 3 rows of a multiply, 2 fma and an
+# add (18), fx and fy (2), u and v (2); tangents: dR/drvec X, 9 entries of
+# a multiply and 2 fma; jv: R v_p (15), A v_r + v_t added to it (21), the
+# two rows (10); weight: sqrt_w J v (2); scatter: e (2), gx (8), A^T gx
+# (15), R^T gx (15), the point's 3 and the camera's 6 sums; residual: 2
+# rows of 4; cost: r^2 (3) and its sum (1). The matvec's damp_kernel adds
+# a multiply a parameter.
+K9_FLOPS = {
+    'matvec': dict(project=22, tangents=45, jv=46, weight=2, scatter=49),
+    'residual_grad': dict(project=22, residual=8, cost=4, tangents=45,
+                          scatter=49)}
+MAP_TRACK_POINTS, MAP_NOISE_PX = 4000, 0.3
+MAP_PERTURB = (0.005, 0.02, 0.02)  # rad, m, m
+
+
+def _ba_look(a, height):
+    """A camera on the arc at angle a, looking at the origin: (R, t),
+    world -> camera. At a = 0 and height 0, R is the identity exactly
+    (theta = 0, rodrigues' Taylor branch)."""
+    import numpy as np
+    C = np.array([4.0 * np.sin(a), height, -4.0 * np.cos(a)])
+    z = -C / np.linalg.norm(C)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    R = np.stack([x, np.cross(z, x), z])
+    return R, -R @ C
+
+
+def _ba_problem(seed):
+    """A final-BA-sized problem: BA_CAMERAS cameras on a seeded arc of 120
+    degrees around BA_POINTS points in a ball of radius 1.2, each point
+    seen by BA_VIEWS consecutive cameras, 0.5 px noise and 2% outliers at
+    20-50 px. Camera BA_CAMERAS // 2 sits at theta = 0. Returns the truth, the perturbed
+    start and the observations."""
+    import numpy as np
+    from autolabel_tpu_torch.mapping.ba import rotmat_to_rvec
+    m, p, views = BA_CAMERAS, BA_POINTS, BA_VIEWS
+    rng = np.random.default_rng(seed)
+    angles = (np.arange(m) - m // 2) * (2 * np.pi / 3) / m
+    poses = [_ba_look(a, 0.3 * np.sin(3 * a)) for a in angles]
+    rvecs = np.stack([rotmat_to_rvec(R) for R, _ in poses])
+    tvecs = np.stack([t for _, t in poses])
+    assert not rvecs[m // 2].any()
+    d = rng.normal(size=(p, 3))
+    points = d / np.linalg.norm(d, axis=1, keepdims=True) \
+        * 1.2 * rng.random((p, 1)) ** (1 / 3)
+    first = rng.integers(0, m - views + 1, p)
+    cam_idx = (first[:, None] + np.arange(views)).ravel()
+    pt_idx = np.repeat(np.arange(p), views)
+    R_all = np.stack([R for R, _ in poses])
+    Xc = np.einsum('nij,nj->ni', R_all[cam_idx], points[pt_idx]) \
+        + tvecs[cam_idx]
+    fx, fy, cx, cy = BA_INTR
+    xy = Xc[:, :2] / Xc[:, 2:3] * [fx, fy] + [cx, cy]
+    xy += rng.normal(scale=BA_NOISE_PX, size=xy.shape)
+    bad = rng.random(len(xy)) < BA_OUTLIERS
+    ang = rng.uniform(0, 2 * np.pi, len(xy))
+    mag = rng.uniform(*BA_OUTLIER_PX, len(xy))
+    xy += bad[:, None] * mag[:, None] * np.stack([np.cos(ang), np.sin(ang)],
+                                                 1)
+    dr, dt, dp = BA_PERTURB
+    start = (rvecs + rng.normal(scale=dr, size=rvecs.shape),
+             tvecs + rng.normal(scale=dt, size=tvecs.shape),
+             points + rng.normal(scale=dp, size=points.shape))
+    start[0][0], start[1][0] = rvecs[0], tvecs[0]  # the gauge anchor
+    start[0][m // 2] = 0.0  # theta = 0 in every linearisation
+    return dict(truth=(rvecs, tvecs, points), start=start, cam_idx=cam_idx,
+                pt_idx=pt_idx, xy=xy, bad=bad)
+
+
+def _clamp_problem():
+    """K9 at the depth clamp: camera 1 at theta = 0 with t = (0, 0,
+    1e-6); point 0 behind it (its observation clamped), point 1 at z = 0
+    (z = 1e-6 exactly in fp32: a tie, half the gradient), points 2-5 in
+    front; all seen by cameras 0-2, weighted by Huber as bundle_adjust
+    weighs them (the clamped residuals are of order 1e8 px). Not held
+    against float64: there 1e-6 is no longer fp32's, and the tie and the
+    clamp fall elsewhere."""
+    import numpy as np
+    rv = np.array([[0.1, -0.2, 0.05], [0.0, 0.0, 0.0], [0.02, 0.3, -0.1]])
+    tv = np.array([[0.1, 0.0, 3.0], [0.0, 0.0, float(np.float32(1e-6))],
+                   [-0.5, 0.1, 3.5]])
+    pts = np.array([[0.2, -0.1, -0.5], [0.3, 0.2, 0.0], [0.1, 0.1, 1.0],
+                    [-0.4, 0.2, 1.5], [0.5, -0.3, 2.0], [0.0, 0.4, 0.8]])
+    ci, pi = np.repeat(np.arange(3), 6), np.tile(np.arange(6), 3)
+    xy = np.random.default_rng(0).uniform(0, 600, (18, 2))
+    return (rv, tv, pts), ci, pi, xy
+
+
+def _ba_tensors(dev, params, ci, pi, xy):
+    """(params, const) on the card in fp32, with unit weights."""
+    import numpy as np
+    import torch
+    f = dict(dtype=torch.float32, device=dev)
+    tp = tuple(torch.as_tensor(np.asarray(a), **f) for a in params) \
+        + (torch.zeros((), **f),)
+    tc = (BA_INTR, torch.as_tensor(ci, dtype=torch.int32, device=dev),
+          torch.as_tensor(pi, dtype=torch.int32, device=dev),
+          torch.as_tensor(np.asarray(xy), **f), torch.ones(len(ci), **f))
+    return tp, tc
+
+
+def _k9_hold(checks, tag, params, const, v, lam, wide=True):
+    """K9's residual, cost, gradient and matvec against the plain fp32
+    version (BA_TOL by relative norm) at refine_focal off and on, and
+    (wide) against the plain version in float64: K9's error at most
+    BA_ROOM times the plain fp32 version's. Returns the largest |K9 -
+    plain|."""
+    import torch
+    from autolabel_tpu_torch.mapping import ba
+    p64 = tuple(t.double() for t in params)
+    c64 = const[:3] + (const[3].double(), const[4].double())
+    worst = 0.0
+    for refine in (False, True):
+        kern = ba.products(params, const, refine)
+        plain = ba.PlainProducts(params, const, refine)
+        got = list(kern.residual_grad()) + [kern.matvec(v, lam)]
+        ref = list(plain.residual_grad()) + [plain.matvec(v, lam)]
+        if wide:
+            f64 = ba.PlainProducts(p64, c64, refine)
+            ref64 = list(f64.residual_grad()) + [f64.matvec(v.double(), lam)]
+        torch.cuda.synchronize()
+        for i, name in enumerate(('r', 'cost', 'g', 'matvec')):
+            a, b = got[i], ref[i]
+            label = f'K9 {tag} {name} refine_focal={refine}'
+            # in float64: the clamped rows' products pass fp32's range in
+            # a norm
+            a64, b64 = a.double().reshape(-1), b.double().reshape(-1)
+            err = float((a64 - b64).norm() / b64.norm().clamp(min=1e-300))
+            checks.true(label, bool(torch.isfinite(a).all()) and err <= BA_TOL,
+                        f'rel_err={err:.3e} |want|={float(b64.norm()):.3e} '
+                        f'(tol {BA_TOL})')
+            worst = max(worst, float((a - b).abs().max()))
+            if not wide:
+                continue
+            c = ref64[i]
+            err_k = float((a.double() - c).norm() / c.norm().clamp(min=1e-300))
+            err_p = float((b.double() - c).norm() / c.norm().clamp(min=1e-300))
+            checks.true(f'{label} against float64',
+                        err_k <= BA_ROOM * err_p or err_k <= 1e-7,
+                        f'(K9 {err_k:.3e}, plain fp32 {err_p:.3e}, room '
+                        f'{BA_ROOM}, or K9 within 1e-7)')
+    return worst
+
+
+def _csr_jacobian(params, const):
+    """J (2N x L, fp32 CSR) and J^T (CSR), built once from K9's analytic
+    blocks (mapping.ba's torch mirror), the gauge's columns (the focal's
+    among them) zero: the library yardstick's operands."""
+    import torch
+    from autolabel_tpu_torch.mapping import ba
+    prod = ba.AnalyticProducts(params, const, False)
+    lin, sw = prod.lin, const[4]
+    m, p = prod.m, prod.p
+    n = sw.shape[0]
+    live = lin['live'].to(torch.float32)
+    rows = []
+    for i, (f, q) in enumerate(((lin['fx'], lin['u']), (lin['fy'],
+                                                        lin['v']))):
+        # d pred_i / d Xc = f / z (e_i - q dz e_2)
+        dXc = torch.zeros((n, 3), device=sw.device)
+        dXc[:, i] = 1.0
+        dXc[:, 2] -= q * lin['dz']
+        dXc = dXc * (f * sw / lin['z'])[:, None]
+        vals = torch.cat([
+            (lin['A'] * dXc[:, None, :]).sum(-1) * live[:, None],
+            dXc * live[:, None],
+            (lin['Rc'] * dXc[:, :, None]).sum(1),
+            torch.zeros((n, 1), device=sw.device)], dim=1)
+        rows.append(vals)
+    vals = torch.stack(rows, dim=1).reshape(2 * n, 10)
+    cam, pt = lin['cam'], lin['pt']
+    cols = torch.cat([3 * cam[:, None] + torch.arange(3, device=cam.device),
+                      3 * m + 3 * cam[:, None]
+                      + torch.arange(3, device=cam.device),
+                      6 * m + 3 * pt[:, None]
+                      + torch.arange(3, device=cam.device),
+                      torch.full((n, 1), 6 * m + 3 * p, device=cam.device)],
+                     dim=1)
+    cols = cols.repeat_interleave(2, dim=0)
+    row_idx = torch.arange(2 * n, device=cam.device).repeat_interleave(10)
+    coo = torch.sparse_coo_tensor(torch.stack([row_idx, cols.reshape(-1)]),
+                                  vals.reshape(-1),
+                                  (2 * n, ba.size(m, p)))
+    return coo.coalesce().to_sparse_csr(), coo.t().coalesce().to_sparse_csr()
+
+
+@contextlib.contextmanager
+def _plain_ba():
+    """bundle_adjust on the card with the plain products (torch.func) and
+    the plain residual in place of K9."""
+    from autolabel_tpu_torch.mapping import ba
+    saved = (ba.products, ba.residual)
+    ba.products, ba.residual = ba.PlainProducts, ba._residual
+    try:
+        yield
+    finally:
+        ba.products, ba.residual = saved
+
+
+def _pose_errors(truth, got):
+    """Rotation errors (degrees) and camera-centre errors after a Sim(3)
+    alignment of the centres to the truth: (median deg, max deg, mean m,
+    max m, the alignment's scale)."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.mapping.ba import rodrigues
+    R_t = rodrigues(torch.as_tensor(np.asarray(truth[0], np.float64))).numpy()
+    R_g = rodrigues(torch.as_tensor(np.asarray(got[0], np.float64))).numpy()
+    C_t = -np.einsum('nji,nj->ni', R_t, truth[1])
+    C_g = -np.einsum('nji,nj->ni', R_g, np.asarray(got[1], np.float64))
+    s, R, t = _umeyama(C_g, C_t)
+    err = np.linalg.norm(C_t - (s * C_g @ R.T + t), axis=1)
+    # the estimate's rotations in the truth's frame are R_g R^T
+    rel = R_t @ R @ np.transpose(R_g, (0, 2, 1))
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)
+    deg = np.degrees(np.arccos(cos))
+    return (float(np.median(deg)), float(deg.max()), float(err.mean()),
+            float(err.max()), float(s))
+
+
+def _umeyama(src, dst):
+    """Sim(3) aligning src -> dst: (s, R, t) (tests/test_mapping_sfm.py's)."""
+    import numpy as np
+    mus, mud = src.mean(0), dst.mean(0)
+    sc, dc = src - mus, dst - mud
+    U, S, Vt = np.linalg.svd(dc.T @ sc / len(src))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = (S * np.diag(D)).sum() / ((sc ** 2).sum() / len(src))
+    return s, R, mud - s * R @ mus
+
+
+def _ba_solve(dev, prob, intr, refine_focal, names):
+    """One bundle_adjust through the entry point: (result, seconds, stats,
+    K9 launches by name)."""
+    import torch
+    from autolabel_tpu_torch.mapping.ba import bundle_adjust
+    from autolabel_tpu_torch.ops import _kernels
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = {}
+    out = bundle_adjust(*prob['start'], intr, prob['cam_idx'],
+                        prob['pt_idx'], prob['xy'], max_iters=BA_ITERS,
+                        refine_focal=refine_focal, cg_iters=BA_CG,
+                        device=dev, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: _kernels.launches.get(k, 0) for k in names}
+    stats['cg'] = [int(k) for k in stats['cg']]
+    return out, seconds, stats, launches
+
+
+def _room_tracks(scene_dir, rng):
+    """Tracks of the fixture room: MAP_TRACK_POINTS surface points
+    back-projected from random pixels of random frames' depth, observed in
+    every frame where they fall in the image, in front, and unoccluded
+    (the frame's depth within 3 cm), with MAP_NOISE_PX of noise; points
+    seen fewer than 3 times are dropped. Returns (K, T_CW by frame,
+    points, {track: {frame: xy}})."""
+    import numpy as np
+    from autolabel_tpu_torch.utils import Scene
+    from autolabel_tpu_torch.utils.images import read_png
+    scene = Scene(str(scene_dir))
+    K = scene.camera.camera_matrix
+    poses = scene.poses
+    depth = [read_png(p) / 1000.0 for p in scene.depth_paths()]
+    h, w = depth[0].shape
+    frames = rng.integers(0, len(poses), MAP_TRACK_POINTS)
+    ys, xs = rng.integers(0, h, MAP_TRACK_POINTS), \
+        rng.integers(0, w, MAP_TRACK_POINTS)
+    world = []
+    for f, y, x in zip(frames, ys, xs):
+        z = depth[f][y, x]
+        pc = np.array([(x + 0.5 - K[0, 2]) * z / K[0, 0],
+                       (y + 0.5 - K[1, 2]) * z / K[1, 1], z])
+        T_WC = np.linalg.inv(poses[f])
+        world.append(T_WC[:3, :3] @ pc + T_WC[:3, 3])
+    world = np.stack(world)
+    obs = {t: {} for t in range(len(world))}
+    for f, T_CW in enumerate(poses):
+        xc = world @ T_CW[:3, :3].T + T_CW[:3, 3]
+        uv = xc[:, :2] / np.maximum(xc[:, 2:3], 1e-9) * [K[0, 0], K[1, 1]] \
+            + K[:2, 2]
+        inside = (xc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < w) \
+            & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        for t in np.nonzero(inside)[0]:
+            if abs(depth[f][int(uv[t, 1]), int(uv[t, 0])] - xc[t, 2]) < 0.03:
+                noisy = uv[t] + rng.normal(scale=MAP_NOISE_PX, size=2)
+                if 0 <= noisy[0] < w and 0 <= noisy[1] < h:
+                    obs[t][f] = noisy
+    keep = [t for t in obs if len(obs[t]) >= 3]
+    return K, poses, world[keep], [obs[t] for t in keep]
+
+
+_NO_CV2_PROBE = '''
+import sys
+sys.modules['cv2'] = None
+import numpy as np
+from autolabel_tpu_torch.mapping import IncrementalSfM
+sfm = IncrementalSfM([('0.png', np.zeros((8, 8), np.uint8))] * 2, np.eye(3),
+                     device=sys.argv[1])
+try:
+    sfm._build_tracks_klt()
+    print('ran')
+except ImportError as e:
+    print(f'raised: {e}')
+'''
+
+
+def _mapping_phase(dev, seed, gpu, checks, results):
+    import shutil
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.mapping import __main__ as mapping_cli
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.mapping.sfm import IncrementalSfM
+    from autolabel_tpu_torch.ops import _kernels, ba_cuda
+    from autolabel_tpu_torch.utils import Scene, fixtures
+    from autolabel_tpu_torch.utils.images import read_png
+    t_phase = time.perf_counter()
+    names = ba_cuda.NAMES
+    out = {}
+
+    # (a) K9 against the plain version at the final-BA size
+    prob = _ba_problem(seed + 18)
+    m, p, n = BA_CAMERAS, BA_POINTS, len(prob['cam_idx'])
+    order = np.argsort(prob['cam_idx'], kind='stable')  # bundle_adjust's
+    ci, pi, xy = (prob['cam_idx'][order], prob['pt_idx'][order],
+                  prob['xy'][order])
+    params, unit = _ba_tensors(dev, prob['start'], ci, pi, xy)
+    sw = ba._huber_sqrt_weights(params, unit, 4.0)
+    const = unit[:4] + (sw,)
+    gen = torch.Generator().manual_seed(seed + 18)
+    v = torch.randn(ba.size(m, p), generator=gen).to(dev)
+    lam = 1e-2
+    print(f'mapping [{gpu}]: M = {m} cameras, P = {p} points, N = {n} '
+          f'observations ({int(prob["bad"].sum())} outliers), Huber weights '
+          f'below 1 on {int((sw < 1).sum())}')
+    worst = _k9_hold(checks, 'final-BA', params, const, v, lam)
+    cp, cc, cpi, cxy = _clamp_problem()
+    cparams, cunit = _ba_tensors(dev, cp, cc, cpi, cxy)
+    cconst = cunit[:4] + (ba._huber_sqrt_weights(cparams, cunit, 4.0),)
+    cv = torch.randn(ba.size(3, 6), generator=gen).to(dev)
+    # (its products reach 1e20, so its largest |K9 - plain| is not the
+    # kernels line's max_abs_err: that is the final-BA size's)
+    _k9_hold(checks, 'clamp+tie', cparams, cconst, cv, 0.0, wide=False)
+    print(f'mapping (a): {time.perf_counter() - t_phase:.1f} s')
+
+    # (b) times: each entry by events and device time, the plain version,
+    # the CSR yardstick, the bound
+    kern = ba.products(params, const, False)
+    plain = ba.PlainProducts(params, const, False)
+    timing = {}
+    for entry, fn in (('matvec', lambda: kern.matvec(v, lam)),
+                      ('residual_grad', lambda: kern.residual_grad())):
+        ms = _cuda_ms(fn, BA_REPS)
+        dev_ms = _kernel_ms(fn) or _kernel_ms(fn)  # a trace may hold none
+        timing[entry] = dict(ms=ms, device_ms=None if dev_ms is None
+                             else sum(dev_ms.values()),
+                             device_split=dev_ms)
+    timing['matvec']['plain_ms'] = _cuda_ms(lambda: plain.matvec(v, lam), 5)
+    timing['residual_grad']['plain_ms'] = _cuda_ms(
+        lambda: ba.PlainProducts(params, const, False).residual_grad(),
+        5)
+    J, Jt = _csr_jacobian(params, const)
+    vm = (v * ba.gauge_mask(m, p, False, dev))[:, None]
+    lib = torch.sparse.mm(Jt, torch.sparse.mm(J, vm))[:, 0]
+    checks.rel_norm('K9 matvec against the CSR J^T J v + lam v',
+                    kern.matvec(v, lam), lib + lam * vm[:, 0], BA_TOL)
+    timing['matvec']['library_ms'] = _cuda_ms(
+        lambda: torch.sparse.mm(Jt, torch.sparse.mm(J, vm)), BA_REPS)
+    timing['residual_grad']['library_ms'] = None
+    ins = (kern.R, kern.dR, kern.tvecs, kern.points, kern.dlog_f, kern.cam,
+           kern.pt, kern.sw)
+    n_blocks = -(-n // ba_cuda.THREADS)
+    nbytes = {'matvec': _nbytes(*ins, v, v),
+              'residual_grad': _nbytes(*ins, kern.xy, kern.xy, v)
+              + 4 * n_blocks}
+    flops = {entry: sum(K9_FLOPS[entry].values()) * n
+             for entry in ('matvec', 'residual_grad')}
+    flops['matvec'] += ba.size(m, p)  # damp_kernel's lam * v
+    for entry in ('matvec', 'residual_grad'):
+        t = timing[entry]
+        t['bound'] = _bound(nbytes[entry], flops[entry], PEAK_FP32)
+        t['bytes'] = nbytes[entry]
+        share = t['bound'][0] / t['ms']
+        print(f'kernel K9 {entry} [{gpu}] N = {n}: {t["ms"]:.4f} ms by '
+              f'events, device {t["device_ms"]} ms '
+              f'({t["device_split"]}), plain {t["plain_ms"]:.4f} ms, '
+              f'library {t["library_ms"]} ms (two torch.sparse.mm of a CSR '
+              f'J built once), bound {t["bound"][0]:.4f} ms '
+              f'({t["bound"][1]}, {nbytes[entry] / 1e6:.2f} MB): '
+              f'{share:.1%} of it')
+    out['timing'] = timing
+    print(f'mapping (a)-(b): {time.perf_counter() - t_phase:.1f} s')
+
+    # (c) the whole bundle_adjust in turns: plain, kernels, kernels, plain
+    solves = {'plain': [], 'kernels': []}
+    for leg in ('plain', 'kernels', 'kernels', 'plain'):
+        if leg == 'plain':
+            with _plain_ba():
+                res = _ba_solve(dev, prob, BA_INTR, False, names)
+            checks.true(f'mapping ba plain run launches no K9',
+                        not any(res[3].values()), str(res[3]))
+        else:
+            res = _ba_solve(dev, prob, BA_INTR, False, names)
+        solves[leg].append(res)
+    k_out, k_s, k_stats, k_launches = solves['kernels'][0]
+    p_out = solves['plain'][0][0]
+    lm = k_stats['lm']
+    per_step = {k: v_ / lm for k, v_ in k_launches.items()}
+    print(f'mapping bundle_adjust [{gpu}] seconds in turns: plain '
+          f'{[round(s[1], 3) for s in solves["plain"]]}, kernels '
+          f'{[round(s[1], 3) for s in solves["kernels"]]}; LM iterations '
+          f'{lm} (plain {solves["plain"][0][2]["lm"]}), CG iterations '
+          f'{sum(k_stats["cg"])} ({k_stats["cg"]}); K9 launches '
+          f'{k_launches} = {per_step} an LM step')
+    checks.true('mapping ba kernels launched every LM step',
+                k_launches[names[1]] >= lm * (BA_CG + 1)
+                and k_launches[names[0]] >= 3 * lm, str(k_launches))
+    checks.true('mapping ba final rms: kernels within 1e-3 px of plain',
+                abs(k_out[4] - p_out[4]) <= BA_RMS_TOL,
+                f'({k_out[4]:.6f} against {p_out[4]:.6f} px)')
+    for leg, res in (('kernels', k_out), ('plain', p_out),
+                     ('start', prob['start'] + (None, None))):
+        errs = _pose_errors(prob['truth'], res)
+        print(f'mapping ba {leg}: rotation error median {errs[0]:.4f} max '
+              f'{errs[1]:.4f} deg, centres after Sim(3) mean '
+              f'{errs[2] * 100:.3f} max {errs[3] * 100:.3f} cm (scale '
+              f'{errs[4]:.5f})' + ('' if res[4] is None else
+                                   f', rms {res[4]:.4f} px'))
+        out[f'ba_{leg}_errors'] = errs
+    k_err = out['ba_kernels_errors']
+    start_err = out['ba_start_errors']
+    # 30 LM steps of 50 unpreconditioned CG iterations leave the
+    # rotations short of their noise floor (the plain solve's alike): the
+    # check is that they fall, and the centres by half.
+    checks.true('mapping ba recovers the poses',
+                k_err[0] < start_err[0] and k_err[2] < 0.5 * start_err[2],
+                f'(rotation {k_err[0]:.4f} from {start_err[0]:.4f} deg, '
+                f'centres {k_err[2]:.4f} from {start_err[2]:.4f} m)')
+    # one traced LM step: its busy share
+    sqrt_w = ba._huber_sqrt_weights(params, unit, 4.0)
+    step_const = unit[:4] + (sqrt_w,)
+    step = lambda: ba._lm_step(params, step_const, 1e-2, False, BA_CG)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    rows, busy = _device_profile(step)
+    out['lm_step_ms'] = step_ms
+    out['lm_step_busy'] = _print_profile(gpu, 'mapping LM step', rows, busy,
+                                         step_ms, 'LM step')
+    # refine_focal from a focal 10% wrong
+    wrong = (BA_INTR[0] * 1.1, BA_INTR[1] * 1.1) + BA_INTR[2:]
+    # (the kernels alone: a plain solve takes 26 s here)
+    f_out, f_s, f_stats, f_launches = _ba_solve(dev, prob, wrong, True,
+                                                names)
+    print(f'mapping ba refine_focal [{gpu}]: focal {wrong[0]:.1f} -> '
+          f'{f_out[3][0]:.3f} (truth {BA_INTR[0]}), rms {f_out[4]:.4f} px '
+          f'(at the true focal {k_out[4]:.4f}), {f_s:.3f} s, LM '
+          f'{f_stats["lm"]}, launches {f_launches}')
+    checks.true('mapping ba refine_focal moves the focal to the truth',
+                abs(f_out[3][0] - BA_INTR[0]) < 0.2 * (wrong[0] - BA_INTR[0]),
+                f'({f_out[3][0]:.3f})')
+    checks.true('mapping ba refine_focal rms within 1% of the true focal\'s',
+                f_out[4] <= 1.01 * k_out[4],
+                f'({f_out[4]:.6f} against {k_out[4]:.6f})')
+    out.update(ba_seconds={k: [s[1] for s in v_] for k, v_ in solves.items()},
+               ba_lm=lm, ba_cg=k_stats['cg'], ba_launches=k_launches,
+               ba_launches_per_step=per_step, ba_rms=(k_out[4], p_out[4]),
+               focal=f_out[3][0], focal_rms=f_out[4], focal_s=f_s)
+    print(f'mapping (a)-(c): {time.perf_counter() - t_phase:.1f} s')
+
+    # (d) the cv2-free mapping path on the fixture room
+    t_room = time.perf_counter()
+    room = os.path.join(WORK_DIR, 'mapping_room')
+    shutil.rmtree(room, ignore_errors=True)
+    fixtures.make_room_scene(room)
+    rng = np.random.default_rng(seed + 180)
+    K, gt_poses, world, tracks = _room_tracks(room, rng)
+    names_img = sorted(os.listdir(os.path.join(room, 'rgb')),
+                       key=lambda s_: int(s_.split('.')[0]))
+    images = []
+    for name in names_img:
+        rgb = read_png(os.path.join(room, 'rgb', name))
+        images.append((name, (rgb.astype(np.float64) @ [0.299, 0.587, 0.114])
+                       .astype(np.uint8)))
+    sfm = IncrementalSfM(images, K, device=dev)
+    kps = [[] for _ in images]
+    for tid, views in enumerate(tracks):
+        sfm.tracks[tid] = {}
+        for f, uv in views.items():
+            sfm.tracks[tid][f] = len(kps[f])
+            sfm.track_of_kp[(f, len(kps[f]))] = tid
+            kps[f].append(uv)
+    sfm.kps = [np.array(k, np.float64).reshape(-1, 2) for k in kps]
+    dr, dt, dp = MAP_PERTURB
+    for f, T_CW in enumerate(gt_poses):
+        dR = ba.rodrigues(torch.as_tensor(rng.normal(scale=dr, size=3))) \
+            .numpy()
+        sfm.registered[f] = (dR @ T_CW[:3, :3],
+                             T_CW[:3, 3] + rng.normal(scale=dt, size=3))
+    sfm.registered[0] = (gt_poses[0][:3, :3], gt_poses[0][:3, 3])
+    sfm.points = {t: world[t] + rng.normal(scale=dp, size=3)
+                  for t in range(len(world))}
+    n_obs = sum(len(t) for t in tracks)
+    _kernels.reset_launches()
+    sfm._run_ba(max_iters=30)
+    first_rms = sfm.ba_rms_px
+    pruned = sfm._prune_outliers()
+    dropped = sfm._drop_pose_outliers()
+    torn = sfm._drop_tear_frames()
+    sfm._run_ba(max_iters=20)
+    _sync()
+    sfm_launches = {k: _kernels.launches.get(k, 0) for k in names}
+    model = os.path.join(WORK_DIR, 'mapping_model')
+    shutil.rmtree(model, ignore_errors=True)
+    sfm.write_colmap_model(model)
+    for sub in ('pose', 'bbox.txt'):
+        path = os.path.join(room, sub)
+        shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+    scene = Scene(room)
+    scaled = mapping_cli.ScaleEstimation(scene, model).run()
+    mapping_cli.PoseSaver(scene, scaled).run()
+    written = sorted(int(f.split('.')[0])
+                     for f in os.listdir(os.path.join(room, 'pose')))
+    est = np.stack([(lambda T: -T[:3, :3].T @ T[:3, 3])(
+        np.loadtxt(os.path.join(room, 'pose', f'{i}.txt'))) for i in written])
+    gt = np.stack([-gt_poses[i][:3, :3].T @ gt_poses[i][:3, 3]
+                   for i in written])
+    s, R, t = _umeyama(est, gt)
+    err = np.linalg.norm(gt - (s * est @ R.T + t), axis=1)
+    bbox = np.loadtxt(os.path.join(room, 'bbox.txt'))[:6].reshape(2, 3)
+    extent = bbox[1] - bbox[0]
+    print(f'mapping sfm [{gpu}]: {len(images)} frames, {len(tracks)} tracks, '
+          f'{n_obs} observations; _run_ba rms {first_rms:.4f} -> '
+          f'{sfm.ba_rms_px:.4f} px, pruned {pruned}, pose outliers '
+          f'{dropped}, tears {torn}; {len(written)} poses written; Sim(3) '
+          f'scale {s:.5f}, centre error mean {err.mean() * 100:.3f} max '
+          f'{err.max() * 100:.3f} cm; bbox extent {np.round(extent, 4)}; K9 '
+          f'launches {sfm_launches}; {time.perf_counter() - t_room:.1f} s')
+    # tests/test_mapping_sfm.py:146-173's bars, and tighter ones: the
+    # tracks here are exact up to 0.3 px, so the trajectory and the metric
+    # scale come back to within 2% and 2 cm.
+    checks.true('mapping sfm poses for every frame',
+                len(written) == len(images) - dropped - torn,
+                f'({len(written)} of {len(images)})')
+    checks.true('mapping sfm metric scale (test_mapping_sfm: 0.6 < s < 1.5)',
+                0.98 < s < 1.02, f'(s = {s:.5f})')
+    checks.true('mapping sfm centres (test_mapping_sfm: mean < 0.15 m)',
+                err.mean() < 0.02, f'(mean {err.mean():.5f} m)')
+    checks.true('mapping sfm bbox room-sized (test_mapping_sfm: 1 < extent '
+                '< 6)', bool((extent > 1.0).all() and (extent < 6.0).all()),
+                str(extent))
+    # The front end without cv2: in a child where `import cv2` fails
+    # (this machine may have cv2; the check must not depend on it).
+    cv2_here = importlib.util.find_spec('cv2') is not None
+    probe = subprocess.run(
+        [sys.executable, '-c', _NO_CV2_PROBE, dev.type], cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    front_end = (probe.stdout.strip().splitlines() or [''])[-1]
+    checks.true('mapping front end raises naming cv2 without it',
+                probe.returncode == 0 and front_end.startswith('raised')
+                and 'cv2' in front_end,
+                f'{front_end} {probe.stderr[-500:]} (cv2 importable in this '
+                f'process: {cv2_here})')
+    out.update(sfm_frames=len(images), sfm_tracks=len(tracks),
+               sfm_observations=n_obs, sfm_rms=(first_rms, sfm.ba_rms_px),
+               sfm_scale=float(s), sfm_centre_err=(float(err.mean()),
+                                                   float(err.max())),
+               sfm_launches=sfm_launches, front_end=front_end,
+               room_s=time.perf_counter() - t_room)
+
+    for key, entry in (('K9m', 'matvec'), ('K9g', 'residual_grad')):
+        t = timing[entry]
+        results[key] = dict(max_abs_err=worst, ms=t['ms'],
+                            device_ms=t['device_ms'],
+                            device_split=t['device_split'],
+                            plain_ms=t['plain_ms'], bound=t['bound'],
+                            library_ms=t['library_ms'])
+    out['launches'] = {'ba': k_launches, 'sfm': sfm_launches}
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'phase 18: {out["phase_s"]:.1f} s')
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -4720,7 +5358,8 @@ def main():
     from autolabel_tpu_torch.core import rays
     from autolabel_tpu_torch.inference import InferenceModel
     from autolabel_tpu_torch.models.field import Field
-    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.ops import (_kernels, ba_cuda, hashgrid_cuda,
+                                         heads_cuda)
     from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
     from autolabel_tpu_torch.render.renderer import draw_perturbations
     from autolabel_tpu_torch.train import checkpoints
@@ -5410,6 +6049,11 @@ def main():
     torch.cuda.empty_cache()
     teachers = _teacher_phase(dev, args.seed, gpu, checks)
 
+    # ---- 18. mapping: bundle adjustment (K9), IncrementalSfM's cv2-free
+    # stages, the mapping CLI's scale and bounds
+    torch.cuda.empty_cache()
+    mapping = _mapping_phase(dev, args.seed, gpu, checks, results)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -5442,19 +6086,26 @@ def main():
         ('K2x hashgrid_point_grad',
          'autolabel_tpu_torch/csrc/hashgrid_point_grad.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:141', 'K2x'),
+        ('K9 ba_normal_matvec', 'autolabel_tpu_torch/csrc/ba_normal.cu',
+         'autolabel_tpu/mapping/ba.py:81', 'K9m'),
+        ('K9 ba_residual_grad', 'autolabel_tpu_torch/csrc/ba_normal.cu',
+         'autolabel_tpu/mapping/ba.py:63', 'K9g'),
     ]
     kernel_names.update(new_names)
     kernel_names.update({k: stochastic['names'][k] for k in ('K6', 'K7')})
     kernel_names['K8'] = render_cli['names']['K8']
     kernel_names['K2x'] = pose['names']['K2x']
+    kernel_names['K9g'], kernel_names['K9m'] = ba_cuda.NAMES
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
     # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7,
     # phase 13's fixed-budget preview frames for K8, phase 16's register
-    # CLI for K2x.
+    # CLI for K2x, phase 18's bundle_adjust for K9.
     main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
                        preview['launches'] if key == 'K8' else
                        pose['register_launches'] if key == 'K2x' else
+                       mapping['launches']['ba'] if key in ('K9m', 'K9g')
+                       else
                        fl_launches['xla'] if key in new_names
                        else train_launches) for *_, key in table_rows}
     kernels = [{
@@ -5483,6 +6134,10 @@ def main():
             kernel_names[key], 0),
         'launches_joint': pose['joint_launches'].get(kernel_names[key], 0),
         'launches_teacher_language': teachers['language']['launches'].get(
+            kernel_names[key], 0),
+        'launches_mapping_ba': mapping['launches']['ba'].get(
+            kernel_names[key], 0),
+        'launches_mapping_sfm': mapping['launches']['sfm'].get(
             kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
@@ -5540,6 +6195,7 @@ def main():
                    'interactive': interactive,
                    'pose': {k: v for k, v in pose.items() if k != 'names'},
                    'teachers': teachers,
+                   'mapping': mapping,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

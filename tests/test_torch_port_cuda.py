@@ -1846,3 +1846,169 @@ def test_compress_features_on_card(cuda, where):
     assert codes.shape == (2, 16, 24, 8) and codes.device.type == 'cuda'
     assert bool(torch.isfinite(codes.float()).all()) and bool(
         (codes >= 0).all())
+
+
+def _ba_ring(seed, n_cams=12, n_pts=400, views=6):
+    """A ring of cameras around points near the origin, each point seen by
+    `views` consecutive cameras, 0.5 px noise and 3% outliers; camera 1
+    at theta = 0 (R = I) looking along +z from (0, 0, -3)."""
+    rng = np.random.default_rng(seed)
+    from autolabel_tpu_torch.mapping.ba import rodrigues, rotmat_to_rvec
+    rv, tv = [], []
+    for i in range(n_cams):
+        a = 2 * np.pi * i / n_cams if i != 1 else 0.0
+        C = np.array([3 * np.sin(a), 0.2 * np.cos(3 * a) * (i != 1),
+                      -3 * np.cos(a)])
+        z = -C / np.linalg.norm(C)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        rv.append(rotmat_to_rvec(R))
+        tv.append(-R @ C)
+    rv, tv = np.stack(rv), np.stack(tv)
+    pts = rng.uniform(-0.8, 0.8, (n_pts, 3))
+    first = rng.integers(0, n_cams, n_pts)
+    ci = ((first[:, None] + np.arange(views)) % n_cams).ravel()
+    pi = np.repeat(np.arange(n_pts), views)
+    R = rodrigues(torch.tensor(rv)).numpy()
+    Xc = np.einsum('nij,nj->ni', R[ci], pts[pi]) + tv[ci]
+    xy = Xc[:, :2] / Xc[:, 2:3] * 400 + [320, 240]
+    xy += rng.normal(scale=0.5, size=xy.shape)
+    xy += (rng.random(len(xy)) < 0.03)[:, None] * rng.uniform(-40, 40,
+                                                               xy.shape)
+    start = (rv + rng.normal(scale=0.003, size=rv.shape),
+             tv + rng.normal(scale=0.02, size=tv.shape),
+             pts + rng.normal(scale=0.02, size=pts.shape))
+    start[0][1] = 0.0
+    return start, (400.0, 400.0, 320.0, 240.0), ci, pi, xy
+
+
+def _ba_inputs(device, start, intr, ci, pi, xy, order=True):
+    from autolabel_tpu_torch.mapping import ba
+    if order:
+        o = np.argsort(ci, kind='stable')
+        ci, pi, xy = ci[o], pi[o], xy[o]
+    f = dict(dtype=torch.float32, device=device)
+    params = tuple(torch.tensor(np.asarray(a), **f) for a in start) \
+        + (torch.tensor(0.01, **f),)
+    unit = (intr, torch.tensor(ci, dtype=torch.int32, device=device),
+            torch.tensor(pi, dtype=torch.int32, device=device),
+            torch.tensor(xy, **f), torch.ones(len(ci), **f))
+    sw = ba._huber_sqrt_weights(params, unit, 4.0)
+    return params, unit[:4] + (sw,)
+
+
+def _rel(a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+
+@pytest.mark.parametrize('order', [True, False])
+@pytest.mark.parametrize('refine_focal', [False, True])
+def test_ba_kernel_matches_plain(cuda, refine_focal, order):
+    """K9's residual, cost, gradient and damped product against the plain
+    version (torch.func) within 1e-5 by relative norm, in camera order
+    (bundle_adjust's) and in track order (the segmented camera sums must
+    not need the order); each entry counted once a call."""
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import ba_cuda
+    prob = _ba_ring(0)
+    params, const = _ba_inputs(cuda, *prob, order=order)
+    kern = ba.products(params, const, refine_focal)
+    assert isinstance(kern, ba_cuda.KernelProducts)
+    plain = ba.PlainProducts(params, const, refine_focal)
+    v = torch.randn(ba.size(12, 400), generator=torch.Generator()
+                    .manual_seed(1)).to(cuda)
+    _kernels.reset_launches()
+    got = list(kern.residual_grad()) + [kern.matvec(v, 0.3)]
+    torch.cuda.synchronize()
+    assert dict(_kernels.launches) == {n: 1 for n in ba_cuda.NAMES}
+    want = list(plain.residual_grad()) + [plain.matvec(v, 0.3)]
+    for name, a, b in zip(('r', 'cost', 'g', 'matvec'), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= 1e-5, (name, _rel(a, b))
+    g = got[2]
+    assert not g[:3].any() and not g[36:39].any()
+    assert bool(g[-1] != 0) == refine_focal
+
+
+def test_ba_kernel_at_clamp_and_tie(cuda):
+    """An observation behind its camera (the depth clamp) and one exactly
+    at z = 1e-6 (a tie, half the gradient), Huber-weighted: K9 within 1e-5
+    of the plain version by relative norm (taken in float64: the clamped
+    rows' products pass fp32's range in a norm)."""
+    from autolabel_tpu_torch.mapping import ba
+    rv = np.array([[0.1, -0.2, 0.05], [0.0, 0.0, 0.0], [0.02, 0.3, -0.1]])
+    tv = np.array([[0.1, 0.0, 3.0], [0.0, 0.0, float(np.float32(1e-6))],
+                   [-0.5, 0.1, 3.5]])
+    pts = np.array([[0.2, -0.1, -0.5], [0.3, 0.2, 0.0], [0.1, 0.1, 1.0],
+                    [-0.4, 0.2, 1.5], [0.5, -0.3, 2.0], [0.0, 0.4, 0.8]])
+    ci, pi = np.repeat(np.arange(3), 6), np.tile(np.arange(6), 3)
+    xy = np.random.default_rng(0).uniform(0, 600, (18, 2))
+    params, const = _ba_inputs(cuda, (rv, tv, pts), (500.0, 500.0, 320.0,
+                                                     240.0), ci, pi, xy)
+    # point 1 sits exactly at the clamp depth of camera 1: a tie
+    assert float(params[2][1, 2] + params[1][1, 2]) == ba.Z_MIN \
+        or float(params[2][1, 2] + params[1][1, 2]) == float(
+            np.float32(ba.Z_MIN))
+    v = torch.randn(ba.size(3, 6), generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    for refine in (False, True):
+        kern = ba.products(params, const, refine)
+        plain = ba.PlainProducts(params, const, refine)
+        got = list(kern.residual_grad()) + [kern.matvec(v, 0.0)]
+        want = list(plain.residual_grad()) + [plain.matvec(v, 0.0)]
+        for name, a, b in zip(('r', 'cost', 'g', 'matvec'), got, want):
+            assert _rel(a, b) <= 1e-5, (name, refine, _rel(a, b))
+
+
+def test_ba_kernel_refuses_what_it_does_not_take(cuda):
+    from autolabel_tpu_torch.mapping import ba
+    params, const = _ba_inputs(cuda, *_ba_ring(0))
+    wide = tuple(t.double() for t in params)
+    with pytest.raises(ValueError):
+        ba.products(wide, const, False)
+    kern = ba.products(params, const, False)
+    with pytest.raises(ValueError):
+        kern.matvec(torch.zeros(5, device=cuda), 0.1)
+    cpu_const = const[:1] + tuple(t.cpu() for t in const[1:])
+    with pytest.raises(ValueError):
+        ba.products(params, cpu_const, False)
+
+
+@pytest.mark.parametrize('refine_focal', [False, True])
+def test_ba_bundle_adjust_on_card(cuda, refine_focal):
+    """bundle_adjust on the card goes through K9 (counted, 1 + cg_iters
+    products and 3 residual calls an LM step, one more for the final rms)
+    and ends within 1e-3 px of the same solve with the plain products on
+    the card."""
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import ba_cuda
+    start, intr, ci, pi, xy = _ba_ring(3)
+    if refine_focal:
+        intr = (440.0, 440.0, 320.0, 240.0)
+    _kernels.reset_launches()
+    stats = {}
+    got = ba.bundle_adjust(*start, intr, ci, pi, xy, max_iters=8,
+                           refine_focal=refine_focal, cg_iters=20,
+                           device=cuda, stats=stats)
+    lm = stats['lm']
+    assert _kernels.launches[ba_cuda.NAMES[1]] == lm * 21
+    assert _kernels.launches[ba_cuda.NAMES[0]] == lm * 3 + 1
+    saved = ba.products, ba.residual
+    ba.products = ba.PlainProducts
+    ba.residual = ba._residual
+    try:
+        want = ba.bundle_adjust(*start, intr, ci, pi, xy, max_iters=8,
+                                refine_focal=refine_focal, cg_iters=20,
+                                device=cuda)
+    finally:
+        ba.products, ba.residual = saved
+    assert abs(got[4] - want[4]) <= 1e-3, (got[4], want[4])
+    # the rms counts the 3% outliers (up to 40 px): it falls, not to the
+    # noise
+    before = ba.bundle_adjust(*start, intr, ci, pi, xy, max_iters=0,
+                              device=cuda)[4]
+    assert got[4] < 0.8 * before, (got[4], before)
+    if refine_focal:
+        assert abs(got[3][0] - 400.0) < 0.5 * 40.0, got[3]
