@@ -9,9 +9,13 @@ Jacobian products, so the damped normal equations (J^T W J + lam I) delta =
 The products of one LM step come from `products`: on CUDA tensors K9
 (ops/ba_cuda, csrc/ba_normal.cu), on CPU tensors `AnalyticProducts`, K9's
 analytic arithmetic in torch (index_add_ for its atomics), which the CPU
-tests hold against JAX's autodiff. `PlainProducts`, torch.func's vjp and
-jvp of `_residual` (the direct mirror of JAX's `_lm_step`), is the plain
-version and the oracle on the card. It is not the CPU's because
+tests hold against JAX's autodiff. Each has `cg_solve`: on the card K9's
+whole CG solve in one launch (JAX's jitted `_lm_step` runs jax.scipy's
+CG as a device loop too); on the CPU, and for the plain products, `cg`
+over their matvec, the solve's plain version. `PlainProducts`,
+torch.func's vjp and jvp of `_residual` (the direct mirror of JAX's
+`_lm_step`), is the plain version and the oracle on the card. It is not
+the CPU's because
 torch.func's forward mode costs about 12 ms a product on the CPU at any
 size (Python decompositions of its scalar ops), 15 times
 `AnalyticProducts` on a 720-observation problem, which would make a CPU
@@ -158,7 +162,16 @@ def gauge_mask(m, p, refine_focal, device):
     return mask
 
 
-class PlainProducts:
+class _TorchSolve:
+    """`cg` over the products' own matvec: the plain version of K9's
+    solve (frozen on CUDA tensors, no host sync an iteration)."""
+
+    def cg_solve(self, b, lam, maxiter, tol=CG_TOL):
+        return cg(lambda v: self.matvec(v, lam), b, self.m, self.p,
+                  maxiter, tol, frozen=b.device.type == 'cuda')
+
+
+class PlainProducts(_TorchSolve):
     """The plain version: torch.func's vjp of `_residual` at params, kept
     for the step as JAX keeps its pullback, and a jvp a product."""
 
@@ -183,16 +196,18 @@ class PlainProducts:
         return flatten(jtjv) + lam * flatten(v)
 
 
-def products(params, const, refine_focal):
+def products(params, const, refine_focal, layout=None):
     """One LM step's products: K9's arithmetic in torch on CPU tensors
-    (`AnalyticProducts`), K9 on CUDA tensors."""
+    (`AnalyticProducts`), K9 on CUDA tensors. layout: K9's solve layout
+    (`ba_cuda.Layout`, built once a bundle adjustment; None: built at the
+    first solve)."""
     rvecs = params[0]
     if rvecs.device.type == 'cpu':
         return AnalyticProducts(params, const, refine_focal)
     return ba_cuda.KernelProducts(
         rodrigues(rvecs).contiguous(),
         rodrigues_jacobian(rvecs).contiguous(), *params[1:], const,
-        refine_focal)
+        refine_focal, layout)
 
 
 def residual(params, const):
@@ -245,7 +260,7 @@ def _scatter(lin, e0, e1, m, p, refine_focal):
     return out
 
 
-class AnalyticProducts:
+class AnalyticProducts(_TorchSolve):
     """K9's analytic arithmetic in torch: the observations' linearisation
     once a step, then per product the forward J v and the scatter J^T e,
     with index_add_ for K9's atomics."""
@@ -343,14 +358,15 @@ def cg(matvec, b, m, p, maxiter, tol=CG_TOL, frozen=False):
     return x, k
 
 
-def _lm_step(params, const, lam, refine_focal, cg_iters, stats=None):
+def _lm_step(params, const, lam, refine_focal, cg_iters, stats=None,
+             layout=None):
     """One damped Gauss-Newton step: returns (candidate params, cost).
-    stats, a dict, gets the CG iterations run appended under 'cg'."""
+    stats, a dict, gets the CG iterations run appended under 'cg' (a
+    device tensor on the card). layout: see `products`."""
     m, p = params[0].shape[0], params[2].shape[0]
-    prod = products(params, const, refine_focal)
+    prod = products(params, const, refine_focal, layout)
     _, cost, g = prod.residual_grad()
-    delta, k = cg(lambda v: prod.matvec(v, lam), -g, m, p, cg_iters,
-                  frozen=g.device.type == 'cuda')
+    delta, k = prod.cg_solve(-g, lam, cg_iters)
     if stats is not None:
         stats.setdefault('cg', []).append(k)
     delta = _mask_gauge(unflatten(delta, m, p), refine_focal)
@@ -382,7 +398,8 @@ def bundle_adjust(rvecs, tvecs, points, intrinsics, cam_idx, pt_idx, xy,
     cam_idx/pt_idx: (N,) int observation lists; xy: (N, 2) pixels.
     device: None for the card (raises without one), or 'cpu'. On the card
     the observations are taken in camera order (sorted once), which K9's
-    camera sums need; the result does not depend on the order.
+    solve needs, and its layout (the cameras' ranges, the point CSR) is
+    built once; the result does not depend on the order.
     stats, a dict, gets the LM iterations run ('lm') and each step's CG
     iterations ('cg').
 
@@ -400,9 +417,12 @@ def bundle_adjust(rvecs, tvecs, points, intrinsics, cam_idx, pt_idx, xy,
     pt_idx = torch.as_tensor(np.asarray(pt_idx), dtype=torch.int32,
                              device=dev)
     xy = torch.as_tensor(np.asarray(xy), **f32)
+    layout = None
     if dev.type == 'cuda':
         order = torch.argsort(cam_idx, stable=True)
         cam_idx, pt_idx, xy = cam_idx[order], pt_idx[order], xy[order]
+        layout = ba_cuda.Layout(cam_idx, pt_idx, params[0].shape[0],
+                                params[2].shape[0])
     ones = torch.ones(xy.shape[0], **f32)
 
     lam = 1e-2
@@ -413,7 +433,7 @@ def bundle_adjust(rvecs, tvecs, points, intrinsics, cam_idx, pt_idx, xy,
                                      huber_px)
         const = (intr0, cam_idx, pt_idx, xy, sqrt_w)
         cand, cost = _lm_step(params, const, lam, refine_focal, cg_iters,
-                              stats)
+                              stats, layout)
         new_cost = _cost(cand, const, refine_focal)
         if bool(new_cost < cost):
             params, lam = cand, max(lam * 0.3, 1e-7)

@@ -36,13 +36,22 @@ def adam_direction(grad, mu, nu, count):
     """One optax.adam step (ADAM_B1, ADAM_B2, ADAM_EPS) out of place: the
     new moments and the direction mu_hat / (sqrt(nu_hat) + eps) that the
     update takes with -lr, the bias corrections at the count after this
-    update. count: the updates applied before this one (an int or a
-    tensor)."""
+    update, in fp32 as optax takes them (1 - 0.999**1 in float64 is 1e-3;
+    optax's is 9.9998713e-4, from 0.999 rounded to fp32: the steps would
+    part by 6e-6 of the lr). count: the updates applied before this one
+    (an int, the corrections then taken by numpy's fp32 power, equal to
+    XLA's; or an fp32 tensor, on its device)."""
     mu = ADAM_B1 * mu + (1.0 - ADAM_B1) * grad
     nu = ADAM_B2 * nu + (1.0 - ADAM_B2) * grad * grad
-    k = count + 1
-    mu_hat = mu / (1.0 - ADAM_B1 ** k)
-    nu_hat = nu / (1.0 - ADAM_B2 ** k)
+    if isinstance(count, torch.Tensor):
+        k = count + 1
+        bc1, bc2 = 1.0 - ADAM_B1 ** k, 1.0 - ADAM_B2 ** k
+    else:
+        one, k = np.float32(1.0), np.float32(count + 1)
+        bc1 = float(one - np.float32(ADAM_B1) ** k)
+        bc2 = float(one - np.float32(ADAM_B2) ** k)
+    mu_hat = mu / bc1
+    nu_hat = nu / bc2
     return mu, nu, mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
 
 

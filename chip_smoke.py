@@ -315,11 +315,19 @@ Phases, each failing loudly:
      refine_focal off and on, within 1e-5 by relative norm, and against
      the plain version in float64 (K9's error at most 2x the plain fp32
      version's); the same on observations at the depth clamp and at a
-     tie. (b) Each entry by events and device time, the plain product,
-     the yardstick (two torch.sparse.mm of a CSR J built once), the byte
-     bound. (c) bundle_adjust (30 LM steps, 50 CG iterations) in turns
-     plain, kernels, kernels, plain: seconds, LM and CG iterations, K9
-     launches an LM step, the final rms within 1e-3 px of the plain
+     tie. K9's CG solve (entry 3, one cooperative launch) against
+     cg(frozen=True) over the matvec entry and over the plain products:
+     bit-equal across two calls, its first product (and focal entry)
+     within 1e-5 of the matvec entry, k equal, the delta within 1e-4 or,
+     with refine_focal, no farther from float64 than 2x the loop. (b)
+     Each entry by events and device time, the plain product, the
+     yardstick (two torch.sparse.mm of a CSR J built once), the byte
+     bound; the solve in turns with the torch loop around the matvec
+     entry, and its bound. (c) bundle_adjust (30 LM steps, 50 CG
+     iterations) in turns plain, loop, kernels, kernels, loop, plain:
+     seconds, LM and CG iterations, K9 launches an LM step (one solve and
+     three residual calls), an LM step's wall and busy share in turns
+     with the loop, the final rms within 1e-3 px of the plain
      solve's, rotations and centres after Sim(3) against the truth, one
      traced LM step's busy share, and a refine_focal solve from a focal
      10% wrong. (d) On the fixture room (make_room_scene's 96 frames),
@@ -4744,6 +4752,7 @@ BA_ITERS, BA_CG = 30, 50
 BA_TOL = 1e-5  # K9 against the plain fp32 version, by relative norm
 BA_ROOM = 2.0  # K9's float64 error at most this times the plain fp32's
 BA_RMS_TOL = 1e-3  # px, the kernel solve's final rms against the plain's
+BA_SOLVE_TOL = 1e-4  # K9's fused solve's delta against the torch CG loop's
 BA_REPS = 20
 # K9's fp32 operations an observation, counted from csrc/ba_normal.cu's
 # kernel bodies with refine_focal off: an fma 2, any other add, multiply
@@ -4760,6 +4769,17 @@ K9_FLOPS = {
     'matvec': dict(project=22, tangents=45, jv=46, weight=2, scatter=49),
     'residual_grad': dict(project=22, residual=8, cost=4, tangents=45,
                           scatter=49)}
+# The solve's bound, from what its rule needs: a CG iteration moves a
+# product's bytes (the matvec's count, which holds the read of q and the
+# write of Aq; q . Aq is taken as Aq is written) and makes 9 passes over
+# the L-vectors beyond it: q_{k+1} = r + beta q_k (r and q_k read, q_{k+1}
+# written: 3) and x, r updated (x, q, r and Aq read, x and r written: 6;
+# r . r taken as r is written). It does a product's operations, lam q (1
+# a parameter) and 10 a parameter (the two dots' multiply-adds, the two
+# updates' fma, q_{k+1}'s fma); counted for the iterations this run's
+# data took.
+K9_CG_VECTOR_PASSES = 9
+K9_CG_VECTOR_FLOPS = 10
 MAP_TRACK_POINTS, MAP_NOISE_PX = 4000, 0.3
 MAP_PERTURB = (0.005, 0.02, 0.02)  # rad, m, m
 
@@ -4942,11 +4962,109 @@ def _plain_ba():
     the plain residual in place of K9."""
     from autolabel_tpu_torch.mapping import ba
     saved = (ba.products, ba.residual)
-    ba.products, ba.residual = ba.PlainProducts, ba._residual
+    ba.products = lambda params, const, refine_focal, layout=None: \
+        ba.PlainProducts(params, const, refine_focal)
+    ba.residual = ba._residual
     try:
         yield
     finally:
         ba.products, ba.residual = saved
+
+
+@contextlib.contextmanager
+def _loop_ba():
+    """The parent's path: K9's products with the torch CG loop
+    (cg(frozen=True), ~30 launches an iteration) around K9's matvec entry
+    in place of K9's fused solve."""
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import ba_cuda
+    saved = ba_cuda.KernelProducts.cg_solve
+    ba_cuda.KernelProducts.cg_solve = ba._TorchSolve.cg_solve
+    try:
+        yield
+    finally:
+        ba_cuda.KernelProducts.cg_solve = saved
+
+
+def _k9_solve_hold(checks, tag, params, const, lam, maxiter, wide=True):
+    """K9's fused solve against cg(frozen=True) over K9's matvec entry and
+    over the plain products, at refine_focal off and on: bit-equal across
+    two calls, k equal, and the delta within BA_SOLVE_TOL of each loop's
+    by relative norm (in float64) or, where fp32 rounding moves every fp32
+    solve further (refine_focal, whose focal and depths nearly trade off:
+    at the final-BA size every fp32 solve lies near 7e-3 from float64, and
+    two orders of the product's sums have parted by 1.5e-3), (wide) no
+    farther from the float64 solve (cg over the plain products in float64)
+    than BA_ROOM times that loop. That rule passes a solve whose product
+    is off by a little, so the solve's own product (its first iteration's
+    Aq, the focal entry summed over its blocks with refine_focal) is held
+    to K9's matvec entry within BA_TOL, as a whole and at the focal entry
+    alone. The K9 loop run twice gives that loop's own spread (its point
+    atomics add in any order), printed. Returns the largest |solve - K9
+    loop| and the relative errors and k by refine_focal."""
+    import torch
+    from autolabel_tpu_torch.mapping import ba
+    rel = lambda a, b: float((a.double() - b.double()).norm()
+                             / b.double().norm().clamp(min=1e-300))
+    worst, out = 0.0, {}
+    for refine in (False, True):
+        kern = ba.products(params, const, refine)
+        b = -kern.residual_grad()[2]
+        x, k = kern.cg_solve(b, lam, maxiter)
+        x2, k2 = kern.cg_solve(b, lam, maxiter)
+        checks.true(f'K9 solve {tag} bit-equal across two calls refine_focal='
+                    f'{refine}', bool(torch.equal(x, x2))
+                    and int(k) == int(k2), f'k {int(k)}, {int(k2)}')
+        # (in float64: at the clamp the products' norm overflows fp32)
+        aq, mv = kern.solve_product(b, lam), kern.matvec(b, lam)
+        for what, sl in (('', slice(None)),
+                         ('\'s focal entry', slice(-1, None))):
+            if what and not refine:
+                continue
+            err = rel(aq[sl], mv[sl])
+            checks.true(f'K9 solve {tag} first product{what} against the '
+                        f'matvec entry refine_focal={refine}',
+                        bool(torch.isfinite(aq).all()) and err <= BA_TOL,
+                        f'rel_err={err:.3e} (tol {BA_TOL}), |want| '
+                        f'{float(mv[sl].double().norm()):.3e}')
+        legs = {'K9 matvec loop': ba.cg(lambda v: kern.matvec(v, lam), b,
+                                        kern.m, kern.p, maxiter,
+                                        frozen=True),
+                'plain loop': ba.PlainProducts(
+                    params, const, refine).cg_solve(b, lam, maxiter)}
+        x64 = None
+        if wide:
+            p64 = tuple(t.double() for t in params)
+            c64 = const[:3] + (const[3].double(), const[4].double())
+            x64 = ba.PlainProducts(p64, c64, refine).cg_solve(
+                b.double(), lam, maxiter)[0]
+        torch.cuda.synchronize()
+        errs = {}
+        for leg, (ref, k_ref) in legs.items():
+            err = rel(x, ref)
+            room = None if x64 is None else (rel(x, x64), rel(ref, x64))
+            ok = err <= BA_SOLVE_TOL or (
+                room is not None and room[0] <= BA_ROOM * room[1])
+            against = 'not taken' if room is None else (
+                f'solve {room[0]:.3e}, loop {room[1]:.3e} (room {BA_ROOM})')
+            checks.true(f'K9 solve {tag} against the {leg} refine_focal='
+                        f'{refine}', bool(torch.isfinite(x).all()) and ok
+                        and int(k) == int(k_ref),
+                        f'rel_err={err:.3e} (tol {BA_SOLVE_TOL}), against '
+                        f'float64 {against}, k {int(k)} against '
+                        f'{int(k_ref)}')
+            errs[leg] = dict(rel=err, float64=room, k=int(k_ref))
+            if leg == 'K9 matvec loop':
+                worst = max(worst, float((x - ref).abs().max()))
+        errs['loops'] = rel(legs['K9 matvec loop'][0], legs['plain loop'][0])
+        again = ba.cg(lambda v: kern.matvec(v, lam), b, kern.m, kern.p,
+                      maxiter, frozen=True)[0]
+        errs['loop_self'] = rel(again, legs['K9 matvec loop'][0])
+        print(f'K9 solve {tag} refine_focal={refine}: the K9 matvec loop '
+              f'against itself rel {errs["loop_self"]:.3e}, against the '
+              f'plain loop {errs["loops"]:.3e}')
+        out[refine] = dict(k=int(k), legs=errs)
+    return worst, out
 
 
 def _pose_errors(truth, got):
@@ -5097,7 +5215,15 @@ def _mapping_phase(dev, seed, gpu, checks, results):
     # (its products reach 1e20, so its largest |K9 - plain| is not the
     # kernels line's max_abs_err: that is the final-BA size's)
     _k9_hold(checks, 'clamp+tie', cparams, cconst, cv, 0.0, wide=False)
-    print(f'mapping (a): {time.perf_counter() - t_phase:.1f} s')
+    # K9's fused solve against the torch CG loop around its matvec entry
+    # and around the plain products
+    solve_worst, solve_errs = _k9_solve_hold(checks, 'final-BA', params,
+                                             const, lam, BA_CG)
+    _k9_solve_hold(checks, 'clamp+tie', cparams, cconst, lam, 10, wide=False)
+    out['solve_errors'] = solve_errs
+    print(f'mapping (a): {time.perf_counter() - t_phase:.1f} s; the solve '
+          f'against the loops and float64 by refine_focal {solve_errs}, '
+          f'largest |solve - K9 loop| {solve_worst:.3e}')
 
     # (b) times: each entry by events and device time, the plain version,
     # the CSR yardstick, the bound
@@ -5144,36 +5270,97 @@ def _mapping_phase(dev, seed, gpu, checks, results):
               f'J built once), bound {t["bound"][0]:.4f} ms '
               f'({t["bound"][1]}, {nbytes[entry] / 1e6:.2f} MB): '
               f'{share:.1%} of it')
+    # the fused solve in turns with the torch CG loop around the matvec
+    # entry (the parent's path), the plain solve, the bound (its parts
+    # alone: kernel_compare.py --only K9)
+    b = -kern.residual_grad()[2]
+    legs = {'solve': lambda: kern.cg_solve(b, lam, BA_CG),
+            'loop': lambda: ba.cg(lambda v_: kern.matvec(v_, lam), b, m, p,
+                                  BA_CG, frozen=True)}
+    turns = {leg: [] for leg in legs}
+    turns_dev = {leg: [] for leg in legs}
+    for leg in ('loop', 'solve', 'solve', 'loop'):
+        turns[leg].append(_cuda_ms(legs[leg], 5))
+        d = _kernel_ms(legs[leg], 3)
+        turns_dev[leg].append(None if d is None else sum(d.values()))
+    solve_split = _kernel_ms(legs['solve'], 3)
+    k_run = int(legs['solve']()[1])
+    L = ba.size(m, p)
+    solve_bytes = (nbytes['matvec'] + K9_CG_VECTOR_PASSES * 4 * L) * k_run \
+        + _nbytes(b, b)
+    solve_flops = (flops['matvec'] + K9_CG_VECTOR_FLOPS * L) * k_run
+    plain_solve = ba.PlainProducts(params, const, False)
+    # a trace may hold no device time: the median of those that do
+    dev_med = {leg: (lambda v: float(np.median(v)) if v else None)(
+        [t for t in turns_dev[leg] if t is not None]) for leg in legs}
+    solve_t = dict(
+        ms=float(np.median(turns['solve'])), device_ms=dev_med['solve'],
+        device_split=solve_split, turns=turns, turns_device=turns_dev,
+        loop_ms=float(np.median(turns['loop'])),
+        loop_device_ms=dev_med['loop'],
+        k=k_run, grid=ba_cuda.solve_grid(dev.index),
+        plain_ms=_cuda_ms(lambda: plain_solve.cg_solve(b, lam, BA_CG), 1),
+        library_ms=None, bytes=solve_bytes,
+        bound=_bound(solve_bytes, solve_flops, PEAK_FP32),
+        bound_once=_bound(_nbytes(*ins, b, b), solve_flops, PEAK_FP32))
+    timing['solve'] = solve_t
+    dev_share = (None if solve_t['device_ms'] is None else
+                 f'{solve_t["bound"][0] / solve_t["device_ms"]:.1%}')
+    print(f'kernel K9 cg_solve [{gpu}] N = {n}, {k_run} iterations, grid '
+          f'{solve_t["grid"]} x {ba_cuda.SOLVE_THREADS}: in turns with the '
+          f'torch loop around the matvec entry (loop, solve, solve, loop): '
+          f'solve '
+          f'{turns["solve"]} ms by events, {turns_dev["solve"]} device; '
+          f'loop {turns["loop"]} by events, {turns_dev["loop"]} device; '
+          f'plain (cg over torch.func) {solve_t["plain_ms"]:.1f} ms; bound '
+          f'{solve_t["bound"][0]:.4f} ms ({solve_t["bound"][1]}, '
+          f'{solve_bytes / 1e6:.1f} MB over {k_run} iterations): '
+          f'{solve_t["bound"][0] / solve_t["ms"]:.1%} by events, {dev_share} '
+          f'device; each input once {solve_t["bound_once"][0]:.4f} ms')
     out['timing'] = timing
     print(f'mapping (a)-(b): {time.perf_counter() - t_phase:.1f} s')
 
-    # (c) the whole bundle_adjust in turns: plain, kernels, kernels, plain
-    solves = {'plain': [], 'kernels': []}
-    for leg in ('plain', 'kernels', 'kernels', 'plain'):
+    # (c) the whole bundle_adjust in turns: plain, the torch loop around
+    # K9's products (the parent's path), K9's solve, and back
+    solves = {'plain': [], 'loop': [], 'kernels': []}
+    for leg in ('plain', 'loop', 'kernels', 'kernels', 'loop', 'plain'):
         if leg == 'plain':
             with _plain_ba():
                 res = _ba_solve(dev, prob, BA_INTR, False, names)
             checks.true(f'mapping ba plain run launches no K9',
                         not any(res[3].values()), str(res[3]))
+        elif leg == 'loop':
+            with _loop_ba():
+                res = _ba_solve(dev, prob, BA_INTR, False, names)
         else:
             res = _ba_solve(dev, prob, BA_INTR, False, names)
         solves[leg].append(res)
     k_out, k_s, k_stats, k_launches = solves['kernels'][0]
     p_out = solves['plain'][0][0]
+    l_out, _, l_stats, l_launches = solves['loop'][0]
     lm = k_stats['lm']
     per_step = {k: v_ / lm for k, v_ in k_launches.items()}
     print(f'mapping bundle_adjust [{gpu}] seconds in turns: plain '
-          f'{[round(s[1], 3) for s in solves["plain"]]}, kernels '
+          f'{[round(s[1], 3) for s in solves["plain"]]}, loop '
+          f'{[round(s[1], 3) for s in solves["loop"]]}, kernels '
           f'{[round(s[1], 3) for s in solves["kernels"]]}; LM iterations '
-          f'{lm} (plain {solves["plain"][0][2]["lm"]}), CG iterations '
-          f'{sum(k_stats["cg"])} ({k_stats["cg"]}); K9 launches '
-          f'{k_launches} = {per_step} an LM step')
-    checks.true('mapping ba kernels launched every LM step',
-                k_launches[names[1]] >= lm * (BA_CG + 1)
+          f'{lm} (plain {solves["plain"][0][2]["lm"]}, loop '
+          f'{l_stats["lm"]}), CG iterations {sum(k_stats["cg"])} '
+          f'({k_stats["cg"]}; loop {sum(l_stats["cg"])}); K9 launches '
+          f'{k_launches} = {per_step} an LM step (loop {l_launches})')
+    checks.true('mapping ba kernels: one K9 solve and 3 residual calls an '
+                'LM step, no product outside the solve',
+                k_launches[names[2]] == lm and k_launches[names[1]] == 0
                 and k_launches[names[0]] >= 3 * lm, str(k_launches))
+    checks.true('mapping ba loop leg: the torch loop around K9\'s products',
+                l_launches[names[2]] == 0 and l_launches[names[1]]
+                >= l_stats['lm'] * (BA_CG + 1), str(l_launches))
     checks.true('mapping ba final rms: kernels within 1e-3 px of plain',
                 abs(k_out[4] - p_out[4]) <= BA_RMS_TOL,
                 f'({k_out[4]:.6f} against {p_out[4]:.6f} px)')
+    checks.true('mapping ba final rms: kernels within 1e-3 px of the loop',
+                abs(k_out[4] - l_out[4]) <= BA_RMS_TOL,
+                f'({k_out[4]:.6f} against {l_out[4]:.6f} px)')
     for leg, res in (('kernels', k_out), ('plain', p_out),
                      ('start', prob['start'] + (None, None))):
         errs = _pose_errors(prob['truth'], res)
@@ -5192,21 +5379,43 @@ def _mapping_phase(dev, seed, gpu, checks, results):
                 k_err[0] < start_err[0] and k_err[2] < 0.5 * start_err[2],
                 f'(rotation {k_err[0]:.4f} from {start_err[0]:.4f} deg, '
                 f'centres {k_err[2]:.4f} from {start_err[2]:.4f} m)')
-    # one traced LM step: its busy share
+    # an LM step's wall and busy share (one traced step), in turns with
+    # the torch loop around K9's products
     sqrt_w = ba._huber_sqrt_weights(params, unit, 4.0)
     step_const = unit[:4] + (sqrt_w,)
-    step = lambda: ba._lm_step(params, step_const, 1e-2, False, BA_CG)
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows, busy = _device_profile(step)
+    layout = ba_cuda.Layout(const[1], const[2], m, p)
+    step = lambda: ba._lm_step(params, step_const, 1e-2, False, BA_CG,
+                               layout=layout)
+    step_ms = {'loop': [], 'kernels': []}
+    step_busy = {'loop': [], 'kernels': []}
+    for leg in ('loop', 'kernels', 'kernels', 'loop'):
+        with _loop_ba() if leg == 'loop' else contextlib.nullcontext():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / 3
+            rows, busy = _device_profile(step)
+        step_ms[leg].append(ms)
+        step_busy[leg].append(_print_profile(
+            gpu, f'mapping LM step ({leg})', rows, busy, ms, 'LM step'))
+    # what of the step's host time dR/drvec takes (torch.func's vmap(jacfwd))
+    jac_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ba.rodrigues_jacobian(params[0])
+        torch.cuda.synchronize()
+        jac_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f'mapping LM step [{gpu}] in turns (loop, kernels, kernels, '
+          f'loop): wall ms {step_ms}, busy share {step_busy}; '
+          f'rodrigues_jacobian (M = {m}) {[round(t, 3) for t in jac_ms]} ms '
+          f'of wall a call')
     out['lm_step_ms'] = step_ms
-    out['lm_step_busy'] = _print_profile(gpu, 'mapping LM step', rows, busy,
-                                         step_ms, 'LM step')
+    out['lm_step_busy'] = step_busy
+    out['rodrigues_jacobian_ms'] = jac_ms
     # refine_focal from a focal 10% wrong
     wrong = (BA_INTR[0] * 1.1, BA_INTR[1] * 1.1) + BA_INTR[2:]
     # (the kernels alone: a plain solve takes 26 s here)
@@ -5328,14 +5537,26 @@ def _mapping_phase(dev, seed, gpu, checks, results):
                sfm_launches=sfm_launches, front_end=front_end,
                room_s=time.perf_counter() - t_room)
 
-    for key, entry in (('K9m', 'matvec'), ('K9g', 'residual_grad')):
+    for key, entry in (('K9m', 'matvec'), ('K9g', 'residual_grad'),
+                       ('K9s', 'solve')):
         t = timing[entry]
-        results[key] = dict(max_abs_err=worst, ms=t['ms'],
+        results[key] = dict(max_abs_err=solve_worst if key == 'K9s'
+                            else worst, ms=t['ms'],
                             device_ms=t['device_ms'],
                             device_split=t['device_split'],
                             plain_ms=t['plain_ms'], bound=t['bound'],
                             library_ms=t['library_ms'])
-    out['launches'] = {'ba': k_launches, 'sfm': sfm_launches}
+    results['K9s'].update(loop_ms=solve_t['loop_ms'],
+                          loop_device_ms=solve_t['loop_device_ms'],
+                          k=solve_t['k'],
+                          grid=solve_t['grid'],
+                          bound_once_ms=solve_t['bound_once'][0])
+    # The products now run inside the solve: the matvec row counts them,
+    # the k of every solve of the main path (its entry is launched there
+    # no time).
+    ba_launches = dict(k_launches)
+    ba_launches['products_in_solves'] = sum(k_stats['cg'])
+    out['launches'] = {'ba': ba_launches, 'sfm': sfm_launches}
     out['phase_s'] = time.perf_counter() - t_phase
     print(f'phase 18: {out["phase_s"]:.1f} s')
     return out
@@ -6090,21 +6311,27 @@ def main():
          'autolabel_tpu/mapping/ba.py:81', 'K9m'),
         ('K9 ba_residual_grad', 'autolabel_tpu_torch/csrc/ba_normal.cu',
          'autolabel_tpu/mapping/ba.py:63', 'K9g'),
+        ('K9 ba_cg_solve', 'autolabel_tpu_torch/csrc/ba_normal.cu',
+         'autolabel_tpu/mapping/ba.py:94', 'K9s'),
     ]
     kernel_names.update(new_names)
     kernel_names.update({k: stochastic['names'][k] for k in ('K6', 'K7')})
     kernel_names['K8'] = render_cli['names']['K8']
     kernel_names['K2x'] = pose['names']['K2x']
-    kernel_names['K9g'], kernel_names['K9m'] = ba_cuda.NAMES
+    kernel_names['K9g'], kernel_names['K9m'], kernel_names['K9s'] = \
+        ba_cuda.NAMES
     # `launches`: the main path each kernel serves, phase 8's training
     # slice for the six kernels of slices 1-5, phase 9's flagship step
     # ('xla' heads) for K1s, K5 and K2s, phase 11's Run C for K6 and K7,
     # phase 13's fixed-budget preview frames for K8, phase 16's register
-    # CLI for K2x, phase 18's bundle_adjust for K9.
+    # CLI for K2x, phase 18's bundle_adjust for K9 (the matvec row: the
+    # products its solves ran, its entry being launched there no time).
     main_path = {key: (st_launches['C'] if key in ('K6', 'K7') else
                        preview['launches'] if key == 'K8' else
                        pose['register_launches'] if key == 'K2x' else
-                       mapping['launches']['ba'] if key in ('K9m', 'K9g')
+                       {kernel_names[key]: mapping['launches']['ba'][
+                           'products_in_solves']} if key == 'K9m' else
+                       mapping['launches']['ba'] if key in ('K9g', 'K9s')
                        else
                        fl_launches['xla'] if key in new_names
                        else train_launches) for *_, key in table_rows}
@@ -6154,7 +6381,9 @@ def main():
                                         'ties', 'fill_device_ms',
                                         'scatter_device_ms', 'host_us',
                                         'state_bound_ms', 'render_cli',
-                                        'tcnn', 'eval_3d', 'forms')
+                                        'tcnn', 'eval_3d', 'forms',
+                                        'loop_ms', 'loop_device_ms', 'parts',
+                                        'k', 'grid', 'bound_once_ms')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 

@@ -56,6 +56,19 @@ K2x's parts on each wide-rows form (g's stream, the gathers, the
 reduction with the partials' stores, the level sum, each alone). --only takes a regular expression of the cases to run (e.g.
 'K6|K7'). Prints one line per kernel and writes
 chiprun_out/kernel_compare.json.
+
+`--only K9` runs K9's parts alone (about a minute): the parent's damped
+product (csrc/ba_normal.cu's entry 2 as the parent checkout has it, with
+its point atomics) in parts, built from copies of the parent's source cut
+by macros (`K9_PARENT_PARTS`): the loads, projection and J v alone; + the
+camera scan and its atomics; + the point atomics; + `damp_kernel` (the
+entry); and the point atomics made plain stores; each by events and
+device time in turns on chip_smoke.py's mapping-ba-300x40k problem;
+what one grid.sync() of a cooperative kernel of 256-thread blocks costs
+at 1, 2, 4 and 8 blocks a multiprocessor; and this tree's fused solve
+(entry 3) in parts, from copies of its source cut the same way
+(`K9_SOLVE_PARTS`), in turns with the solve itself at lam 1e-2 and 50
+iterations.
 """
 import argparse
 import importlib
@@ -67,6 +80,291 @@ import types
 
 from chip_smoke import (_cuda_ms, _gpu_line, _k2x_forms, _k8_host_us,
                         _kernel_ms, k7_yardstick)
+
+K9_PARENT_PARTS = {1: 'loads, projection and J v alone',
+                   2: '+ the camera scan and its atomics',
+                   3: '+ the point atomics', 4: '+ damp_kernel (the entry)',
+                   5: 'part 3 with the point atomics as stores'}
+# The parent's matvec_kernel / scatter / entry 2, and what each part keeps.
+_K9_CUTS = (
+    ("""  if (o.live) {
+    const float* Rc = R + 9 * o.c;
+    float* gp = g + 6 * m + 3 * o.p;
+    for (int j = 0; j < 3; ++j)
+      atomicAdd(gp + j, Rc[j] * gx[0] + Rc[3 + j] * gx[1] + Rc[6 + j] * gx[2]);
+  }""", """  if (o.live) {
+    const float* Rc = R + 9 * o.c;
+    float* gp = g + 6 * m + 3 * o.p;
+#if K9_PART == 5
+    for (int j = 0; j < 3; ++j)
+      k9_store[3 * o.n + j] = Rc[j] * gx[0] + Rc[3 + j] * gx[1]
+                              + Rc[6 + j] * gx[2];
+#elif K9_PART >= 3
+    for (int j = 0; j < 3; ++j)
+      atomicAdd(gp + j, Rc[j] * gx[0] + Rc[3 + j] * gx[1] + Rc[6 + j] * gx[2]);
+#else
+    float s = 0.f;
+    for (int j = 0; j < 3; ++j)
+      s += Rc[j] * gx[0] + Rc[3 + j] * gx[1] + Rc[6 + j] * gx[2];
+    if (s == 1234.5f) gp[0] = s;
+#endif
+  }"""),
+    ("""__device__ __forceinline__ float scatter(""",
+     """__device__ float* k9_store;
+__device__ __forceinline__ float scatter("""),
+    ("  int c, p;       // camera and point, c = -1 for a lane past N",
+     "  int c, p;       // camera and point, c = -1 for a lane past N\n"
+     "  long long n;"),
+    ("  o.live = n < N;\n", "  o.live = n < N;\n  o.n = n;\n"),
+    ("""  const float gf = scatter(o, R, A, o.w * j0, o.w * j1, m, out);""",
+     """#if K9_PART == 1
+  if (o.live && j0 == 1234.5f && j1 == 5432.1f) out[0] = j0;
+  return;
+#endif
+  const float gf = scatter(o, R, A, o.w * j0, o.w * j1, m, out);"""),
+    ("""  damp_kernel<<<blocks(L), BA_THREADS, 0, stream>>>(vec, lam, L, m,
+                                                    refine_focal, out);""",
+     """#if K9_PART == 4
+  damp_kernel<<<blocks(L), BA_THREADS, 0, stream>>>(vec, lam, L, m,
+                                                    refine_focal, out);
+#endif"""),
+)
+K9_SOLVE_PARTS = {1: "the loop's grid barriers and its head's dot alone",
+                  2: "+ the product's observation pass",
+                  3: "+ the product's gather and q . Aq",
+                  4: '+ the q and x, r updates (the solve)'}
+# cg_solve_kernel's loop, and what each part keeps; parts 1-3 run maxiter
+# iterations whatever the stop test says.
+_K9_SOLVE_CUTS = (
+    ('''    if (k >= s.maxiter || !(gamma > atol2)) break;
+''', '''#if K9_SOLVE_PART < 4
+    if (k >= s.maxiter) break;
+#else
+    if (k >= s.maxiter || !(gamma > atol2)) break;
+#endif
+'''),
+    ('''      for (long long i = gtid; i < s.L; i += threads)
+        __stcg(qk + i, __fmaf_rn(beta, __ldcg(qk_prev + i), __ldcg(s.r + i)));
+''', '''#if K9_SOLVE_PART >= 4
+      for (long long i = gtid; i < s.L; i += threads)
+        __stcg(qk + i, __fmaf_rn(beta, __ldcg(qk_prev + i), __ldcg(s.r + i)));
+#endif
+'''),
+    ('''    const float focal = product_obs(s, scale, qk);
+    if (s.refine_focal) {
+      const float f = block_sum<SOLVE_WARPS>(focal, shared);
+      if (threadIdx.x == 0) __stcg(s.part_f + blockIdx.x, f);
+      __syncthreads();
+    }
+''', '''#if K9_SOLVE_PART >= 2
+    const float focal = product_obs(s, scale, qk);
+    if (s.refine_focal) {
+      const float f = block_sum<SOLVE_WARPS>(focal, shared);
+      if (threadIdx.x == 0) __stcg(s.part_f + blockIdx.x, f);
+      __syncthreads();
+    }
+#endif
+'''),
+    ('''    product_gather(s, qk, shared);
+''', '''#if K9_SOLVE_PART >= 3
+    product_gather(s, qk, shared);
+#endif
+'''),
+    ('''    const float alpha = gamma / grid_dot(s.part_qAq, shared);
+''', '''#if K9_SOLVE_PART >= 4
+    const float alpha = gamma / grid_dot(s.part_qAq, shared);
+'''),
+    ('''    block_leaves(acc, shared, s.part_rr + blockIdx.x);
+    grid.sync();
+  }
+''', '''    block_leaves(acc, shared, s.part_rr + blockIdx.x);
+#endif
+    grid.sync();
+  }
+'''),
+)
+_K9_SYNC = r'''
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) sync_kernel(int k, float* out) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  float acc = 0.f;
+  for (int i = 0; i < k; ++i) {
+    acc += out[(blockIdx.x + i) % gridDim.x];
+    grid.sync();
+  }
+  if (acc == 1234.5f) out[0] = acc;
+}
+extern "C" int sync_bench(int k, int per_sm, float* out, void* stream) {
+  int dev, sms, occ;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sync_kernel, 256, 0);
+  if (per_sm > occ) return -1;
+  void* args[] = {&k, &out};
+  return (int)cudaLaunchCooperativeKernel((void*)sync_kernel, per_sm * sms,
+                                          256, args, 0,
+                                          (cudaStream_t)stream);
+}
+'''
+
+
+def _k9_parts(parent, gpu, rounds):
+    """The parent's K9 product in parts, and a grid sync's cost."""
+    import ctypes
+    import subprocess
+    import numpy as np
+    import torch
+    from chip_smoke import _ba_problem, _ba_tensors
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import _kernels
+    out_dir = os.path.join(HERE, 'build', 'k9_parts')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(parent, PKG, 'csrc', 'ba_normal.cu')) as f:
+        src = f.read()
+    for old, new in _K9_CUTS:
+        if old not in src:
+            raise RuntimeError('K9 parts: the parent\'s ba_normal.cu is not '
+                               'the design these cuts were written for')
+        src = src.replace(old, new)
+    src += ('extern "C" int k9_set_store(float* p) {\n'
+            '  return (int)cudaMemcpyToSymbol(k9_store, &p, sizeof(p));\n}\n')
+    with open(os.path.join(HERE, PKG, 'csrc', 'ba_normal.cu')) as f:
+        solve_src = f.read()
+    for old, new in _K9_SOLVE_CUTS:
+        if old not in solve_src:
+            raise RuntimeError('K9 solve parts: csrc/ba_normal.cu is not the '
+                               'design these cuts were written for')
+        solve_src = solve_src.replace(old, new)
+    paths = {'parts': os.path.join(out_dir, 'parts.cu'),
+             'sync': os.path.join(out_dir, 'sync.cu'),
+             'solve': os.path.join(out_dir, 'solve.cu')}
+    for key, text in (('parts', src), ('sync', _K9_SYNC),
+                      ('solve', solve_src)):
+        with open(paths[key], 'w') as f:
+            f.write(text)
+    jobs = {part: [f'-DK9_PART={part}', '-o',
+                   os.path.join(out_dir, f'parts{part}.so'), paths['parts']]
+            for part in K9_PARENT_PARTS}
+    jobs.update({f'solve{part}': [
+        f'-DK9_SOLVE_PART={part}', '-o',
+        os.path.join(out_dir, f'solve{part}.so'), paths['solve']]
+        for part in K9_SOLVE_PARTS})
+    jobs['sync'] = ['-o', os.path.join(out_dir, 'sync.so'), paths['sync']]
+    procs = {k: subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, *a],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, a in jobs.items()}
+    for k, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'K9 parts: nvcc failed on {k}:\n{err}')
+    dev = torch.device('cuda')
+    prob = _ba_problem(18)
+    order = np.argsort(prob['cam_idx'], kind='stable')
+    params, unit = _ba_tensors(dev, prob['start'], prob['cam_idx'][order],
+                               prob['pt_idx'][order], prob['xy'][order])
+    const = unit[:4] + (ba._huber_sqrt_weights(params, unit, 4.0),)
+    kern = ba.products(params, const, False)
+    m, p, n = kern.m, kern.p, kern.n
+    v = torch.randn(ba.size(m, p), generator=torch.Generator()
+                    .manual_seed(3)).to(dev)
+    store = torch.empty(3 * n, device=dev)
+    out, work = torch.empty_like(v), torch.empty(1, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    calls = {}
+    for part in K9_PARENT_PARTS:
+        lib = ctypes.CDLL(os.path.join(out_dir, f'parts{part}.so'))
+        lib.k9_set_store.argtypes = [ptr]
+        _kernels.check(lib.k9_set_store(store.data_ptr()), 'K9 parts')
+        f = lib.ba_normal_matvec
+        f.argtypes = ([ptr] * 5 + [f32] * 4 + [ptr] * 3 + [ctypes.c_longlong]
+                      + [i32] * 3 + [ptr, f32, ptr, ptr, ptr])
+        f.restype = i32
+        calls[part] = (lambda f=f: _kernels.check(f(
+            *kern._head(), kern.sw.data_ptr(), n, m, p, 0, v.data_ptr(),
+            0.01, work.data_ptr(), out.data_ptr(), stream), 'K9 parts'))
+    times = {part: [] for part in calls}
+    device = {part: [] for part in calls}
+    for r in range(rounds):
+        for part in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            times[part].append(_cuda_ms(calls[part], 50))
+            d = _kernel_ms(calls[part], 20)
+            device[part].append(None if d is None else sum(d.values()))
+    result = {'parts': {}, 'sync_us': {}}
+    for part, name in K9_PARENT_PARTS.items():
+        dev_ms = [d for d in device[part] if d is not None]
+        result['parts'][part] = dict(name=name, ms=times[part],
+                                     device_ms=device[part])
+        print(f'K9 parent part {part} ({name}) [{gpu}], N = {n}: '
+              f'{float(np.median(times[part])):.4f} ms by events, '
+              f'{float(np.median(dev_ms)) if dev_ms else None} device '
+              f'(rounds {[round(t, 4) for t in times[part]]})')
+    sync = ctypes.CDLL(os.path.join(out_dir, 'sync.so')).sync_bench
+    sync.argtypes = [i32, i32, ptr, ptr]
+    sync.restype = i32
+    buf = torch.zeros(4096, device=dev)
+    for per_sm in (1, 2, 4, 8):
+        ms = {}
+        for k in (0, 1000):
+            def call(k=k):
+                status = sync(k, per_sm, buf.data_ptr(), stream)
+                if status:
+                    raise RuntimeError(f'grid sync bench: {status}')
+            ms[k] = _cuda_ms(call, 5)
+        us = (ms[1000] - ms[0]) / 1000 * 1e3
+        result['sync_us'][per_sm] = us
+        print(f'grid sync [{gpu}]: {per_sm} blocks of 256 a multiprocessor: '
+              f'{us:.3f} us a grid.sync()')
+    result['solve_parts'] = _k9_solve_parts(out_dir, kern, gpu, rounds)
+    return result
+
+
+def _k9_solve_parts(out_dir, kern, gpu, rounds):
+    """This tree's fused solve in parts (K9_SOLVE_PARTS), each launched
+    through KernelProducts.cg_solve with the cut copy's entry in place of
+    the built one, in turns with the built entry."""
+    import ctypes
+    import numpy as np
+    from autolabel_tpu_torch.ops import ba_cuda
+    from chip_smoke import BA_CG
+    real = ba_cuda._launchers()
+    b = -kern.residual_grad()[2]
+
+    def through(entry):
+        def call():
+            saved = ba_cuda._launchers
+            ba_cuda._launchers = lambda: (real[0], real[1], entry, real[3])
+            try:
+                kern.cg_solve(b, 1e-2, BA_CG)
+            finally:
+                ba_cuda._launchers = saved
+        return call
+
+    calls = {'entry': through(real[2])}
+    for part in K9_SOLVE_PARTS:
+        f = ctypes.CDLL(os.path.join(out_dir, f'solve{part}.so')).ba_cg_solve
+        f.argtypes, f.restype = real[2].argtypes, real[2].restype
+        calls[part] = through(f)
+    times = {part: [] for part in calls}
+    device = {part: [] for part in calls}
+    for r in range(rounds):
+        for part in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            times[part].append(_cuda_ms(calls[part], 10))
+            d = _kernel_ms(calls[part], 5)
+            device[part].append(None if d is None else sum(d.values()))
+    k = int(kern.cg_solve(b, 1e-2, BA_CG)[1])
+    out = {}
+    for part in calls:
+        name = K9_SOLVE_PARTS.get(part, 'the built entry')
+        dev_ms = [d for d in device[part] if d is not None]
+        out[part] = dict(name=name, ms=times[part], device_ms=device[part])
+        print(f'K9 solve part {part} ({name}) [{gpu}], {BA_CG} iterations '
+              f'(the solve: {k}): {float(np.median(times[part])):.4f} ms by '
+              f'events, {float(np.median(dev_ms)) if dev_ms else None} device'
+              f' (rounds {[round(t, 4) for t in times[part]]})')
+    return out
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
@@ -590,6 +888,14 @@ def main():
               file=sys.stderr)
         return 2
     only = re.compile(args.only)
+    if args.only == 'K9':
+        result = {'gpu': _gpu_line(), 'k9_parts': _k9_parts(
+            os.path.abspath(args.parent), _gpu_line(), args.rounds)}
+        os.makedirs(os.path.join(HERE, 'chiprun_out'), exist_ok=True)
+        with open(os.path.join(HERE, 'chiprun_out', 'kernel_compare.json'),
+                  'w') as f:
+            json.dump(result, f, indent=1)
+        return 0
     sides = {'old': _load(os.path.abspath(args.parent)), 'new': _load(HERE)}
     for pkg in sides.values():
         pkg.kernels.build_all()

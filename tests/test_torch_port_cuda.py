@@ -1922,7 +1922,7 @@ def test_ba_kernel_matches_plain(cuda, refine_focal, order):
     _kernels.reset_launches()
     got = list(kern.residual_grad()) + [kern.matvec(v, 0.3)]
     torch.cuda.synchronize()
-    assert dict(_kernels.launches) == {n: 1 for n in ba_cuda.NAMES}
+    assert dict(_kernels.launches) == {n: 1 for n in ba_cuda.NAMES[:2]}
     want = list(plain.residual_grad()) + [plain.matvec(v, 0.3)]
     for name, a, b in zip(('r', 'cost', 'g', 'matvec'), got, want):
         assert bool(torch.isfinite(a).all()), name
@@ -1978,10 +1978,10 @@ def test_ba_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize('refine_focal', [False, True])
 def test_ba_bundle_adjust_on_card(cuda, refine_focal):
-    """bundle_adjust on the card goes through K9 (counted, 1 + cg_iters
-    products and 3 residual calls an LM step, one more for the final rms)
-    and ends within 1e-3 px of the same solve with the plain products on
-    the card."""
+    """bundle_adjust on the card goes through K9 (counted: one solve and 3
+    residual calls an LM step, one more for the final rms, and no product
+    outside the solve) and ends within 1e-3 px of the same solve with the
+    plain products (and `cg` over them) on the card."""
     from autolabel_tpu_torch.mapping import ba
     from autolabel_tpu_torch.ops import ba_cuda
     start, intr, ci, pi, xy = _ba_ring(3)
@@ -1993,10 +1993,13 @@ def test_ba_bundle_adjust_on_card(cuda, refine_focal):
                            refine_focal=refine_focal, cg_iters=20,
                            device=cuda, stats=stats)
     lm = stats['lm']
-    assert _kernels.launches[ba_cuda.NAMES[1]] == lm * 21
+    assert _kernels.launches[ba_cuda.NAMES[2]] == lm
+    assert _kernels.launches[ba_cuda.NAMES[1]] == 0
     assert _kernels.launches[ba_cuda.NAMES[0]] == lm * 3 + 1
+    assert all(0 < int(k) <= 20 for k in stats['cg'])
     saved = ba.products, ba.residual
-    ba.products = ba.PlainProducts
+    ba.products = lambda params, const, refine_focal, layout=None: \
+        ba.PlainProducts(params, const, refine_focal)
     ba.residual = ba._residual
     try:
         want = ba.bundle_adjust(*start, intr, ci, pi, xy, max_iters=8,
@@ -2012,3 +2015,105 @@ def test_ba_bundle_adjust_on_card(cuda, refine_focal):
     assert got[4] < 0.8 * before, (got[4], before)
     if refine_focal:
         assert abs(got[3][0] - 400.0) < 0.5 * 40.0, got[3]
+
+
+def _ba_solve_inputs(cuda, refine_focal, seed=0):
+    from autolabel_tpu_torch.mapping import ba
+    params, const = _ba_inputs(cuda, *_ba_ring(seed))
+    kern = ba.products(params, const, refine_focal)
+    return params, const, kern, -kern.residual_grad()[2]
+
+
+@pytest.mark.parametrize('lam,maxiter', [(1e-2, 20), (1e8, 50)])
+@pytest.mark.parametrize('refine_focal', [False, True])
+def test_ba_cg_solve_matches_the_loop(cuda, refine_focal, lam, maxiter):
+    """K9's fused solve (one launch, counted once) against cg(frozen=True)
+    over K9's matvec entry and over the plain products: k equal, and the
+    delta within 1e-4 by relative norm, or no farther from the float64
+    solve than 2x the loop (chip_smoke.py's rule: with refine_focal the
+    focal and the depths nearly trade off, and fp32 rounding moves every
+    fp32 solve); at lam = 1e8 the test stops it before maxiter, at 1e-2 it
+    runs to maxiter. Bit-equal across two calls (no atomics, the sums in a
+    fixed order)."""
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import ba_cuda
+    params, const, kern, b = _ba_solve_inputs(cuda, refine_focal)
+    _kernels.reset_launches()
+    x, k = kern.cg_solve(b, lam, maxiter)
+    torch.cuda.synchronize()
+    assert dict(_kernels.launches) == {ba_cuda.NAMES[2]: 1}
+    x2, k2 = kern.cg_solve(b, lam, maxiter)
+    assert torch.equal(x, x2) and int(k) == int(k2)
+    loop, k_loop = ba.cg(lambda v: kern.matvec(v, lam), b, kern.m, kern.p,
+                         maxiter, frozen=True)
+    plain = ba.PlainProducts(params, const, refine_focal)
+    ref, k_ref = plain.cg_solve(b, lam, maxiter)
+    assert bool(torch.isfinite(x).all())
+    assert int(k) == int(k_loop) == int(k_ref)
+    assert (int(k) < maxiter) == (lam == 1e8), int(k)
+    p64 = tuple(t.double() for t in params)
+    c64 = const[:3] + (const[3].double(), const[4].double())
+    x64 = ba.PlainProducts(p64, c64, refine_focal).cg_solve(
+        b.double(), lam, maxiter)[0]
+    for want in (loop, ref):
+        assert _rel(x, want) <= 1e-4 or \
+            _rel(x, x64) <= 2 * _rel(want, x64), (_rel(x, want),
+                                                  _rel(x, x64),
+                                                  _rel(want, x64))
+    mask = ba.gauge_mask(kern.m, kern.p, refine_focal, cuda)
+    assert not bool((x * (1 - mask)).any())
+
+
+@pytest.mark.parametrize('refine_focal', [False, True])
+def test_ba_cg_solve_first_product_matches_the_matvec(cuda, refine_focal):
+    """The solve's own product (its first iteration's Aq, the focal entry
+    summed over its blocks with refine_focal) against K9's matvec entry
+    within 1e-5 by relative norm, and the focal entry alone within 1e-5."""
+    params, const, kern, b = _ba_solve_inputs(cuda, refine_focal)
+    aq, mv = kern.solve_product(b, 1e-2), kern.matvec(b, 1e-2)
+    assert _rel(aq, mv) <= 1e-5, _rel(aq, mv)
+    if refine_focal:
+        assert _rel(aq[-1:], mv[-1:]) <= 1e-5, (float(aq[-1]), float(mv[-1]))
+
+
+def test_ba_cg_solve_at_clamp_and_tie(cuda):
+    """The solve on observations at the depth clamp and at a tie (products
+    of order 1e20) against cg(frozen=True) over K9's matvec entry."""
+    from autolabel_tpu_torch.mapping import ba
+    rv = np.array([[0.1, -0.2, 0.05], [0.0, 0.0, 0.0], [0.02, 0.3, -0.1]])
+    tv = np.array([[0.1, 0.0, 3.0], [0.0, 0.0, float(np.float32(1e-6))],
+                   [-0.5, 0.1, 3.5]])
+    pts = np.array([[0.2, -0.1, -0.5], [0.3, 0.2, 0.0], [0.1, 0.1, 1.0],
+                    [-0.4, 0.2, 1.5], [0.5, -0.3, 2.0], [0.0, 0.4, 0.8]])
+    ci, pi = np.repeat(np.arange(3), 6), np.tile(np.arange(6), 3)
+    xy = np.random.default_rng(0).uniform(0, 600, (18, 2))
+    params, const = _ba_inputs(cuda, (rv, tv, pts), (500.0, 500.0, 320.0,
+                                                     240.0), ci, pi, xy)
+    for refine in (False, True):
+        kern = ba.products(params, const, refine)
+        b = -kern.residual_grad()[2]
+        x, k = kern.cg_solve(b, 1e-2, 10)
+        loop, k_loop = ba.cg(lambda v: kern.matvec(v, 1e-2), b, 3, 6, 10,
+                             frozen=True)
+        assert int(k) == int(k_loop), (int(k), int(k_loop))
+        assert _rel(x, loop) <= 1e-4, (refine, _rel(x, loop))
+
+
+def test_ba_cg_solve_refuses_what_it_does_not_take(cuda):
+    """CPU tensors (K9's wrapper never falls back), observations out of
+    camera order, and a grid larger than the card holds resident (the
+    cooperative launch's refusal, raised naming K9)."""
+    from autolabel_tpu_torch.mapping import ba
+    from autolabel_tpu_torch.ops import ba_cuda
+    params, const, kern, b = _ba_solve_inputs(cuda, False)
+    with pytest.raises(ValueError, match='CUDA'):
+        kern.cg_solve(b.cpu(), 1e-2, 5)
+    unsorted = ba.products(*_ba_inputs(cuda, *_ba_ring(0), order=False),
+                           False)
+    with pytest.raises(ValueError, match='camera order'):
+        unsorted.cg_solve(b, 1e-2, 5)
+    grid = ba_cuda.solve_grid(cuda.index or 0)
+    with pytest.raises(RuntimeError, match='K9'):
+        kern.cg_solve(b, 1e-2, 5, grid=grid + 1)
+    x, k = kern.cg_solve(b, 1e-2, 5, grid=grid)
+    assert int(k) == 5
