@@ -39,6 +39,14 @@
 //   4. compact_kernel: each block sums the earlier tiles' numbers (exact
 //      integers), scans its own flags and writes (sel, coef); the last
 //      tile writes the count.
+// Under a device mesh (autolabel_tpu_torch/parallel) the subsample is the
+// global batch's: the chain splits at its norms. select_points_norms runs
+// kernel 1 on a rank's rows (squared, without the root, when the rows'
+// features are split across ranks and their squares are summed first);
+// the ranks gather the norms of the global batch; select_points_scan runs
+// kernels 2-4 on them and keeps the draws that fall in the rank's own
+// rows [lo, hi), numbered from lo. select_points is the two with every
+// row the rank's.
 // The order of every fp32 addition is fixed by the tile (1024 points), a
 // thread's rows (4) and the lanes' chunks, so a CPU copy of it
 // (hashgrid_cuda.select_chain, which checks select_points_order) gives
@@ -79,11 +87,11 @@ __device__ __forceinline__ float sumsq8(uint4 v, float acc) {
 
 // s_i for n rows of CH * 512 bytes or fewer (`chunks` 16-byte chunks a
 // row): a warp takes R = 16 / CH rows at a time, issues their loads, then
-// reduces them.
+// reduces them. Without `root`, the squared norms.
 template <int CH>
 __global__ void __launch_bounds__(K5_NORM_THREADS)
     norms_kernel(const uint4* __restrict__ g, long long n, int chunks,
-                 float* __restrict__ s) {
+                 int root, float* __restrict__ s) {
   constexpr int R = 16 / CH;
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (K5_NORM_THREADS / 32);
@@ -110,7 +118,7 @@ __global__ void __launch_bounds__(K5_NORM_THREADS)
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
       if (lane == q) mine = acc;
     }
-    if (lane < R && r0 + lane < n) s[r0 + lane] = sqrtf(mine);
+    if (lane < R && r0 + lane < n) s[r0 + lane] = root ? sqrtf(mine) : mine;
   }
 }
 
@@ -180,11 +188,14 @@ __device__ __forceinline__ float draw_floor(float cum, int k, float u) {
   return floorf(__fsub_rn(__fmul_rn((float)k, cum), u));
 }
 
+// counts_i for every point; a tile's flags count its points in [lo, hi)
+// with counts > 0.
 __global__ void __launch_bounds__(K5_THREADS)
     counts_kernel(const float* __restrict__ loc,
                   const float* __restrict__ tile_total, long long n, int k,
-                  const float* __restrict__ u_sys, int* __restrict__ counts,
-                  int* __restrict__ tile_flags, float* __restrict__ total_out) {
+                  const float* __restrict__ u_sys, long long lo, long long hi,
+                  int* __restrict__ counts, int* __restrict__ tile_flags,
+                  float* __restrict__ total_out) {
   __shared__ int flags;
   const int tid = threadIdx.x;
   const int tiles = gridDim.x, b = blockIdx.x;
@@ -216,17 +227,20 @@ __global__ void __launch_bounds__(K5_THREADS)
     const float cp = i == 0 ? -1.0f : draw_floor(prev, k, u);
     const int cnt = (int)(c - cp);
     counts[i] = cnt;
-    mine += cnt > 0;
+    mine += cnt > 0 && i >= lo && i < hi;
   }
   atomicAdd(&flags, mine);
   __syncthreads();
   if (tid == 0) tile_flags[b] = flags;
 }
 
+// The points of [lo, hi) with counts > 0, in order, numbered from lo: at
+// most `cap` of them written.
 __global__ void __launch_bounds__(K5_THREADS)
     compact_kernel(const float* __restrict__ s, const int* __restrict__ counts,
                    const int* __restrict__ tile_flags,
                    const float* __restrict__ total_in, long long n, int k,
+                   long long lo, long long hi, int cap,
                    int* __restrict__ sel, float* __restrict__ coef,
                    int* __restrict__ count) {
   __shared__ int warp_sum[K5_WARPS];
@@ -252,7 +266,7 @@ __global__ void __launch_bounds__(K5_THREADS)
 #pragma unroll
   for (int q = 0; q < K5_ROWS; ++q) {
     const long long i = base + tid * K5_ROWS + q;
-    cnt[q] = i < n ? counts[i] : 0;
+    cnt[q] = i < n && i >= lo && i < hi ? counts[i] : 0;
     mine += cnt[q] > 0;
   }
   // exclusive scan of the threads' flags: in the warp, then across warps
@@ -272,16 +286,16 @@ __global__ void __launch_bounds__(K5_THREADS)
   for (int q = 0; q < K5_ROWS; ++q) {
     if (cnt[q] <= 0) continue;
     const long long i = base + tid * K5_ROWS + q;
-    if (pos < k) {
+    if (pos < cap) {
       const float p = uniform ? __fdiv_rn(1.0f, (float)n)
                               : __fdiv_rn(s[i], fmaxf(total, 1e-30f));
-      sel[pos] = (int)i;
+      sel[pos] = (int)(i - lo);
       coef[pos] = __fdiv_rn((float)cnt[q],
                             __fmul_rn((float)k, fmaxf(p, 1e-30f)));
     }
     ++pos;
   }
-  if (b == gridDim.x - 1 && tid == K5_THREADS - 1) *count = min(pos, k);
+  if (b == gridDim.x - 1 && tid == K5_THREADS - 1) *count = min(pos, cap);
 }
 
 static long long k5_tiles(long long n) { return (n + K5_TILE - 1) / K5_TILE; }
@@ -299,7 +313,7 @@ extern "C" void select_points_order(int* out) {
   out[1] = K5_ROWS;
 }
 
-typedef void (*NormsKernel)(const uint4*, long long, int, float*);
+typedef void (*NormsKernel)(const uint4*, long long, int, int, float*);
 
 // The 16-byte chunks a lane reads of a row of `chunks` chunks, as the norms
 // kernel's template width (1, 2, 4, 8 or K5_MAX_CHUNKS), or 0 beyond.
@@ -350,15 +364,32 @@ static cudaError_t norms_grid(int ch, long long n, int* blocks) {
   return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-extern "C" int select_points(const void* g, long long n, int dim,
-                             const float* u_sys, int k, void* workspace,
-                             int* sel, float* coef, int* count,
-                             void* stream) {
+// Kernel 1 on n rows of `dim` bf16 values: their norms (root) or squared
+// norms into s.
+extern "C" int select_points_norms(const void* g, long long n, int dim,
+                                   int root, float* s, void* stream) {
   const int row_bytes = dim * 2;
-  const long long tiles = k5_tiles(n);
   const int chunks = row_bytes / 16, ch = lane_chunks(chunks);
-  if (n < 1 || tiles > K5_MAX_TILES || k < 1 || k > n || row_bytes % 16 ||
-      ((uintptr_t)g & 15) || !ch)
+  if (n < 1 || row_bytes % 16 || ((uintptr_t)g & 15) || !ch)
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  cudaError_t err = norms_grid(ch, n, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  norms_for(ch)<<<blocks, K5_NORM_THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const uint4*>(g), n, chunks, root, s);
+  return (int)cudaGetLastError();
+}
+
+// Kernels 2-4 on the norms of n points in the workspace's first n floats:
+// the draws of k among all n, of which those in [lo, hi) are written (sel
+// numbered from lo, at most cap) with their number in count.
+extern "C" int select_points_scan(long long n, const float* u_sys, int k,
+                                  long long lo, long long hi, int cap,
+                                  void* workspace, int* sel, float* coef,
+                                  int* count, void* stream) {
+  const long long tiles = k5_tiles(n);
+  if (n < 1 || tiles > K5_MAX_TILES || k < 1 || k > n || lo < 0 || hi > n ||
+      lo >= hi || cap < 1)
     return (int)cudaErrorInvalidValue;
   float* s = reinterpret_cast<float*>(workspace);
   float* loc = s + n;
@@ -367,21 +398,30 @@ extern "C" int select_points(const void* g, long long n, int dim,
   int* tile_flags = reinterpret_cast<int*>(tile_total + tiles);
   float* total = reinterpret_cast<float*>(tile_flags + tiles);
   cudaStream_t st = (cudaStream_t)stream;
-  int blocks = 0;
-  cudaError_t err = norms_grid(ch, n, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  norms_for(ch)<<<blocks, K5_NORM_THREADS, 0, st>>>(
-      reinterpret_cast<const uint4*>(g), n, chunks, s);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  cudaError_t err;
   scan_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(s, n, loc,
                                                           tile_total);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   counts_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(
-      loc, tile_total, n, k, u_sys, counts, tile_flags, total);
+      loc, tile_total, n, k, u_sys, lo, hi, counts, tile_flags, total);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   compact_kernel<<<(unsigned int)tiles, K5_THREADS, 0, st>>>(
-      s, counts, tile_flags, total, n, k, sel, coef, count);
+      s, counts, tile_flags, total, n, k, lo, hi, cap, sel, coef, count);
   return (int)cudaGetLastError();
+}
+
+extern "C" int select_points(const void* g, long long n, int dim,
+                             const float* u_sys, int k, void* workspace,
+                             int* sel, float* coef, int* count,
+                             void* stream) {
+  if (n < 1 || k5_tiles(n) > K5_MAX_TILES || k < 1 || k > n)
+    return (int)cudaErrorInvalidValue;
+  const int err = select_points_norms(g, n, dim, 1,
+                                      reinterpret_cast<float*>(workspace),
+                                      stream);
+  if (err != 0) return err;
+  return select_points_scan(n, u_sys, k, 0, n, k, workspace, sel, coef,
+                            count, stream);
 }
 
 // out[0..24): per kernel (norms, scan, counts, compact) for n points of

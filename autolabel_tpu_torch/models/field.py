@@ -4,7 +4,9 @@ Counterpart of autolabel_tpu/models/field.py. The module's parameters keep
 the JAX param tree's keys and (in, out) matrix layouts: 'sigma_net.0' is
 params['sigma_net'][0], 'encoder.grid' is params['encoder']['grid'] (L, T,
 F), 'proposal.i' the proposal MLP (bridge.py converts both ways). Methods
-keep the JAX names; the params are the module's own.
+keep the JAX names; the params are the module's own. On a device mesh with
+a 'model' axis (parallel.shard_field) 'encoder.grid' is this rank's
+feature slice (L, T, F / m) and the encode gathers the slices.
 
 Head layout:
   encoder:   'freq' | 'hg' | 'hg+freq' positional encoding
@@ -18,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from autolabel_tpu_torch import parallel
 from autolabel_tpu_torch.device import resolve_device
 from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
 from autolabel_tpu_torch.ops.activation import trunc_exp
@@ -95,6 +98,9 @@ class Field(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self._packs = {}  # name -> (weights, stamp, packed): _kernel_pack
+        # The device mesh the field trains on (parallel.shard_field), or
+        # None.
+        self.mesh = None
         self.sigma_net = _params(
             mlp_init(generator, c.encoder_dim, c.hidden_dim,
                      1 + c.geo_feat_dim, c.num_layers), device)
@@ -174,13 +180,17 @@ class Field(nn.Module):
         finest exact_levels levels exact (fp32). The kernels on the card,
         the plain versions on the CPU. level_window: one factor a level
         (renderer.RenderOptions.level_window) scaling its feature block; a
-        zero freezes that level's table."""
+        zero freezes that level's table. On a device mesh the rank's
+        feature slice is encoded with the slice's config and the slices are
+        gathered whole (parallel.gather_features)."""
         c = self.config
+        grid = parallel.grid_config_shard(c.grid_config, self.mesh)
         out = hashgrid_cuda.hashgrid_encode(
-            self.encoder['grid'], normalized, c.grid_config,
+            self.encoder['grid'], normalized, grid,
             interp=c.grid_interp, u=u, sampled_backward=sampled_backward,
             backward_points=backward_points, n_samples=n_samples,
-            exact_levels=exact_levels, residual=residual)
+            exact_levels=exact_levels, residual=residual, mesh=self.mesh)
+        out = parallel.gather_features(out, self.mesh, grid.n_levels)
         if level_window is not None:
             w = torch.as_tensor(level_window, dtype=out.dtype,
                                 device=out.device)

@@ -7,7 +7,8 @@ _encode_lanes for narrow ones) and its table gradient
 (hashgrid_encode_backward_plain); the exact simplex encode
 (_encode_rows_simplex); the flagship's exact-forward / sampled-backward
 encode: the interpolation atoms (_corner_idx_weights), the gather from
-them (_gather_from_atoms), the point subsample (_select_backward_points)
+them (_gather_from_atoms), the point subsample (_select_backward_points,
+and over a device mesh's global batch select_backward_points_global)
 and the sampled scatter (sampled_scatter_plain); and the stochastic-corner
 and residual encodes (JAX's _encode_stochastic,
 _encode_stochastic_simplex and _encode_residual): the rows they draw
@@ -24,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from autolabel_tpu_torch import parallel
 from autolabel_tpu_torch.ops.mlp import default_compute_dtype
 
 # instant-ngp spatial hashing primes (identity on x).
@@ -355,13 +357,22 @@ def _gather_from_atoms(table, idx, w, config, dtype):
     return torch.cat(outs, dim=-1)
 
 
+def _squared_norms(g):
+    """The fp32 squared row norms of g."""
+    g32 = g.float()
+    return (g32 * g32).sum(dim=-1)
+
+
 def _select_scan(g):
     """p_i ∝ ||g_i|| (uniform when the total is 0) and its inclusive scan
     normalized to end at 1, in fp32: what _select_backward_points draws
     from."""
-    n = g.shape[0]
-    g32 = g.float()
-    s = torch.sqrt((g32 * g32).sum(dim=-1))
+    return _scan_norms(torch.sqrt(_squared_norms(g)))
+
+
+def _scan_norms(s):
+    """_select_scan from the row norms s."""
+    n = s.shape[0]
     tot = s.sum()
     p = torch.where(tot > 0, s / torch.clamp(tot, min=1e-30),
                     torch.full_like(s, 1.0 / n))
@@ -377,6 +388,29 @@ def _select_backward_points(g, u_sys, k):
     pads the same set to k with coef-0 rows (top_k's order), which
     scatter nothing. The plain version of the point-subsample kernel."""
     return _select_from_scan(*_select_scan(g), u_sys, k)
+
+
+def select_norms_global(g, mesh):
+    """The row norms of the global batch of a device mesh (parallel.py),
+    from this rank's rows g: the squared norms summed over 'model' (each
+    rank holds a feature slice of every row) before the root, then
+    gathered over 'data'. On a mesh of one rank, _select_scan's norms."""
+    s = torch.sqrt(parallel.sum_over_model(_squared_norms(g), mesh))
+    return parallel.gather_rows(s, mesh)
+
+
+def select_backward_points_global(g, u_sys, k, mesh):
+    """_select_backward_points over the global batch of a device mesh, from
+    this rank's rows g (a block of the global rows, and a feature slice of
+    each under 'model'): the k draws among all its points, of which those
+    in this rank's rows are returned, numbered from its first row. Every
+    rank takes the same draws (the same norms, the same u_sys)."""
+    n = g.shape[0]
+    sel, coef = _select_from_scan(*_scan_norms(select_norms_global(g, mesh)),
+                                  u_sys, k)
+    lo = parallel.axis_index(mesh, parallel.DATA) * n
+    mine = (sel >= lo) & (sel < lo + n)
+    return sel[mine] - lo, coef[mine]
 
 
 def _select_from_scan(p, cum, u_sys, k):
@@ -462,13 +496,21 @@ def backward_subsample(n, point_frac):
     return max(1, int(round(point_frac * n))) if point_frac < 1.0 else None
 
 
-def sampled_backward_plain(g, idx, w, u, rows, config, point_frac):
+def sampled_backward_plain(g, idx, w, u, rows, config, point_frac,
+                           mesh=None):
     """The whole sampled table gradient: the point subsample when
-    point_frac < 1 (systematic offset u[0, N]), then the scatter."""
-    k = backward_subsample(idx.shape[2], point_frac)
+    point_frac < 1 (systematic offset u[0, N]), then the scatter. With a
+    device mesh the subsample is the global batch's
+    (select_backward_points_global)."""
+    n = idx.shape[2]
+    k = backward_subsample(n * parallel.axis_size(mesh, parallel.DATA),
+                           point_frac)
     if k is None:
         return sampled_scatter_plain(g, idx, w, u, rows, config)
-    sel, coef = _select_backward_points(g, u[0, idx.shape[2]], k)
+    if mesh is None:
+        sel, coef = _select_backward_points(g, u[0, n], k)
+    else:
+        sel, coef = select_backward_points_global(g, u[0, n], k, mesh)
     return sampled_scatter_plain(g, idx, w, u, rows, config, sel, coef)
 
 
@@ -477,10 +519,10 @@ class _SampledEncodePlain(torch.autograd.Function):
     gradient; zero cotangents for x and u (JAX _encode_sampled_bwd)."""
 
     @staticmethod
-    def forward(ctx, table, x, u, config, interp, rows, point_frac):
+    def forward(ctx, table, x, u, config, interp, rows, point_frac, mesh):
         idx, w = _corner_idx_weights(x, config, interp)
         ctx.save_for_backward(idx, w, u)
-        ctx.args = (rows, config, point_frac)
+        ctx.args = (rows, config, point_frac, mesh)
         return _gather_from_atoms(table, idx, w, config,
                                   default_compute_dtype(x.device))
 
@@ -490,13 +532,15 @@ class _SampledEncodePlain(torch.autograd.Function):
         dtable = None
         if ctx.needs_input_grad[0]:
             dtable = sampled_backward_plain(g, idx, w, u, *ctx.args)
-        return dtable, None, None, None, None, None, None
+        return dtable, None, None, None, None, None, None, None
 
 
-def sampled_rows(config, interp, sampled_backward, backward_points):
+def sampled_rows(config, interp, sampled_backward, backward_points,
+                 n_features=None):
     """Validate the sampled-backward options as the JAX package does and
-    return (per-level rows tuple, point fraction)."""
-    if config.n_features % 8 != 0:
+    return (per-level rows tuple, point fraction). n_features: the whole
+    grid's features when config is a rank's feature slice (parallel.py)."""
+    if (n_features or config.n_features) % 8 != 0:
         raise NotImplementedError(
             "sampled_backward is implemented for the wide-row "
             "(TPU_GRID-shaped) layout only")
@@ -845,7 +889,7 @@ def point_grad_tolerance(g, table, x, config, interp='trilinear', plan=None,
 
 def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
                     interp='trilinear', residual=False, sampled_backward=0,
-                    backward_points=1.0, u=None):
+                    backward_points=1.0, u=None, mesh=None):
     """Encode (N, 3) points in [0, 1] -> (N, n_levels * n_features), as
     autolabel_tpu/ops/encoders.hashgrid_encode, in plain PyTorch.
 
@@ -856,18 +900,23 @@ def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
     JAX package's order of dispatch and with its errors; without u the
     exact trilinear or simplex interpolation. All differentiable by
     autograd. The port never takes a JAX key: `key` raises.
+
+    mesh: a device mesh (parallel.py) when table and config are this rank's
+    feature slice of the grid and x its rows of the global batch: the
+    sampled backward then subsamples the global batch's points.
     """
     if key is not None:
         raise NotImplementedError(
             "the port takes the estimators' uniforms as u, not a PRNG key")
+    whole = config.n_features * parallel.axis_size(mesh, parallel.MODEL)
     if sampled_backward and u is not None:
         rows, pf = sampled_rows(config, interp, sampled_backward,
-                                backward_points)
+                                backward_points, whole)
         check_uniforms(u, uniform_shape(config.n_levels, x.shape[0],
                                         sampled_backward=sampled_backward,
                                         backward_points=pf))
         return _SampledEncodePlain.apply(table, x, u, config, interp, rows,
-                                         pf)
+                                         pf, mesh)
     if u is not None:
         # JAX's _encode_residual, _encode_stochastic_simplex and
         # _encode_stochastic (both of its branches: the narrow one computes
@@ -880,7 +929,7 @@ def hashgrid_encode(table, x, config, key=None, n_samples=1, exact_levels=0,
         idx, w = stochastic_rows(x, config, u, plan, interp, n_samples)
         return blend_drawn_rows(table, idx, w, plan, n_samples)
     if interp == 'simplex':
-        if config.n_features % 8 != 0:
+        if whole % 8 != 0:
             raise NotImplementedError(
                 "simplex interpolation is implemented for the wide-row "
                 "(TPU_GRID-shaped) layout only")

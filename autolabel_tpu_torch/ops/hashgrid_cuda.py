@@ -14,7 +14,9 @@ residual encodes with their table gradient.
   level), written out as (L, A, N) indices and weights where a backward
   needs them; fp32 out for the exact encode, the compute dtype (bf16) for
   the sampled one.
-- K5 (csrc/select_points.cu): the sampled backward's point subsample.
+- K5 (csrc/select_points.cu): the sampled backward's point subsample;
+  under a device mesh (parallel.py) over the global batch, split at its
+  norms (`_select_global_call`).
 - K2s (csrc/hashgrid_sampled_bwd.cu): the sampled (or, with every level
   at A rows, exact) table gradient from the atoms.
 - K6 (csrc/hashgrid_stochastic.cu) and K7 (csrc/hashgrid_stochastic_bwd.cu):
@@ -39,6 +41,7 @@ import functools
 import numpy as np
 import torch
 
+from autolabel_tpu_torch import parallel
 from autolabel_tpu_torch.ops import _kernels, encoders
 
 NAME = 'hashgrid_encode'
@@ -609,11 +612,9 @@ def select_workspace_views(work, n):
                 total=f[3 * n + 2 * tiles])
 
 
-def _select_call(g, u, k, work=None):
-    """K5: (sel (k,) int32, coef (k,) fp32, count (1,) int32) on the card;
-    the first count entries are the selected points. `work`, if given,
-    is the workspace (select_workspace_bytes(n) uint8), left for the
-    caller to read (select_workspace_views)."""
+def _select_inputs(g, u, k, total):
+    """Check K5's inputs: g (n, D) bf16 on the card, u (L, n + 1) and k
+    draws among `total` points."""
     n = g.shape[0]
     dev = g.device
     if g.device.type != 'cuda' or u.device != dev:
@@ -628,8 +629,18 @@ def _select_call(g, u, k, work=None):
             or not u.is_contiguous():
         raise ValueError(f'{SELECT_NAME}: u must be contiguous float32 '
                          f'(L, {n + 1})')
-    if not 1 <= k <= n:
-        raise ValueError(f'{SELECT_NAME}: k={k} outside [1, {n}]')
+    if not 1 <= k <= total:
+        raise ValueError(f'{SELECT_NAME}: k={k} outside [1, {total}]')
+
+
+def _select_call(g, u, k, work=None):
+    """K5: (sel (k,) int32, coef (k,) fp32, count (1,) int32) on the card;
+    the first count entries are the selected points. `work`, if given,
+    is the workspace (select_workspace_bytes(n) uint8), left for the
+    caller to read (select_workspace_views)."""
+    n = g.shape[0]
+    dev = g.device
+    _select_inputs(g, u, k, n)
     sel = torch.empty(k, dtype=torch.int32, device=dev)
     coef = torch.empty(k, dtype=torch.float32, device=dev)
     count = torch.empty(1, dtype=torch.int32, device=dev)
@@ -652,15 +663,96 @@ def _select_call(g, u, k, work=None):
     return sel, coef, count
 
 
-def select_points(g, u, k):
-    """The point subsample of the sampled backward: (sel, coef, count),
-    the count first entries of sel the points drawn (K5 on the card, in
+def select_norms(g, root=True):
+    """K5's first kernel alone: the fp32 norms of g's rows (N, D) bf16 on
+    the card, or with root False their squares."""
+    n = g.shape[0]
+    s = torch.empty(n, dtype=torch.float32, device=g.device)
+    fn = _select_library().select_points_norms
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(g.data_ptr(), n, g.shape[1], int(root), s.data_ptr(),
+                torch.cuda.current_stream(g.device).cuda_stream)
+    _kernels.check(status, SELECT_NAME)
+    return s
+
+
+def select_scan(work, total, u_sys, k, lo, hi):
+    """K5's scan, counts and compaction on the norms of `total` points in
+    the workspace's s (select_workspace_views): the k draws among them, of
+    which those in [lo, hi) are returned as (sel, coef, count), sel
+    numbered from lo. u_sys: a one-element fp32 tensor on the card."""
+    dev = work.device
+    if work.dtype != torch.uint8 or work.numel() != \
+            select_workspace_bytes(total) or dev.type != 'cuda' \
+            or u_sys.device != dev or u_sys.dtype != torch.float32:
+        raise ValueError(f'{SELECT_NAME}: the workspace must be '
+                         f'{select_workspace_bytes(total)} bytes on the card'
+                         ' and u_sys fp32 on it')
+    cap = min(k, hi - lo)
+    sel = torch.empty(cap, dtype=torch.int32, device=dev)
+    coef = torch.empty(cap, dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = _select_library().select_points_scan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    status = fn(total, u_sys.data_ptr(), k, lo, hi, cap, work.data_ptr(),
+                sel.data_ptr(), coef.data_ptr(), count.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(status, SELECT_NAME)
+    return sel, coef, count
+
+
+def _select_global_call(g, u, k, mesh, work=None):
+    """K5 over the global batch of a device mesh (parallel.py), from this
+    rank's rows g (a block of the global rows; under 'model' a feature
+    slice of each): its norms kernel on the rank's rows (their squares
+    under 'model', summed over the model group in rank order, then the
+    root), the norms gathered over 'data' into the workspace of the global
+    points, then its scan, counts and compaction there with the one u_sys,
+    keeping the draws in the rank's rows. Every rank scans the same norms,
+    so the ranks' selections partition the global one. Returns (sel,
+    coef, count) as _select_call, sel numbered from the rank's first row;
+    `work`, if given, the workspace of the global points."""
+    n = g.shape[0]
+    total = n * parallel.axis_size(mesh, parallel.DATA)
+    _select_inputs(g, u, k, total)
+    whole_rows = parallel.axis_size(mesh, parallel.MODEL) == 1
+    s = select_norms(g, root=whole_rows)
+    if not whole_rows:
+        s = torch.sqrt(parallel.sum_over_model(s, mesh))
+    if work is None:
+        work = torch.empty(select_workspace_bytes(total), dtype=torch.uint8,
+                           device=g.device)
+    select_workspace_views(work, total)['s'].copy_(
+        parallel.gather_rows(s, mesh))
+    lo = parallel.axis_index(mesh, parallel.DATA) * n
+    out = select_scan(work, total, u[0, n:], k, lo, lo + n)
+    _kernels.launches[SELECT_NAME] += 1
+    return out
+
+
+def select_points(g, u, k, mesh=None):
+    """The point subsample of the sampled backward: (sel, coef, count), the
+    count first entries of sel the points drawn (K5 on the card, in
     ascending order within each block of points), or on the CPU the plain
-    version's (sel, coef) and their count."""
+    version's (sel, coef) and their count. With a device mesh, k draws
+    among the global batch's points, those in this rank's rows
+    (_select_global_call)."""
     if g.device.type == 'cpu':
-        sel, coef = encoders._select_backward_points(g, u[0, g.shape[0]], k)
+        n = g.shape[0]
+        if mesh is None:
+            sel, coef = encoders._select_backward_points(g, u[0, n], k)
+        else:
+            sel, coef = encoders.select_backward_points_global(
+                g, u[0, n], k, mesh)
         return sel, coef, torch.tensor([sel.shape[0]], dtype=torch.int32)
-    return _select_call(g.contiguous(), u, k)
+    if mesh is None:
+        return _select_call(g.contiguous(), u, k)
+    return _select_global_call(g.contiguous(), u, k, mesh)
 
 
 def _sampled_scatter_call(g, idx, w, u, rows, config, sel, coef, count):
@@ -808,13 +900,17 @@ def _draws(cum, k, u_sys):
 def select_chain(g):
     """K5's norms and scans recomputed on the CPU in its own fp32 order, for
     g (N, D) bf16: (s, loc, tile_total) as its norms and scan kernels
-    write them. A lane adds the squares of its 16-byte chunks of a row in
-    order, each by one fused multiply-add (here the exact float64 square
-    and sum rounded to fp32: the same, since a bf16 square has 16 bits), a
-    butterfly of shuffles sums the lanes; in a tile of SELECT_TILE points
-    each thread scans its SELECT_ROWS rows, the threads' totals chain
-    along the 32 lanes and the warps' along the tile."""
-    tile = SELECT_TILE
+    write them (select_chain_norms, then select_chain_scan)."""
+    s = select_chain_norms(g)
+    return (s, *select_chain_scan(s))
+
+
+def select_chain_norms(g, root=True):
+    """K5's norms kernel on the CPU: a lane adds the squares of its 16-byte
+    chunks of a row in order, each by one fused multiply-add (here the
+    exact float64 square and sum rounded to fp32: the same, since a bf16
+    square has 16 bits), a butterfly of shuffles sums the lanes, then the
+    root (or, without root, the squares' sum)."""
     n, dim = g.shape
     width = -(-dim // 256) * 256  # 32 lanes of 8 bf16 values a chunk
     s = np.empty(n, np.float32)
@@ -828,7 +924,17 @@ def select_chain(g):
                 acc = (acc + sq[:, j, :, e]).astype(np.float32)
         for o in (16, 8, 4, 2, 1):
             acc = acc + acc[:, np.arange(32) ^ o]
-        s[r0:r0 + x.shape[0]] = np.sqrt(acc[:, 0])
+        s[r0:r0 + x.shape[0]] = np.sqrt(acc[:, 0]) if root else acc[:, 0]
+    return s
+
+
+def select_chain_scan(s):
+    """K5's scan kernel on the CPU, from the fp32 norms s: (loc,
+    tile_total). In a tile of SELECT_TILE points each thread scans its
+    SELECT_ROWS rows, the threads' totals chain along the 32 lanes and the
+    warps' along the tile."""
+    tile = SELECT_TILE
+    n = s.shape[0]
     tiles = -(-n // tile)
     sn = np.zeros(tiles * tile, np.float32)
     sn[:n] = s
@@ -841,13 +947,16 @@ def select_chain(g):
     w = np.concatenate([np.zeros_like(warps[:, :1]), warps[:, :-1]], axis=1)
     w = np.repeat(w, 32, axis=1)[:, :, None]
     loc = (w + (mine + run)).reshape(-1)[:n]
-    return s, loc, warps[:, -1]
+    return loc, warps[:, -1]
 
 
-def check_selection(g, u_sys, k, sel, coef, count, views):
+def check_selection(g, u_sys, k, sel, coef, count, views, norms=None):
     """Hold one K5 call of (g (N, D) bf16, u_sys, k) with its outputs
     (sel, coef, count) and workspace views (select_workspace_views) against
-    itself, the float64 truth and the plain version. Returns a dict:
+    itself, the float64 truth and the plain version. norms: for a call
+    split at its norms (_select_global_call, every row the rank's), the
+    fp32 norms it scanned, which stand in for g's: the chain, the truth
+    and the plain version then start from them. Returns a dict:
 
     - norms_off, scan_off: K5's norms, and its tiles' scans and totals,
       that differ in their bits from select_chain's (must be 0);
@@ -883,7 +992,7 @@ def check_selection(g, u_sys, k, sel, coef, count, views):
       the same count, their number, and the plain coefs' own largest
       relative deviation from counts / (k p_64)."""
     cpu = torch.device('cpu')
-    n = g.shape[0]
+    n = views['s'].shape[0]
     m = int(count[0])
     sel = sel[:m].to(cpu).long()
     coef = coef[:m].to(cpu)
@@ -894,7 +1003,11 @@ def check_selection(g, u_sys, k, sel, coef, count, views):
     u = torch.as_tensor(u_sys, dtype=torch.float32).to(cpu)
     # K5's own chain, in fp32 with its roundings
     tt = views['tile_total'].to(cpu).numpy()
-    s_ref, loc_ref, tt_ref = select_chain(g)
+    if norms is None:
+        s_ref, loc_ref, tt_ref = select_chain(g)
+    else:
+        s_ref = np.asarray(norms, np.float32)
+        loc_ref, tt_ref = select_chain_scan(s_ref)
     norms_off = int((s_ref.view(np.int32)
                      != s.numpy().view(np.int32)).sum())
     scan_off = int((loc_ref.view(np.int32)
@@ -924,7 +1037,8 @@ def check_selection(g, u_sys, k, sel, coef, count, views):
                        and torch.equal(sel, flagged[:m])
                        and torch.equal(coef, want_coef[:m]))
     # the float64 truth
-    s64 = g.double().pow(2).sum(dim=-1).sqrt().to(cpu)
+    s64 = (g.double().pow(2).sum(dim=-1).sqrt().to(cpu) if norms is None
+           else torch.from_numpy(s_ref).double())
     tot64 = s64.sum()
     p64 = s64 / tot64 if float(tot64) > 0 else torch.full_like(s64, 1.0 / n)
     cum64 = p64.cumsum(0)
@@ -940,7 +1054,8 @@ def check_selection(g, u_sys, k, sel, coef, count, views):
     wrong = counts.double() != truth
     # the plain version (encoders._select_backward_points) on g's device,
     # its scan kept (torch.cumsum on the card need not repeat its bits)
-    p_p, cum_p = encoders._select_scan(g)
+    p_p, cum_p = (encoders._select_scan(g) if norms is None else
+                  encoders._scan_norms(torch.from_numpy(s_ref).to(g.device)))
     plain_sel, plain_coef = encoders._select_from_scan(p_p, cum_p, u.to(
         g.device), k)
     plain_sel, plain_coef = plain_sel.to(cpu), plain_coef.to(cpu)
@@ -1048,15 +1163,15 @@ class _SimplexEncode(torch.autograd.Function):
 class _SampledEncode(torch.autograd.Function):
     """Exact forward / sampled backward (JAX encoders._encode_sampled_bwd):
     K1s writes the atoms and the bf16 encode; the backward runs K5 when
-    the points are subsampled, then K2s. The x and u cotangents are
-    zero."""
+    the points are subsampled (over the global batch of a device mesh),
+    then K2s. The x and u cotangents are zero."""
 
     @staticmethod
-    def forward(ctx, table, x, u, config, interp, rows, point_frac):
+    def forward(ctx, table, x, u, config, interp, rows, point_frac, mesh):
         out, idx, w = _atoms_call(table, x, config, interp, torch.bfloat16,
                                   True)
         ctx.save_for_backward(idx, w, u)
-        ctx.args = (config, rows, point_frac)
+        ctx.args = (config, rows, point_frac, mesh)
         return out
 
     @staticmethod
@@ -1064,15 +1179,19 @@ class _SampledEncode(torch.autograd.Function):
         dtable = None
         if ctx.needs_input_grad[0]:
             idx, w, u = ctx.saved_tensors
-            config, rows, point_frac = ctx.args
+            config, rows, point_frac, mesh = ctx.args
             g = g.contiguous()
-            k = encoders.backward_subsample(idx.shape[2], point_frac)
+            k = encoders.backward_subsample(
+                idx.shape[2] * parallel.axis_size(mesh, parallel.DATA),
+                point_frac)
             sel = coef = count = None
             if k is not None:
-                sel, coef, count = _select_call(g, u, k)
+                sel, coef, count = (
+                    _select_call(g, u, k) if mesh is None
+                    else _select_global_call(g, u, k, mesh))
             dtable = _sampled_scatter_call(g, idx, w, u, rows, config, sel,
                                            coef, count)
-        return dtable, None, None, None, None, None, None
+        return dtable, None, None, None, None, None, None, None
 
 
 # -- K6, K7: the stochastic-corner and residual encodes ---------------------
@@ -1381,7 +1500,7 @@ def _records(table, x):
 
 def hashgrid_encode(table, x, config, interp='trilinear', u=None,
                     sampled_backward=0, backward_points=1.0, n_samples=1,
-                    exact_levels=0, residual=False):
+                    exact_levels=0, residual=False, mesh=None):
     """Encode (N, 3) points in [0, 1] -> (N, L * F): the plain versions on
     the CPU, the CUDA kernels on the card, whatever the field's grid_impl.
 
@@ -1390,6 +1509,10 @@ def hashgrid_encode(table, x, config, interp='trilinear', u=None,
     card); with u alone the stochastic-corner or (residual) residual encode
     (K6, K7; u of encoders.uniform_shape, fp32 out); otherwise the exact
     simplex (K1s, K2s) or trilinear (K1, K2) interpolation, fp32.
+
+    mesh: a device mesh (parallel.py) when table and config are this rank's
+    feature slice of the grid and x its rows of the global batch: the
+    sampled backward's subsample is then the global batch's.
     """
     if x.device.type == 'cpu' and table.device.type == 'cpu':
         return hashgrid_encode_plain(table, x, config, interp=interp, u=u,
@@ -1397,15 +1520,16 @@ def hashgrid_encode(table, x, config, interp='trilinear', u=None,
                                      backward_points=backward_points,
                                      n_samples=n_samples,
                                      exact_levels=exact_levels,
-                                     residual=residual)
+                                     residual=residual, mesh=mesh)
+    whole = config.n_features * parallel.axis_size(mesh, parallel.MODEL)
     if sampled_backward and u is not None:
         rows, pf = encoders.sampled_rows(config, interp, sampled_backward,
-                                         backward_points)
+                                         backward_points, whole)
         encoders.check_uniforms(u, encoders.uniform_shape(
             config.n_levels, x.shape[0], sampled_backward=sampled_backward,
             backward_points=pf))
         return _SampledEncode.apply(table, x, u.contiguous(), config, interp,
-                                    rows, pf)
+                                    rows, pf, mesh)
     if u is not None:
         plan = encoders.stochastic_plan(config, interp, n_samples,
                                         exact_levels, residual)
@@ -1417,7 +1541,7 @@ def hashgrid_encode(table, x, config, interp='trilinear', u=None,
         return _stochastic_call(table.detach(), x, u.contiguous(), config,
                                 interp, n_samples, plan, False)[0]
     if interp == 'simplex':
-        if config.n_features % 8:
+        if whole % 8:
             raise NotImplementedError(
                 "simplex interpolation is implemented for the wide-row "
                 "(TPU_GRID-shaped) layout only")

@@ -12,10 +12,17 @@ same model-hash directory (<scene>/nerf/<hash>, or
 the other trained. --eval renders the test split and prints
 "eval: mse=... psnr=...dB".
 
-It runs on the card; tests call main([...], device='cpu'). Flags the port
-does not cover raise and say what they need: --mesh-devices and
---mesh-model (data and grid parallelism). The hidden
---pose-refine-experimental trains the poses jointly with the field
+It runs on the card; tests call main([...], device='cpu'). With
+--mesh-devices N (and --mesh-model M, which must divide N) it trains on a
+device mesh as scripts/train.py does, N // M data ranks by M model ranks
+(autolabel_tpu_torch/parallel): main spawns N ranks, one process each
+(rank r on card r mod the cards, or the CPU), which meet through a file in
+a temporary directory, build the same dataset with one seed and so the
+same global batches, and train in lockstep; rank 0 alone writes
+params.pkl, metrics.jsonl, the events, the checkpoint (the table whole)
+and prints the eval line. Joint pose refinement on a mesh is not ported
+and raises. The hidden --pose-refine-experimental trains the poses jointly
+with the field
 (train/pose_refine.py) and writes the refined poses (ngp frame: R, t and
 the frames' stems) to <model dir>/poses_refined.npz, as the JAX CLI
 does. --sampled-backward 0 trains through the
@@ -29,16 +36,19 @@ stage timings are not carried over: main returns the training loop's
 seconds.
 """
 import argparse
+import json
 import os
+import shutil
 import time
 import types
 
 import numpy as np
 import torch
 
-from autolabel_tpu_torch import model_utils
+from autolabel_tpu_torch import model_utils, parallel
 from autolabel_tpu_torch.core.dataset import LenDataset, SceneDataset
 from autolabel_tpu_torch.device import resolve_device
+from autolabel_tpu_torch.ops import _kernels
 from autolabel_tpu_torch.render.occupancy import (OccupancyGrid,
                                                   OccupancyGridConfig)
 from autolabel_tpu_torch.render.renderer import RenderOptions
@@ -70,11 +80,12 @@ def read_args(argv=None):
     parser.add_argument('--upsample-steps', type=int, default=0,
                         help="Extra importance-sampled points per ray.")
     parser.add_argument('--mesh-devices', type=int, default=None,
-                        help="Data-parallel over this many devices (not "
-                        "ported: raises).")
+                        help="Data-parallel over this many devices (one "
+                        "process a device).")
     parser.add_argument('--mesh-model', type=int, default=1,
                         help="Shard the hash table's feature axis over this "
-                        "many devices (not ported: raises above 1).")
+                        "many of the mesh's devices (grid tensor "
+                        "parallelism).")
     parser.add_argument('--save-optimizer', action='store_true',
                         help="Persist Adam moments in the final checkpoint.")
     parser.add_argument('--occupancy-grid', action='store_true',
@@ -138,22 +149,76 @@ def read_args(argv=None):
     return flags
 
 
-def _refuse_unported(flags):
-    """Raise for each flag whose path the port does not have yet."""
-    if flags.mesh_devices or flags.mesh_model != 1:
-        raise NotImplementedError(
-            '--mesh-devices / --mesh-model are not ported yet: data '
-            'parallelism and the grid feature-axis sharding need a '
-            'torch.distributed port of autolabel_tpu/parallel')
-
-
-def main(argv=None, device=None):
+def main(argv=None, device=None, seed=None):
     """Train one scene as scripts/train.py does. device: None (the card;
-    raises without one) or a torch device ('cpu' in the tests). Returns a
-    namespace of the trainer, the dataset, the model directory, the
-    seconds the training loop took (train_s) and, with --eval, eval_mse."""
+    raises without one) or a torch device ('cpu' in the tests). seed: the
+    dataset's batch draws (fresh ones when None; under a mesh every rank
+    takes the one seed). Returns a namespace of the trainer, the dataset,
+    the model directory, the seconds the training loop took (train_s) and,
+    with --eval, eval_mse; under a mesh, rank 0's model directory,
+    train_s, eval_mse and kernel launches, the trainer and dataset None
+    (they lived in the ranks)."""
     flags = read_args(argv)
     device = resolve_device(device)
+    if flags.mesh_devices:
+        return _spawn_mesh(flags, device, seed)
+    return _train(flags, device, seed=seed)
+
+
+def _mesh(flags, device):
+    """The device mesh, as scripts/train.py builds it."""
+    if flags.mesh_model > 1:
+        return parallel.make_mesh_2d(flags.mesh_devices // flags.mesh_model,
+                                     flags.mesh_model, device=device)
+    return parallel.make_mesh(flags.mesh_devices, device=device)
+
+
+def _spawn_mesh(flags, device, seed):
+    """Run the training on --mesh-devices ranks, one spawned process each;
+    returns rank 0's result."""
+    if flags.pose_refine:
+        raise NotImplementedError('joint pose refinement on a device mesh '
+                                  'is not ported')
+    assert flags.mesh_devices % flags.mesh_model == 0
+    if seed is None:
+        seed = int(np.random.SeedSequence().entropy % 2 ** 32)
+    init_file = parallel.rendezvous_file()
+    result = os.path.join(os.path.dirname(init_file), 'rank0.json')
+    torch.multiprocessing.start_processes(
+        _rank_main, nprocs=flags.mesh_devices, join=True,
+        start_method='spawn',
+        args=(flags, device.type, seed, init_file, result,
+              model_utils.TPU_GRID))
+    with open(result) as f:
+        out = json.load(f)
+    shutil.rmtree(os.path.dirname(init_file), ignore_errors=True)
+    return types.SimpleNamespace(trainer=None, dataset=None, **out)
+
+
+def _rank_main(rank, flags, device_type, seed, init_file, result, tpu_grid):
+    """One rank of the mesh: join the world, train, and on rank 0 write the
+    result for the parent. tpu_grid: the parent's model_utils.TPU_GRID, so
+    the ranks build the parent's model."""
+    model_utils.TPU_GRID = tpu_grid
+    world = flags.mesh_devices
+    if device_type == 'cpu':  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = parallel.init_world(rank, world, init_file, device_type)
+    try:
+        run = _train(flags, device, _mesh(flags, device_type), seed)
+        if rank == 0:
+            with open(result, 'w') as f:
+                json.dump({'model_dir': run.model_dir, 'train_s': run.train_s,
+                           'eval_mse': run.eval_mse,
+                           'launches': dict(_kernels.launches)}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(flags, device, mesh=None, seed=None):
+    """main's training on `device`, on `mesh` when given (then in every
+    rank, which writes only as rank 0)."""
+    writer = parallel.is_writer(mesh)
 
     loss_options = LossOptions(rgb_weight=flags.rgb_weight,
                                depth_weight=flags.depth_weight,
@@ -178,13 +243,16 @@ def main(argv=None, device=None):
         sampled_backward=sampled_backward,
         backward_points=flags.backward_points,
         occupancy_near_far=flags.occupancy_near_far)
-    _refuse_unported(flags)
 
     dataset = SceneDataset('train',
                            flags.scene,
                            factor=flags.factor_train,
                            batch_size=flags.batch_size,
                            features=flags.features)
+    if seed is not None:
+        # The batches' draws: the class-balanced sampler's and the rest.
+        dataset.rng = np.random.default_rng(seed)
+        dataset.index_sampler.random_state = np.random.RandomState(seed)
     n_classes = dataset.n_classes if dataset.n_classes is not None else 2
     field = model_utils.create_model(dataset.min_bounds, dataset.max_bounds,
                                      n_classes, flags, device=device)
@@ -197,7 +265,8 @@ def main(argv=None, device=None):
                                       dataset.camera.size)
 
     model_dir = model_utils.model_dir(flags.scene, flags)
-    model_utils.write_params(model_dir, flags)
+    if writer:
+        model_utils.write_params(model_dir, flags)
     pose_refine = None
     if flags.pose_refine:
         dataset.emit_frame_rays = True
@@ -211,6 +280,7 @@ def main(argv=None, device=None):
                             workspace=model_dir,
                             ema_decay=0.95,
                             use_checkpoint='latest',
+                            mesh=mesh,
                             occupancy=occupancy,
                             exact_final_fraction=flags.exact_final_fraction,
                             sampled_warmup_fraction=(
@@ -224,7 +294,7 @@ def main(argv=None, device=None):
     loader = PrefetchIterator(LenDataset(dataset, iters_per_epoch),
                               transform=trainer._device_batch)
     start = time.perf_counter()
-    if flags.profile:
+    if flags.profile and writer:
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if device.type == 'cuda':
@@ -265,8 +335,9 @@ def main(argv=None, device=None):
             _, loss = trainer.eval_step(testset._get_test(i))
             losses.append(loss)
         eval_mse = float(np.mean(losses))
-        print(f"eval: mse={eval_mse:.5f} "
-              f"psnr={-10 * np.log10(eval_mse):.2f}dB")
+        if writer:
+            print(f"eval: mse={eval_mse:.5f} "
+                  f"psnr={-10 * np.log10(eval_mse):.2f}dB")
     return types.SimpleNamespace(trainer=trainer, dataset=dataset,
                                  model_dir=model_dir, train_s=train_s,
                                  eval_mse=eval_mse)

@@ -19,12 +19,16 @@ poses stay frozen while the field forms, then step at a tenth of its lr.
 Its schedule counts applied updates too.
 
 The whole update stays on the device (the skip is a select, not a host
-branch), so a training loop never waits for the card here.
+branch), so a training loop never waits for the card here. On a device
+mesh (parallel.py) a step is skipped on every rank when any rank's
+gradients (its table slice's included) hold a non-finite value.
 """
 import math
 
 import numpy as np
 import torch
+
+from autolabel_tpu_torch import parallel
 
 B1, B2, EPS = 0.9, 0.99, 1e-15
 # optax.adam's defaults: pose refinement, the DemoCLIP teacher and the
@@ -123,15 +127,18 @@ class Optimizer:
         return torch.tensor(self.schedule, device=count.device)
 
     @torch.no_grad()
-    def step(self, grads):
+    def step(self, grads, mesh=None):
         """Apply one update from grads (name -> tensor, or None for a
         parameter the loss does not reach). Returns a 0-dim bool tensor on
-        the device: whether the update was applied."""
+        the device: whether the update was applied. mesh: the device mesh
+        whose ranks skip together (parallel.all_finite)."""
         st = self.state
         grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
                  for k, p in self.params.items()}
         finite = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
+        if mesh is not None:
+            finite = parallel.all_finite(finite, mesh)
         notfinite = torch.where(finite, torch.zeros_like(
             st['notfinite_count']), st['notfinite_count'] + 1)
         ok = finite | (notfinite > self.max_consecutive_errors)
@@ -163,13 +170,16 @@ class Optimizer:
         st['total_notfinite'] = st['total_notfinite'] + (~finite).int()
         return ok
 
-    def state_dict(self):
-        """The state as numpy arrays (the checkpoint's 'optimizer')."""
+    def state_dict(self, moments=None):
+        """The state as numpy arrays (the checkpoint's 'optimizer').
+        moments: 'mu' and 'nu' to write in place of the state's own (a
+        mesh's, their tables gathered whole)."""
         st = self.state
         out = {k: st[k].cpu().numpy() for k in
                ('count', 'notfinite_count', 'last_finite', 'total_notfinite')}
         for key in ('mu', 'nu'):
-            out[key] = {k: v.detach().cpu().numpy() for k, v in st[key].items()}
+            out[key] = {k: v.detach().cpu().numpy()
+                        for k, v in (moments or st)[key].items()}
         return out
 
     def load_state_dict(self, saved):

@@ -24,8 +24,21 @@ refinement (train/pose_refine.py): per-frame deltas train beside the
 field's parameters under the optimizer's 'pose' group, the EMA covers
 them, the step rebuilds the rays from the refined poses, the encode is
 exact, and with a hash grid the estimator phases give way to the JAX
-trainer's coarse-to-fine level windows. Not ported, and refused rather
-than ignored: the device mesh.
+trainer's coarse-to-fine level windows.
+
+With mesh= (parallel.make_mesh or make_mesh_2d) every rank of the mesh runs
+the trainer in lockstep on the same global batches and draws, and a step
+computes the JAX trainer's one-device step on the global batch: each rank
+takes its rows of the batch (and of the render's uniforms), the field's
+table shards on its feature axis over 'model' (parallel.shard_field: its
+Adam moments and EMA copy alike), the losses are the rank's parts of the
+global means, the gradients sum over 'data', and a non-finite gradient on
+any rank skips the step everywhere. Rank 0 alone writes metrics, events
+and checkpoints, which hold the table whole; a resume cuts the rank's slice
+from a whole checkpoint (of either package). Under 'model' the eval
+renders gather the table whole first, so every rank of a model group calls
+them together. Not ported, and refused rather than ignored: joint pose
+refinement and the interactive trainer on a mesh.
 
 InteractiveTrainer (the GUI backend's) takes one step at a time at a
 constant lr, an EMA tick every EMA_EVERY steps of its own count, and
@@ -39,8 +52,9 @@ import os
 import numpy as np
 import torch
 
-from autolabel_tpu_torch import bridge
+from autolabel_tpu_torch import bridge, parallel
 from autolabel_tpu_torch.render.renderer import (RenderOptions, StagedRenderer,
+                                                 draw_perturbations,
                                                  render_rays)
 from autolabel_tpu_torch.train import checkpoints
 from autolabel_tpu_torch.train.losses import LossOptions, compute_losses
@@ -55,10 +69,9 @@ _BATCH_KEYS = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
 _POSE_BATCH_KEYS = ('frame_idx', 'rays_d_cam')
 
 
-def _refuse_unported(mesh):
-    if mesh is not None:
-        raise NotImplementedError('SimpleTrainer: a device mesh (data '
-                                  'parallelism) is not ported yet')
+class _Batch(dict):
+    """A batch _device_batch made: this rank's rows on the field's
+    device."""
 
 
 def phase_schedule(options, iters, exact_final_fraction=0.0,
@@ -95,7 +108,8 @@ class SimpleTrainer:
     """Offline trainer: epochs of iterations, per-epoch EMA and metrics,
     checkpoints, staged eval renders. `field` is a Field on its device;
     `seed` seeds the generator of the render's perturbations (the JAX
-    trainer's PRNG key)."""
+    trainer's PRNG key). `mesh`: a device mesh (see the module docstring);
+    the field is put on it in place (parallel.shard_field)."""
 
     def __init__(self,
                  name,
@@ -118,7 +132,13 @@ class SimpleTrainer:
                  pose_refine=None,
                  seed=0):
         self.render_options = render_options or RenderOptions(perturb=True)
-        _refuse_unported(mesh)
+        if mesh is not None and pose_refine is not None:
+            raise NotImplementedError('SimpleTrainer: joint pose refinement '
+                                      'on a device mesh is not ported')
+        self.mesh = mesh
+        if mesh is not None:
+            parallel.shard_field(field, mesh)
+        self._whole = None  # (key, StagedRenderer): _whole_renderer
         self.occupancy = occupancy
         self.occupancy_update_every = occupancy_update_every
         # Joint camera refinement: pose_refine = (R0 (N, 3, 3) cam->world,
@@ -153,10 +173,11 @@ class SimpleTrainer:
         self.loss_options = loss_options or LossOptions()
         self.epoch = 0
         self.global_step = 0
+        writes = workspace is not None and parallel.is_writer(mesh)
         self.metrics_logger = (MetricsLogger(workspace)
-                               if metrics and workspace is not None else None)
+                               if metrics and writes else None)
         self.tb_writer = (TBEventWriter(os.path.join(workspace, 'run', name))
-                          if tensorboard and workspace is not None else None)
+                          if tensorboard and writes else None)
         labels = dict(field.param_labels(),
                       **{f'pose.{k}': 'pose' for k in self.pose})
         self.optimizer = Optimizer(
@@ -189,6 +210,12 @@ class SimpleTrainer:
         return dict(self.field.state_dict(),
                     **{f'pose.{k}': v for k, v in self.pose.items()})
 
+    def _grid_shape(self):
+        """The whole table's (L, T, F), or None without a grid."""
+        grid = self.field.config.grid_config
+        return None if grid is None else (grid.n_levels, grid.table_size,
+                                          grid.n_features)
+
     def _try_resume(self):
         payload = checkpoints.load_checkpoint(self.checkpoint_dir)
         if payload is None:
@@ -196,6 +223,15 @@ class SimpleTrainer:
         model = payload['model']
         ema = payload.get('ema', model)
         opt_state = payload.get('optimizer')
+        if parallel.sharded_grid(self.field):
+            # The checkpoint holds the table whole: cut this rank's slice of
+            # it, of its EMA and of the port's Adam moments.
+            grid_shape = self._grid_shape()
+            model = parallel.shard_tree(model, self.mesh, grid_shape)
+            ema = parallel.shard_tree(ema, self.mesh, grid_shape)
+            if isinstance(opt_state, dict) and 'mu' in opt_state:
+                opt_state = parallel.shard_tree(opt_state, self.mesh,
+                                                grid_shape)
         if ('pose' in model) != bool(self.pose):
             # Resumed across a pose-refinement toggle (the model hash
             # excludes the deltas): a checkpoint without them gains zero
@@ -221,30 +257,59 @@ class SimpleTrainer:
         self.global_step = int(payload['global_step'])
         self.epoch = int(payload.get('epoch', self.global_step // 1000))
 
+    def _whole_states(self, states):
+        """State dicts with the table whole: under 'model' the rank's slices
+        gathered over the model group in one collective (every rank of it
+        calls this)."""
+        if not parallel.sharded_grid(self.field):
+            return list(states)
+        tables = parallel.gather_grid(torch.stack(
+            [s['encoder.grid'].detach() for s in states]), self.mesh)
+        return [dict(s, **{'encoder.grid': t})
+                for s, t in zip(states, tables.unbind())]
+
     def save_checkpoint(self, name=None, include_optimizer=True):
+        """Write a checkpoint of the whole params, EMA and (with
+        include_optimizer) Adam state; on a mesh every rank calls it and
+        rank 0 writes."""
         if self.workspace is None:
             return
         if name is None:
             name = f'{self.name}_ep{self.epoch:04d}'
         path = os.path.join(self.checkpoint_dir, f'{name}.pth')
-        state = {'params': bridge.state_to_numpy(self._param_state()),
-                 'ema': bridge.state_to_numpy(self.ema),
-                 'step': self.global_step,
-                 'opt_state': self.optimizer.state_dict()}
-        checkpoints.save_checkpoint(path, state, extra={'epoch': self.epoch},
-                                    include_optimizer=include_optimizer)
+        moments = ('mu', 'nu') if include_optimizer else ()
+        params, ema, *whole = self._whole_states(
+            [self._param_state(), self.ema]
+            + [self.optimizer.state[key] for key in moments])
+        if parallel.is_writer(self.mesh):
+            opt_state = (self.optimizer.state_dict(dict(zip(moments, whole)))
+                         if include_optimizer else None)
+            state = {'params': bridge.state_to_numpy(params),
+                     'ema': bridge.state_to_numpy(ema),
+                     'step': self.global_step, 'opt_state': opt_state}
+            checkpoints.save_checkpoint(path, state,
+                                        extra={'epoch': self.epoch},
+                                        include_optimizer=include_optimizer)
+        if self.mesh is not None:
+            parallel.barrier()
 
     # -- training ----------------------------------------------------------
 
     def _device_batch(self, data):
         """The batch's tensors on the field's device, direction_norms as
-        (N, 1). Idempotent, and free on a batch it already made (no copy):
-        PrefetchIterator applies it on its own thread, and the step again."""
+        (N, 1); on a mesh, this rank's rows of the global batch `data`,
+        cut before the copy. Idempotent, and free on a batch it already
+        made (no copy): PrefetchIterator applies it on its own thread, and
+        the step again."""
+        if isinstance(data, _Batch):
+            return data
         dev = self.field.device
         keys = _BATCH_KEYS + (('features',) if self.loss_options.feature_loss
                               else ()) + (_POSE_BATCH_KEYS if self.pose
                                           else ())
-        batch = {k: torch.as_tensor(data[k], device=dev) for k in keys}
+        rows = parallel.batch_sharding(self.mesh)
+        batch = _Batch({k: torch.as_tensor(rows.take(data[k]), device=dev)
+                        for k in keys})
         batch['direction_norms'] = batch['direction_norms'].reshape(-1)[:,
                                                                         None]
         return batch
@@ -271,17 +336,39 @@ class SimpleTrainer:
             rays_o, rays_d = refined_rays(self.pose, self._pose_init,
                                           batch['frame_idx'],
                                           batch['rays_d_cam'])
+        options = self.step_options()
+        if self.mesh is not None and options.perturb:
+            # The global batch's draws, every rank the same, and then this
+            # rank's part of them.
+            n_global = rays_o.shape[0] * parallel.axis_size(self.mesh,
+                                                            parallel.DATA)
+            grid = self.field.config.grid_config
+            if draws is None:
+                draws = draw_perturbations(
+                    self.generator, n_global, options,
+                    grid.n_levels if grid is not None else 0,
+                    self.field.config.grid_interp)
+            draws = parallel.local_draws(draws, self.mesh, n_global, options)
         outputs = render_rays(self.field, rays_o, rays_d,
                               batch['direction_norms'], key=self.generator,
-                              options=self.step_options(),
-                              occupancy=occupancy, draws=draws)
-        loss, parts = compute_losses(outputs, batch, self.loss_options)
+                              options=options, occupancy=occupancy,
+                              draws=draws)
+        loss, parts = compute_losses(outputs, batch, self.loss_options,
+                                     self.mesh)
         params = self.optimizer.params
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), allow_unused=True)))
         parts = {k: v.detach() for k, v in parts.items()}
         parts['total'] = loss.detach()
-        return parts, dict(zip(params, grads))
+        if self.mesh is not None:
+            parallel.reduce_gradients(grads, self.mesh)
+            # The loss parts of the global batch: the ranks' parts summed.
+            names = list(parts)
+            summed = parallel.all_reduce_sum(
+                torch.stack([parts[k].float() for k in names]), self.mesh,
+                parallel.DATA)
+            parts = dict(zip(names, summed.unbind()))
+        return parts, grads
 
     def train_step(self, data, draws=None):
         """One optimization step; returns its loss parts. With an occupancy
@@ -291,7 +378,7 @@ class SimpleTrainer:
                 and self.global_step % self.occupancy_update_every == 0):
             self.occupancy.update(self.field)
         parts, grads = self.loss_and_grads(data, draws)
-        self.optimizer.step(grads)
+        self.optimizer.step(grads, self.mesh)
         self.global_step += 1
         return parts
 
@@ -351,8 +438,27 @@ class SimpleTrainer:
             with torch.no_grad():
                 self.field.load_state_dict(saved)
 
-    def _render(self, data):
-        return self._staged.render(
+    def _whole_renderer(self, use_ema=False):
+        """Under 'model': a staged renderer of a whole copy of the field
+        (the live params or the EMA), the table gathered over the model
+        group (every rank of it calls this), made anew when the table's
+        slice was written since."""
+        state = self.ema if use_ema else self.field.state_dict()
+        key = (use_ema, state['encoder.grid']._version)
+        if self._whole is None or self._whole[0] != key:
+            self._whole = None
+            from autolabel_tpu_torch.models.field import Field
+            state = self._whole_states([state])[0]
+            whole = Field(self.field.config, device=self.field.device)
+            with torch.no_grad():
+                whole.load_state_dict({k: v for k, v in state.items()
+                                       if not k.startswith('pose.')})
+            self._whole = (key, StagedRenderer(
+                whole, self._staged.options, self._staged.max_ray_batch))
+        return self._whole[1]
+
+    def _render(self, data, staged=None):
+        return (staged or self._staged).render(
             data['rays_o'], data['rays_d'],
             np.asarray(data['direction_norms']).reshape(
                 *np.shape(data['rays_o'])[:-1]))
@@ -360,16 +466,20 @@ class SimpleTrainer:
     def test_step(self, data, use_ema=False):
         """Full-frame staged render -> (rgb, depth, semantic logits,
         features), shapes (H, W, ...), tensors on the field's device."""
-        context = (self._rendering_with(self.ema) if use_ema
-                   else contextlib.nullcontext())
-        with context:
-            out = self._render(data)
+        if parallel.sharded_grid(self.field):
+            out = self._render(data, self._whole_renderer(use_ema))
+        else:
+            context = (self._rendering_with(self.ema) if use_ema
+                       else contextlib.nullcontext())
+            with context:
+                out = self._render(data)
         return out['image'], out['depth'], out['semantic'], out[
             'semantic_features']
 
     def eval_step(self, data):
         """Render one eval frame and compute the validation rgb loss."""
-        out = self._render(data)
+        out = self._render(data, self._whole_renderer()
+                           if parallel.sharded_grid(self.field) else None)
         gt_rgb = torch.as_tensor(np.asarray(data['pixels']),
                                  device=out['image'].device)
         return out, float(torch.mean((out['image'] - gt_rgb) ** 2))
@@ -392,6 +502,11 @@ class InteractiveTrainer(SimpleTrainer):
     MAX_INFLIGHT = 8
 
     def __init__(self, *args, **kwargs):
+        if kwargs.get('mesh') is not None:
+            # The GUI's backend drives it from one process, one message at
+            # a time; a mesh needs every rank to take each step.
+            raise NotImplementedError('InteractiveTrainer: a device mesh is '
+                                      'not ported')
         kwargs.setdefault('iters', None)  # constant lr
         super().__init__(*args, **kwargs)
         self.iterator = None

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render (serving) path, its training step, the
-flagship training step, the train CLI and its stochastic-corner estimators,
+flagship training step (also on device meshes: data and grid tensor
+parallelism), the train CLI and its stochastic-corner estimators,
 the render CLI with its baked preview, the interactive preview,
 evaluation (the closed-set and open-vocabulary CLIs and a reference
 checkpoint's import), the interactive labelling backend (the GUI's
@@ -12,9 +13,12 @@ IncrementalSfM's cv2-free stages, the mapping CLI's scale and bounds), on
 one CUDA card.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --mesh-cards {1,4}  # phase 19 alone (4: a card a rank)
 
 Phases, each failing loudly:
-  1. the card's name and power limit, torch and CUDA versions;
+  1. the card's name and power limit, torch and CUDA versions, and which
+     of cv2, PIL, h5py, sklearn, pandas and matplotlib import (in a
+     child);
   2. build every kernel of both paths from csrc/ (nvcc, sm_90a, one
      process per source, in parallel);
   3. hold the hash-grid encode kernel (K1) against its plain version at
@@ -338,6 +342,36 @@ Phases, each failing loudly:
      bbox.txt against the truth (Sim(3) scale within 2%, mean centre error
      below 2 cm); and, in a child where `import cv2` fails, the cv2 front
      end raising naming cv2.
+ 19. data and grid tensor parallelism (autolabel_tpu_torch/parallel),
+     bench.py's flagship step (phase 9's model and options, 'pallas'
+     heads) for 5 steps from one seed's params, batches and draws. (a)
+     Without a mesh twice, then on a world of one under NCCL (the
+     collectives called): each kernel once a step; each of the 5 steps
+     taken again from no mesh's params before it: its loss parts and
+     every gradient but the table's bit-equal to no mesh's, the table's
+     within K2s's sum-order tolerance of it (its float atomics take
+     their own order, as no mesh run again does). (b) Two
+     spawned ranks sharing the card, under gloo (NCCL refuses them, which
+     a probe of two NCCL ranks on the card shows): DP 2, then TP 2 (the
+     table's feature axis over 'model'), each kernel once a step on each
+     rank; step 1's loss parts within rtol 1e-5 of (a)'s, its other
+     gradients and the encode's cotangent within 1e-5 by relative norm
+     (TP: bit-equal); off the rows of the points the subsample counted
+     otherwise (each of them within a scan's bound of a boundary: TP sums
+     two slices' squares), the table gradient gathered whole within
+     K2s's sum-order tolerance of (a)'s, widened by K5's coefficient
+     bound and the cotangent's difference, no element of the other sign,
+     and the table after step 1 within 1e-6 of (a)'s. (c) On each rank, K1s and K5 + K2s at the
+     shard width (F = 64 under TP) on step 1's own inputs through
+     _check_k1s and _check_select_scatter, K5's squared norms bit-equal
+     to select_chain_norms, the rank's draws bit-equal to the full-range
+     scan's in its rows, and under TP the global selection against
+     itself, float64 and the plain version (check_selection from the
+     gathered norms), the same draws on both model ranks. (d) The train
+     CLI with --mesh-devices 2 --mesh-model 2 (batch 1,024, 32 samples)
+     for 60 iterations, then resumed for 40: the checkpoint's table, EMA
+     and Adam moments whole at step 100, rank 0's launches one a step.
+     Each run's step walls and its collectives' share of them.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
@@ -383,12 +417,12 @@ def _fail_early(msg):
     sys.exit(2)
 
 
-def _gpu_line():
+def _gpu_line(index=0):
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
+    return out[index].strip()
 
 
 def _cuda_ms(fn, reps):
@@ -5562,9 +5596,758 @@ def _mapping_phase(dev, seed, gpu, checks, results):
     return out
 
 
+# Phase 19: data and grid tensor parallelism (autolabel_tpu_torch/parallel)
+# on the one card. bench.py's flagship step (TPU_GRID simplex, batch 4096,
+# proposal 64 -> 32, sampled_backward 2, backward_points 0.25, the fused
+# heads) for MESH_STEPS steps from one seed's params, batches and draws:
+# (a) without a mesh, twice (the trainer's own run-to-run spread: K2s's
+# atomics leave the table gradient's last bits to their order), and on a
+# world of one under NCCL; (b) two spawned ranks sharing the card under
+# gloo, DP 2 then TP 2; (c) on the ranks, K1s, K5 and K2s held at the
+# shard width; (d) the train CLI with --mesh-devices 2 --mesh-model 2.
+MESH_STEPS = 5
+MESH_CLI_ITERS = (60, 40)  # the CLI's two legs: trained, then resumed
+# By the cards of the call: (b)'s meshes (name, data ranks, model ranks),
+# on one world, and (d)'s CLI flags. On one card the ranks share it
+# (gloo, whose gathers pass through the host: the CLI's batch is cut to
+# 1,024 rays of 32 samples); on four, a rank a card (NCCL), README's
+# command.
+MESH = {1: dict(modes=(('dp', 2, 1), ('tp', 1, 2)),
+                cli=['--proposal', '--batch-size', '1024', '--num-steps',
+                     '32', '--factor-train', '1', '--save-optimizer',
+                     '--mesh-devices', '2', '--mesh-model', '2']),
+        4: dict(modes=(('dp2tp2', 2, 2), ('dp4', 4, 1)),
+                cli=['--proposal', '--factor-train', '1', '--save-optimizer',
+                     '--mesh-devices', '4', '--mesh-model', '2'])}
+MESH_TABLE_ATOL = 1e-6  # an Adam step of lr 5e-3 of one sign, rounded
+MESH_LOSS_RTOL = 1e-5
+NCCL_PROBE_S = 120
+OPTIONAL_MODULES = ('cv2', 'PIL', 'h5py', 'sklearn', 'pandas', 'matplotlib')
+_OPTIONAL_PROBE = '''
+import importlib, json, sys
+out = {}
+for name in sys.argv[1:]:
+    try:
+        module = importlib.import_module(name)
+        out[name] = str(getattr(module, '__version__', 'yes'))
+    except Exception as e:
+        out[name] = None
+print(json.dumps(out))
+'''
+
+
+def _optional_modules():
+    """Which of OPTIONAL_MODULES import here, with their versions (in a
+    child, so this process imports none of them)."""
+    out = subprocess.run([sys.executable, '-c', _OPTIONAL_PROBE,
+                          *OPTIONAL_MODULES], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _mesh_inputs(dev, seed):
+    """MESH_STEPS global batches of the procedural scene and the render's
+    draws for them, on the host."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core import rays
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    from autolabel_tpu_torch.render.renderer import draw_perturbations
+    positions = [(3.2 * np.cos(a), 3.2 * np.sin(a), 0.9 * (-1) ** k)
+                 for k, a in enumerate(np.linspace(0, 2 * np.pi, 9)[:-1])]
+    loader = _RayBatches([_scene_frame(rays, pos) for pos in positions],
+                         TRAIN_BATCH, dev, seed + 4)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    batches, draws = [], []
+    for _ in range(MESH_STEPS):
+        batches.append({k: v.cpu() for k, v in next(loader).items()})
+        draws.append({k: v.cpu() for k, v in draw_perturbations(
+            gen, TRAIN_BATCH, _flagship_options(), TPU_GRID.n_levels,
+            'simplex').items()})
+    return batches, draws
+
+
+class _Collectives:
+    """Wraps parallel's collectives: counts their calls and their host
+    wall (the card synchronised before and after each) on a clock."""
+
+    def __init__(self, parallel):
+        import torch
+        self.calls, self.seconds = 0, 0.0
+        self.parallel = parallel
+        self.saved = (parallel.all_reduce_sum, parallel.all_gather)
+
+        def timed(fn):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return run
+
+        parallel.all_reduce_sum, parallel.all_gather = map(timed, self.saved)
+
+    def close(self):
+        self.parallel.all_reduce_sum, self.parallel.all_gather = self.saved
+
+
+def _mesh_trainer(dev, seed, mesh):
+    import torch
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    field = Field(_model_config('simplex', 'pallas'), device=dev,
+                  generator=torch.Generator().manual_seed(seed + 2))
+    return SimpleTrainer('chip_smoke_mesh', field, lr=5e-3, iters=10000,
+                         render_options=_flagship_options(), workspace=None,
+                         use_checkpoint=None, metrics=False, mesh=mesh,
+                         seed=seed)
+
+
+def _mesh_run(trainer, batches, draws, dev, record=None, states=False):
+    """train_steps on the global batches and draws: each step's loss parts
+    and wall (synchronised after it), the launches, the step-1 gradients
+    (the table's gathered whole) and table, the params after them, and
+    with `record` (a dict) the step-1 inputs of K1s, K5 and K2s and K5's
+    workspace; with `states`, every step's params before it and its
+    gradients ('states', 'grads'). Then steps 2 on again with the
+    collectives timed (_Collectives: the card synchronised around each),
+    which the walls above leave out."""
+    import torch
+    from autolabel_tpu_torch import parallel
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda
+    out = {'losses': [], 'walls': [], 'timed_walls': [], 'collective_s': [],
+           'states': [], 'grads': []}
+    mesh = trainer.mesh
+    step = trainer.optimizer.step
+    saved = (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+             hashgrid_cuda._select_global_call,
+             hashgrid_cuda._sampled_scatter_call)
+    atoms, select, select_global, scatter = saved
+
+    def first_step(grads, mesh_=None):
+        if 'grads1' not in out or states:
+            whole = {k: (parallel.gather_grid(g, mesh) if k == 'encoder.grid'
+                         else g).clone() for k, g in grads.items()
+                     if g is not None}
+            out.setdefault('grads1', whole)
+            out['grad1'] = out['grads1']['encoder.grid']
+            if states:
+                out['grads'].append(whole)
+        return step(grads, mesh_)
+
+    def rec_atoms(table, x, config, interp, out_dtype, with_atoms):
+        got = atoms(table, x, config, interp, out_dtype, with_atoms)
+        if with_atoms and 'atoms' not in record:
+            record['atoms'] = (table.detach().clone(), x.clone(),
+                               got[1].clone(), got[2].clone(), config)
+        return got
+
+    def rec_select(g, u, k, work=None):
+        n = g.shape[0]
+        work = torch.empty(hashgrid_cuda.select_workspace_bytes(n),
+                           dtype=torch.uint8, device=g.device)
+        got = select(g, u, k, work)
+        record.setdefault('select', (g.clone(), u.clone(), k, work,
+                                     [t.clone() for t in got]))
+        return got
+
+    def rec_select_global(g, u, k, mesh_, work=None):
+        total = g.shape[0] * parallel.axis_size(mesh_, parallel.DATA)
+        work = torch.empty(hashgrid_cuda.select_workspace_bytes(total),
+                           dtype=torch.uint8, device=g.device)
+        got = select_global(g, u, k, mesh_, work)
+        record.setdefault('select', (g.clone(), u.clone(), k, work,
+                                     [t.clone() for t in got]))
+        return got
+
+    def rec_scatter(g, idx, w, u, rows, config, sel, coef, count):
+        record.setdefault('scatter', (u.clone(), rows))
+        return scatter(g, idx, w, u, rows, config, sel, coef, count)
+
+    trainer.optimizer.step = first_step
+    if record is not None:
+        (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+         hashgrid_cuda._select_global_call,
+         hashgrid_cuda._sampled_scatter_call) = (
+            rec_atoms, rec_select, rec_select_global, rec_scatter)
+    try:
+        for i, (batch, d) in enumerate(zip(batches, draws)):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            d = {k: v.to(dev) for k, v in d.items()}
+            if states:
+                out['states'].append({
+                    k: v.detach().clone()
+                    for k, v in trainer.field.state_dict().items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = trainer.train_step(batch, d)
+            torch.cuda.synchronize()
+            out['walls'].append(time.perf_counter() - t0)
+            out['losses'].append({k: float(v) for k, v in parts.items()})
+            if i == 0:
+                (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+                 hashgrid_cuda._select_global_call,
+                 hashgrid_cuda._sampled_scatter_call) = saved
+                out['table1'] = parallel.gather_grid(
+                    trainer.field.encoder['grid'].detach(), mesh).clone()
+    finally:
+        trainer.optimizer.step = step
+        (hashgrid_cuda._atoms_call, hashgrid_cuda._select_call,
+         hashgrid_cuda._select_global_call,
+         hashgrid_cuda._sampled_scatter_call) = saved
+    out['launches'] = dict(_kernels.launches)
+    out['params'] = {k: parallel.gather_grid(v.detach(), mesh).cpu()
+                     if k == 'encoder.grid' else v.detach().cpu()
+                     for k, v in trainer.field.state_dict().items()}
+    coll = _Collectives(parallel)
+    try:
+        for batch, d in zip(batches[1:], draws[1:]):
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            d = {k: v.to(dev) for k, v in d.items()}
+            torch.cuda.synchronize()
+            c0, t0 = coll.seconds, time.perf_counter()
+            trainer.train_step(batch, d)
+            torch.cuda.synchronize()
+            out['timed_walls'].append(time.perf_counter() - t0)
+            out['collective_s'].append(coll.seconds - c0)
+    finally:
+        coll.close()
+    out['collective_calls'] = coll.calls
+    return out
+
+
+def _mesh_walls(run):
+    """A run's step walls, steps 2 on (step 1 pays the first launches and
+    the communicators' set-up), and its collectives' share of the timed
+    steps' walls."""
+    walls, timed = run['walls'][1:], run['timed_walls']
+    coll = run['collective_s']
+    return (f'step walls ms {[round(w * 1e3, 3) for w in run["walls"]]}; '
+            f'steps 2-{len(run["walls"])}: median '
+            f'{sorted(walls)[len(walls) // 2] * 1e3:.3f} ms; with the card '
+            f'synchronised around each of {run["collective_calls"]} '
+            f'collectives ({len(timed)} steps): median '
+            f'{sorted(timed)[len(timed) // 2] * 1e3:.3f} ms a step, '
+            f'collectives {sum(coll) * 1e3 / len(coll):.3f} ms, '
+            f'{sum(coll) / sum(timed):.4f} of it')
+
+
+def _mesh_rank(rank, init_file, work, seed, modes):
+    """Phase 19 (b)-(c)'s rank: on each mesh of `modes` (name, data ranks,
+    model ranks) in turn, one world; rank r writes <work>/rank<r>.json (its
+    walls, collectives, launches and failed checks) and
+    <work>/<mode>_rank<r>.pt."""
+    sys.path.insert(0, HERE)
+    import torch
+    from autolabel_tpu_torch import parallel
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = modes[0][1] * modes[0][2]
+    dev = parallel.init_world(rank, world, init_file, 'cuda')
+    gpu = _gpu_line(dev.index)
+    checks = Checks()
+    report = {'backend': torch.distributed.get_backend(), 'device': str(dev)}
+    try:
+        inputs = torch.load(os.path.join(work, 'inputs.pt'))
+        for mode, n_data, n_model in modes:
+            mesh = (parallel.make_mesh(world, device='cuda') if n_model == 1
+                    else parallel.make_mesh_2d(n_data, n_model,
+                                               device='cuda'))
+            trainer = _mesh_trainer(dev, seed, mesh)
+            record = {}
+            _kernels.reset_launches()
+            run = _mesh_run(trainer, inputs['batches'], inputs['draws'], dev,
+                            record)
+            report[mode] = dict(walls=run['walls'], losses=run['losses'],
+                                timed_walls=run['timed_walls'],
+                                collective_s=run['collective_s'],
+                                launches=run['launches'])
+            print(f'mesh {mode} rank {rank} [{gpu}] ({report["backend"]}, '
+                  f'{dev}): {_mesh_walls(run)}', flush=True)
+            g, u, k, ws, (sel, coef, count) = record['select']
+            total = g.shape[0] * parallel.axis_size(mesh, parallel.DATA)
+            views = hashgrid_cuda.select_workspace_views(ws, total)
+            save = {'counts': views['counts'].cpu(), 'sel': sel.cpu(),
+                    'coef': coef.cpu(), 'count': count.cpu(), 'g': g.cpu()}
+            if rank == 0:
+                save.update(grads1={k: v.cpu() for k, v in
+                                    run['grads1'].items()},
+                            table1=run['table1'].cpu(), params=run['params'])
+            torch.save(save, os.path.join(work, f'{mode}_rank{rank}.pt'))
+            # (c) the kernels at the shard width, on step 1's own inputs
+            table, x, idx, w, config = record['atoms']
+            u_s, rows = record['scatter']
+            tag = f'mesh {mode} rank {rank}'
+            _check_k1s(checks, tag, table, x, idx, w, config)
+            _check_select_scatter(checks, gpu, dev, tag, g, u, min(
+                k, g.shape[0]), idx, w, rows, config)
+            # the global subsample: its norms kernel without the root holds
+            # its order; and the rank's draws are the full-range scan's in
+            # its rows (the same norms, scanned with every row kept).
+            sq = hashgrid_cuda.select_norms(g, root=False)
+            chain_sq = hashgrid_cuda.select_chain_norms(g, root=False)
+            checks.true(f'{tag} K5 squared norms bit-equal to its order',
+                        sq.cpu().numpy().tobytes() == chain_sq.tobytes())
+            whole = ws.clone()
+            full = hashgrid_cuda.select_scan(whole, total, u[0, g.shape[0]:],
+                                             k, 0, total)
+            lo = parallel.axis_index(mesh, parallel.DATA) * g.shape[0]
+            m_full, m = int(full[2][0]), int(count[0])
+            fs, fc = full[0][:m_full].long(), full[1][:m_full]
+            mine = (fs >= lo) & (fs < lo + g.shape[0])
+            checks.true(
+                f'{tag} K5 global draws: the full-range scan\'s in the '
+                'rank\'s rows, bit-equal',
+                torch.equal(fs[mine] - lo, sel[:m].long())
+                and torch.equal(fc[mine], coef[:m]), f'{m} of {m_full}')
+            if n_model > 1:
+                check = hashgrid_cuda.check_selection(
+                    g, u[0, g.shape[0]], k, full[0], full[1], full[2],
+                    hashgrid_cuda.select_workspace_views(whole, total),
+                    norms=views['s'].cpu().numpy())
+                failures = hashgrid_cuda.selection_failures(
+                    check, total, k, g.shape[1] * n_model)
+                checks.true(f'{tag} K5 global selection against itself, '
+                            'float64 and plain', not failures,
+                            '; '.join(failures) or 'all conditions hold')
+                # both model ranks draw the same points (sel and count
+                # gathered whole: the same sizes on every rank)
+                other = parallel.all_gather(torch.cat([count, sel]), mesh,
+                                            parallel.MODEL)
+                checks.true(f'{tag} K5 the model ranks draw the same points',
+                            all(int(o[0]) == m and torch.equal(
+                                o[1:m + 1], sel[:m]) for o in other))
+            del record, run, trainer
+            torch.cuda.empty_cache()
+    finally:
+        report['failures'] = checks.failures
+        with open(os.path.join(work, f'rank{rank}.json'), 'w') as f:
+            json.dump(report, f)
+        torch.distributed.destroy_process_group()
+
+
+def _nccl_probe_rank(rank, init_file, out):
+    """Two ranks on card 0 under NCCL: what one all_reduce does."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group('nccl', init_method=f'file://{init_file}',
+                                rank=rank, world_size=2)
+        t = torch.ones(1, device='cuda')
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        result = f'ran: {float(t)}'
+    except Exception as e:  # the outcome is what the probe reports
+        result = f'refused: {type(e).__name__}: {str(e).splitlines()[0]}'
+    with open(f'{out}.{rank}', 'w') as f:
+        f.write(result)
+    os._exit(0)
+
+
+def _mesh_phase(dev, seed, gpu, checks, cards=1):
+    """Phase 19 (see the module docstring) on `cards` cards: with one, (a)
+    to (d); with four (--mesh-cards 4), (a) without its world of one, (b)
+    and (c) with a rank a card under NCCL (DP 2 x TP 2, then DP 4) and (d)
+    on four ranks. Returns what the output file keeps."""
+    import shutil
+
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK_DIR, 'mesh')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    batches, draws = _mesh_inputs(dev, seed)
+    torch.save({'batches': batches, 'draws': draws},
+               os.path.join(work, 'inputs.pt'))
+    names = [hashgrid_cuda.ATOMS_NAME, hashgrid_cuda.SELECT_NAME,
+             hashgrid_cuda.SAMPLED_BWD_NAME, heads_cuda.HEADS,
+             heads_cuda.HEADS_BWD, heads_cuda.MLP3, heads_cuda.MLP3_BWD]
+    # (a) no mesh twice (A, A2), then (one card) a world of one (NCCL)
+    runs, record = {}, {}
+    for name in ('A', 'A2'):
+        trainer = _mesh_trainer(dev, seed, None)
+        runs[name] = _mesh_run(trainer, batches, draws, dev,
+                               record if name == 'A' else None,
+                               states=name == 'A')
+        del trainer
+    print(f'mesh (a) [{gpu}] no mesh: {_mesh_walls(runs["A"])}')
+    out['no_mesh_walls'] = runs['A']['walls']
+    if cards == 1:
+        out['a'] = _mesh_world_of_one(dev, seed, gpu, checks, batches,
+                                      draws, runs, record, names)
+    torch.cuda.empty_cache()
+    out['b'] = _mesh_ranks(gpu, checks, work, seed, cards, runs, record,
+                           names)
+    del runs, record
+    torch.cuda.empty_cache()
+    if cards == 1:
+        out['nccl_two_ranks_one_card'] = _nccl_probe(gpu, work)
+    out['d'] = _mesh_cli(gpu, checks, work, cards, names)
+    out['phase_s'] = time.perf_counter() - t_phase
+    print(f'phase 19: {out["phase_s"]:.1f} s')
+    return out
+
+
+def _sampled_tolerance(record, coef_rel=0.0, dg=None):
+    """K2s's sum-order tolerance of the table gradient of the step that
+    `record` (_mesh_run's) holds, per element; with coef_rel, each term's
+    coefficient off by up to that share besides, and with dg (|g| of
+    another run less this one's, fp32) the terms' cotangents off by it:
+    their first-order spread, widened by (1 + coef_rel)."""
+    from autolabel_tpu_torch.ops import encoders, hashgrid_cuda
+    (_, _, idx, w, config), (g, _, _, _, (sel, coef, count)) = \
+        record['atoms'], record['select']
+    u, rows = record['scatter']
+    m = int(count[0])
+    sel, coef = sel[:m].long(), coef[:m]
+    tol = hashgrid_cuda.sampled_backward_tolerance(g, idx, w, u, rows,
+                                                   config, sel, coef)
+    if not coef_rel and dg is None:
+        return tol
+    spread = coef_rel * encoders.sampled_scatter_plain(
+        g.float().abs(), idx, w, u, rows, config, sel, coef.abs())
+    if dg is not None:
+        spread += encoders.sampled_scatter_plain(dg, idx, w, u, rows, config,
+                                                 sel, coef.abs())
+    return (tol + spread) * (1.0 + coef_rel)
+
+
+def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
+                       names):
+    """Phase 19 (a)'s world of one under NCCL, held against runs['A'] (and
+    runs['A2'], no mesh run again). Each step taken from no mesh's params
+    before it: the loss parts and every gradient but the table's
+    bit-equal to no mesh's; the table's (K2s's float atomics take their
+    own order) within K2s's sum-order tolerance of it. Run on, the two
+    part by that rounding (Adam moves an element by about lr whatever its
+    gradient's size): their losses after step 1 are printed beside no
+    mesh run again's."""
+    import torch
+    from autolabel_tpu_torch import parallel
+    from autolabel_tpu_torch.ops import _kernels
+    mesh = parallel.make_mesh(1)
+    backend = torch.distributed.get_backend()
+    trainer = _mesh_trainer(dev, seed, mesh)
+    _kernels.reset_launches()
+    w1 = _mesh_run(trainer, batches, draws, dev)
+    launches = w1['launches']
+    a, a2 = runs['A'], runs['A2']
+    # each step again from no mesh's params before it
+    forced = []
+    for i in range(MESH_STEPS):
+        with torch.no_grad():
+            trainer.field.load_state_dict(a['states'][i])
+        trainer.global_step = i
+        rec = {}
+        forced.append((_mesh_run(trainer, batches[i:i + 1], draws[i:i + 1],
+                                 dev, rec), rec))
+    del trainer
+    torch.distributed.destroy_process_group()
+    checks.true('mesh (a) world of one: NCCL, collectives called',
+                backend == 'nccl' and w1['collective_calls'] > 0,
+                f'{backend}, {w1["collective_calls"]} calls in '
+                f'{len(w1["timed_walls"])} steps')
+    for name in names:
+        checks.true(f'mesh (a) world of one launches {name}',
+                    launches.get(name, 0) == MESH_STEPS,
+                    f'{launches.get(name, 0)} (expected {MESH_STEPS})')
+    others = [k for k in a['grads1'] if k != 'encoder.grid']
+    for i, (run, rec) in enumerate(forced):
+        want, grads = a['losses'][i], a['grads'][i]
+        checks.true(f'mesh (a) world of one step {i + 1} from no mesh\'s '
+                    'params: loss parts and every gradient but the table\'s '
+                    'bit-equal to no mesh\'s',
+                    all(want[k] == run['losses'][0][k] for k in want)
+                    and all(torch.equal(grads[k], run['grads1'][k])
+                            for k in others),
+                    f'{len(want)} loss parts, {len(others)} gradients')
+        checks.within(f'mesh (a) world of one step {i + 1} from no mesh\'s '
+                      'params: table gradient within K2s\'s sum-order '
+                      'tolerance of no mesh\'s', run['grad1'],
+                      grads['encoder.grid'], _sampled_tolerance(rec))
+    table_equal = int((w1['grad1'] == a['grad1']).sum())
+    own_equal = int((a2['grad1'] == a['grad1']).sum())
+
+    def later(run):
+        return max(abs(run['losses'][i][k] - v) / max(abs(v), 1e-30)
+                   for i in range(1, MESH_STEPS)
+                   for k, v in a['losses'][i].items())
+
+    later_w1, later_a2 = later(w1), later(a2)
+    items = [(a['losses'][i][k], a2['losses'][i][k], w1['losses'][i][k])
+             for i in range(MESH_STEPS) for k in a['losses'][i]]
+    items += [(a['params'][k], a2['params'][k], w1['params'][k])
+              for k in a['params']]
+
+    def same(x, y):
+        return bool(torch.equal(x, y)) if torch.is_tensor(x) else x == y
+
+    equal = sum(same(ref, got) for ref, _, got in items)
+    equal_own = sum(same(ref, got) for ref, got, _ in items)
+    print(f'mesh (a) [{gpu}] run on: step 1 table gradient bit-equal to no '
+          f'mesh\'s on {table_equal} of {a["grad1"].numel()} elements (no '
+          f'mesh run again: {own_equal}); losses and params after 5 steps '
+          f'bit-equal: {equal} of {len(items)} (no mesh run again: '
+          f'{equal_own}); steps 2-5 losses within {later_w1:.3e} relative '
+          f'(no mesh run again: {later_a2:.3e})')
+    print(f'mesh (a) [{gpu}] world of one (nccl): {_mesh_walls(w1)}')
+    return dict(bit_equal=equal, compared=len(items),
+                collective_s=w1['collective_s'], walls=w1['walls'],
+                timed_walls=w1['timed_walls'], launches=launches,
+                later=later_w1, later_no_mesh=later_a2)
+
+
+def _mesh_ranks(gpu, checks, work, seed, cards, runs, record, names):
+    """Phase 19 (b): the ranks of MESH[cards]'s modes spawned on one world
+    (_mesh_rank, which holds (c)), each mesh held against runs['A']:
+    step 1's loss parts within MESH_LOSS_RTOL; its encode cotangent and
+    other gradients within 1e-5 by relative norm; its table gradient,
+    off the rows of the points that K5 counts otherwise than one device
+    (each within a scan's bound of a boundary), within K2s's sum-order
+    tolerance widened by K5's coefficient bound (twice: both runs' coefs
+    against float64) and the cotangent's difference, with no element of
+    the other sign; and the table after step 1 within MESH_TABLE_ATOL
+    there."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    modes = MESH[cards]['modes']
+    world = modes[0][1] * modes[0][2]
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _mesh_rank, args=(os.path.join(work, 'rendezvous'), work, seed,
+                          modes),
+        nprocs=world, join=True, start_method='spawn')
+    ranks_s = time.perf_counter() - t0
+    reports = []
+    for rank in range(world):
+        with open(os.path.join(work, f'rank{rank}.json')) as f:
+            reports.append(json.load(f))
+        for failure in reports[-1]['failures']:
+            checks.failures.append(f'rank {rank}: {failure}')
+    want = 'gloo' if cards == 1 else 'nccl'
+    checks.true(f'mesh (b) {world} ranks on {cards} card(s) run {want}',
+                all(r['backend'] == want for r in reports),
+                str([r['backend'] for r in reports]))
+    a = runs['A']
+    others = [k for k in a['grads1'] if k != 'encoder.grid']
+    idx = record['atoms'][2]  # (L, 4, N): step 1's atoms, every run's
+    g, u, k = record['select'][:3]
+    counts = hashgrid_cuda.select_workspace_views(
+        record['select'][3], g.shape[0])['counts'].cpu()
+    grad_a, table_a = a['grad1'].cpu(), a['table1'].cpu()
+    # How far k cum - u lies from an integer at each point or the one
+    # before it (a count is the difference of two floors), in float64 from
+    # (a)'s step-1 cotangent, and one fp32 scan's bound from it
+    # (select_scan_bound): two scans count a point otherwise only where an
+    # integer lies between their values.
+    s64 = g.double().pow(2).sum(dim=-1).sqrt().cpu()
+    v64 = k * (s64.cumsum(0) / s64.sum()) - float(u[0, g.shape[0]])
+    v_dist = (v64 - v64.round()).abs()
+    v_dist = torch.minimum(v_dist, torch.cat([v_dist.new_ones(1),
+                                              v_dist[:-1]]))
+    scan_bound = hashgrid_cuda.select_scan_bound(g.shape[0], k, g.shape[1])
+    out = {'ranks_s': ranks_s}
+    coef_rel = 2 * hashgrid_cuda.select_coef_bound(g.shape[0], g.shape[1])
+    for mode, n_data, n_model in modes:
+        mine = torch.load(os.path.join(work, f'{mode}_rank0.pt'))
+        for r, rep in enumerate(reports):
+            for name in names:
+                got = rep[mode]['launches'].get(name, 0)
+                checks.true(f'mesh (b) {mode} rank {r} launches {name}',
+                            got == MESH_STEPS,
+                            f'{got} (expected {MESH_STEPS})')
+        losses = reports[0][mode]['losses']
+        for key, v in a['losses'][0].items():
+            checks.close(f'mesh (b) {mode} step 1 loss {key}',
+                         torch.tensor(losses[0][key]), torch.tensor(v),
+                         atol=0.0, rtol=MESH_LOSS_RTOL)
+        checks.true(f'mesh (b) {mode} ranks report one loss',
+                    all(r[mode]['losses'] == losses for r in reports))
+        g1 = mine['grads1']
+        rel = {n: float((g1[n] - a['grads1'][n].cpu()).norm()
+                        / a['grads1'][n].cpu().norm().clamp(min=1e-30))
+               for n in others}
+        checks.true(f'mesh (b) {mode} step 1 gradients but the table\'s '
+                    'within 1e-5 of (a)\'s by relative norm',
+                    max(rel.values()) <= 1e-5,
+                    f'largest {max(rel.values()):.3e} ({max(rel, key=rel.get)}'
+                    f'), {sum(v == 0 for v in rel.values())} of {len(rel)} '
+                    'bit-equal')
+        flipped = torch.nonzero(mine['counts'] != counts).squeeze(1)
+        dist = float(v_dist[flipped].max()) if flipped.numel() else 0.0
+        checks.true(f'mesh (b) {mode} points drawn otherwise than in (a): '
+                    'each within a scan\'s bound of a boundary',
+                    dist <= scan_bound,
+                    f'{flipped.numel()} points, farthest {dist:.3e} counts '
+                    f'(bound {scan_bound:.3e})')
+        rows = torch.zeros(idx.shape[0], TPU_GRID.table_size,
+                           dtype=torch.bool)
+        for level in range(idx.shape[0]) if flipped.numel() else ():
+            rows[level, idx[level][:, flipped.to(idx.device)].reshape(
+                -1).long().cpu()] = True
+        keep = ~rows[..., None].expand_as(table_a)
+        # the global cotangent in (a)'s layout: rank d * n_model + j holds
+        # rows d, level-major features j of each level
+        parts = [torch.load(os.path.join(work, f'{mode}_rank{r}.pt'))['g']
+                 for r in range(world)]
+        n = parts[0].shape[0]
+        g_mesh = torch.cat([torch.cat(
+            [parts[d * n_model + j].reshape(n, TPU_GRID.n_levels, -1)
+             for j in range(n_model)], dim=2).reshape(n, -1)
+            for d in range(n_data)])
+        g_a = g.cpu()
+        checks.true(f'mesh (b) {mode} step 1 encode cotangent within 1e-5 of '
+                    '(a)\'s by relative norm', float(
+                        (g_mesh.float() - g_a.float()).norm()
+                        / g_a.float().norm().clamp(min=1e-30)) <= 1e-5,
+                    f'{int((g_mesh == g_a).sum())} of {g_a.numel()} '
+                    'bit-equal')
+        dg = (g_mesh.float() - g_a.float()).abs().to(g.device)
+        tol = _sampled_tolerance(record, coef_rel, dg).cpu()
+        grad_b = g1['encoder.grid']
+        checks.within(f'mesh (b) {mode} step 1 table gradient within K2s\'s '
+                      'tolerance of (a)\'s, off the rows of the points '
+                      'counted otherwise', grad_b[keep], grad_a[keep],
+                      tol[keep])
+        other = keep & (torch.sign(grad_b) != torch.sign(grad_a))
+        checks.true(f'mesh (b) {mode} step 1 table gradient: no element of '
+                    'the other sign off those rows', not bool(other.any()),
+                    f'{int(other.sum())} elements; {flipped.numel()} points, '
+                    f'{int(rows.sum())} rows left out')
+        held = keep & (torch.sign(grad_b) == torch.sign(grad_a))
+        err = (mine['table1'] - table_a).abs()[held]
+        checks.true(
+            f'mesh (b) {mode} table after step 1 within {MESH_TABLE_ATOL} '
+            'of (a)\'s off those rows', bool((err <= MESH_TABLE_ATOL).all()),
+            f'max {float(err.max()):.3e} on {int(held.sum())} of '
+            f'{held.numel()} elements')
+        out[mode] = dict(
+            walls=[r[mode]['walls'] for r in reports],
+            timed_walls=[r[mode]['timed_walls'] for r in reports],
+            collective_s=[r[mode]['collective_s'] for r in reports],
+            losses=losses, flipped=int(flipped.numel()),
+            table_err=float(err.max()),
+            launches=[r[mode]['launches'] for r in reports])
+        del mine
+    print(f'mesh (b) [{gpu}]: {world} ranks {ranks_s:.1f} s with their '
+          'checks and the spawn')
+    return out
+
+
+def _nccl_probe(gpu, work):
+    """Two NCCL ranks on the one card: what an all_reduce does (the rule
+    sends ranks sharing a card to gloo)."""
+    import torch
+    probe = os.path.join(work, 'nccl_probe')
+    ctx = torch.multiprocessing.start_processes(
+        _nccl_probe_rank, args=(os.path.join(work, 'nccl_rendezvous'), probe),
+        nprocs=2, join=False, start_method='spawn')
+    deadline = time.perf_counter() + NCCL_PROBE_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > deadline:
+                break
+    except Exception as e:  # a rank that died: the outcome says so
+        print(f'mesh nccl probe: {type(e).__name__}')
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    outcomes = []
+    for rank in range(2):
+        path = f'{probe}.{rank}'
+        outcomes.append(open(path).read() if os.path.exists(path)
+                        else f'no outcome in {NCCL_PROBE_S} s')
+    print(f'mesh nccl probe [{gpu}]: two ranks on one card: {outcomes}')
+    return outcomes
+
+
+def _mesh_cli(gpu, checks, work, cards, names):
+    """Phase 19 (d): the train CLI on MESH[cards]'s flags, trained then
+    resumed: the checkpoint's table, EMA and moments whole, rank 0's
+    launches one a step."""
+    import numpy as np
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.train import checkpoints
+    from autolabel_tpu_torch.utils import fixtures
+    scene = os.path.join(WORK_DIR, 'cli', 'sphere')
+    if not os.path.isdir(scene):
+        fixtures.make_synthetic_scene(scene, **CLI_SCENE)
+    ws = os.path.join(work, 'cli')
+    flags = MESH[cards]['cli']
+    legs = []
+    for iters in MESH_CLI_ITERS:
+        t0 = time.perf_counter()
+        run = cli.main([scene, '--workspace', ws, '--iters', str(iters)]
+                       + flags)
+        legs.append(dict(iters=iters, wall_s=time.perf_counter() - t0,
+                         train_s=run.train_s, launches=run.launches))
+    payload = checkpoints.load_checkpoint(os.path.join(run.model_dir,
+                                                       'checkpoints'))
+    whole = (TPU_GRID.n_levels, TPU_GRID.table_size, TPU_GRID.n_features)
+    shapes = [np.shape(payload['model']['encoder']['grid']),
+              np.shape(payload['ema']['encoder']['grid']),
+              np.shape(payload['optimizer']['mu']['encoder.grid']),
+              np.shape(payload['optimizer']['nu']['encoder.grid'])]
+    checks.true('mesh (d) CLI checkpoint host-complete and resumed',
+                all(s == whole for s in shapes)
+                and payload['global_step'] == sum(MESH_CLI_ITERS)
+                and bool(np.isfinite(payload['model']['encoder']['grid'])
+                         .all()),
+                f'{shapes}, step {payload["global_step"]}')
+    for leg in legs:
+        for name in names[:3]:
+            got = leg['launches'].get(name, 0)
+            checks.true(f'mesh (d) CLI {leg["iters"]} iterations rank 0 '
+                        f'launches {name}', got == leg['iters'],
+                        f'{got} (expected {leg["iters"]})')
+        print(f'mesh (d) [{gpu}] CLI {" ".join(flags)} --iters '
+              f'{leg["iters"]}: {leg["wall_s"]:.1f} s with the spawn, '
+              f'{leg["train_s"] * 1e3 / leg["iters"]:.3f} ms a step on rank 0 '
+              '(the communicators\' set-up in its first step included)')
+    return legs
+
+
+def _mesh_cards_main(args, dev, gpu, checks, t_start, build_s):
+    """--mesh-cards N: phase 19 alone on N cards (on four, a rank a
+    card)."""
+    import torch
+    if torch.cuda.device_count() < args.mesh_cards:
+        _fail_early(f'--mesh-cards {args.mesh_cards} needs as many cards; '
+                    f'{torch.cuda.device_count()} present')
+    for index in range(args.mesh_cards):
+        print(f'card {index}: {_gpu_line(index)}')
+    mesh_run = _mesh_phase(dev, args.seed, gpu, checks, args.mesh_cards)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_mesh_cards.json'), 'w') as f:
+        json.dump({'gpu': gpu, 'build_s': build_s, 'mesh': mesh_run,
+                   'failures': checks.failures}, f, indent=1)
+    print(f'total: {time.perf_counter() - t_start:.1f} s')
+    if checks.failures:
+        print(f'FAILED: {checks.failures}', file=sys.stderr)
+        return 1
+    print(gpu)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--mesh-cards', type=int, default=None,
+                        choices=sorted(MESH),
+                        help="Run phase 19 alone on this many cards (with "
+                        "four, a rank a card under NCCL).")
     args = parser.parse_args()
 
     import numpy as np
@@ -5597,6 +6380,10 @@ def main():
     print(f'torch {torch.__version__} cuda {torch.version.cuda} '
           f'python {sys.version.split()[0]} devices '
           f'{torch.cuda.device_count()}')
+    optional = _optional_modules()
+    print('optional modules: ' + ', '.join(
+        f'{name} {version}' if version else f'{name} missing'
+        for name, version in optional.items()))
 
     # ---- 2. build
     build_s = _kernels.build_all()
@@ -5605,6 +6392,8 @@ def main():
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  ptxas {source}: {line.strip()}')
+    if args.mesh_cards:
+        return _mesh_cards_main(args, dev, gpu, checks, t_start, build_s)
 
     g = torch.Generator().manual_seed(args.seed)
     results = {}
@@ -6275,6 +7064,11 @@ def main():
     torch.cuda.empty_cache()
     mapping = _mapping_phase(dev, args.seed, gpu, checks, results)
 
+    # ---- 19. data and grid tensor parallelism: a world of one, two ranks
+    # sharing the card (DP 2, TP 2), the train CLI on a mesh
+    torch.cuda.empty_cache()
+    mesh_run = _mesh_phase(dev, args.seed, gpu, checks)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -6366,6 +7160,12 @@ def main():
             kernel_names[key], 0),
         'launches_mapping_sfm': mapping['launches']['sfm'].get(
             kernel_names[key], 0),
+        'launches_mesh_world_of_one': mesh_run['a']['launches'].get(
+            kernel_names[key], 0),
+        **{f'launches_mesh_{mode}': mesh_run['b'][mode]['launches'][0].get(
+            kernel_names[key], 0) for mode in ('dp', 'tp')},
+        'launches_mesh_cli': sum(leg['launches'].get(kernel_names[key], 0)
+                                 for leg in mesh_run['d']),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -6425,6 +7225,7 @@ def main():
                    'pose': {k: v for k, v in pose.items() if k != 'names'},
                    'teachers': teachers,
                    'mapping': mapping,
+                   'mesh': mesh_run, 'optional_modules': optional,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

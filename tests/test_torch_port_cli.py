@@ -145,12 +145,15 @@ def test_cli_configures_what_scripts_train_does(scene, tmp_path,
 
 
 @pytest.mark.parametrize('argv', [
-    ['--mesh-devices', '2'], ['--mesh-model', '2'],
-    ['--mesh-devices', '2', '--pose-refine-experimental']])
+    ['--mesh-devices', '1', '--pose-refine-experimental'],
+    ['--mesh-devices', '2', '--pose-refine-experimental'],
+    ['--mesh-devices', '4', '--mesh-model', '2',
+     '--pose-refine-experimental']])
 def test_cli_refuses_what_is_not_ported(scene, argv):
-    """Each flag whose path the port lacks raises before any work: the
-    device mesh, with joint pose refinement too. (The stochastic-corner
-    estimator, on by default wherever the sampled backward is off, trains:
+    """Each flag combination whose path the port lacks raises before any
+    work: joint pose refinement on a device mesh. (The device mesh trains:
+    tests/test_torch_port_parallel.py; the stochastic-corner estimator, on
+    by default wherever the sampled backward is off, trains:
     tests/test_torch_port_stochastic.py; joint pose refinement trains:
     tests/test_torch_port_register.py.)"""
     with pytest.raises(NotImplementedError):

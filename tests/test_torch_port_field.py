@@ -209,7 +209,8 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'features.vit', 'features.dino', 'features.fcn',
                    'features.fcn50', 'features.lseg_tower', 'features.lseg',
                    'utils.feature_utils', 'models.autoencoder',
-                   'compute_feature_maps', 'train_demo_teacher'):
+                   'compute_feature_maps', 'train_demo_teacher',
+                   'parallel'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 

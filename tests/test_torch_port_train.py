@@ -47,7 +47,8 @@ from autolabel_tpu_torch.render.renderer import (RenderOptions,
 from autolabel_tpu_torch.train import optim
 from autolabel_tpu_torch.train.losses import LossOptions, compute_losses
 from autolabel_tpu_torch.train.metrics import MetricsLogger
-from autolabel_tpu_torch.train.trainer import SimpleTrainer
+from autolabel_tpu_torch.train.trainer import (InteractiveTrainer,
+                                               SimpleTrainer)
 from tests.test_torch_port_render import _rays
 
 RTOL, ATOL = 1e-4, 1e-6
@@ -535,15 +536,20 @@ def test_ema_is_taken_once_per_train_iterations(tmp_path):
         assert torch.equal(p, live[name])
 
 
-# Occupancy grids, TensorBoard events and the stochastic-corner estimator
-# are ported (tests/test_torch_port_occupancy.py,
-# tests/test_torch_port_cli.py, tests/test_torch_port_stochastic.py).
+# Occupancy grids, TensorBoard events, the stochastic-corner estimator and
+# the device mesh are ported (tests/test_torch_port_occupancy.py,
+# tests/test_torch_port_cli.py, tests/test_torch_port_stochastic.py,
+# tests/test_torch_port_parallel.py); joint pose refinement and the
+# interactive trainer on a mesh are not, and raise before any work.
 @pytest.mark.parametrize('kwargs', [
-    dict(mesh=object()), dict(mesh=object(), pose_refine=(
+    dict(trainer=InteractiveTrainer, mesh=object()),
+    dict(trainer=SimpleTrainer, mesh=object(), pose_refine=(
         np.eye(3)[None], np.zeros((1, 3))))])
 def test_trainer_refuses_what_is_not_ported(kwargs):
+    kwargs = dict(kwargs)
+    trainer = kwargs.pop('trainer')
     with pytest.raises(NotImplementedError):
-        SimpleTrainer('t', _port_field(_params()), **kwargs)
+        trainer('t', _port_field(_params()), **kwargs)
 
 
 STOCHASTIC_TRAINERS = [
