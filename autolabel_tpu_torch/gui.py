@@ -1,11 +1,14 @@
 """The interactive labeller's process side: its flags, the backend child's
-entry and the client that owns the child.
+entry, the client that owns the child, and the labeller's entry point.
 
-Counterpart of the non-Qt part of scripts/gui.py (read_args,
-_run_backend, BackendClient). The window itself (the Qt front end with
-ui/canvas.py and ui/annotations.py) is not ported: run scripts/gui.py for
-it. The child is started with the 'spawn' method: a process that has used
-CUDA cannot fork a child that uses it.
+Counterpart of scripts/gui.py. The window itself (PreviewStrip,
+LabelerWindow: the Qt front end over ui/canvas.py and ui/annotations.py)
+is ui/window.py, imported by main only, so that this module imports
+without PyQt6: the backend child, spawned with this module as its
+target's, needs none. The child is started with the 'spawn' method: a
+process that has used CUDA cannot fork a child that uses it.
+
+    python -m autolabel_tpu_torch.gui <scene> [--dry]
 """
 import multiprocessing
 import signal
@@ -119,3 +122,15 @@ class BackendClient:
     def _send(self, message):
         if self.live:
             self._pipe.send(message)
+
+
+def main(argv=None, device=None):
+    """Open the labelling window (ui/window.py; needs PyQt6 and cv2) over
+    the scene of argv; device: the backend child's (the card unless
+    device='cpu')."""
+    from autolabel_tpu_torch.ui import window
+    return window.main(argv, device)
+
+
+if __name__ == '__main__':
+    main()

@@ -9,11 +9,12 @@ backend process, the user simulation, online mapping), camera
 registration with joint pose refinement, the teacher towers
 (DemoCLIP trained through its CLI, DINO, FCN-ResNet50, LSeg, the CLIP text
 tower, compute_feature_maps), and mapping (bundle adjustment through K9,
-IncrementalSfM's cv2-free stages, the mapping CLI's scale and bounds), on
-one CUDA card.
+IncrementalSfM's cv2-free stages, the mapping CLI's scale and bounds),
+the online ROS node and the labelling window, on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --mesh-cards {1,4}  # phase 19 alone (4: a card a rank)
+    python3 chip_smoke.py --phase 20  # phase 20 alone
 
 Phases, each failing loudly:
   1. the card's name and power limit, torch and CUDA versions, and which
@@ -372,12 +373,38 @@ Phases, each failing loudly:
      for 60 iterations, then resumed for 40: the checkpoint's table, EMA
      and Adam moments whole at step 100, rank 0's launches one a step.
      Each run's step walls and its collectives' share of them.
+ 20. the last host-side modules, each through its entry point with
+     only its transport stood in for. (a) The online ROS node
+     (ros/node.py) at its own configuration (--features lseg
+     --allow-fallback: the repo has no teacher weights, so stand-in
+     features; the field on the card), under a ROS stand-in this script carries
+     (subscribers, publishers and services as callables, cv_bridge
+     passing arrays through): one camera_info, then phase 15 (e)'s 36
+     room frames of 256 x 192 as rgb, depth and keyframe messages, 4 of
+     them with their depth 50 ms late; odometry, one prompt message, both
+     services (a triple sent while paused); until 3 bursts of 100 steps
+     have trained, then stop(). Checks: exactly the in-sync triples taken
+     in, with their poses; the services and camera_info's
+     unsubscription; both threads ended; every preview's image and depth
+     (192, 256, 3) uint8 from finite maps, the features a colouring of
+     the 5 prompts; finite burst losses; the field on the card; K6 and
+     K7 launched at least once a step (counts set to 0 just before the
+     first message, read after stop()). Prints ms a burst step, ms a
+     preview and the busy share of one traced burst. (b) The labelling
+     window (ui/window.py, PyQt6 stood in for by tests/qt_stub.py) over
+     phase 15's room (made anew when absent) at the GUI's defaults, with
+     a live backend child on the card: strokes of classes 1 and 2 on
+     frame 0, each stroke's end (its PNG, labels_changed) timed to the
+     next preview of the frame; the PNG equal to the AnnotationStore's
+     bitmap, every preview's shapes, dtypes and classes, and closeEvent
+     stopping the child (exit code 0) within gui.STOP_TIMEOUT_S.
 The last lines are the kernel table as JSON and
 {"ok": true, "device": {...}}. Exits non-zero without them when there is
 no CUDA device, when run outside the repository, or when any check fails.
 """
 import argparse
 import contextlib
+import functools
 import importlib.util
 import itertools
 import json
@@ -3300,6 +3327,34 @@ ONLINE_BURSTS, ONLINE_BURST_STEPS = 3, 100
 ONLINE_FRAMES, ONLINE_DISTINCT = 360, 36
 
 
+def _online_camera():
+    """The node's 3 x 3 camera matrix at its 256 x 192 frames."""
+    import numpy as np
+    fx, fy, cx, cy = ONLINE_INTRINSICS
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+
+
+@functools.lru_cache(maxsize=1)
+def _online_frames():
+    """The ONLINE_DISTINCT room frames a camera circling the room sees at
+    the node's size: (T_CW, rgb uint8, depth uint16 in millimetres)."""
+    import numpy as np
+    from autolabel_tpu_torch.utils import fixtures
+    w, h = ONLINE_SIZE
+    out = []
+    for i in range(ONLINE_DISTINCT):
+        angle = 2 * np.pi * i / ONLINE_DISTINCT
+        pos = np.array([0.95 * np.cos(angle), 0.95 * np.sin(angle),
+                        0.9 + 0.35 * np.sin(3 * angle)])
+        target = np.array([-0.9 * np.cos(angle), -0.9 * np.sin(angle), 0.8])
+        T_WC = fixtures.look_at_cv(pos, target)
+        rgb, depth, _ = fixtures.render_room_frame(T_WC, _online_camera(),
+                                                   w, h)
+        out.append((np.linalg.inv(T_WC), (rgb * 255).astype(np.uint8),
+                    (depth * 1000).astype(np.uint16)))
+    return out
+
+
 def _sync():
     """Wait for the card (nothing to wait for before CUDA is used)."""
     import torch
@@ -3819,23 +3874,14 @@ def _backend_phase(dev, seed, gpu, checks):
 
     # (e) DynamicDataset at the online node's configuration
     w, h = ONLINE_SIZE  # the node's frames and render intrinsics
-    fx, fy, cx, cy = ONLINE_INTRINSICS
-    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    K = _online_camera()
     extractor = RandomFeatureExtractor(512)
     distinct = []
-    for i in range(ONLINE_DISTINCT):
-        angle = 2 * np.pi * i / ONLINE_DISTINCT
-        pos = np.array([0.95 * np.cos(angle), 0.95 * np.sin(angle),
-                        0.9 + 0.35 * np.sin(3 * angle)])
-        target = np.array([-0.9 * np.cos(angle), -0.9 * np.sin(angle), 0.8])
-        T_WC = fixtures.look_at_cv(pos, target)
-        rgb, depth, _ = fixtures.render_room_frame(T_WC, K, w, h)
-        rgb8 = (rgb * 255).astype(np.uint8)
+    for T_CW, rgb8, depth16 in _online_frames():
         feats = extractor(np.transpose(rgb8 / 255.0, [2, 0, 1])[None])[0]
         feats = feats / np.maximum(np.linalg.norm(feats, axis=-1,
                                                   keepdims=True), 1e-9)
-        distinct.append((np.linalg.inv(T_WC), rgb8,
-                         (depth * 1000).astype(np.uint16), feats))
+        distinct.append((T_CW, rgb8, depth16, feats))
     node = types.SimpleNamespace(encoding='hg+freq', geometric_features=15,
                                  feature_dim=512, features='lseg')
     bound = 2.5
@@ -6341,6 +6387,546 @@ def _mesh_cards_main(args, dev, gpu, checks, t_start, build_s):
     return 0
 
 
+# The online node and the labelling window (phase 20). (a) ros/node.py at
+# its own configuration under a ROS stand-in carried here (subscribers,
+# publishers and services as callables, cv_bridge passing arrays through),
+# fed phase 15 (e)'s room frames as messages, with --features lseg
+# --allow-fallback: the card has no teacher weights, so the keyframes'
+# features come from the stand-in extractor. (b) ui/window.py with Qt stood
+# in for by tests/qt_stub.py (the card has no PyQt6) over phase 15's room at
+# the GUI's defaults, its strokes reaching a live backend child on the card.
+NODE_PROMPTS = 'background|wall|floor|ball|table'
+NODE_BURSTS = 3  # the node's bursts of 100 steps waited for
+NODE_LATE = (4, 13, 22, 31)  # frames whose depth comes 50 ms late: dropped
+NODE_TRACED_BURST = 1  # this burst (from 0) runs under torch.profiler
+WINDOW_STROKES = 5  # strokes, each timed from labels_changed to a preview
+
+
+class _RosStandIn:
+    """The ROS 1 modules the node imports (rospy, tf, cv_bridge and the
+    message modules), as callables: subscribers and services kept by
+    topic, publishers' messages kept by topic, cv_bridge passing arrays
+    through. install() puts them in sys.modules, remove() takes them
+    out."""
+
+    def __init__(self):
+        import types
+        self.subs, self.pubs, self.services = {}, {}, {}
+        ros = self
+
+        class Subscriber:
+            def __init__(self, topic, msg_type, callback, queue_size=None):
+                self.topic = topic
+                ros.subs[topic] = callback
+
+            def unregister(self):
+                ros.subs.pop(self.topic, None)
+
+        class Publisher:
+            def __init__(self, topic, msg_type, queue_size=None):
+                self.msgs = ros.pubs.setdefault(topic, [])
+
+            def publish(self, msg):
+                self.msgs.append(msg)
+
+        class Service:
+            def __init__(self, name, srv, handler):
+                ros.services[name] = handler
+
+        class CvBridge:
+            def imgmsg_to_cv2(self, msg, encoding=None):
+                return msg.array
+
+            def cv2_to_imgmsg(self, array, encoding=None):
+                return types.SimpleNamespace(
+                    array=array, header=types.SimpleNamespace(stamp=None))
+
+        def module(name, **attrs):
+            mod = types.ModuleType(name)
+            mod.__dict__.update(attrs)
+            return mod
+
+        def msgs(name, *classes):
+            return module(name, **{c: type(c, (), {}) for c in classes})
+
+        now = types.SimpleNamespace(to_sec=lambda: time.monotonic())
+        self.modules = {
+            'rospy': module('rospy', Subscriber=Subscriber,
+                            Publisher=Publisher, Service=Service,
+                            Time=types.SimpleNamespace(now=lambda: now),
+                            spin=lambda: None, init_node=lambda name: None),
+            'tf': module('tf', TransformListener=lambda: None),
+            'cv_bridge': module('cv_bridge', CvBridge=CvBridge),
+            'geometry_msgs': module('geometry_msgs'),
+            'geometry_msgs.msg': msgs('geometry_msgs.msg', 'PoseStamped'),
+            'sensor_msgs': module('sensor_msgs'),
+            'sensor_msgs.msg': msgs('sensor_msgs.msg', 'Image',
+                                    'CameraInfo'),
+            'std_msgs': module('std_msgs'),
+            'std_msgs.msg': msgs('std_msgs.msg', 'String'),
+            'std_srvs': module('std_srvs'),
+            'std_srvs.srv': msgs('std_srvs.srv', 'Empty'),
+        }
+        self._saved = {}
+
+    def install(self):
+        self._saved = {name: sys.modules.get(name) for name in self.modules}
+        sys.modules.update(self.modules)
+
+    def remove(self):
+        for name, module in self._saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def _header(t, seq=0):
+    import types
+    return types.SimpleNamespace(
+        stamp=types.SimpleNamespace(to_sec=lambda: t), seq=seq)
+
+
+def _quaternion(R):
+    """(x, y, z, w) of a rotation matrix (Shepperd's method)."""
+    import numpy as np
+    trace = np.trace(R)
+    if trace > 0:
+        s = 2.0 * np.sqrt(trace + 1.0)
+        return ((R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                (R[1, 0] - R[0, 1]) / s, 0.25 * s)
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2.0 * np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
+    q = [0.0] * 4
+    q[i] = 0.25 * s
+    q[j] = (R[j, i] + R[i, j]) / s
+    q[k] = (R[k, i] + R[i, k]) / s
+    q[3] = (R[k, j] - R[j, k]) / s
+    return tuple(q)
+
+
+def _pose_message(t, T_CW):
+    """A PoseStamped-like keyframe or odometry message of the camera at
+    T_CW (its pose camera->world, as the SLAM front end publishes it)."""
+    import types
+    import numpy as np
+    T_WC = np.linalg.inv(T_CW)
+    x, y, z, w = _quaternion(T_WC[:3, :3])
+    px, py, pz = T_WC[:3, 3]
+    ns = types.SimpleNamespace
+    return ns(header=_header(t), pose=ns(
+        position=ns(x=px, y=py, z=pz), orientation=ns(x=x, y=y, z=z, w=w)))
+
+
+def _node_leg(gpu, checks, names):
+    """Phase 20 (a): the online node, fed the room frames as messages,
+    until NODE_BURSTS bursts have trained; stopped; its launches read."""
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from autolabel_tpu_torch.constants import COLORS
+    from autolabel_tpu_torch.ops import _kernels
+    from autolabel_tpu_torch.ros import node as node_mod
+    t0 = time.perf_counter()
+    frames = _online_frames()  # made once a run (phase 15 (e) first)
+    frames_s = time.perf_counter() - t0
+    w, h = ONLINE_SIZE
+    ros = _RosStandIn()
+    bursts, previews, parts, ingested = [], [], [], []
+    finite = {'features': [], 'depth': []}
+    trace = {k: threading.Event() for k in ('asked', 'open', 'done',
+                                             'closed')}
+    prof = None
+    visualization = node_mod.visualization
+    node = None
+    ros.install()
+    try:
+        flags = node_mod.read_args(['--features', 'lseg',
+                                    '--allow-fallback'])
+        t0 = time.perf_counter()
+        node = node_mod.AutolabelNode(flags)  # no device: the card
+        build_s = time.perf_counter() - t0
+        loop, trainer, bridge = node.training_loop, \
+            node.training_loop.trainer, node.bridge
+        train_iterations, render_frame = (trainer.train_iterations,
+                                          loop.render_frame)
+        add_frame, to_message = loop.add_frame, bridge.features_to_message
+        staged_render = trainer._staged.render
+
+        def timed_burst(dataloader, iterations, progress=True):
+            traced = len(bursts) == NODE_TRACED_BURST
+            if traced:  # the main thread opens the trace (see below)
+                trace['asked'].set()
+                trace['open'].wait(120)
+            _sync()
+            t0 = time.perf_counter()
+            out = train_iterations(dataloader, iterations, progress)
+            loss = float(out['total'])
+            _sync()
+            wall = time.perf_counter() - t0
+            if traced:  # paused while the main thread reads the trace
+                trace['wall_ms'] = wall * 1e3
+                trace['done'].set()
+                trace['closed'].wait(120)
+            bursts.append(dict(ms_step=wall / iterations * 1e3, loss=loss,
+                               frames=len(loop.dataset), traced=traced,
+                               step=trainer.global_step))
+            return out
+
+        def timed_render():
+            _sync()
+            t0 = time.perf_counter()
+            render_frame()
+            _sync()
+            previews.append((time.perf_counter() - t0) * 1e3)
+            parts[-1]['whole_ms'] = previews[-1]
+
+        def timed_staged(*args):
+            t0 = time.perf_counter()
+            out = staged_render(*args)
+            _sync()
+            parts.append({'render_ms': (time.perf_counter() - t0) * 1e3})
+            return out
+
+        def kept_frame(frame):
+            ingested.append((frame.num, frame.T_CW))
+            add_frame(frame)
+
+        def features_to_message(feature_map):
+            finite['features'].append(
+                feature_map.shape == (h, w, 512)
+                and bool(np.isfinite(feature_map).all()))
+            t0 = time.perf_counter()
+            msg = to_message(feature_map)
+            parts[-1]['colour_ms'] = (time.perf_counter() - t0) * 1e3
+            return msg
+
+        def visualize_depth(depth, maxdepth=None):
+            finite['depth'].append(depth.shape == (h, w)
+                                   and bool(np.isfinite(depth).all()))
+            return visualization.visualize_depth(depth, maxdepth)
+
+        trainer.train_iterations, loop.render_frame = timed_burst, \
+            timed_render
+        trainer._staged.render = timed_staged
+        loop.add_frame, bridge.features_to_message = kept_frame, \
+            features_to_message
+        node_mod.visualization = types.SimpleNamespace(
+            visualize_depth=visualize_depth)
+
+        _sync()
+        _kernels.reset_launches()
+        t_start = time.perf_counter()
+        ros.subs['/slam/camera_info'](types.SimpleNamespace(
+            K=list(_online_camera().ravel()), width=w, height=h))
+        expected = []
+        for i, (T_CW, rgb, depth) in enumerate(frames):
+            t = 1.0 + 0.1 * i
+            late = i in NODE_LATE
+            ros.subs['/slam/rgb'](types.SimpleNamespace(
+                header=_header(t, seq=i), array=rgb))
+            ros.subs['/slam/depth'](types.SimpleNamespace(
+                header=_header(t + (0.05 if late else 0.004)), array=depth))
+            ros.subs['/slam/keyframe'](_pose_message(t + 0.008, T_CW))
+            if not late:
+                expected.append(i)
+        feed_s = time.perf_counter() - t_start
+        ros.subs['/slam/odometry'](_pose_message(9.0, frames[0][0]))
+        ros.subs['/autolabel/segmentation_classes'](types.SimpleNamespace(
+            data=NODE_PROMPTS))
+        prompted = len(ros.pubs.get('/autolabel/features', []))
+        toggles = []
+        for service, state in (('/autolabel/pause', lambda: node.reading),
+                               ('/autolabel/train', lambda: loop.training)):
+            ros.services[service](None)
+            toggles.append(state())
+            if service == '/autolabel/pause':
+                # paused: an in-sync triple is dropped
+                T_CW, rgb, depth = frames[1]
+                ros.subs['/slam/rgb'](types.SimpleNamespace(
+                    header=_header(8.0, seq=99), array=rgb))
+                ros.subs['/slam/depth'](types.SimpleNamespace(
+                    header=_header(8.0), array=depth))
+                ros.subs['/slam/keyframe'](_pose_message(8.0, T_CW))
+            ros.services[service](None)
+            toggles.append(state())
+        # Wait for the bursts; open the profiler here, in the main thread,
+        # when the loop's thread reaches the traced burst, and read it when
+        # that burst is done (a trace opened in the loop's thread slowed
+        # its steps tenfold; one read while the loop ran on slowed the next
+        # burst twofold).
+        deadline = time.monotonic() + 300
+        while not (trainer.global_step >= 100 * NODE_BURSTS and len(
+                ros.pubs.get('/autolabel/features', [])) > prompted
+                and 'rows' in trace):
+            if trace['asked'].is_set() and prof is None:
+                # device activity only: a burst's host ops take long to read
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                for _ in range(TRACE_MARKERS):
+                    torch.cuda._sleep(1000)
+                trace['open'].set()
+            if trace['done'].is_set() and 'rows' not in trace:
+                t_read = time.perf_counter()
+                prof.stop()
+                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0
+                        and MARKER not in e.key]
+                rows.sort(key=lambda r: -r[1])
+                trace['rows'] = rows
+                trace['busy_ms'] = sum(r[1] for r in rows)
+                trace['read_s'] = time.perf_counter() - t_read
+                trace['closed'].set()
+            if time.monotonic() > deadline:
+                raise TimeoutError(f'{NODE_BURSTS} bursts of the node: not '
+                                   'within 300 s')
+            time.sleep(0.002)
+    finally:
+        if prof is not None and 'rows' not in trace:
+            prof.stop()
+        trace['closed'].set()
+        if node is not None:
+            node.stop()
+        node_mod.visualization = visualization
+        ros.remove()
+    launches = dict(_kernels.launches)
+    checks.true('node takes in exactly the in-sync keyframes',
+                [n for n, _ in ingested] == expected
+                and len(loop.dataset) == len(expected)
+                and all(np.abs(T - frames[n][0]).max() < 1e-9
+                        for n, T in ingested),
+                f'{len(ingested)} of {len(frames)} triples (+1 paused), '
+                f'{len(expected)} in sync')
+    checks.true('node services and camera_info',
+                toggles == [False, True, False, True]
+                and '/slam/camera_info' not in ros.subs
+                and bridge.prompt_features.shape == (5, 512), f'{toggles}')
+    checks.true('node threads end on stop()',
+                not loop.training_thread.is_alive()
+                and not loop.dataset._prefetch_thread.is_alive())
+    image = ros.pubs['/autolabel/image']
+    colours = ros.pubs['/autolabel/features'][-1].array
+    palette = {tuple(c) for c in (COLORS[:5] * 255).astype(np.uint8)}
+    checks.true('node previews',
+                len(image) == len(previews) >= 1
+                and all(m.array.shape == (h, w, 3) and m.array.dtype
+                        == np.uint8 for m in image)
+                and all(m.array.shape == (h, w, 3) and m.array.dtype
+                        == np.uint8 for m in ros.pubs['/autolabel/depth'])
+                and colours.shape == (h, w, 3)
+                and {tuple(c) for c in colours.reshape(-1, 3)} <= palette
+                and all(finite['features']) and all(finite['depth'])
+                and len(finite['depth']) == len(previews),
+                f'{len(previews)} previews: image, depth and class colours '
+                f'of {NODE_PROMPTS.count("|") + 1} prompts at {w} x {h}, '
+                f'{len(np.unique(colours.reshape(-1, 3), axis=0))} colours '
+                'in the last')
+    checks.true('node bursts', len(bursts) >= NODE_BURSTS and all(
+        np.isfinite(b['loss']) for b in bursts), f'{bursts}')
+    checks.true('node field on the card', all(
+        t.device.type == 'cuda' for t in loop.field.state_dict().values()))
+    for key in ('K6', 'K7'):
+        got = launches.get(names[key], 0)
+        checks.true(f'node launches {key}', got >= trainer.global_step,
+                    f'{got} launches over {trainer.global_step} steps')
+    plain = [b['ms_step'] for b in bursts if not b['traced']]
+    busy_share = untraced_share = None
+    if trace.get('rows'):
+        busy_share = trace['busy_ms'] / trace['wall_ms']
+        # against the next burst's wall, since a trace slows steps
+        untraced_share = trace['busy_ms'] / (
+            100 * bursts[NODE_TRACED_BURST + 1]['ms_step'])
+    out = dict(bursts=bursts, preview_ms=previews, preview_parts=parts,
+               preview_p50_p90=_pcts(previews), ms_step=_pcts(plain),
+               busy_share=busy_share, untraced_busy_share=untraced_share,
+               trace_busy_ms=trace.get('busy_ms'),
+               trace_wall_ms=trace.get('wall_ms'),
+               trace_read_s=trace.get('read_s'),
+               trace_rows=trace.get('rows', [])[:12], launches=launches,
+               feed_s=feed_s, frames=len(ingested), frames_s=frames_s,
+               build_s=build_s,
+               global_step=trainer.global_step)
+    print(f'node [{gpu}]: --features lseg --allow-fallback (stand-in '
+          'teacher features: the repo has no weights), built in '
+          f'{build_s:.3f} s (frames made in {frames_s:.3f} s); '
+          f'{len(ingested)} keyframes of {w} x {h} taken in over {feed_s:.3f}'
+          f' s; {len(bursts)} bursts: ms a step '
+          + ', '.join(f'{b["ms_step"]:.3f}' + (' (traced)' if b['traced']
+                                               else '') for b in bursts)
+          + f'; ms a preview (p50/p90) {out["preview_p50_p90"]} over '
+          f'{len(previews)}: the render (24 chunks of 2,048 rays x 128 '
+          f'samples) {_pcts([p["render_ms"] for p in parts])}, the class '
+          f'colouring on the host {_pcts([p["colour_ms"] for p in parts])}'
+          ', the rest (the copy to the host, the depth map, publishing) '
+          + str(_pcts([p['whole_ms'] - p['render_ms'] - p['colour_ms']
+                       for p in parts])))
+    if busy_share is None:
+        print('node profile: the trace holds no device time: not measured')
+    else:
+        print(f'node profile [{gpu}]: burst {NODE_TRACED_BURST}: device busy '
+              f'{trace["busy_ms"]:.3f} of {trace["wall_ms"]:.3f} ms: busy '
+              f'share {busy_share:.4f}; of the next burst\'s 100 x '
+              f'{bursts[NODE_TRACED_BURST + 1]["ms_step"]:.3f} ms: '
+              f'{untraced_share:.4f} (the trace read in '
+              f'{trace["read_s"]:.3f} s, the loop paused)')
+        for name, ms, count in trace['rows'][:6]:
+            print(f'  {ms:9.3f} ms {ms / trace["busy_ms"]:7.2%} x{count:<5d} '
+                  f'{name[:90]}')
+    return out
+
+
+def _load_qt_stub():
+    """tests/qt_stub.py, the PyQt6 stand-in, loaded by its path."""
+    spec = importlib.util.spec_from_file_location(
+        'qt_stub', os.path.join(HERE, 'tests', 'qt_stub.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _window_leg(gpu, checks):
+    """Phase 20 (b): the labelling window over phase 15's room with a live
+    backend child on the card: strokes of two classes, each stroke's end
+    timed to the next preview of its frame; closeEvent stops the child."""
+    import numpy as np
+    from autolabel_tpu_torch import gui
+    from autolabel_tpu_torch.ui import window as window_mod
+    from autolabel_tpu_torch.utils import Scene, fixtures
+    from autolabel_tpu_torch.utils.images import read_png
+    qt_stub = _load_qt_stub()
+    saved = {name: sys.modules.get(name) for name in
+             ('PyQt6', 'PyQt6.QtCore', 'PyQt6.QtGui', 'PyQt6.QtWidgets')}
+    qt_stub.install()
+    scene = os.path.join(WORK_DIR, 'backend', 'room')
+    t0 = time.perf_counter()
+    if not os.path.isdir(scene):  # phase 20 alone
+        fixtures.make_room_scene(scene, **BACKEND_SCENE)
+    scene_s = time.perf_counter() - t0
+    n_classes = Scene(scene).n_classes
+    flags = gui.read_args([scene] + BACKEND_FLAGS)
+    w, h = _backend_size()
+    previews, codes, rtt = [], [], []
+    win = None
+    try:
+        t_spawn = time.monotonic()
+        win = window_mod.LabelerWindow(flags)  # no device: the card
+
+        def on_preview(payload):
+            previews.append((time.monotonic(), payload))
+            win._on_preview(payload)
+
+        win.backend.on_preview = on_preview
+        _wait(lambda: win.backend.poll() or previews, 600,
+              'the window\'s first preview')
+        first_s = previews[0][0] - t_spawn
+        for k in range(WINDOW_STROKES):
+            cls = 1 + k % 2
+            if win.active_class != cls:
+                win.select_class(cls)
+            y = 80.0 + 70.0 * k
+            for x0 in range(60, 600, 90):
+                win._on_stroke((float(x0), y), (float(x0 + 90), y + 20.0))
+            count = len(previews)
+            t0 = time.monotonic()
+            win._on_stroke_end()  # the PNG, then labels_changed
+            win._request_preview()  # what the window's timer sends
+            _wait(lambda: win.backend.poll() or len(previews) > count, 120,
+                  f'the preview after stroke {k}')
+            rtt.append((previews[-1][0] - t0) * 1e3)
+        bitmap = win.annotations.get(win.frame_name)
+        png = read_png(os.path.join(scene, 'semantic',
+                                    f'{win.frame_name}.png'))
+        stop = win.backend.stop
+        win.backend.stop = lambda: codes.append(stop())
+        t0 = time.monotonic()
+        win.closeEvent(qt_stub._Stub())
+        close_s = time.monotonic() - t0
+    finally:
+        if win is not None and win.backend._process is not None:
+            gui.BackendClient.stop(win.backend)
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+    payload = previews[-1][1]
+    checks.true('window PNG is the annotation bitmap',
+                png.shape == bitmap.shape and bool((png == bitmap).all())
+                and {2, 3} <= set(np.unique(bitmap).tolist()),
+                f'{png.shape}, values {sorted(np.unique(bitmap).tolist())}')
+    checks.true('window preview', all(
+        p['image_index'] == 0 and p['rgb'].shape == (h, w, 3)
+        and p['depth'].shape == (h, w) and p['semantic'].shape == (h, w)
+        and p['semantic'].dtype == np.int32
+        and bool(np.isfinite(p['rgb']).all())
+        and bool(np.isfinite(p['depth']).all())
+        and 0 <= int(p['semantic'].min())
+        and int(p['semantic'].max()) < n_classes for _, p in previews),
+        f'{len(previews)} previews of {w} x {h}, classes '
+        f'{sorted(np.unique(payload["semantic"]).tolist())} of {n_classes}')
+    checks.true('window closeEvent stops the child',
+                codes == [0] and close_s < gui.STOP_TIMEOUT_S
+                and win.backend._process is None,
+                f'exit codes {codes} in {close_s:.3f} s')
+    out = dict(scene_s=scene_s, first_preview_s=first_s,
+               labels_to_preview_ms=rtt,
+               labels_to_preview_p50=_median(rtt), close_s=close_s,
+               previews=len(previews))
+    print(f'window [{gpu}]: the room made in {scene_s:.3f} s; first preview '
+          f'{first_s:.3f} s after the spawn; '
+          f'{WINDOW_STROKES} strokes of classes 1 and 2 on frame 0: ms from '
+          f'labels_changed to the next preview {[round(v, 3) for v in rtt]}'
+          f' (p50 {out["labels_to_preview_p50"]:.3f}); closeEvent stopped '
+          f'the child in {close_s:.3f} s')
+    return out
+
+
+def _host_modules_phase(dev, gpu, checks):
+    """Phase 20 (see the module docstring). Returns what the output file
+    keeps; its 'launches' are the node's counts by kernel name."""
+    import torch
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    del dev  # both legs run on the card by default, as a user's would
+    phase_start = time.perf_counter()
+    names = {'K6': hashgrid_cuda.STOCHASTIC_NAME,
+             'K7': hashgrid_cuda.STOCHASTIC_BWD_NAME}
+    torch.cuda.empty_cache()
+    out = {'node': _node_leg(gpu, checks, names)}
+    node_s = time.perf_counter() - phase_start
+    torch.cuda.empty_cache()
+    out['window'] = _window_leg(gpu, checks)
+    out['launches'] = {'online_node': out['node']['launches']}
+    out['phase_s'] = time.perf_counter() - phase_start
+    print(f'phase 20: {out["phase_s"]:.1f} s (the node {node_s:.1f} s)')
+    return out
+
+
+def _phase_alone_main(args, dev, gpu, checks, t_start, build_s):
+    """--phase 20: that phase alone, after the build."""
+    import torch
+    out = _host_modules_phase(dev, gpu, checks)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, 'chip_smoke_phase20.json'), 'w') as f:
+        json.dump({'gpu': gpu, 'build_s': build_s, 'host_modules': out,
+                   'failures': checks.failures}, f, indent=1)
+    print(f'total: {time.perf_counter() - t_start:.1f} s')
+    if checks.failures:
+        print(f'FAILED: {checks.failures}', file=sys.stderr)
+        return 1
+    print(gpu)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -6348,6 +6934,8 @@ def main():
                         choices=sorted(MESH),
                         help="Run phase 19 alone on this many cards (with "
                         "four, a rank a card under NCCL).")
+    parser.add_argument('--phase', type=int, default=None, choices=(20,),
+                        help="Run this phase alone, after the build.")
     args = parser.parse_args()
 
     import numpy as np
@@ -6394,6 +6982,8 @@ def main():
                 print(f'  ptxas {source}: {line.strip()}')
     if args.mesh_cards:
         return _mesh_cards_main(args, dev, gpu, checks, t_start, build_s)
+    if args.phase:
+        return _phase_alone_main(args, dev, gpu, checks, t_start, build_s)
 
     g = torch.Generator().manual_seed(args.seed)
     results = {}
@@ -7069,6 +7659,10 @@ def main():
     torch.cuda.empty_cache()
     mesh_run = _mesh_phase(dev, args.seed, gpu, checks)
 
+    # ---- 20. the online ROS node and the labelling window
+    torch.cuda.empty_cache()
+    host_modules = _host_modules_phase(dev, gpu, checks)
+
     table_rows = [
         ('K1 hashgrid_encode', 'autolabel_tpu_torch/csrc/hashgrid_encode.cu',
          'autolabel_tpu/ops/hashgrid_pallas.py:33', 'K1'),
@@ -7166,6 +7760,8 @@ def main():
             kernel_names[key], 0) for mode in ('dp', 'tp')},
         'launches_mesh_cli': sum(leg['launches'].get(kernel_names[key], 0)
                                  for leg in mesh_run['d']),
+        'launches_online_node': host_modules['launches']['online_node'].get(
+            kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],
         'ms': results[key]['ms'], 'plain_ms': results[key]['plain_ms'],
         'bound_ms': results[key]['bound'][0],
@@ -7225,7 +7821,8 @@ def main():
                    'pose': {k: v for k, v in pose.items() if k != 'names'},
                    'teachers': teachers,
                    'mapping': mapping,
-                   'mesh': mesh_run, 'optional_modules': optional,
+                   'mesh': mesh_run, 'host_modules': host_modules,
+                   'optional_modules': optional,
                    'kernels': kernels, 'failures': checks.failures,
                    'build_log': _kernels.build_log}, f, indent=1)
     print(f'total: {time.perf_counter() - t_start:.1f} s')

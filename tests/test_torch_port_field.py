@@ -180,11 +180,13 @@ for info in pkgutil.walk_packages(autolabel_tpu_torch.__path__,
     importlib.import_module(info.name)
 from autolabel_tpu_torch.ops import _kernels
 new = set(sys.modules) - before
-# JAX and the JAX package never; cv2, PIL, h5py, matplotlib, sklearn and
-# pandas (which a CUDA host may lack) only at the call that needs them
+# JAX and the JAX package never; cv2, PIL, h5py, matplotlib, sklearn,
+# pandas (which a CUDA host may lack), ROS 1 and PyQt6 only at the call
+# that needs them
 bad = sorted(m for m in new if m.split('.')[0] in (
     'jax', 'autolabel_tpu', 'cv2', 'PIL', 'h5py', 'matplotlib', 'sklearn',
-    'pandas'))
+    'pandas', 'rospy', 'tf', 'cv_bridge', 'geometry_msgs', 'sensor_msgs',
+    'std_msgs', 'std_srvs', 'PyQt6'))
 print('BAD', bad)
 print('BUILT', len(_kernels._libs))
 print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
@@ -210,7 +212,9 @@ print('MODULES', sorted(m for m in new if m.startswith('autolabel_tpu_torch')))
                    'features.fcn50', 'features.lseg_tower', 'features.lseg',
                    'utils.feature_utils', 'models.autoencoder',
                    'compute_feature_maps', 'train_demo_teacher',
-                   'parallel'):
+                   'parallel', 'utils.ros_utils', 'ros', 'ros.node',
+                   'ros.class_input', 'ui', 'ui.annotations', 'ui.canvas',
+                   'ui.window'):
         assert f"'autolabel_tpu_torch.{module}'" in out, (module, out)
 
 
