@@ -182,9 +182,14 @@ class Field(nn.Module):
         (renderer.RenderOptions.level_window) scaling its feature block; a
         zero freezes that level's table. On a device mesh the rank's
         feature slice is encoded with the slice's config and the slices are
-        gathered whole (parallel.gather_features)."""
+        gathered whole (parallel.gather_features); the points' gradient, when
+        they carry one (joint pose refinement), is the sum of the slices'
+        parts over the model group (parallel.sum_grad_over_model), which
+        leaves the frequency encode's part counted once."""
         c = self.config
         grid = parallel.grid_config_shard(c.grid_config, self.mesh)
+        if normalized.requires_grad and parallel.sharded_grid(self):
+            normalized = parallel.sum_grad_over_model(normalized, self.mesh)
         out = hashgrid_cuda.hashgrid_encode(
             self.encoder['grid'], normalized, grid,
             interp=c.grid_interp, u=u, sampled_backward=sampled_backward,

@@ -16,7 +16,9 @@ collectives are written out:
   feature slice of the same hashed rows, and gather_features all-gathers
   the slices into JAX's level-major (N, L F) layout for the replicated
   heads. The table's gradient shards sum over 'data' alone, among the
-  ranks of one model index.
+  ranks of one model index. Where the points carry a gradient (joint pose
+  refinement), each rank's encode gives them the part of its slice, and
+  sum_grad_over_model adds the parts over 'model' in rank order.
 
 A mesh step computes JAX's one-device function on the global batch: the
 loss means divide by the global counts (train/losses.py), the sampled
@@ -331,16 +333,49 @@ def gather_features(enc, mesh, levels):
     return _GatherFeatures.apply(enc, mesh, levels)
 
 
-def sum_over_model(values, mesh):
-    """The sum over the model group of every rank's `values`, added in rank
-    order (every rank gets the same bits)."""
-    if axis_size(mesh, MODEL) == 1:
+def sum_in_order(values, mesh, axis):
+    """The sum over `axis` of every rank's `values`, added in rank order
+    (every rank of the group gets the same bits, and so does every group
+    of the axis that holds the same values)."""
+    if axis_size(mesh, axis) == 1:
         return values
-    parts = all_gather(values, mesh, MODEL)
+    parts = all_gather(values, mesh, axis)
     total = parts[0]
     for p in parts[1:]:
         total = total + p
     return total
+
+
+def sum_over_model(values, mesh):
+    """The sum over the model group of every rank's `values`, added in rank
+    order (every rank gets the same bits)."""
+    return sum_in_order(values, mesh, MODEL)
+
+
+class _SumGradOverModel(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over 'model' in rank
+    order: the points entering a sharded encode, whose gradient each rank
+    computes from its feature slice alone."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over_model(g.contiguous(), ctx.mesh), None
+
+
+def sum_grad_over_model(x, mesh):
+    """x, with its gradient summed over the model group: each rank's encode
+    of its feature slice gives x a partial cotangent (K2x on the slice), and
+    the whole is their sum, the same bits on every rank of the group.
+    Identity, and no collective, without a 'model' axis of more than one
+    rank."""
+    if axis_size(mesh, MODEL) == 1:
+        return x
+    return _SumGradOverModel.apply(x, mesh)
 
 
 def gather_rows(values, mesh):
@@ -364,19 +399,28 @@ def barrier():
     dist.barrier()
 
 
-def reduce_gradients(grads, mesh):
-    """Sum the gradients (name -> tensor or None) over 'data' in place, in
-    one collective over a flat buffer: the replicated parameters' and the
-    table slices' (among the ranks of one model index) alike."""
-    live = [g for g in grads.values() if g is not None]
-    if not live:
-        return grads
-    flat = torch.cat([g.reshape(-1).float() for g in live])
-    all_reduce_sum(flat, mesh, DATA)
+def _flat_sum(tensors, reduce):
+    """reduce() one flat fp32 buffer of `tensors` and copy it back."""
+    if not tensors:
+        return
+    flat = reduce(torch.cat([g.reshape(-1).float() for g in tensors]))
     offset = 0
-    for g in live:
+    for g in tensors:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def reduce_gradients(grads, mesh, ordered=()):
+    """Sum the gradients (name -> tensor or None) over 'data' in place, in
+    one collective over a flat buffer: the replicated parameters' and the
+    table slices' (among the ranks of one model index) alike. The names in
+    `ordered` are summed in data order instead (sum_in_order, one gather
+    more), so that every model index gets the same bits: the pose deltas',
+    which must never part across ranks."""
+    live = [g for k, g in grads.items() if g is not None and k not in ordered]
+    _flat_sum(live, lambda flat: all_reduce_sum(flat, mesh, DATA))
+    _flat_sum([grads[k] for k in ordered if grads.get(k) is not None],
+              lambda flat: sum_in_order(flat, mesh, DATA))
     return grads
 
 

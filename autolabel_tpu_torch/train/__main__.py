@@ -19,13 +19,12 @@ device mesh as scripts/train.py does, N // M data ranks by M model ranks
 (rank r on card r mod the cards, or the CPU), which meet through a file in
 a temporary directory, build the same dataset with one seed and so the
 same global batches, and train in lockstep; rank 0 alone writes
-params.pkl, metrics.jsonl, the events, the checkpoint (the table whole)
-and prints the eval line. Joint pose refinement on a mesh is not ported
-and raises. The hidden --pose-refine-experimental trains the poses jointly
-with the field
-(train/pose_refine.py) and writes the refined poses (ngp frame: R, t and
-the frames' stems) to <model dir>/poses_refined.npz, as the JAX CLI
-does. --sampled-backward 0 trains through the
+params.pkl, metrics.jsonl, the events, the checkpoint (the table whole),
+the refined poses and prints the eval line. The hidden
+--pose-refine-experimental trains the poses jointly with the field
+(train/pose_refine.py; on a mesh too) and writes the refined poses (ngp
+frame: R, t and the frames' stems) to <model dir>/poses_refined.npz, as
+the JAX CLI does. --sampled-backward 0 trains through the
 stochastic-corner encode (--stochastic-corners, --stochastic-exact-levels,
 --stochastic-residual), as does the narrow reference grid
 (--grid-preset reference), which turns the sampled backward off as the JAX
@@ -154,10 +153,11 @@ def main(argv=None, device=None, seed=None):
     raises without one) or a torch device ('cpu' in the tests). seed: the
     dataset's batch draws (fresh ones when None; under a mesh every rank
     takes the one seed). Returns a namespace of the trainer, the dataset,
-    the model directory, the seconds the training loop took (train_s) and,
-    with --eval, eval_mse; under a mesh, rank 0's model directory,
-    train_s, eval_mse and kernel launches, the trainer and dataset None
-    (they lived in the ranks)."""
+    the model directory, the seconds the training loop took (train_s),
+    with --eval eval_mse, and with --pose-refine-experimental the path of
+    poses_refined.npz (poses_refined, else None); under a mesh, rank 0's
+    model directory, train_s, eval_mse, poses_refined and kernel launches,
+    the trainer and dataset None (they lived in the ranks)."""
     flags = read_args(argv)
     device = resolve_device(device)
     if flags.mesh_devices:
@@ -176,9 +176,6 @@ def _mesh(flags, device):
 def _spawn_mesh(flags, device, seed):
     """Run the training on --mesh-devices ranks, one spawned process each;
     returns rank 0's result."""
-    if flags.pose_refine:
-        raise NotImplementedError('joint pose refinement on a device mesh '
-                                  'is not ported')
     assert flags.mesh_devices % flags.mesh_model == 0
     if seed is None:
         seed = int(np.random.SeedSequence().entropy % 2 ** 32)
@@ -210,6 +207,7 @@ def _rank_main(rank, flags, device_type, seed, init_file, result, tpu_grid):
             with open(result, 'w') as f:
                 json.dump({'model_dir': run.model_dir, 'train_s': run.train_s,
                            'eval_mse': run.eval_mse,
+                           'poses_refined': run.poses_refined,
                            'launches': dict(_kernels.launches)}, f)
     finally:
         torch.distributed.destroy_process_group()
@@ -313,16 +311,17 @@ def _train(flags, device, mesh=None, seed=None):
     train_s = time.perf_counter() - start
     trainer.save_checkpoint(include_optimizer=flags.save_optimizer)
 
-    if pose_refine is not None:
+    poses_path = None
+    if pose_refine is not None and writer:
         R, t = refined_poses(
             {k: v.detach().cpu().numpy() for k, v in trainer.pose.items()},
             (np.asarray(dataset.rotations), np.asarray(dataset.origins)))
         stems = [os.path.basename(p).split('.')[0]
                  for p in dataset.scene.rgb_paths()]
-        path = os.path.join(model_dir, 'poses_refined.npz')
-        np.savez(path, R=R, t=t,
+        poses_path = os.path.join(model_dir, 'poses_refined.npz')
+        np.savez(poses_path, R=R, t=t,
                  frames=np.array([stems[i] for i in dataset.indices]))
-        print(f"refined poses (ngp frame) -> {path}")
+        print(f"refined poses (ngp frame) -> {poses_path}")
 
     eval_mse = None
     if flags.eval:
@@ -340,7 +339,7 @@ def _train(flags, device, mesh=None, seed=None):
                   f"psnr={-10 * np.log10(eval_mse):.2f}dB")
     return types.SimpleNamespace(trainer=trainer, dataset=dataset,
                                  model_dir=model_dir, train_s=train_s,
-                                 eval_mse=eval_mse)
+                                 eval_mse=eval_mse, poses_refined=poses_path)
 
 
 if __name__ == '__main__':

@@ -37,12 +37,17 @@ any rank skips the step everywhere. Rank 0 alone writes metrics, events
 and checkpoints, which hold the table whole; a resume cuts the rank's slice
 from a whole checkpoint (of either package). Under 'model' the eval
 renders gather the table whole first, so every rank of a model group calls
-them together. Not ported, and refused rather than ignored: joint pose
-refinement and the interactive trainer on a mesh.
+them together. With pose_refine on a mesh the deltas replicate: every rank
+rebuilds its rows' rays from the whole deltas, the points' gradient sums
+over 'model' (each rank's encode gives it its slice's part), and the
+deltas' gradient sums over 'data' in rank order, so the deltas keep the
+same bits on every rank.
 
 InteractiveTrainer (the GUI backend's) takes one step at a time at a
 constant lr, an EMA tick every EMA_EVERY steps of its own count, and
-bounds the steps queued on the card to MAX_INFLIGHT.
+bounds the steps queued on the card to MAX_INFLIGHT; on a mesh every rank
+builds it and calls init, take_step and dataset_updated in lockstep over
+the same seeded loader.
 """
 import collections
 import contextlib
@@ -132,9 +137,6 @@ class SimpleTrainer:
                  pose_refine=None,
                  seed=0):
         self.render_options = render_options or RenderOptions(perturb=True)
-        if mesh is not None and pose_refine is not None:
-            raise NotImplementedError('SimpleTrainer: joint pose refinement '
-                                      'on a device mesh is not ported')
         self.mesh = mesh
         if mesh is not None:
             parallel.shard_field(field, mesh)
@@ -361,7 +363,8 @@ class SimpleTrainer:
         parts = {k: v.detach() for k, v in parts.items()}
         parts['total'] = loss.detach()
         if self.mesh is not None:
-            parallel.reduce_gradients(grads, self.mesh)
+            parallel.reduce_gradients(grads, self.mesh,
+                                      [f'pose.{k}' for k in self.pose])
             # The loss parts of the global batch: the ranks' parts summed.
             names = list(parts)
             summed = parallel.all_reduce_sum(
@@ -489,7 +492,11 @@ class InteractiveTrainer(SimpleTrainer):
     """Single-step trainer for the paint -> train -> preview loop
     (autolabel_tpu/train/trainer.py:439-485): a constant lr unless `iters`
     is given, and an EMA tick whenever the local `step` (reset by init)
-    reaches a multiple of EMA_EVERY."""
+    reaches a multiple of EMA_EVERY. With mesh=, the ranks step together:
+    each builds the trainer over the same seeded loader and calls init,
+    take_step and dataset_updated in lockstep, and a step takes the rank's
+    rows and draws as SimpleTrainer.loss_and_grads does. The GUI's backend
+    and the ROS node pass no mesh."""
 
     EMA_EVERY = 100
 
@@ -502,11 +509,6 @@ class InteractiveTrainer(SimpleTrainer):
     MAX_INFLIGHT = 8
 
     def __init__(self, *args, **kwargs):
-        if kwargs.get('mesh') is not None:
-            # The GUI's backend drives it from one process, one message at
-            # a time; a mesh needs every rank to take each step.
-            raise NotImplementedError('InteractiveTrainer: a device mesh is '
-                                      'not ported')
         kwargs.setdefault('iters', None)  # constant lr
         super().__init__(*args, **kwargs)
         self.iterator = None

@@ -329,11 +329,12 @@ Phases, each failing loudly:
      yardstick (two torch.sparse.mm of a CSR J built once), the byte
      bound; the solve in turns with the torch loop around the matvec
      entry, and its bound. (c) bundle_adjust (30 LM steps, 50 CG
-     iterations) in turns plain, loop, kernels, kernels, loop, plain:
-     seconds, LM and CG iterations, K9 launches an LM step (one solve and
-     three residual calls), an LM step's wall and busy share in turns
-     with the loop, the final rms within 1e-3 px of the plain
-     solve's, rotations and centres after Sim(3) against the truth, one
+     iterations) in turns loop, kernels, kernels, loop, then over 10 LM
+     steps plain, kernels, kernels, plain: seconds, LM and CG iterations,
+     K9 launches an LM step (one solve and three residual calls), an LM
+     step's wall and busy share in turns with the loop, the 10-step
+     solve's final rms within 1e-3 px of the plain solve's, rotations and
+     centres after Sim(3) against the truth, one
      traced LM step's busy share, and a refine_focal solve from a focal
      10% wrong. (d) On the fixture room (make_room_scene's 96 frames),
      tracks projected from its surfaces with 0.3 px noise and perturbed
@@ -372,7 +373,25 @@ Phases, each failing loudly:
      CLI with --mesh-devices 2 --mesh-model 2 (batch 1,024, 32 samples)
      for 60 iterations, then resumed for 40: the checkpoint's table, EMA
      and Adam moments whole at step 100, rank 0's launches one a step.
-     Each run's step walls and its collectives' share of them.
+     (e) Joint pose refinement on the flagship model (pose_refine from the
+     8 cameras' poses, iters 20: the level windows open one by one and
+     the deltas move from step 3; its encode exact: K1s, K2s as the exact
+     scatter and K2x once a step, K5 never), 5 steps without a mesh, on
+     the world of one (step 1's loss parts and pose gradient bit-equal to
+     no mesh's) and on (b)'s ranks under TP 2: step 1's loss parts within
+     rtol 1e-5 and its pose gradient within 1e-5 by relative norm of no
+     mesh's, the step-1 pose gradient and the deltas after 5 steps
+     bit-equal on both ranks; on each rank K2x held against its plain
+     version and timed on its first call's inputs, the rank's F = 64
+     slice (the ranks timing it in turns); the train CLI with
+     --pose-refine-experimental and (d)'s flags for 10 iterations:
+     poses_refined.npz from rank 0, frame 0 kept, K1s, K2s and K2x once
+     a step on rank 0 (the CLI's heads are 'xla').
+     (f) InteractiveTrainer on the world of one and on (b)'s ranks under
+     DP 2, 3 take_steps against SimpleTrainer's on the same mesh and
+     inputs: step 1 bit-equal, steps 2-3 within 4 times no mesh's own
+     run-to-run spread. Each run's step walls and its collectives' share
+     of them.
  20. the last host-side modules, each through its entry point with
      only its transport stood in for. (a) The online ROS node
      (ros/node.py) at its own configuration (--features lseg
@@ -725,11 +744,11 @@ class _RayBatches:
     """Endless batches of rays drawn uniformly, on the card, from a pool
     of frames held on the card."""
 
-    def __init__(self, frames, batch, device, seed):
+    def __init__(self, frames, batch, device, seed, extra_keys=()):
         import numpy as np
         import torch
         keys = ('rays_o', 'rays_d', 'direction_norms', 'pixels', 'depth',
-                'semantic')
+                'semantic') + tuple(extra_keys)
         self.pool = {k: torch.as_tensor(np.concatenate(
             [np.asarray(f[k]).reshape(FRAME_W * FRAME_H, -1)
              for f in frames])).squeeze(-1).to(device) for k in keys}
@@ -4829,6 +4848,9 @@ BA_INTR = (500.0, 500.0, 320.0, 240.0)
 BA_NOISE_PX, BA_OUTLIERS, BA_OUTLIER_PX = 0.5, 0.02, (20.0, 50.0)
 BA_PERTURB = (0.002, 0.02, 0.02)  # rad, m, m: poses and points
 BA_ITERS, BA_CG = 30, 50
+# (c)'s plain legs (torch.func on the card, host-bound: 22-38 s for 30 LM
+# steps) run this many LM steps, and so does the K9 solve held against them
+BA_PLAIN_ITERS = 10
 BA_TOL = 1e-5  # K9 against the plain fp32 version, by relative norm
 BA_ROOM = 2.0  # K9's float64 error at most this times the plain fp32's
 BA_RMS_TOL = 1e-3  # px, the kernel solve's final rms against the plain's
@@ -5180,9 +5202,9 @@ def _umeyama(src, dst):
     return s, R, mud - s * R @ mus
 
 
-def _ba_solve(dev, prob, intr, refine_focal, names):
-    """One bundle_adjust through the entry point: (result, seconds, stats,
-    K9 launches by name)."""
+def _ba_solve(dev, prob, intr, refine_focal, names, iters=BA_ITERS):
+    """One bundle_adjust of `iters` LM steps through the entry point:
+    (result, seconds, stats, K9 launches by name)."""
     import torch
     from autolabel_tpu_torch.mapping.ba import bundle_adjust
     from autolabel_tpu_torch.ops import _kernels
@@ -5191,7 +5213,7 @@ def _ba_solve(dev, prob, intr, refine_focal, names):
     t0 = time.perf_counter()
     stats = {}
     out = bundle_adjust(*prob['start'], intr, prob['cam_idx'],
-                        prob['pt_idx'], prob['xy'], max_iters=BA_ITERS,
+                        prob['pt_idx'], prob['xy'], max_iters=iters,
                         refine_focal=refine_focal, cg_iters=BA_CG,
                         device=dev, stats=stats)
     torch.cuda.synchronize()
@@ -5400,31 +5422,39 @@ def _mapping_phase(dev, seed, gpu, checks, results):
     out['timing'] = timing
     print(f'mapping (a)-(b): {time.perf_counter() - t_phase:.1f} s')
 
-    # (c) the whole bundle_adjust in turns: plain, the torch loop around
-    # K9's products (the parent's path), K9's solve, and back
-    solves = {'plain': [], 'loop': [], 'kernels': []}
-    for leg in ('plain', 'loop', 'kernels', 'kernels', 'loop', 'plain'):
+    # (c) the whole bundle_adjust in turns: the torch loop around K9's
+    # products (the parent's path) and K9's solve over BA_ITERS LM steps,
+    # then the plain version and K9's solve over BA_PLAIN_ITERS
+    solves = {'plain': [], 'loop': [], 'kernels': [], 'kernels_short': []}
+    for leg in ('loop', 'kernels', 'kernels', 'loop', 'plain',
+                'kernels_short', 'kernels_short', 'plain'):
         if leg == 'plain':
             with _plain_ba():
-                res = _ba_solve(dev, prob, BA_INTR, False, names)
+                res = _ba_solve(dev, prob, BA_INTR, False, names,
+                                BA_PLAIN_ITERS)
             checks.true(f'mapping ba plain run launches no K9',
                         not any(res[3].values()), str(res[3]))
         elif leg == 'loop':
             with _loop_ba():
                 res = _ba_solve(dev, prob, BA_INTR, False, names)
+        elif leg == 'kernels_short':
+            res = _ba_solve(dev, prob, BA_INTR, False, names, BA_PLAIN_ITERS)
         else:
             res = _ba_solve(dev, prob, BA_INTR, False, names)
         solves[leg].append(res)
     k_out, k_s, k_stats, k_launches = solves['kernels'][0]
     p_out = solves['plain'][0][0]
+    ks_out = solves['kernels_short'][0][0]
     l_out, _, l_stats, l_launches = solves['loop'][0]
     lm = k_stats['lm']
     per_step = {k: v_ / lm for k, v_ in k_launches.items()}
-    print(f'mapping bundle_adjust [{gpu}] seconds in turns: plain '
-          f'{[round(s[1], 3) for s in solves["plain"]]}, loop '
+    print(f'mapping bundle_adjust [{gpu}] seconds in turns: loop '
           f'{[round(s[1], 3) for s in solves["loop"]]}, kernels '
-          f'{[round(s[1], 3) for s in solves["kernels"]]}; LM iterations '
-          f'{lm} (plain {solves["plain"][0][2]["lm"]}, loop '
+          f'{[round(s[1], 3) for s in solves["kernels"]]}; over '
+          f'{BA_PLAIN_ITERS} LM steps: plain '
+          f'{[round(s[1], 3) for s in solves["plain"]]}, kernels '
+          f'{[round(s[1], 3) for s in solves["kernels_short"]]}; LM '
+          f'iterations {lm} (plain {solves["plain"][0][2]["lm"]}, loop '
           f'{l_stats["lm"]}), CG iterations {sum(k_stats["cg"])} '
           f'({k_stats["cg"]}; loop {sum(l_stats["cg"])}); K9 launches '
           f'{k_launches} = {per_step} an LM step (loop {l_launches})')
@@ -5435,13 +5465,15 @@ def _mapping_phase(dev, seed, gpu, checks, results):
     checks.true('mapping ba loop leg: the torch loop around K9\'s products',
                 l_launches[names[2]] == 0 and l_launches[names[1]]
                 >= l_stats['lm'] * (BA_CG + 1), str(l_launches))
-    checks.true('mapping ba final rms: kernels within 1e-3 px of plain',
-                abs(k_out[4] - p_out[4]) <= BA_RMS_TOL,
-                f'({k_out[4]:.6f} against {p_out[4]:.6f} px)')
+    checks.true(f'mapping ba final rms over {BA_PLAIN_ITERS} LM steps: '
+                'kernels within 1e-3 px of plain',
+                abs(ks_out[4] - p_out[4]) <= BA_RMS_TOL,
+                f'({ks_out[4]:.6f} against {p_out[4]:.6f} px)')
     checks.true('mapping ba final rms: kernels within 1e-3 px of the loop',
                 abs(k_out[4] - l_out[4]) <= BA_RMS_TOL,
                 f'({k_out[4]:.6f} against {l_out[4]:.6f} px)')
     for leg, res in (('kernels', k_out), ('plain', p_out),
+                     ('kernels_short', ks_out),
                      ('start', prob['start'] + (None, None))):
         errs = _pose_errors(prob['truth'], res)
         print(f'mapping ba {leg}: rotation error median {errs[0]:.4f} max '
@@ -5453,8 +5485,8 @@ def _mapping_phase(dev, seed, gpu, checks, results):
     k_err = out['ba_kernels_errors']
     start_err = out['ba_start_errors']
     # 30 LM steps of 50 unpreconditioned CG iterations leave the
-    # rotations short of their noise floor (the plain solve's alike): the
-    # check is that they fall, and the centres by half.
+    # rotations short of their noise floor: the check is that they fall,
+    # and the centres by half. ('plain' and 'kernels_short': 10 LM steps.)
     checks.true('mapping ba recovers the poses',
                 k_err[0] < start_err[0] and k_err[2] < 0.5 * start_err[2],
                 f'(rotation {k_err[0]:.4f} from {start_err[0]:.4f} deg, '
@@ -5513,7 +5545,8 @@ def _mapping_phase(dev, seed, gpu, checks, results):
                 f'({f_out[4]:.6f} against {k_out[4]:.6f})')
     out.update(ba_seconds={k: [s[1] for s in v_] for k, v_ in solves.items()},
                ba_lm=lm, ba_cg=k_stats['cg'], ba_launches=k_launches,
-               ba_launches_per_step=per_step, ba_rms=(k_out[4], p_out[4]),
+               ba_launches_per_step=per_step, ba_rms=(ks_out[4], p_out[4]),
+               ba_plain_iters=BA_PLAIN_ITERS,
                focal=f_out[3][0], focal_rms=f_out[4], focal_s=f_s)
     print(f'mapping (a)-(c): {time.perf_counter() - t_phase:.1f} s')
 
@@ -5650,23 +5683,41 @@ def _mapping_phase(dev, seed, gpu, checks, results):
 # atomics leave the table gradient's last bits to their order), and on a
 # world of one under NCCL; (b) two spawned ranks sharing the card under
 # gloo, DP 2 then TP 2; (c) on the ranks, K1s, K5 and K2s held at the
-# shard width; (d) the train CLI with --mesh-devices 2 --mesh-model 2.
+# shard width; (d) the train CLI with --mesh-devices 2 --mesh-model 2;
+# (e) joint pose refinement on the flagship model (its encode exact: K1s,
+# K2s as the exact scatter, K2x on each rank's feature slice) without a
+# mesh, on a world of one, on (b)'s ranks under TP 2, and through the CLI;
+# (f) InteractiveTrainer on a world of one and on (b)'s ranks under DP 2.
 MESH_STEPS = 5
 MESH_CLI_ITERS = (60, 40)  # the CLI's two legs: trained, then resumed
 # By the cards of the call: (b)'s meshes (name, data ranks, model ranks),
-# on one world, and (d)'s CLI flags. On one card the ranks share it
-# (gloo, whose gathers pass through the host: the CLI's batch is cut to
-# 1,024 rays of 32 samples); on four, a rank a card (NCCL), README's
-# command.
-MESH = {1: dict(modes=(('dp', 2, 1), ('tp', 1, 2)),
+# on one world, (e)'s and (f)'s meshes on the same world, and (d)'s CLI
+# flags. On one card the ranks share it (gloo, whose gathers pass through
+# the host: the CLI's batch is cut to 1,024 rays of 32 samples); on four,
+# a rank a card (NCCL), README's command.
+MESH = {1: dict(modes=(('dp', 2, 1), ('tp', 1, 2)), pose=('tp', 1, 2),
+                interactive=('dp', 2, 1),
                 cli=['--proposal', '--batch-size', '1024', '--num-steps',
                      '32', '--factor-train', '1', '--save-optimizer',
                      '--mesh-devices', '2', '--mesh-model', '2']),
         4: dict(modes=(('dp2tp2', 2, 2), ('dp4', 4, 1)),
+                pose=('dp2tp2', 2, 2), interactive=('dp4', 4, 1),
                 cli=['--proposal', '--factor-train', '1', '--save-optimizer',
                      '--mesh-devices', '4', '--mesh-model', '2'])}
 MESH_TABLE_ATOL = 1e-6  # an Adam step of lr 5e-3 of one sign, rounded
 MESH_LOSS_RTOL = 1e-5
+# (e): the pose trainer's iters, so that its MESH_STEPS steps open the
+# level windows one by one (from steps 0, 2, 5, 7) and move the deltas from
+# the third (the pose group's warmup is iters // 10 applied updates); the
+# pose gradient's bar by relative norm; the CLI leg's iterations.
+MESH_POSE_ITERS = 20
+MESH_POSE_GRAD_RTOL = 1e-5
+MESH_POSE_CLI_ITERS = 10
+# (f): InteractiveTrainer's steps; its later steps are held within this
+# multiple of no mesh's own run-to-run spread (K2s's atomics, then Adam's
+# eps of 1e-15, which moves a parameter by about lr whatever its gradient).
+MESH_INTERACTIVE_STEPS = 3
+MESH_SPREAD_ROOM = 4.0
 NCCL_PROBE_S = 120
 OPTIONAL_MODULES = ('cv2', 'PIL', 'h5py', 'sklearn', 'pandas', 'matplotlib')
 _OPTIONAL_PROBE = '''
@@ -5713,6 +5764,110 @@ def _mesh_inputs(dev, seed):
     return batches, draws
 
 
+def _mesh_pose_inputs(dev, seed):
+    """(e)'s inputs: the cameras' (R0 (8, 3, 3), t0 (8, 3)), and MESH_STEPS
+    global batches of _mesh_inputs' scene with each ray's frame index and
+    camera-frame direction, with the render's draws for them (pose
+    refinement turns the estimators off: no encode uniforms), on the
+    host."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core import rays
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    from autolabel_tpu_torch.render.renderer import draw_perturbations
+    positions = [(3.2 * np.cos(a), 3.2 * np.sin(a), 0.9 * (-1) ** k)
+                 for k, a in enumerate(np.linspace(0, 2 * np.pi, 9)[:-1])]
+    dirs_cam, _ = rays.compute_directions(
+        np.eye(3), np.arange(FRAME_W * FRAME_H), FRAME_W, 400.0, 400.0,
+        FRAME_W / 2, FRAME_H / 2)
+    frames = []
+    for i, pos in enumerate(positions):
+        frame = _scene_frame(rays, pos)
+        frame['frame_idx'] = np.full((FRAME_H, FRAME_W), i, np.int32)
+        frame['rays_d_cam'] = np.asarray(dirs_cam, np.float32).reshape(
+            FRAME_H, FRAME_W, 3)
+        frames.append(frame)
+    loader = _RayBatches(frames, TRAIN_BATCH, dev, seed + 6,
+                         ('frame_idx', 'rays_d_cam'))
+    options = dataclasses.replace(_flagship_options(), sampled_backward=0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    batches, draws = [], []
+    for _ in range(MESH_STEPS):
+        batches.append({k: v.cpu() for k, v in next(loader).items()})
+        draws.append({k: v.cpu() for k, v in draw_perturbations(
+            gen, TRAIN_BATCH, options, TPU_GRID.n_levels, 'simplex').items()})
+    pose_init = (torch.as_tensor(np.stack([_look_at(p) for p in positions]),
+                                 dtype=torch.float32),
+                 torch.tensor(positions, dtype=torch.float32))
+    return {'batches': batches, 'draws': draws, 'pose_init': pose_init}
+
+
+def _mesh_pose_trainer(dev, seed, mesh, pose_init):
+    """(e)'s trainer: _mesh_trainer's with joint pose refinement from
+    pose_init over MESH_POSE_ITERS."""
+    import torch
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    field = Field(_model_config('simplex', 'pallas'), device=dev,
+                  generator=torch.Generator().manual_seed(seed + 2))
+    return SimpleTrainer('chip_smoke_mesh_pose', field, lr=5e-3,
+                         iters=MESH_POSE_ITERS,
+                         render_options=_flagship_options(), workspace=None,
+                         use_checkpoint=None, metrics=False, mesh=mesh,
+                         seed=seed, pose_refine=pose_init)
+
+
+def _interactive_losses(dev, seed, mesh, batches, draws):
+    """(f): InteractiveTrainer on _mesh_trainer's field and schedule
+    (iters 10000, as SimpleTrainer's), init over the global batches on the
+    card, MESH_INTERACTIVE_STEPS take_steps with their draws: each step's
+    loss parts, its local and global step counts and the kernels'
+    launches."""
+    import torch
+    from autolabel_tpu_torch.models.field import Field
+    from autolabel_tpu_torch.ops import _kernels
+    from autolabel_tpu_torch.train.trainer import InteractiveTrainer
+    field = Field(_model_config('simplex', 'pallas'), device=dev,
+                  generator=torch.Generator().manual_seed(seed + 2))
+    trainer = InteractiveTrainer('chip_smoke_interactive', field, lr=5e-3,
+                                 iters=10000,
+                                 render_options=_flagship_options(),
+                                 workspace=None, use_checkpoint=None,
+                                 metrics=False, mesh=mesh, seed=seed)
+    steps = MESH_INTERACTIVE_STEPS
+    trainer.init(iter([{k: v.to(dev) for k, v in b.items()}
+                       for b in batches[:steps]]))
+    _kernels.reset_launches()
+    losses = [{k: float(v) for k, v in trainer.take_step(
+        {k: v.to(dev) for k, v in d.items()}).items()} for d in draws[:steps]]
+    torch.cuda.synchronize()
+    return dict(losses=losses, step=trainer.step,
+                global_step=trainer.global_step,
+                launches=dict(_kernels.launches))
+
+
+def _interactive_checks(checks, tag, got, ref, spread):
+    """(f): got's step 1 loss parts bit-equal to ref's (SimpleTrainer's on
+    the same mesh, batches and draws), its later ones within
+    MESH_SPREAD_ROOM times `spread` (no mesh's own run-to-run relative
+    spread over those steps) or MESH_LOSS_RTOL, whichever is larger; one
+    local and global step a take_step."""
+    bar = max(MESH_SPREAD_ROOM * spread, MESH_LOSS_RTOL)
+    checks.true(f'{tag} step 1 loss parts bit-equal to SimpleTrainer\'s',
+                got['losses'][0] == ref[0], str(got['losses'][0]))
+    later = max((abs(got['losses'][i][k] - v) / max(abs(v), 1e-30)
+                 for i in range(1, len(got['losses']))
+                 for k, v in ref[i].items()), default=0.0)
+    checks.true(f'{tag} steps 2-{len(got["losses"])} loss parts within '
+                f'{bar:.3e} of SimpleTrainer\'s', later <= bar,
+                f'{later:.3e} (no mesh run again: {spread:.3e})')
+    n = len(got['losses'])
+    checks.true(f'{tag} counts its steps', got['step'] == n
+                and got['global_step'] == n,
+                f'{got["step"]}, {got["global_step"]}')
+
+
 class _Collectives:
     """Wraps parallel's collectives: counts their calls and their host
     wall (the card synchronised before and after each) on a clock."""
@@ -5755,12 +5910,12 @@ def _mesh_trainer(dev, seed, mesh):
 def _mesh_run(trainer, batches, draws, dev, record=None, states=False):
     """train_steps on the global batches and draws: each step's loss parts
     and wall (synchronised after it), the launches, the step-1 gradients
-    (the table's gathered whole) and table, the params after them, and
-    with `record` (a dict) the step-1 inputs of K1s, K5 and K2s and K5's
-    workspace; with `states`, every step's params before it and its
-    gradients ('states', 'grads'). Then steps 2 on again with the
-    collectives timed (_Collectives: the card synchronised around each),
-    which the walls above leave out."""
+    (the table's gathered whole) and table, the params (and pose deltas)
+    after them, and with `record` (a dict) the step-1 inputs of K1s, K5
+    and K2s and K5's workspace; with `states`, every step's params before
+    it and its gradients ('states', 'grads'). Then steps 2 on again with
+    the collectives timed (_Collectives: the card synchronised around
+    each), which the walls above leave out."""
     import torch
     from autolabel_tpu_torch import parallel
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda
@@ -5848,6 +6003,8 @@ def _mesh_run(trainer, batches, draws, dev, record=None, states=False):
     out['params'] = {k: parallel.gather_grid(v.detach(), mesh).cpu()
                      if k == 'encoder.grid' else v.detach().cpu()
                      for k, v in trainer.field.state_dict().items()}
+    out['pose'] = {k: v.detach().cpu().clone()
+                   for k, v in trainer.pose.items()}
     coll = _Collectives(parallel)
     try:
         for batch, d in zip(batches[1:], draws[1:]):
@@ -5881,11 +6038,23 @@ def _mesh_walls(run):
             f'{sum(coll) / sum(timed):.4f} of it')
 
 
-def _mesh_rank(rank, init_file, work, seed, modes):
+def _mesh_of(mode, world):
+    """The mesh of a mode (name, data ranks, model ranks) of `world`."""
+    from autolabel_tpu_torch import parallel
+    _, n_data, n_model = mode
+    return (parallel.make_mesh(world, device='cuda') if n_model == 1
+            else parallel.make_mesh_2d(n_data, n_model, device='cuda'))
+
+
+def _mesh_rank(rank, init_file, work, seed, modes, pose_mode,
+               interactive_mode):
     """Phase 19 (b)-(c)'s rank: on each mesh of `modes` (name, data ranks,
     model ranks) in turn, one world; rank r writes <work>/rank<r>.json (its
     walls, collectives, launches and failed checks) and
-    <work>/<mode>_rank<r>.pt."""
+    <work>/<mode>_rank<r>.pt. Then on the same world (e) on pose_mode's
+    mesh (<work>/pose_rank<r>.pt: step 1's pose gradient and the deltas
+    after MESH_STEPS; K2x held and timed on its first call's inputs, the
+    rank's feature slice) and (f) on interactive_mode's."""
     sys.path.insert(0, HERE)
     import torch
     from autolabel_tpu_torch import parallel
@@ -5899,9 +6068,7 @@ def _mesh_rank(rank, init_file, work, seed, modes):
     try:
         inputs = torch.load(os.path.join(work, 'inputs.pt'))
         for mode, n_data, n_model in modes:
-            mesh = (parallel.make_mesh(world, device='cuda') if n_model == 1
-                    else parallel.make_mesh_2d(n_data, n_model,
-                                               device='cuda'))
+            mesh = _mesh_of((mode, n_data, n_model), world)
             trainer = _mesh_trainer(dev, seed, mesh)
             record = {}
             _kernels.reset_launches()
@@ -5968,6 +6135,42 @@ def _mesh_rank(rank, init_file, work, seed, modes):
                                 o[1:m + 1], sel[:m]) for o in other))
             del record, run, trainer
             torch.cuda.empty_cache()
+        # (e) joint pose refinement
+        pose_in = torch.load(os.path.join(work, 'pose_inputs.pt'))
+        trainer = _mesh_pose_trainer(dev, seed, _mesh_of(pose_mode, world),
+                                     pose_in['pose_init'])
+        _kernels.reset_launches()
+        with _first_point_grad(hashgrid_cuda, {}) as k2x_in:
+            run = _mesh_run(trainer, pose_in['batches'], pose_in['draws'],
+                            dev)
+        report['pose'] = dict(walls=run['walls'], losses=run['losses'],
+                              timed_walls=run['timed_walls'],
+                              collective_s=run['collective_s'],
+                              launches=run['launches'])
+        print(f'mesh (e) {pose_mode[0]} pose rank {rank} [{gpu}] '
+              f'({report["backend"]}): {_mesh_walls(run)}', flush=True)
+        torch.save({'grads1': {k: v.cpu() for k, v in run['grads1'].items()
+                               if k.startswith('pose.')},
+                    'pose': run['pose']},
+                   os.path.join(work, f'pose_rank{rank}.pt'))
+        del trainer, run
+        torch.cuda.empty_cache()
+        # the ranks share the card: each times K2x while the others wait
+        args = k2x_in['args']
+        for turn in range(world):
+            if turn == rank:
+                report['k2x'] = _k2x_form(
+                    checks, gpu, {}, f'mesh (e) {pose_mode[0]} rank {rank} '
+                    f'F={args[3].n_features}', args)
+                report['k2x']['n_features'] = args[3].n_features
+            parallel.barrier()
+        del k2x_in, args
+        torch.cuda.empty_cache()
+        # (f) InteractiveTrainer, the ranks stepping together
+        report['interactive'] = _interactive_losses(
+            dev, seed, _mesh_of(interactive_mode, world), inputs['batches'],
+            inputs['draws'])
+        torch.cuda.empty_cache()
     finally:
         report['failures'] = checks.failures
         with open(os.path.join(work, f'rank{rank}.json'), 'w') as f:
@@ -5996,13 +6199,14 @@ def _nccl_probe_rank(rank, init_file, out):
 
 def _mesh_phase(dev, seed, gpu, checks, cards=1):
     """Phase 19 (see the module docstring) on `cards` cards: with one, (a)
-    to (d); with four (--mesh-cards 4), (a) without its world of one, (b)
-    and (c) with a rank a card under NCCL (DP 2 x TP 2, then DP 4) and (d)
-    on four ranks. Returns what the output file keeps."""
+    to (f); with four (--mesh-cards 4), (a) without its world of one, (b),
+    (c), (e) and (f) with a rank a card under NCCL (DP 2 x TP 2, then DP
+    4; (e) on DP 2 x TP 2, (f) on DP 4) and (d) and (e)'s CLI on four
+    ranks. Returns what the output file keeps."""
     import shutil
 
     import torch
-    from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
     t_phase = time.perf_counter()
     work = os.path.join(WORK_DIR, 'mesh')
     shutil.rmtree(work, ignore_errors=True)
@@ -6011,6 +6215,8 @@ def _mesh_phase(dev, seed, gpu, checks, cards=1):
     batches, draws = _mesh_inputs(dev, seed)
     torch.save({'batches': batches, 'draws': draws},
                os.path.join(work, 'inputs.pt'))
+    pose_in = _mesh_pose_inputs(dev, seed)
+    torch.save(pose_in, os.path.join(work, 'pose_inputs.pt'))
     names = [hashgrid_cuda.ATOMS_NAME, hashgrid_cuda.SELECT_NAME,
              hashgrid_cuda.SAMPLED_BWD_NAME, heads_cuda.HEADS,
              heads_cuda.HEADS_BWD, heads_cuda.MLP3, heads_cuda.MLP3_BWD]
@@ -6024,9 +6230,22 @@ def _mesh_phase(dev, seed, gpu, checks, cards=1):
         del trainer
     print(f'mesh (a) [{gpu}] no mesh: {_mesh_walls(runs["A"])}')
     out['no_mesh_walls'] = runs['A']['walls']
+    # (e) joint pose refinement without a mesh, the ranks' reference
+    _kernels.reset_launches()
+    runs['P'] = _mesh_run(_mesh_pose_trainer(dev, seed, None,
+                                             pose_in['pose_init']),
+                          pose_in['batches'], pose_in['draws'], dev)
+    print(f'mesh (e) [{gpu}] pose, no mesh: {_mesh_walls(runs["P"])}')
+    out['pose_no_mesh_walls'] = runs['P']['walls']
+    _check_launches(checks, 'mesh (e) pose no mesh', runs['P']['launches'],
+                    _pose_names(), MESH_STEPS)
+    moved = min(float(v[1:].abs().max()) for v in runs['P']['pose'].values())
+    checks.true(f'mesh (e) pose no mesh: the deltas moved in {MESH_STEPS} '
+                'steps', moved > 0, f'largest move {moved:.3e}')
+    torch.cuda.empty_cache()
     if cards == 1:
         out['a'] = _mesh_world_of_one(dev, seed, gpu, checks, batches,
-                                      draws, runs, record, names)
+                                      draws, runs, record, names, pose_in)
     torch.cuda.empty_cache()
     out['b'] = _mesh_ranks(gpu, checks, work, seed, cards, runs, record,
                            names)
@@ -6035,6 +6254,10 @@ def _mesh_phase(dev, seed, gpu, checks, cards=1):
     if cards == 1:
         out['nccl_two_ranks_one_card'] = _nccl_probe(gpu, work)
     out['d'] = _mesh_cli(gpu, checks, work, cards, names)
+    out['e_cli'] = _mesh_pose_cli(gpu, checks,
+                                  os.path.join(WORK_DIR, 'cli', 'sphere'),
+                                  os.path.join(work, 'cli_pose'),
+                                  MESH[cards]['cli'])
     out['phase_s'] = time.perf_counter() - t_phase
     print(f'phase 19: {out["phase_s"]:.1f} s')
     return out
@@ -6064,8 +6287,43 @@ def _sampled_tolerance(record, coef_rel=0.0, dg=None):
     return (tol + spread) * (1.0 + coef_rel)
 
 
+def _pose_names():
+    """The kernels of a flagship step with pose refinement: its encode
+    exact (K1s, K2s as the exact scatter, K2x), the fused heads and the
+    proposal MLP; K5 not."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda, heads_cuda
+    return [hashgrid_cuda.ATOMS_NAME, hashgrid_cuda.POINT_GRAD_NAME,
+            hashgrid_cuda.SAMPLED_BWD_NAME, heads_cuda.HEADS,
+            heads_cuda.HEADS_BWD, heads_cuda.MLP3, heads_cuda.MLP3_BWD]
+
+
+def _check_launches(checks, tag, launches, names, count):
+    """Each of `names` launched `count` times, K5 none unless named."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    want = dict.fromkeys(names, count)
+    want.setdefault(hashgrid_cuda.SELECT_NAME, 0)
+    for name, n in want.items():
+        got = launches.get(name, 0)
+        checks.true(f'{tag} launches {name}', got == n,
+                    f'{got} (expected {n})')
+
+
+def _later_spread(a, b, steps):
+    """The largest relative difference of two runs' loss parts over steps
+    2 to `steps`."""
+    return max((abs(b['losses'][i][k] - v) / max(abs(v), 1e-30)
+                for i in range(1, steps)
+                for k, v in a['losses'][i].items()), default=0.0)
+
+
+def _pose_gradient(grads):
+    """Step 1's pose gradient (rot, t) as one tensor on the host."""
+    import torch
+    return torch.cat([grads['pose.rot'].cpu(), grads['pose.t'].cpu()])
+
+
 def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
-                       names):
+                       names, pose_in):
     """Phase 19 (a)'s world of one under NCCL, held against runs['A'] (and
     runs['A2'], no mesh run again). Each step taken from no mesh's params
     before it: the loss parts and every gradient but the table's
@@ -6094,7 +6352,34 @@ def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
         forced.append((_mesh_run(trainer, batches[i:i + 1], draws[i:i + 1],
                                  dev, rec), rec))
     del trainer
+    # (e) joint pose refinement and (f) InteractiveTrainer on the world of
+    # one
+    _kernels.reset_launches()
+    pose_w1 = _mesh_run(_mesh_pose_trainer(dev, seed, mesh,
+                                           pose_in['pose_init']),
+                        pose_in['batches'], pose_in['draws'], dev)
+    torch.cuda.empty_cache()
+    inter_w1 = _interactive_losses(dev, seed, mesh, batches, draws)
     torch.distributed.destroy_process_group()
+    p = runs['P']
+    _check_launches(checks, 'mesh (e) pose world of one',
+                    pose_w1['launches'], _pose_names(), MESH_STEPS)
+    checks.true('mesh (e) pose world of one: step 1 loss parts and pose '
+                'gradient bit-equal to no mesh\'s',
+                pose_w1['losses'][0] == p['losses'][0]
+                and torch.equal(_pose_gradient(pose_w1['grads1']),
+                                _pose_gradient(p['grads1'])),
+                str(pose_w1['losses'][0]))
+    delta_diff = max(float((pose_w1['pose'][k] - p['pose'][k]).abs().max())
+                     for k in p['pose'])
+    print(f'mesh (e) [{gpu}] pose world of one (nccl): {_mesh_walls(pose_w1)}'
+          f'; deltas after {MESH_STEPS} steps within {delta_diff:.3e} of no '
+          f'mesh\'s (K2s\'s atomics part the tables after step 1)')
+    spread = _later_spread(runs['A'], runs['A2'], MESH_INTERACTIVE_STEPS)
+    _interactive_checks(checks, 'mesh (f) world of one', inter_w1,
+                        runs['A']['losses'], spread)
+    _check_launches(checks, 'mesh (f) world of one', inter_w1['launches'],
+                    names, MESH_INTERACTIVE_STEPS)
     checks.true('mesh (a) world of one: NCCL, collectives called',
                 backend == 'nccl' and w1['collective_calls'] > 0,
                 f'{backend}, {w1["collective_calls"]} calls in '
@@ -6146,7 +6431,13 @@ def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
     return dict(bit_equal=equal, compared=len(items),
                 collective_s=w1['collective_s'], walls=w1['walls'],
                 timed_walls=w1['timed_walls'], launches=launches,
-                later=later_w1, later_no_mesh=later_a2)
+                later=later_w1, later_no_mesh=later_a2,
+                pose=dict(walls=pose_w1['walls'],
+                          timed_walls=pose_w1['timed_walls'],
+                          collective_s=pose_w1['collective_s'],
+                          launches=pose_w1['launches'],
+                          deltas_within=delta_diff),
+                interactive=inter_w1)
 
 
 def _mesh_ranks(gpu, checks, work, seed, cards, runs, record, names):
@@ -6164,11 +6455,12 @@ def _mesh_ranks(gpu, checks, work, seed, cards, runs, record, names):
     from autolabel_tpu_torch.ops import hashgrid_cuda
     from autolabel_tpu_torch.ops.encoders import TPU_GRID
     modes = MESH[cards]['modes']
+    pose_mode, inter_mode = MESH[cards]['pose'], MESH[cards]['interactive']
     world = modes[0][1] * modes[0][2]
     t0 = time.perf_counter()
     torch.multiprocessing.start_processes(
         _mesh_rank, args=(os.path.join(work, 'rendezvous'), work, seed,
-                          modes),
+                          modes, pose_mode, inter_mode),
         nprocs=world, join=True, start_method='spawn')
     ranks_s = time.perf_counter() - t0
     reports = []
@@ -6282,9 +6574,69 @@ def _mesh_ranks(gpu, checks, work, seed, cards, runs, record, names):
             table_err=float(err.max()),
             launches=[r[mode]['launches'] for r in reports])
         del mine
+    out['e'] = _mesh_pose_checks(checks, work, pose_mode, reports, runs['P'])
+    # (f) InteractiveTrainer against SimpleTrainer on the same mesh (one of
+    # (b)'s modes): step 1 bit-equal, later steps within no mesh's spread
+    spread = _later_spread(runs['A'], runs['A2'], MESH_INTERACTIVE_STEPS)
+    ref = reports[0][inter_mode[0]]['losses']
+    for r, rep in enumerate(reports):
+        _interactive_checks(checks, f'mesh (f) {inter_mode[0]} rank {r}',
+                            rep['interactive'], ref, spread)
+        _check_launches(checks, f'mesh (f) {inter_mode[0]} rank {r}',
+                        rep['interactive']['launches'], names,
+                        MESH_INTERACTIVE_STEPS)
+    checks.true(f'mesh (f) {inter_mode[0]} ranks report one loss',
+                all(r['interactive']['losses'] == reports[0]['interactive'][
+                    'losses'] for r in reports))
+    out['f'] = dict(mode=inter_mode[0], spread_no_mesh=spread,
+                    interactive=[r['interactive'] for r in reports])
     print(f'mesh (b) [{gpu}]: {world} ranks {ranks_s:.1f} s with their '
           'checks and the spawn')
     return out
+
+
+def _mesh_pose_checks(checks, work, pose_mode, reports, p):
+    """Phase 19 (e) on the ranks, held against p (no mesh's pose run): each
+    rank launches the pose step's kernels once a step; step 1's loss parts
+    within MESH_LOSS_RTOL and its pose gradient within MESH_POSE_GRAD_RTOL
+    by relative norm; the step-1 pose gradient and the deltas after
+    MESH_STEPS steps bit-equal on every rank; K2x run at the rank's feature
+    slice (each rank held it against its plain version on its inputs)."""
+    import torch
+    from autolabel_tpu_torch.ops.encoders import TPU_GRID
+    mode, _, n_model = pose_mode
+    tag = f'mesh (e) {mode} pose'
+    for r, rep in enumerate(reports):
+        _check_launches(checks, f'{tag} rank {r}', rep['pose']['launches'],
+                        _pose_names(), MESH_STEPS)
+        checks.true(f'{tag} rank {r} K2x at the slice\'s width',
+                    rep['k2x']['n_features'] == TPU_GRID.n_features // n_model,
+                    f'F = {rep["k2x"]["n_features"]}')
+    losses = reports[0]['pose']['losses']
+    for key, v in p['losses'][0].items():
+        checks.close(f'{tag} step 1 loss {key}', torch.tensor(losses[0][key]),
+                     torch.tensor(v), atol=0.0, rtol=MESH_LOSS_RTOL)
+    checks.true(f'{tag} ranks report one loss',
+                all(r['pose']['losses'] == losses for r in reports))
+    saved = [torch.load(os.path.join(work, f'pose_rank{r}.pt'))
+             for r in range(len(reports))]
+    grads = [_pose_gradient(sv['grads1']) for sv in saved]
+    rel = checks.rel_norm(f'{tag} step 1 pose gradient against one card\'s',
+                          grads[0], _pose_gradient(p['grads1']),
+                          MESH_POSE_GRAD_RTOL)
+    checks.true(f'{tag} step 1 pose gradient bit-equal on every rank',
+                all(torch.equal(g, grads[0]) for g in grads))
+    deltas = [torch.cat([sv['pose']['rot'], sv['pose']['t']]) for sv in saved]
+    checks.true(f'{tag} deltas after {MESH_STEPS} steps bit-equal on every '
+                'rank', all(torch.equal(d, deltas[0]) for d in deltas),
+                f'largest move {float(deltas[0].abs().max()):.3e}')
+    return dict(mode=mode, pose_grad_rel_err=rel,
+                walls=[r['pose']['walls'] for r in reports],
+                timed_walls=[r['pose']['timed_walls'] for r in reports],
+                collective_s=[r['pose']['collective_s'] for r in reports],
+                losses=losses,
+                launches=[r['pose']['launches'] for r in reports],
+                k2x=[r['k2x'] for r in reports])
 
 
 def _nccl_probe(gpu, work):
@@ -6360,6 +6712,53 @@ def _mesh_cli(gpu, checks, work, cards, names):
               f'{leg["train_s"] * 1e3 / leg["iters"]:.3f} ms a step on rank 0 '
               '(the communicators\' set-up in its first step included)')
     return legs
+
+
+def _mesh_pose_cli(gpu, checks, scene, ws, flags):
+    """Phase 19 (e) through the train CLI: `flags` with
+    --pose-refine-experimental for MESH_POSE_CLI_ITERS iterations; rank 0
+    writes poses_refined.npz (R, t and the frames' stems of the train
+    split), frame 0 kept, the other frames moved; rank 0's launches one a
+    step."""
+    import numpy as np
+    from autolabel_tpu_torch.core.dataset import SceneDataset
+    from autolabel_tpu_torch.train import __main__ as cli
+    iters = MESH_POSE_CLI_ITERS
+    t0 = time.perf_counter()
+    run = cli.main([scene, '--workspace', ws, '--iters', str(iters),
+                    '--pose-refine-experimental'] + flags)
+    leg = dict(iters=iters, wall_s=time.perf_counter() - t0,
+               train_s=run.train_s, launches=run.launches)
+    path = os.path.join(run.model_dir, 'poses_refined.npz')
+    checks.true('mesh (e) CLI pose refinement: rank 0 wrote '
+                'poses_refined.npz', run.poses_refined == path
+                and os.path.exists(path), str(run.poses_refined))
+    saved = np.load(path)
+    ds = SceneDataset('train', scene, factor=1.0, batch_size=512, lazy=True,
+                      load_semantic=False)
+    R0, t0s = np.asarray(ds.rotations), np.asarray(ds.origins)
+    n = len(ds.indices)
+    stems = [os.path.basename(p).split('.')[0]
+             for p in ds.scene.rgb_paths()]
+    anchor = max(float(np.abs(saved['R'][0] - R0[0]).max()),
+                 float(np.abs(saved['t'][0] - t0s[0]).max()))
+    moved = float(np.abs(saved['t'][1:] - t0s[1:]).max())
+    checks.true('mesh (e) CLI poses_refined.npz: the train frames\' R, t and '
+                'stems, frame 0 kept, the others moved',
+                saved['R'].shape == (n, 3, 3) and saved['t'].shape == (n, 3)
+                and list(saved['frames']) == [stems[i] for i in ds.indices]
+                and bool(np.isfinite(saved['R']).all()) and anchor <= 1e-6
+                and moved > 0,
+                f'{n} frames, frame 0 within {anchor:.3e}, largest move '
+                f'{moved:.3e} m')
+    # the CLI's heads are 'xla' (no --heads-impl pallas): the encode's
+    # kernels alone
+    _check_launches(checks, f'mesh (e) CLI {iters} iterations rank 0',
+                    run.launches, _pose_names()[:3], iters)
+    print(f'mesh (e) [{gpu}] CLI {" ".join(flags)} --pose-refine-experimental'
+          f' --iters {iters}: {leg["wall_s"]:.1f} s with the spawn, '
+          f'{leg["train_s"] * 1e3 / iters:.3f} ms a step on rank 0')
+    return leg
 
 
 def _mesh_cards_main(args, dev, gpu, checks, t_start, build_s):
@@ -7658,6 +8057,12 @@ def main():
     # sharing the card (DP 2, TP 2), the train CLI on a mesh
     torch.cuda.empty_cache()
     mesh_run = _mesh_phase(dev, args.seed, gpu, checks)
+    # K2x on each TP rank's feature slice, phase 19 (e)
+    for r, form in enumerate(mesh_run['b']['e']['k2x']):
+        results['K2x']['forms'][f'mesh pose rank {r} F={form["n_features"]}'] \
+            = form
+    results['K2x']['max_abs_err'] = max(
+        f['max_abs_err'] for f in results['K2x']['forms'].values())
 
     # ---- 20. the online ROS node and the labelling window
     torch.cuda.empty_cache()
@@ -7760,6 +8165,14 @@ def main():
             kernel_names[key], 0) for mode in ('dp', 'tp')},
         'launches_mesh_cli': sum(leg['launches'].get(kernel_names[key], 0)
                                  for leg in mesh_run['d']),
+        'launches_mesh_pose_world_of_one': mesh_run['a']['pose'][
+            'launches'].get(kernel_names[key], 0),
+        'launches_mesh_pose': mesh_run['b']['e']['launches'][0].get(
+            kernel_names[key], 0),
+        'launches_mesh_pose_cli': mesh_run['e_cli']['launches'].get(
+            kernel_names[key], 0),
+        'launches_mesh_interactive': mesh_run['b']['f']['interactive'][0][
+            'launches'].get(kernel_names[key], 0),
         'launches_online_node': host_modules['launches']['online_node'].get(
             kernel_names[key], 0),
         'max_abs_err': results[key]['max_abs_err'],

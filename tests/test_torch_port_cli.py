@@ -144,22 +144,6 @@ def test_cli_configures_what_scripts_train_does(scene, tmp_path,
                               np.asarray(ref['occupancy'].trained))
 
 
-@pytest.mark.parametrize('argv', [
-    ['--mesh-devices', '1', '--pose-refine-experimental'],
-    ['--mesh-devices', '2', '--pose-refine-experimental'],
-    ['--mesh-devices', '4', '--mesh-model', '2',
-     '--pose-refine-experimental']])
-def test_cli_refuses_what_is_not_ported(scene, argv):
-    """Each flag combination whose path the port lacks raises before any
-    work: joint pose refinement on a device mesh. (The device mesh trains:
-    tests/test_torch_port_parallel.py; the stochastic-corner estimator, on
-    by default wherever the sampled backward is off, trains:
-    tests/test_torch_port_stochastic.py; joint pose refinement trains:
-    tests/test_torch_port_register.py.)"""
-    with pytest.raises(NotImplementedError):
-        port_cli.main([scene] + argv, device='cpu')
-
-
 def test_cli_pose_refine_errors_as_the_jax_cli(scene, capsys):
     with pytest.raises(SystemExit):
         port_cli.read_args([scene, '--pose-refine'])
