@@ -99,12 +99,16 @@ def backward_tolerance(g, x, config):
     return 2.0 * terms[..., None] * 2.0 ** -24 * magnitude
 
 
-def _entry(source, symbol):
-    """A C entry point taking x, src, dst and the six per-level arrays."""
+@functools.cache
+def _entry(source, symbol, n_ints=0):
+    """A C entry point taking x, src, dst, the six per-level arrays, the
+    grid's sizes and `n_ints` ints more, its signature set once, when it
+    loads."""
     fn = getattr(_kernels.library(source), symbol)
     fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
-                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -168,43 +172,84 @@ def _geometry(config):
             np.ascontiguousarray(use_dense, np.int32), magic, shift)
 
 
-def _call(source, symbol, name, x, src, dst, config):
-    """Launch symbol of source on x, src, dst and the per-level arrays;
-    count the launch."""
+def _call(source, symbol, name, x, src, dst, config, *ints):
+    """Launch symbol of source on x, src, dst, the per-level arrays and
+    the ints after the grid's sizes; count the launch."""
     geometry = _geometry(config)
-    fn = _entry(source, symbol)
+    fn = _entry(source, symbol, len(ints))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(x.data_ptr(), src.data_ptr(), dst.data_ptr(),
                 *[a.ctypes.data for a in geometry],
                 float(config.pos_offset), x.shape[0], config.n_levels,
-                config.table_size, config.n_features, stream)
+                config.table_size, config.n_features, *ints, stream)
     _kernels.check(status, name)
     _kernels.launches[name] += 1
 
 
-def _launch(table, x, config):
+def _wide_rows(features):
+    """The wide-row kernels' feature widths (wide_rows in the sources)."""
+    return features % 4 == 0 and features >= 32
+
+
+def _launch(table, x, config, group=0):
+    """K1 on the card. group: on narrow rows the levels a thread walks, 0
+    for the library's choice (the levels whose rows fill a 32-byte
+    sector); another value times or tests another grouping."""
     _check_inputs(NAME, x, config, table, _table_shape(config))
     out = torch.empty((x.shape[0], config.out_dim), dtype=torch.float32,
                       device=x.device)
-    _call(_SOURCE, 'hashgrid_encode_fwd', NAME, x, table, out, config)
+    _call(_SOURCE, 'hashgrid_encode_fwd', NAME, x, table, out, config,
+          int(group))
     return out
 
 
 def encode_launch_shapes(config, n):
     """K1's launch shape for n points, as the C library plans it: blocks,
-    threads, static shared bytes, blocks per SM, registers per thread and
-    points per warp, keyed by the kernel the feature width selects."""
+    threads, shared bytes (static and dynamic), blocks per SM, registers
+    per thread, points per warp (on narrow rows the points whose rows a
+    warp stores whole, 0 where each thread stores its own) and the levels
+    a thread walks (1 on wide rows), keyed by the kernel the feature width
+    selects."""
     fn = _kernels.library(_SOURCE).hashgrid_encode_shape
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     _kernels.check(fn(config.n_levels, config.n_features, n, out), NAME)
-    wide = config.n_features % 4 == 0 and config.n_features >= 32
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
-            'points_per_warp')
-    return {'encode_rows_kernel' if wide else 'encode_lanes_kernel':
-            dict(zip(keys, out))}
+            'points_per_warp', 'levels_per_thread')
+    return {'encode_rows_kernel' if _wide_rows(config.n_features)
+            else 'encode_lanes_kernel': dict(zip(keys, out))}
+
+
+def gather_sectors(x, config, points=None, sector=32):
+    """The distinct `sector`-byte sectors of the fp32 (L, T, F) table that
+    the exact trilinear encode of x gathers, level by level: over the whole
+    launch (points None), K1 narrow's floor of bytes from device memory
+    beside its byte bound, which charges every row of a level; or summed
+    over tiles of `points` consecutive points, the requests a warp of that
+    many points makes of L2 at the least. A row that straddles two
+    sectors touches both. Computed with torch on x's device."""
+    cell, _, stride, use_dense, size = encoders._grid_geometry(x, config)
+    row_bytes = config.n_features * 4
+    n = x.shape[0]
+    counts = []
+    for l in range(config.n_levels):
+        idx = torch.stack([encoders._corner_index(
+            cell[:, l], corner, stride[l], use_dense[l], size[l])
+            for corner in encoders._CORNERS], dim=1)  # (N, 8)
+        start = (l * config.table_size + idx) * row_bytes
+        secs = torch.cat([start // sector,
+                          (start + row_bytes - 1) // sector], dim=1)
+        if points is None:
+            counts.append(int(torch.unique(secs).numel()))
+            continue
+        pad = (-n) % points
+        if pad:
+            secs = torch.cat([secs, secs[-1:].expand(pad, secs.shape[1])])
+        s = secs.reshape(-1, points * secs.shape[1]).sort(dim=1).values
+        counts.append(int((s[:, 1:] != s[:, :-1]).sum()) + s.shape[0])
+    return counts
 
 
 def encode_backward_launch_shapes(config, n):
@@ -217,10 +262,10 @@ def encode_backward_launch_shapes(config, n):
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
     _kernels.check(fn(config.n_levels, config.n_features, n, out), BWD_NAME)
-    wide = config.n_features % 4 == 0 and config.n_features >= 32
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
             'points_per_tile')
-    return {'scatter_rows_kernel' if wide else 'scatter_lanes_kernel':
+    return {'scatter_rows_kernel' if _wide_rows(config.n_features)
+            else 'scatter_lanes_kernel':
             dict(zip(keys, out))}
 
 

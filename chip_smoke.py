@@ -585,6 +585,37 @@ def _print_shapes(gpu, shapes):
             f'{k} {v}' for k, v in sh.items()))
 
 
+# K1's narrow rows at the edges of its layout: point counts that end a
+# warp or a block (128 threads) early, feature widths whose point rows are
+# or are not whole 16-byte pieces (F = 3: 3 threads a point, not dividing
+# a warp), and level counts of 1, 5 and 16.
+NARROW_EDGES = dict(n=(0, 1, 31, 33, 129, 1000), features=(1, 2, 3, 8),
+                    levels=(1, 5, 16))
+
+
+def _hold_narrow_edges(checks, hashgrid_cuda, config_class, dev, g):
+    """K1 on narrow rows bit-equal to its plain version at every
+    NARROW_EDGES shape, on the tcnn lattice, points up to 0.05 outside
+    [0, 1]; one check for them all, naming the shapes that differ."""
+    import itertools
+    import torch
+    differ = []
+    shapes = list(itertools.product(*NARROW_EDGES.values()))
+    for n, f, levels in shapes:
+        config = config_class(n_levels=levels, n_features=f,
+                              log2_hashmap_size=12, base_resolution=8,
+                              per_level_scale=1.6, variant='tcnn')
+        table = (torch.rand((levels, 4096, f), generator=g) * 2 - 1).to(dev)
+        x = (torch.rand((n, 3), generator=g) * 1.1 - 0.05).to(dev)
+        if not torch.equal(hashgrid_cuda.hashgrid_encode(table, x, config),
+                           hashgrid_cuda.hashgrid_encode_plain(table, x,
+                                                               config)):
+            differ.append((n, f, levels))
+    checks.true(f'K1 narrow rows bit-equal at {len(shapes)} edge shapes '
+                f'(n, F, L in {tuple(NARROW_EDGES.values())})', not differ,
+                f'differ at {differ}')
+
+
 def _bound(nbytes, flops, peak_flops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -2882,6 +2913,7 @@ LABEL_MAP = 'id,prompt\n1,background\n2,sphere|ball\n'
 # to 2^19 rows of 2 features on the tcnn lattice), at phase 5's cameras.
 REFERENCE_CLASSES = 2
 REFERENCE_N = 524288
+REFERENCE_REPEATS = 3  # warm repeats of the reference checkpoint's render
 
 
 @contextlib.contextmanager
@@ -2970,6 +3002,7 @@ def _eval_phase(dev, seed, gpu, checks, results):
     from autolabel_tpu_torch.language import evaluate as language_cli
     from autolabel_tpu_torch.models.field import Field
     from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda, heads_cuda
+    from autolabel_tpu_torch.ops.encoders import HashGridConfig
     from autolabel_tpu_torch.train import checkpoints
     from autolabel_tpu_torch.utils import Scene, fixtures
     phase_start = time.perf_counter()
@@ -3261,8 +3294,12 @@ def _eval_phase(dev, seed, gpu, checks, results):
     enc_plain = hashgrid_cuda.hashgrid_encode_plain(table, x, grid)
     k1_err = checks.close(f'K1 encode tcnn 16x2x2^19 N={REFERENCE_N}', enc,
                           enc_plain, atol=1e-5, rtol=0.0)
+    checks.true(f'K1 encode tcnn 16x2x2^19 N={REFERENCE_N} bit-equal',
+                torch.equal(enc, enc_plain))
     k1_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(table, x, grid),
                      20)
+    k1_device = _kernel_ms(lambda: hashgrid_cuda.hashgrid_encode(table, x,
+                                                                 grid))
     k1_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_plain(
         table, x, grid), 3)
     # the table's bytes are its levels' rows: the kernel hashes modulo a
@@ -3271,12 +3308,39 @@ def _eval_phase(dev, seed, gpu, checks, results):
                    * table.element_size())
     k1_bound = _bound(_nbytes(x, enc) + table_bytes,
                       16 * REFERENCE_N * grid.out_dim, PEAK_FP32)
-    results['K1']['tcnn'] = dict(n=REFERENCE_N, max_abs_err=k1_err,
-                                 ms=k1_ms, plain_ms=k1_plain,
-                                 bound_ms=k1_bound[0], bound_by=k1_bound[1])
-    print(f'K1 [{gpu}] tcnn 16x2x2^19 N={REFERENCE_N}: {k1_ms:.4f} ms, plain '
-          f'{k1_plain:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]})')
-    del enc, enc_plain, x
+    # the sector floor: the 32-byte sectors the gathers touch, each read
+    # from device memory once, beside the streams
+    sectors = sum(hashgrid_cuda.gather_sectors(x, grid))
+    k1_sector_floor = (_nbytes(x, enc) + 32 * sectors) / PEAK_BYTES * 1e3
+    k1_shape = hashgrid_cuda.encode_launch_shapes(grid, REFERENCE_N)
+    results['K1']['tcnn'] = dict(
+        n=REFERENCE_N, max_abs_err=k1_err, ms=k1_ms,
+        device_ms=None if k1_device is None else sum(k1_device.values()),
+        plain_ms=k1_plain, bound_ms=k1_bound[0], bound_by=k1_bound[1],
+        sectors=sectors, sector_floor_ms=k1_sector_floor, shape=k1_shape)
+    print(f'K1 [{gpu}] tcnn 16x2x2^19 N={REFERENCE_N}: {k1_ms:.4f} ms '
+          f'({results["K1"]["tcnn"]["device_ms"]} device), plain '
+          f'{k1_plain:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), '
+          f'sector floor {k1_sector_floor:.4f} ms ({sectors} sectors), '
+          f'shape {k1_shape}')
+    del enc, enc_plain
+    # the torch-ngp lattice at full size (level sizes not powers of two) on
+    # the same points, rows beyond a level's size zero
+    ngp = HashGridConfig.from_desired_resolution(2 ** 18,
+                                                 variant='torch_ngp')
+    ngp_table = torch.randn((ngp.n_levels, ngp.table_size, ngp.n_features),
+                            generator=torch.Generator().manual_seed(
+                                seed + 24)) * 0.5
+    for level, size in enumerate(ngp.level_sizes):
+        ngp_table[level, size:] = 0.0
+    ngp_table = ngp_table.to(dev)
+    for name, pts in (('unit', x), ('outside', x * 1.1 - 0.05)):
+        checks.true(f'K1 encode torch_ngp 16x2x2^19 N={REFERENCE_N} {name} '
+                    f'bit-equal', torch.equal(
+                        hashgrid_cuda.hashgrid_encode(ngp_table, pts, ngp),
+                        hashgrid_cuda.hashgrid_encode_plain(ngp_table, pts,
+                                                            ngp)))
+    del x, ngp_table
     frames = [_frame(rays, (3.2, -2.4, 1.2)), _frame(rays, (-2.8, -3.0, 0.8))]
     torch.cuda.synchronize()
     _kernels.reset_launches()
@@ -3298,9 +3362,19 @@ def _eval_phase(dev, seed, gpu, checks, results):
                    ('image', 'depth', 'semantic', 'semantic_features'))
         for i, (a, b) in enumerate(zip(renders, plain_renders))]
     weights = [float(r['weights_sum'].mean()) for r in renders]
+    # the same two frames again, warm, for a spread of the wall
+    repeats = []
+    for _ in range(REFERENCE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in frames:
+            model.render(batch)
+        torch.cuda.synchronize()
+        repeats.append(time.perf_counter() - t0)
     print(f'eval reference [{gpu}]: {len(frames)} frames of '
-          f'{FRAME_W}x{FRAME_H} at {NUM_STEPS} samples, {reference_s:.3f} s; '
-          f'mean weights_sum {weights}')
+          f'{FRAME_W}x{FRAME_H} at {NUM_STEPS} samples, {reference_s:.3f} s '
+          f'(again, warm: {[round(v, 4) for v in repeats]} s); mean '
+          f'weights_sum {weights}')
     print(f'eval phase: {time.perf_counter() - phase_start:.1f} s (scene '
           f'written in {scene_s:.1f} s)')
     return dict(launches={'closed': closed_launches,
@@ -3317,7 +3391,7 @@ def _eval_phase(dev, seed, gpu, checks, results):
                 query_profile=rows, query_errors=query_errors,
                 reference_errors=reference_errors,
                 reference_weights_sum=weights, reference_s=reference_s,
-                scene_s=scene_s)
+                reference_repeats_s=repeats, scene_s=scene_s)
 
 
 # The interactive backend (phase 15): the GUI's backend process at the
@@ -7412,6 +7486,8 @@ def main():
                  hashgrid_cuda.hashgrid_encode_plain(table_ref, x_ref,
                                                      ref_grid),
                  atol=1e-5, rtol=0.0)
+    _hold_narrow_edges(checks, hashgrid_cuda, HashGridConfig, dev,
+                       torch.Generator().manual_seed(args.seed + 24))
     k1_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(table, x,
                                                            TPU_GRID), 20)
     k1_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_plain(
@@ -7427,11 +7503,19 @@ def main():
           f'{k1_gathered / 1e9:.3f} GB a launch '
           f'({k1_gathered / k1_ms / 1e9:.3f} TB/s), bound '
           f'{k1_bound[0]:.4f} ms ({k1_bound[1]})')
-    # The narrow path (the reference preset's F = 2) at the same N.
+    # The narrow path (the reference preset's F = 2) at the same N, held
+    # bit-equal to its plain version there.
+    checks.true(f'K1 encode reference 16x2x2^19 N={n1} bit-equal',
+                torch.equal(hashgrid_cuda.hashgrid_encode(table_ref, x,
+                                                          ref_grid),
+                            hashgrid_cuda.hashgrid_encode_plain(
+                                table_ref, x, ref_grid)))
     k1_narrow_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode(
         table_ref, x, ref_grid), 20)
+    k1_narrow_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_plain(
+        table_ref, x, ref_grid), 3)
     print(f'K1 [{gpu}] reference 16x2x2^19 N={n1} (narrow rows): '
-          f'{k1_narrow_ms:.4f} ms')
+          f'{k1_narrow_ms:.4f} ms, plain {k1_narrow_plain:.4f} ms')
     shapes = {'K1': hashgrid_cuda.encode_launch_shapes(TPU_GRID, n1),
               'K1 reference': hashgrid_cuda.encode_launch_shapes(ref_grid,
                                                                  n1)}
@@ -8214,6 +8298,7 @@ def main():
                    'k1_gathered_bytes': k1_gathered,
                    'k1_ray_ordered_ms': k1_ray_ms,
                    'k1_narrow_ms': k1_narrow_ms,
+                   'k1_narrow_plain_ms': k1_narrow_plain,
                    'k3b_phase_profiles': phase_ms, 'k3b_peak_bytes': k3b_mem,
                    'train_peak_bytes': train_peak,
                    'train_steady_step_ms': train_steady,

@@ -8,9 +8,11 @@ CUDA card.
 Both packages are imported side by side, each as a module tree of its own
 that builds its kernels into a build directory beside itself, and every
 kernel of the main path is called through each package's public wrapper
-on the same inputs: K1 at TPU_GRID (wide rows) and at the reference preset
-(narrow rows), K2, K3f, K3b, K4f and K4b at chip_smoke.py's shapes, K2
-also on the (g, x) of a step of chip_smoke.py's training slice, and K5
+on the same inputs: K1 at TPU_GRID (wide rows) and on the reference
+presets' lattices ('native', 'tcnn', 'torch_ngp': 16 x 2^19 x 2, narrow
+rows), K2 at TPU_GRID and on the tcnn lattice (narrow rows), K3f, K3b,
+K4f and K4b at chip_smoke.py's shapes, K2 also on the (g, x) of a step
+of chip_smoke.py's training slice, and K5
 and K2s on the inputs a flagship step hands them (chip_smoke.py's
 flagship 'xla' leg after 200 steps; K2s fed one (sel, coef, count), this
 tree's K5's), and K1s in its four instantiations (simplex or trilinear
@@ -53,7 +55,12 @@ also the levels a narrow thread walks: 1, levels slowest, and 4, a
 scatter of each level alone and the distinct rows a tile of K7's points
 (a block's on wide rows, a warp's on narrow rows) names per level, and
 K2x's parts on each wide-rows form (g's stream, the gathers, the
-reduction with the partials' stores, the level sum, each alone). --only takes a regular expression of the cases to run (e.g.
+reduction with the partials' stores, the level sum, each alone), and K1's
+narrow rows on the tcnn lattice, uniform and ray-ordered points, walked
+in level groups of 16, 8, 4, 2 and 1 and, for comparison, K6's narrow
+kernel on a plan of every level exact, beside their byte bound and
+sector floor (`--only 'K1 reference'` runs the narrow cases and these
+alone, with no recorded inputs). --only takes a regular expression of the cases to run (e.g.
 'K6|K7'). Prints one line per kernel and writes
 chiprun_out/kernel_compare.json.
 
@@ -71,6 +78,7 @@ at 1, 2, 4 and 8 blocks a multiprocessor; and this tree's fused solve
 iterations.
 """
 import argparse
+import dataclasses
 import importlib
 import json
 import os
@@ -787,24 +795,47 @@ def _same_selection(a, b):
     return 0.0 if same else 1.0
 
 
-def _cases(pkg, seed, step_samples, flagship, cli_samples):
-    """{name: (fn(pkg), reps, compare)}: each kernel of the main path called
-    through pkg's wrappers on inputs made from seed (the same for every
-    pkg), K2 on a training step's recorded samples, K5, K2s and K1s on a
-    flagship step's, K1s also on a CLI step's; compare(old, new) of their
-    outputs, None for the largest absolute difference."""
+def _reference_lattices(encoders):
+    """The reference presets at full size, 16 levels of up to 2^19 rows of
+    2 features: 'native' (`--grid-preset reference`), 'tcnn' (a
+    checkpoint imported from tcnn, chip_smoke.py's phase 14 (d)) and
+    'torch_ngp' (desired resolution 2^18; level sizes not powers of
+    two)."""
+    ref = encoders.HashGridConfig()
+    return {'': ref, ' tcnn': dataclasses.replace(ref, variant='tcnn'),
+            ' torch_ngp': encoders.HashGridConfig.from_desired_resolution(
+                2 ** 18, variant='torch_ngp')}
+
+
+def _reference_table(config, g):
+    """A seeded table of config's shape, rows beyond a level's size zero
+    as an imported checkpoint's."""
+    import torch
+    table = torch.randn((config.n_levels, config.table_size,
+                         config.n_features), generator=g) * 0.5
+    for level, size in enumerate(config.level_sizes):
+        table[level, size:] = 0.0
+    return table
+
+
+def _synthetic_cases(pkg, seed):
+    """{name: (fn(pkg), reps, compare)}: the kernels of the main path on
+    inputs made from seed (the same for every pkg) at chip_smoke.py's
+    shapes: K1 at TPU_GRID and on the reference lattices (narrow rows),
+    K2 on both, K3f, K3b, K4f, K4b; compare None for the largest absolute
+    difference."""
     import torch
     g = torch.Generator().manual_seed(seed)
     dev = torch.device('cuda')
-    grid, ref = pkg.encoders.TPU_GRID, pkg.encoders.HashGridConfig()
+    grid, refs = pkg.encoders.TPU_GRID, _reference_lattices(pkg.encoders)
     n1, n2, n4 = 524288, 131072, 1048576
     x = torch.rand((n1, 3), generator=g).to(dev)
     table = (torch.randn((grid.n_levels, grid.table_size, grid.n_features),
                          generator=g) * 0.5).to(dev)
-    table_ref = (torch.randn((ref.n_levels, ref.table_size,
-                              ref.n_features), generator=g) * 0.5).to(dev)
+    tables = {k: _reference_table(c, g).to(dev) for k, c in refs.items()}
     g2 = torch.randn((n2, grid.out_dim), generator=g).to(dev)
     x2 = x[:n2].contiguous()
+    g_ref = torch.randn((n1, refs[''].out_dim), generator=g).to(dev)
     # chip_smoke.py's heads: hidden 128, geo 15, 64 semantic features, 6
     # classes; A the TPU_GRID encode's width
     init = pkg.mlp.mlp_init
@@ -827,6 +858,33 @@ def _cases(pkg, seed, step_samples, flagship, cli_samples):
     X4, g4 = X[:n4 // 4].contiguous(), torch.randn(
         (n4 // 4, ws[2].shape[1]), generator=g).to(dev)
     hg, hd = pkg.hashgrid_cuda, pkg.heads_cuda
+    return {
+        f'K1 TPU_GRID N={n1}': (lambda: hg.hashgrid_encode(table, x, grid),
+                                20, None),
+        **{f'K1 reference{k} N={n1}': (
+            lambda k=k, c=c: hg.hashgrid_encode(tables[k], x, c), 20, None)
+           for k, c in refs.items()},
+        f'K2 TPU_GRID N={n2}': (
+            lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20, None),
+        f'K2 reference tcnn N={n1}': (
+            lambda: hg.hashgrid_encode_backward(g_ref, x, refs[' tcnn']), 5,
+            None),
+        f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10, None),
+        f'K3b N={n2}': (lambda: hd.fused_heads_backward(
+            packed, A2, B2, *cots, need_dB=False), 10, None),
+        f'K4f N={n4}': (lambda: hd.fused_mlp3(ws, X), 20, None),
+        f'K4b N={n4 // 4}': (
+            lambda: hd.fused_mlp3_backward(ws, X4, g4), 20, None),
+    }
+
+
+def _cases(pkg, step_samples, flagship, cli_samples):
+    """{name: (fn(pkg), reps, compare)}: the kernels on recorded inputs,
+    K2 on a training step's samples, K5, K2s and K1s on a flagship step's,
+    K1s also on a CLI step's; compare(old, new) of their outputs, None for
+    the largest absolute difference."""
+    import torch
+    hg = pkg.hashgrid_cuda
     g_s, x_s = step_samples
     f = flagship
     g_f, u_f, k_f, fl_grid = f['g'], f['u'], f['k'], f['grid']
@@ -847,26 +905,107 @@ def _cases(pkg, seed, step_samples, flagship, cli_samples):
                         t_e, x_e, grid_e, interp, dtype, atoms), 20, None)
     return {
         **k1s,
-        f'K1 TPU_GRID N={n1}': (lambda: hg.hashgrid_encode(table, x, grid),
-                                20, None),
-        f'K1 reference N={n1}': (
-            lambda: hg.hashgrid_encode(table_ref, x, ref), 20, None),
-        f'K2 TPU_GRID N={n2}': (
-            lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20, None),
         f'K2 TPU_GRID step samples N={x_s.shape[0]}': (
-            lambda: hg.hashgrid_encode_backward(g_s, x_s, grid), 20, None),
-        f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10, None),
-        f'K3b N={n2}': (lambda: hd.fused_heads_backward(
-            packed, A2, B2, *cots, need_dB=False), 10, None),
-        f'K4f N={n4}': (lambda: hd.fused_mlp3(ws, X), 20, None),
-        f'K4b N={n4 // 4}': (
-            lambda: hd.fused_mlp3_backward(ws, X4, g4), 20, None),
+            lambda: hg.hashgrid_encode_backward(g_s, x_s,
+                                               pkg.encoders.TPU_GRID),
+            20, None),
         f'K5 flagship step N={n_f} k={k_f}': (
             lambda: hg.select_points(g_f, u_f, k_f), 20, _same_selection),
         f'K2s flagship step N={n_f} drawn={m_f}': (
             lambda: hg.sampled_scatter(g_f, idx_f, w_f, u_f, rows_f, fl_grid,
                                        sel_f, coef_f, count_f), 20, None),
     }
+
+
+# K1 narrow's level groups timed for this tree alone: the library's
+# choice (4 at F = 2), every level (16), 8, 4, 2 and one level a block
+# row, levels slowest, as its first form ran.
+K1_GROUPS = (0, 16, 8, 4, 2, 1)
+
+
+def _ray_points(n, g, samples=32):
+    """n points as a render chunk orders them: n / samples rays, each from
+    a point of the unit cube along a random direction, its samples
+    consecutive and evenly spaced over a length of 0.5, clamped to the
+    cube."""
+    import torch
+    rays = n // samples
+    origin = torch.rand((rays, 1, 3), generator=g)
+    direction = torch.nn.functional.normalize(
+        torch.randn((rays, 1, 3), generator=g), dim=-1)
+    t = torch.linspace(0.0, 0.5, samples)[None, :, None]
+    return (origin + t * direction).clamp(0.0, 1.0).reshape(n, 3)
+
+
+def _narrow_rows(gpu, seed, rounds, reps=20):
+    """This tree's K1 on the tcnn lattice at N = 524,288, uniform points
+    and ray-ordered ones (_ray_points), walking each of K1_GROUPS' level
+    groups in turns for `rounds` rounds, with K6's narrow kernel on a plan
+    of every level exact (the same encode, its rows not written) in the
+    same turns, each bit-equal to the library's choice, beside K1's byte
+    bound and its sector floor: the distinct
+    32-byte sectors its gathers touch (hashgrid_cuda.gather_sectors) plus
+    the point and output streams, over the card's 3.35 TB/s; and the
+    sectors a warp's 32 points request of L2 at the least. Also K2's byte
+    bound there (the 'K2 reference tcnn' case): g and x read once, the
+    (L, T, F) gradient written once."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.ops import encoders
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    from chip_smoke import PEAK_BYTES
+    g = torch.Generator().manual_seed(seed)
+    config = _reference_lattices(encoders)[' tcnn']
+    n = 524288
+    inputs = {'uniform': torch.rand((n, 3), generator=g).to('cuda'),
+              'ray-ordered': _ray_points(n, g).to('cuda')}
+    table = _reference_table(config, g).to('cuda')
+    rows = sum(config.level_sizes) * config.n_features * 4
+    out = dict(n=n, gpu=gpu, shape=hg.encode_launch_shapes(config, n))
+    exact = encoders.stochastic_plan(config, 'trilinear', 1, config.n_levels)
+    no_draws = torch.zeros(1, device='cuda')
+    for name, x in inputs.items():
+        want = hg.hashgrid_encode(table, x, config)
+        calls = {group: (lambda group=group: hg._launch(table, x, config,
+                                                        group))
+                 for group in K1_GROUPS}
+        calls['K6 all exact'] = lambda: hg._stochastic_call(
+            table, x, no_draws, config, 'trilinear', 1, exact, False)[0]
+        streams = x.numel() * 4 + want.numel() * 4
+        sectors = hg.gather_sectors(x, config)
+        tile_sectors = hg.gather_sectors(x, config, points=32)
+        res = out[name] = dict(
+            byte_bound_ms=(streams + rows) / PEAK_BYTES * 1e3,
+            k2_byte_bound_ms=(streams + table.numel() * 4) / PEAK_BYTES
+            * 1e3,
+            sector_floor_ms=(streams + 32 * sum(sectors)) / PEAK_BYTES
+            * 1e3, sectors=sectors, warp_sector_requests=tile_sectors,
+            equal={k: torch.equal(call(), want) for k, call in calls.items()},
+            ms={k: [] for k in calls}, device_ms={k: [] for k in calls})
+        print(f'K1 narrow [{gpu}] tcnn N={n} {name}: byte bound '
+              f'{res["byte_bound_ms"]:.4f} ms, sector floor '
+              f'{res["sector_floor_ms"]:.4f} ms ({sum(sectors)} sectors of '
+              f'32 bytes; {sum(tile_sectors)} requested by warps of 32 '
+              f'points at the least, {32 * sum(tile_sectors) / 1e9:.3f} '
+              f'GB); K2 narrow byte bound {res["k2_byte_bound_ms"]:.4f} ms; '
+              f'groups bit-equal {res["equal"]}')
+        for r in range(rounds):
+            for k in list(calls)[::1 if r % 2 == 0 else -1]:
+                ms, dev = _timed(calls[k], reps)
+                res['ms'][k].append(ms)
+                res['device_ms'][k].append(dev)
+        for k in calls:
+            dev = [d for d in res['device_ms'][k] if d is not None]
+            label = k if isinstance(k, str) else f'group {k or "chosen"}'
+            print(f'K1 narrow [{gpu}] {name} {label}: '
+                  f'{float(np.median(res["ms"][k])):.4f} ms by events, '
+                  f'{float(np.median(dev)) if dev else None} device '
+                  f'(rounds {[round(v, 4) for v in res["ms"][k]]})')
+    print(f'K1 narrow [{gpu}] launch shape {out["shape"]}')
+    if not all(all(out[k]['equal'].values()) for k in inputs):
+        raise RuntimeError('K1 narrow: a level group or K6 differs from '
+                           'the library\'s choice')
+    return out
 
 
 def main():
@@ -905,15 +1044,19 @@ def main():
     def wanted(names):
         return any(only.search(name) for name in names)
 
-    if wanted(('K1 TPU_GRID', 'K1 reference', 'K2 TPU_GRID', 'K3f', 'K3b',
-               'K4f', 'K4b', 'K5 flagship', 'K2s flagship', 'K1s simplex',
-               'K1s trilinear')):
+    if wanted(('K1 TPU_GRID', 'K1 reference N', 'K1 reference tcnn',
+               'K1 reference torch_ngp', 'K2 TPU_GRID N', 'K2 reference tcnn',
+               'K3f', 'K3b', 'K4f', 'K4b')):
+        for side, pkg in sides.items():
+            cases[side].update(_synthetic_cases(pkg, args.seed))
+    if wanted(('K2 TPU_GRID step', 'K5 flagship', 'K2s flagship',
+               'K1s simplex', 'K1s trilinear')):
         step_samples = _step_samples(args.seed)
         flagship = _flagship_samples(args.seed)
         cli_samples = _cli_samples()
         for side, pkg in sides.items():
-            cases[side].update(_cases(pkg, args.seed, step_samples,
-                                      flagship, cli_samples))
+            cases[side].update(_cases(pkg, step_samples, flagship,
+                                      cli_samples))
     stochastic = None
     if wanted([f'{k} cli {run} step' for k in ('K6', 'K7')
                for run in STOCHASTIC_RUNS]):
@@ -992,6 +1135,8 @@ def main():
         torch.cuda.empty_cache()
     del cases
     torch.cuda.empty_cache()
+    if wanted(['K1 reference tcnn', 'K2 reference tcnn']):
+        result['narrow_rows'] = _narrow_rows(gpu, args.seed, args.rounds)
     if stochastic is not None:
         result['stochastic_parts'] = _stochastic_parts(gpu, stochastic,
                                                        args.seed)

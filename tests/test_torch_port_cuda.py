@@ -100,6 +100,83 @@ def test_encode_kernel_wide_rows_match_plain(cuda, variant, domain, n):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+# The narrow-row encode's threads a block (K1N_THREADS): 128 points at
+# F = 2, 64 at F = 8.
+NARROW_BLOCK = 128
+
+
+@pytest.mark.parametrize('n', [0, 1, 31, 33, NARROW_BLOCK + 1, 1000])
+@pytest.mark.parametrize('features', [1, 2, 3, 8])
+@pytest.mark.parametrize('levels', [1, 5, 16])
+def test_encode_kernel_narrow_rows_equal_plain(cuda, levels, features, n):
+    """The narrow-row encode (a thread per point and slice of W = 2 or 1
+    features walking a group of levels, the levels of a 32-byte sector by
+    default: 4 at F = 2, 8 at F = 1, 2 at F = 3, 1 at F = 8) bit-equal to
+    its plain version: group rows that are whole 16-byte pieces (F = 2: 32
+    bytes a point and group) and rows that are not (F = 2 at 5 levels, the
+    last group of one level; F = 1 at 5; F = 3, whose 3 slices a point do
+    not divide a warp, so each thread stores its own), ragged point counts
+    (a warp's last points, a block's), on the tcnn lattice with points
+    outside [0, 1]."""
+    rng = np.random.default_rng(levels * 100 + features)
+    config = HashGridConfig(n_levels=levels, n_features=features,
+                            log2_hashmap_size=12, base_resolution=8,
+                            per_level_scale=1.6, variant='tcnn')
+    table = torch.tensor(rng.uniform(-1, 1, (levels, 4096, features)).astype(
+        np.float32), device=cuda)
+    x = _points(rng, max(n, 4), cuda, 'outside')[:n].contiguous()
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode(table, x, config)
+    assert _kernels.launches[hashgrid_cuda.NAME] == 1
+    assert got.shape == (n, levels * features)
+    # the same products and sums in the same order and rounding
+    assert torch.equal(got, hashgrid_cuda.hashgrid_encode_plain(table, x,
+                                                                config))
+
+
+@pytest.mark.parametrize('features,levels,group', [
+    (2, 16, 5), (2, 18, 0), (2, 16, 16), (8, 5, 2), (1, 16, 3), (3, 16, 7),
+    (2, 16, 1)])
+@pytest.mark.parametrize('n', [33, 1000])
+def test_encode_kernel_narrow_level_groups_equal_plain(cuda, features, levels,
+                                                       group, n):
+    """Narrow rows walked in groups of levels (a grid row of blocks a
+    group; the launcher's group, 0 for its own choice, 4 levels at F = 2,
+    so 18 levels take groups of 4 and a last of 2): groups that do not
+    divide L, group rows that are not whole 16-byte pieces (5 levels of
+    F = 2), every level in one group and one level a group, bit-equal to
+    the plain version."""
+    rng = np.random.default_rng(group * 10 + levels)
+    config = HashGridConfig(n_levels=levels, n_features=features,
+                            log2_hashmap_size=12, base_resolution=4,
+                            per_level_scale=1.3, variant='torch_ngp')
+    table = torch.tensor(rng.uniform(-1, 1, (levels, 4096, features)).astype(
+        np.float32), device=cuda)
+    x = _points(rng, n, cuda, 'outside')
+    _kernels.reset_launches()
+    got = hashgrid_cuda._launch(table, x, config, group=group)
+    assert _kernels.launches[hashgrid_cuda.NAME] == 1
+    assert torch.equal(got, hashgrid_cuda.hashgrid_encode_plain(table, x,
+                                                                config))
+
+
+def test_encode_launch_shapes_narrow_rows(cuda):
+    """The narrow kernel's plan at the reference preset: 128 threads a
+    block, 8 blocks an SM at no more than 64 registers, 4 levels walked by
+    a thread (a grid row of blocks for each of the 4 groups), a warp
+    storing 32 points' rows, each point's 8 floats of a group staged with
+    4 more."""
+    config = HashGridConfig(variant='tcnn')
+    shape = hashgrid_cuda.encode_launch_shapes(config, 524288)
+    lanes = shape['encode_lanes_kernel']
+    assert lanes['threads'] == NARROW_BLOCK
+    assert lanes['blocks'] == 524288 // NARROW_BLOCK * 4
+    assert lanes['levels_per_thread'] == 4
+    assert lanes['points_per_warp'] == 32
+    assert lanes['smem_bytes'] == NARROW_BLOCK * (8 + 4) * 4
+    assert lanes['registers'] <= 64 and lanes['blocks_per_sm'] >= 8
+
+
 def test_encode_kernel_rejects_bad_inputs(cuda):
     config = HashGridConfig(n_levels=2, n_features=8, log2_hashmap_size=8)
     table = torch.zeros((2, 256, 8), device=cuda)
@@ -1707,7 +1784,7 @@ def test_encode_kernel_on_the_reference_lattices(cuda, variant, domain):
     assert _kernels.launches[hashgrid_cuda.NAME] == 1
     want = hashgrid_cuda.hashgrid_encode_plain(table, x, config)
     # the same products and sums in the same order and rounding
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize('given_noise', [True, False])

@@ -139,6 +139,62 @@ def test_plain_encode_matches_pallas_interpret(n_features):
                                atol=ENCODE_ATOL)
 
 
+def _reference_lattice(variant):
+    """The reference presets at full size: 16 levels of up to 2^19 rows of
+    2 features, tcnn (`--grid-preset reference` imported from tcnn) or
+    torch-ngp (desired resolution 2^18: level sizes not powers of two)."""
+    if variant == 'tcnn':
+        return dict(variant='tcnn')
+    return dataclasses.asdict(encoders.HashGridConfig.from_desired_resolution(
+        2 ** 18, variant='torch_ngp'))
+
+
+@pytest.mark.parametrize('domain', ['unit', 'outside'])
+@pytest.mark.parametrize('variant', ['tcnn', 'torch_ngp'])
+def test_plain_encode_matches_jax_on_the_reference_lattices(variant, domain,
+                                                            monkeypatch):
+    """The port's plain encode (K1's plain version) against JAX's
+    encoders.hashgrid_encode on the full reference lattices, rows beyond a
+    level's size zero as torch_import packs them. XLA computes a position
+    x * scale + 0.5 as one fma; the port rounds the product first, so a
+    position differs by up to one ulp of it, each of a corner's 3 weight
+    factors by as much, and an output by up to 8 corners x 3 ulp(pos) x
+    the level's largest |row|. With the position taken as XLA takes it
+    (the product and sum in float64, rounded once to fp32), the blend
+    agrees within ENCODE_ATOL: XLA may contract a product into the next
+    sum, a rounding of each."""
+    config = encoders.HashGridConfig(**_reference_lattice(variant))
+    rng = np.random.default_rng(24)
+    table = rng.normal(0.0, 0.5, (config.n_levels, config.table_size,
+                                  config.n_features)).astype(np.float32)
+    for level, size in enumerate(config.level_sizes):
+        table[level, size:] = 0.0
+    x = _points(rng, 300, domain)
+    ref = np.asarray(jax_encoders.hashgrid_encode(
+        table, x, jax_encoders.HashGridConfig(**_reference_lattice(variant))))
+    t, xt = torch.tensor(table), torch.tensor(x)
+    ours = hashgrid_cuda.hashgrid_encode_plain(t, xt, config).numpy()
+    assert ours.shape == ref.shape == (300, 32)
+    scales = np.asarray(config.scales, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(scales + 1.0)) - 23)
+    bound = np.repeat(24 * ulp * np.abs(table).max(axis=(1, 2)),
+                      config.n_features) + ENCODE_ATOL
+    assert (np.abs(ours - ref) <= bound).all()
+    geometry = encoders._grid_geometry
+
+    def fused(x, config):
+        _, _, stride, use_dense, size = geometry(x, config)
+        s = torch.as_tensor(scales, dtype=torch.float64)
+        pos = (s[None, :, None] * x.T[:, None, :].double()
+               + config.pos_offset).float()
+        cell = torch.floor(pos)
+        return cell.to(torch.int64), pos - cell, stride, use_dense, size
+
+    monkeypatch.setattr(encoders, '_grid_geometry', fused)
+    ours = hashgrid_cuda.hashgrid_encode_plain(t, xt, config).numpy()
+    np.testing.assert_allclose(ours, ref, atol=ENCODE_ATOL, rtol=0)
+
+
 def test_tcnn_hash_wraps_uint32_for_non_power_of_two_levels():
     """'tcnn' level sizes are multiples of 8, not always powers of two. A
     hash taken in int64 without the uint32 wrap agrees with JAX's uint32

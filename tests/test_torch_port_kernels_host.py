@@ -1,16 +1,18 @@
 """The host-side arithmetic of the port's kernels, on the CPU: the
 hash-grid kernels' division-free corner index (per-level constants from
 hashgrid_cuda.level_divisors, emulated in numpy as hashgrid_common.cuh
-computes it), and the distinct rows each of K1s's warps needs
-(hashgrid_cuda.tile_rows, which its L2 gather floor reads). No card
-needed."""
+computes it), the distinct rows each of K1s's warps needs
+(hashgrid_cuda.tile_rows, which its L2 gather floor reads) and the
+distinct 32-byte sectors K1's gathers touch (hashgrid_cuda.gather_sectors,
+K1 narrow's sector floor). No card needed."""
 import numpy as np
 import pytest
 import torch
 
 from autolabel_tpu_torch.ops import encoders
 from autolabel_tpu_torch.ops.encoders import TPU_GRID, HashGridConfig
-from autolabel_tpu_torch.ops.hashgrid_cuda import level_divisors, tile_rows
+from autolabel_tpu_torch.ops.hashgrid_cuda import (gather_sectors,
+                                                   level_divisors, tile_rows)
 
 _M32 = np.uint64(0xFFFFFFFF)
 
@@ -176,3 +178,58 @@ def test_tile_rows_lists_each_tiles_distinct_rows(n, points, atoms):
         assert counts[l] == want
     assert at == rows.numel()
 
+
+
+def _sectors_by_hand(x, config, points, sector=32):
+    """gather_sectors counted in numpy, point by point: each point's cell
+    per level (pos = scale * x + offset in fp32, rounded per operation),
+    its 8 corners' rows by the kernel's index arithmetic, the byte range
+    of each row in the (L, T, F) fp32 table and every sector it overlaps,
+    collected into a set per tile (the launch where points is None)."""
+    scales, strides, sizes, use_dense = encoders.level_geometry(config)
+    magic, shift = level_divisors(sizes)
+    row = config.n_features * 4
+    n = x.shape[0]
+    tile = n if points is None else points
+    counts = []
+    for l in range(config.n_levels):
+        pos = np.float32(scales[l]) * x + np.float32(config.pos_offset)
+        cell = np.floor(pos).astype(np.int64).T  # (3, N)
+        total = 0
+        for p0 in range(0, n, tile):
+            seen = set()
+            for p in range(p0, min(p0 + tile, n)):
+                for corner in np.ndindex(2, 2, 2):
+                    c = cell[:, p:p + 1] + np.asarray(corner)[:, None]
+                    r = int(_level_corner_index(
+                        c, int(strides[l]), int(sizes[l]),
+                        bool(use_dense[l]), int(magic[l]),
+                        int(shift[l]))[0])
+                    first = (l * config.table_size + r) * row
+                    seen.update(range(first // sector,
+                                      (first + row - 1) // sector + 1))
+            total += len(seen)
+        counts.append(total)
+    return counts
+
+
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('features', [1, 2, 3, 8])
+@pytest.mark.parametrize('n,points', [(1, None), (40, None), (40, 32),
+                                      (33, 5), (100, 1)])
+def test_gather_sectors_counts_each_tiles_distinct_sectors(variant, features,
+                                                           n, points):
+    """gather_sectors against sets of sectors: per level, the distinct
+    32-byte sectors of the points' corner rows over the launch or summed
+    over tiles (the last tile holds what is left); 12-byte rows (F = 3)
+    that straddle a sector boundary count both sectors. Points in and
+    outside [0, 1] (negative dense indices)."""
+    rng = np.random.default_rng(n * 10 + features)
+    config = HashGridConfig(n_levels=3, n_features=features,
+                            log2_hashmap_size=9, base_resolution=4,
+                            per_level_scale=2.0, variant=variant)
+    x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    got = gather_sectors(torch.from_numpy(x), config, points)
+    assert got == _sectors_by_hand(x, config, points)
+    if points is None:
+        assert all(0 < c <= 8 * n * 2 for c in got)
