@@ -254,19 +254,21 @@ def gather_sectors(x, config, points=None, sector=32):
 
 def encode_backward_launch_shapes(config, n):
     """K2's launch shape for n points, as the C library plans it: blocks,
-    threads, static shared bytes, blocks per SM, registers per thread and
-    points per tile, keyed by the kernel the feature width selects."""
+    threads, static shared bytes, blocks per SM, registers per thread,
+    points per tile (on narrow rows the points a warp holds, 0 where a
+    point's slices do not divide a warp) and the levels a thread walks (1
+    on wide rows), keyed by the kernel the feature width selects."""
     fn = _kernels.library(_BWD_SOURCE).hashgrid_encode_bwd_shape
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     _kernels.check(fn(config.n_levels, config.n_features, n, out), BWD_NAME)
     keys = ('blocks', 'threads', 'smem_bytes', 'blocks_per_sm', 'registers',
-            'points_per_tile')
-    return {'scatter_rows_kernel' if _wide_rows(config.n_features)
-            else 'scatter_lanes_kernel':
-            dict(zip(keys, out))}
+            'points_per_tile', 'levels_per_thread')
+    wide = _wide_rows(config.n_features) and config.n_features <= 4096
+    return {'scatter_rows_kernel' if wide else 'scatter_group_kernel':
+            dict(zip(keys, out))}  # 4096: K2_G_FLOATS, the staged g
 
 
 def atoms_launch_shape(config, n, interp='simplex', write=1, bf16=1):

@@ -50,7 +50,12 @@ Phases, each failing loudly:
      and 1) and at the reference preset, each element within the stated
      bound of two fp32 summation orders (hashgrid_cuda.backward_tolerance),
      with its atomics floor (as many float4 atomic rows into random rows
-     of 16 and 64 MiB); the fused head backward (K3b, N = 131,072) and the
+     of 16 and 64 MiB); its narrow rows at the reference presets' N =
+     524,288 on the 'native', 'tcnn' and 'torch_ngp' lattices, uniform
+     and ray-ordered points, timed on the tcnn one beside its bound, its
+     16-byte request floor, its plain version and one index_add_ of the
+     pre-weighted corner rows (k2_yardstick); the fused head backward
+     (K3b, N = 131,072) and the
      proposal-MLP backward (K4b, N = 262,144) against their plain versions
      (K3b's dA and dB also against the fp32 plain version, no further from
      it than the bf16 plain version is; K3b's and K4b's weight gradients
@@ -144,7 +149,13 @@ Phases, each failing loudly:
      at least 4-fold below a 1-iteration run of the same command; ms per
      step over the epoch's wall clock; the device's busy time by kernel
      over 5 more steps through the CLI's loader and its share of their
-     wall clock. Then 5 steps of Run C's command at --stochastic-corners
+     wall clock. Run E, --grid-preset reference --stochastic-corners 0
+     (the reference preset's exact estimator), 50 iterations without
+     eval, every count set to 0 just before and read just after: K1 and
+     K2 (narrow rows) once a step, no other kernel; the losses finite and
+     falling; ms per step, the busy share and K2's share of 5 traced
+     steps; K2 held and timed on a step's recorded (g, x). Then 5 steps
+     of Run C's command at --stochastic-corners
      33 (more draws a level than a warp has lanes): K6 and K7 once a step,
      no other kernel, the losses of one more step finite. (a) On each
      run's last recorded (table, x), at N = 131,072 and 524,288, K6 and K7
@@ -389,9 +400,11 @@ Phases, each failing loudly:
      a step on rank 0 (the CLI's heads are 'xla').
      (f) InteractiveTrainer on the world of one and on (b)'s ranks under
      DP 2, 3 take_steps against SimpleTrainer's on the same mesh and
-     inputs: step 1 bit-equal, steps 2-3 within 4 times no mesh's own
-     run-to-run spread. Each run's step walls and its collectives' share
-     of them.
+     inputs: step 1 bit-equal; each of the 3 taken again from
+     SimpleTrainer's params before it, its loss parts and every gradient
+     but the table's bit-equal to SimpleTrainer's (run on, the two part
+     by K2s's atomic order: steps 2-3 are printed beside no mesh run
+     again's). Each run's step walls and its collectives' share of them.
  20. the last host-side modules, each through its entry point with
      only its transport stood in for. (a) The online ROS node
      (ros/node.py) at its own configuration (--features lseg
@@ -944,6 +957,113 @@ def _check_k2(checks, name, hashgrid_cuda, g, x, config):
         min=1e-38)).max())
     print(f'  {name}: the hottest row sums {hottest:.0f} terms')
     return err
+
+
+def k2_yardstick(encoders, g, x, config):
+    """K2's library yardstick: one index_add_ of the 8 L N corner rows,
+    weighted as the plain version weighs them (made here, outside the
+    timing), into the flattened (L T, F) table gradient; returns the
+    call."""
+    import torch
+    cell, frac, stride, use_dense, size = encoders._grid_geometry(x, config)
+    f = config.n_features
+    rows, terms = [], []
+    for l in range(config.n_levels):
+        g_l = g[:, l * f:(l + 1) * f].float()
+        for corner in encoders._CORNERS:
+            rows.append(l * config.table_size + encoders._corner_index(
+                cell[:, l], corner, stride[l], use_dense[l], size[l]))
+            terms.append(g_l * encoders._corner_weight(frac[:, l],
+                                                       corner)[:, None])
+    rows, terms = torch.cat(rows), torch.cat(terms)
+    flat = torch.empty((config.n_levels * config.table_size, f),
+                       device=g.device)
+
+    def library():
+        flat.zero_()
+        flat.index_add_(0, rows, terms)
+        return flat
+
+    return library
+
+
+def _k2_narrow_measure(gpu, tag, hashgrid_cuda, g, x, config):
+    """K2 on (g, x) by CUDA events (20 launches) and device ms a call
+    (memset included), beside its plain version, the index_add_ yardstick,
+    its bound (g and x read once, the (L, T, F) gradient written once; an
+    fp32 mul and add a corner and element) and its request floor: the
+    16-byte atomics warps of 32 points make at the least
+    (gather_sectors(..., points=32, sector=16)), beside the 8 L N F scalar
+    atomics of the first form."""
+    import torch
+
+    def kernel():
+        return hashgrid_cuda.hashgrid_encode_backward(g, x, config)
+
+    n, f, levels = x.shape[0], config.n_features, config.n_levels
+    by_kernel = _kernel_ms(kernel)
+    r = dict(ms=_cuda_ms(kernel, 20),
+             device_ms=None if by_kernel is None else sum(by_kernel.values()),
+             plain_ms=_cuda_ms(lambda: hashgrid_cuda
+                               .hashgrid_encode_backward_plain(g, x, config),
+                               3),
+             bound=_bound(_nbytes(g, x) + levels * config.table_size * f * 4,
+                          16 * n * config.out_dim, PEAK_FP32),
+             requests=sum(hashgrid_cuda.gather_sectors(x, config, points=32,
+                                                       sector=16)),
+             scalar_atomics=8 * levels * n * f)
+    library = k2_yardstick(hashgrid_cuda.encoders, g, x, config)
+    r['library_ms'] = _cuda_ms(library, 5)
+    by_kernel = _kernel_ms(library)
+    r['library_device_ms'] = None if by_kernel is None \
+        else sum(by_kernel.values())
+    del library
+    torch.cuda.empty_cache()
+    print(f'kernel K2 narrow [{gpu}] {tag} N={n}: {r["ms"]:.4f} ms by events,'
+          f' {r["device_ms"]} ms device, plain {r["plain_ms"]:.4f} ms, '
+          f'library {r["library_ms"]:.4f} ms ({r["library_device_ms"]} ms '
+          f'device; one index_add_ of the pre-weighted corner rows), bound '
+          f'{r["bound"][0]:.4f} ms ({r["bound"][1]}); warps of 32 points '
+          f'request {r["requests"]} 16-byte pieces at the least, against '
+          f'{r["scalar_atomics"]} scalar atomics')
+    return r
+
+
+def _ray_points(n, g, samples=32):
+    """n points as a render chunk orders them: n / samples rays, each from
+    a point of the unit cube along a random direction, its samples
+    consecutive and evenly spaced over a length of 0.5, clamped to the
+    cube."""
+    import torch
+    rays = n // samples
+    origin = torch.rand((rays, 1, 3), generator=g)
+    direction = torch.nn.functional.normalize(
+        torch.randn((rays, 1, 3), generator=g), dim=-1)
+    t = torch.linspace(0.0, 0.5, samples)[None, :, None]
+    return (origin + t * direction).clamp(0.0, 1.0).reshape(n, 3)
+
+
+def _k2_narrow(checks, gpu, hashgrid_cuda, dev, gen, n=524288):
+    """K2's narrow rows at the reference presets' N: held against the
+    plain version on the three lattices ('native', 'tcnn', 'torch_ngp'),
+    uniform and ray-ordered points; measured on the tcnn lattice."""
+    import torch
+    encoders = hashgrid_cuda.encoders
+    lattices = {'native': encoders.HashGridConfig(),
+                'tcnn': encoders.HashGridConfig(variant='tcnn'),
+                'torch_ngp': encoders.HashGridConfig.from_desired_resolution(
+                    2 ** 18, variant='torch_ngp')}
+    xs = {'uniform': torch.rand((n, 3), generator=gen).to(dev),
+          'ray-ordered': _ray_points(n, gen).to(dev)}
+    g = torch.randn((n, lattices['tcnn'].out_dim), generator=gen).to(dev)
+    held = {f'{lattice} {kind}': _check_k2(
+        checks, f'K2 table gradient reference {lattice} N={n} {kind}',
+        hashgrid_cuda, g, x, config)
+        for lattice, config in lattices.items() for kind, x in xs.items()}
+    timed = {kind: _k2_narrow_measure(gpu, f'tcnn {kind}', hashgrid_cuda, g,
+                                      x, lattices['tcnn'])
+             for kind, x in xs.items()}
+    return dict(held=held, max_abs_err=max(held.values()), **timed)
 
 
 def _check_k1s(checks, tag, table, x, idx, w, grid):
@@ -1917,6 +2037,11 @@ STOCHASTIC_POINTS = (131072, 524288)
 # steps of Run C's command at 33.
 STOCHASTIC_MANY = (33, 64)
 CLI_MANY = (['--sampled-backward', '0', '--stochastic-corners', '33'], 5)
+# Run E: the exact reference estimator (the original autolabel's tcnn
+# training: exact gathers on the reference preset), K1's and K2's narrow
+# rows once a step; the CLI runs its iterations as one epoch.
+CLI_EXACT = (['--grid-preset', 'reference', '--stochastic-corners', '0'], 50)
+LOSS_WINDOW = 10  # Run E's first and last steps whose mean losses compare
 
 
 def k7_yardstick(encoders, g, idx, w, plan, config, n_samples):
@@ -2028,6 +2153,99 @@ def _stochastic_measure(gpu, tag, table, x, u, config, interp, n_samples,
     return res
 
 
+def _cli_exact(gpu, checks, scene, root, names):
+    """Run E (CLI_EXACT) on phase 10's scene: K1 and K2 (narrow rows) once
+    a step and no other encode kernel, the losses finite and falling, ms a
+    step over the epoch's wall clock, the busy share and top kernels of
+    PROFILED_STEPS traced steps through the loader with K2's share, and K2
+    held against its plain version on a step's recorded (g, x) at the
+    CLI's own N. Returns what the output file keeps."""
+    import numpy as np
+    import torch
+    from autolabel_tpu_torch.core.dataset import LenDataset
+    from autolabel_tpu_torch.ops import _kernels, hashgrid_cuda
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.train.loader import PrefetchIterator
+    from autolabel_tpu_torch.train.trainer import SimpleTrainer
+    flags, steps = CLI_EXACT
+    losses, train_step = [], SimpleTrainer.train_step
+
+    def recorded_step(self, data, draws=None):
+        parts = train_step(self, data, draws)
+        losses.append(parts['total'])
+        return parts
+
+    SimpleTrainer.train_step = recorded_step
+    try:
+        _kernels.reset_launches()
+        run = cli.main([scene] + CLI_BASE + flags + [
+            '--factor-train', '1', '--iters', str(steps), '--workspace',
+            os.path.join(root, 'E')])
+        launches = dict(_kernels.launches)
+    finally:
+        SimpleTrainer.train_step = train_step
+    for name in names:
+        want = steps if name in ('K1', 'K2') else 0
+        got = launches.get(names[name], 0)
+        checks.true(f'cli E launches {name}', got == want,
+                    f'{got} (expected {want}'
+                    + (': one a step)' if want else ')'))
+    curve = torch.stack(losses).float().cpu().numpy()
+    first = float(curve[:LOSS_WINDOW].mean())
+    last = float(curve[-LOSS_WINDOW:].mean())
+    checks.true(f'cli E losses finite and falling over {steps} steps',
+                bool(np.isfinite(curve).all()) and last < first,
+                f'mean of the first {LOSS_WINDOW} {first:.5f}, of the last '
+                f'{last:.5f}')
+    step_ms = run.train_s * 1e3 / steps
+    print(f'cli E [{gpu}] {" ".join(flags)}: {steps} steps, ms per step '
+          f'over the epoch\'s wall clock {step_ms:.3f}')
+    trainer, dataset, wall = run.trainer, run.dataset, []
+
+    def loader_steps():
+        loader = PrefetchIterator(LenDataset(dataset, PROFILED_STEPS),
+                                  transform=trainer._device_batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for batch in loader:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t1) * 1e3)
+
+    loader_steps()
+    rows, busy = _device_profile(loader_steps)
+    profile = None
+    if rows is None:
+        print('cli E profile: the trace holds no device time: not measured')
+    else:
+        k2_ms = sum(ms for name, ms, _ in rows
+                    if 'scatter_group_kernel' in name)
+        profile = dict(busy_ms=busy, wall_ms=wall[-1], rows=rows[:12],
+                       k2_ms=k2_ms)
+        print(f'cli E profile [{gpu}]: device busy {busy:.3f} ms over '
+              f'{PROFILED_STEPS} steps through the loader '
+              f'({busy / PROFILED_STEPS:.3f} a step) of their '
+              f'{wall[-1]:.3f} ms wall clock: busy share '
+              f'{busy / wall[-1]:.4f}; K2 narrow {k2_ms / PROFILED_STEPS:.4f}'
+              f' ms a step, {k2_ms / busy:.2%} of the busy time, '
+              f'{k2_ms / wall[-1]:.2%} of the wall clock')
+        for name, ms, count in rows[:12]:
+            print(f'  {ms:9.3f} ms {ms / busy:7.2%} x{count:<5d} '
+                  f'{name[:90]}')
+    g, x = _record_k2_inputs(trainer, iter(PrefetchIterator(
+        LenDataset(dataset, 1), transform=trainer._device_batch)))
+    config = trainer.field.config.grid_config
+    del run, trainer, dataset
+    torch.cuda.empty_cache()
+    err = _check_k2(checks, f'K2 table gradient cli E step N={x.shape[0]}',
+                    hashgrid_cuda, g, x, config)
+    timed = _k2_narrow_measure(gpu, 'cli E step', hashgrid_cuda, g, x,
+                               config)
+    return dict(launches=launches, ms_per_step=step_ms, loss_first=first,
+                loss_last=last, loss_curve=curve.tolist(), profile=profile,
+                k2_max_abs_err=err, k2=timed)
+
+
 def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
     """Phase 11 (see the module docstring). Adds K6 and K7 to `results` and
     `shapes`; returns what the output file keeps."""
@@ -2133,6 +2351,8 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
                       f'{name[:90]}')
         del run, trainer, dataset
         torch.cuda.empty_cache()
+
+    run_e = _cli_exact(gpu, checks, scene, root, names)
 
     # A few steps of Run C's command at 33 draws a level.
     flags, steps = CLI_MANY
@@ -2299,7 +2519,7 @@ def _stochastic_phase(dev, gpu, checks, results, shapes, scene):
     print(f'stochastic phase: {time.perf_counter() - phase_start:.1f} s')
     return dict(launches=launches, ms_per_step=step_ms, eval_mse=mse,
                 eval_chunks=eval_chunks, held=held, unbiased=unbiased,
-                names=names, profiles=profiles,
+                names=names, profiles=profiles, exact=run_e,
                 window_probe={k: v['probe'] for k, v in timed.items()})
 
 
@@ -5787,11 +6007,8 @@ MESH_LOSS_RTOL = 1e-5
 MESH_POSE_ITERS = 20
 MESH_POSE_GRAD_RTOL = 1e-5
 MESH_POSE_CLI_ITERS = 10
-# (f): InteractiveTrainer's steps; its later steps are held within this
-# multiple of no mesh's own run-to-run spread (K2s's atomics, then Adam's
-# eps of 1e-15, which moves a parameter by about lr whatever its gradient).
+# (f): InteractiveTrainer's steps.
 MESH_INTERACTIVE_STEPS = 3
-MESH_SPREAD_ROOM = 4.0
 NCCL_PROBE_S = 120
 OPTIONAL_MODULES = ('cv2', 'PIL', 'h5py', 'sklearn', 'pandas', 'matplotlib')
 _OPTIONAL_PROBE = '''
@@ -5892,12 +6109,14 @@ def _mesh_pose_trainer(dev, seed, mesh, pose_init):
                          seed=seed, pose_refine=pose_init)
 
 
-def _interactive_losses(dev, seed, mesh, batches, draws):
+def _interactive_losses(dev, seed, mesh, batches, draws, states):
     """(f): InteractiveTrainer on _mesh_trainer's field and schedule
     (iters 10000, as SimpleTrainer's), init over the global batches on the
     card, MESH_INTERACTIVE_STEPS take_steps with their draws: each step's
     loss parts, its local and global step counts and the kernels'
-    launches."""
+    launches. Then each step again from `states[i]` (SimpleTrainer's
+    params before its step i) at global step i ('forced': its loss parts
+    and every gradient but the table's)."""
     import torch
     from autolabel_tpu_torch.models.field import Field
     from autolabel_tpu_torch.ops import _kernels
@@ -5910,36 +6129,67 @@ def _interactive_losses(dev, seed, mesh, batches, draws):
                                  workspace=None, use_checkpoint=None,
                                  metrics=False, mesh=mesh, seed=seed)
     steps = MESH_INTERACTIVE_STEPS
+
+    def take(i):
+        return {k: float(v) for k, v in trainer.take_step(
+            {k: v.to(dev) for k, v in draws[i].items()}).items()}
+
     trainer.init(iter([{k: v.to(dev) for k, v in b.items()}
                        for b in batches[:steps]]))
     _kernels.reset_launches()
-    losses = [{k: float(v) for k, v in trainer.take_step(
-        {k: v.to(dev) for k, v in d.items()}).items()} for d in draws[:steps]]
+    losses = [take(i) for i in range(steps)]
     torch.cuda.synchronize()
-    return dict(losses=losses, step=trainer.step,
-                global_step=trainer.global_step,
-                launches=dict(_kernels.launches))
+    out = dict(losses=losses, step=trainer.step,
+               global_step=trainer.global_step,
+               launches=dict(_kernels.launches), forced=[])
+    step = trainer.optimizer.step
+    for i in range(steps):
+        grads = {}
+
+        def keep(got, mesh_=None):
+            grads.update({k: g.clone() for k, g in got.items()
+                          if g is not None and k != 'encoder.grid'})
+            return step(got, mesh_)
+
+        with torch.no_grad():
+            trainer.field.load_state_dict(states[i])
+        trainer.global_step = i
+        trainer.init(iter([{k: v.to(dev) for k, v in batches[i].items()}]))
+        trainer.optimizer.step = keep
+        try:
+            out['forced'].append(dict(losses=take(i), grads=grads))
+        finally:
+            trainer.optimizer.step = step
+    return out
 
 
-def _interactive_checks(checks, tag, got, ref, spread):
+def _interactive_checks(checks, tag, got, ref, grads):
     """(f): got's step 1 loss parts bit-equal to ref's (SimpleTrainer's on
-    the same mesh, batches and draws), its later ones within
-    MESH_SPREAD_ROOM times `spread` (no mesh's own run-to-run relative
-    spread over those steps) or MESH_LOSS_RTOL, whichever is larger; one
-    local and global step a take_step."""
-    bar = max(MESH_SPREAD_ROOM * spread, MESH_LOSS_RTOL)
+    the same mesh, batches and draws); each step taken again from
+    SimpleTrainer's params before it: its loss parts and every gradient
+    but the table's bit-equal to SimpleTrainer's (`grads`, that run's
+    per step; the table's float atomics take their own order, so run on
+    the two part as no mesh run again does); one local and global step a
+    take_step."""
+    import torch
     checks.true(f'{tag} step 1 loss parts bit-equal to SimpleTrainer\'s',
                 got['losses'][0] == ref[0], str(got['losses'][0]))
-    later = max((abs(got['losses'][i][k] - v) / max(abs(v), 1e-30)
-                 for i in range(1, len(got['losses']))
-                 for k, v in ref[i].items()), default=0.0)
-    checks.true(f'{tag} steps 2-{len(got["losses"])} loss parts within '
-                f'{bar:.3e} of SimpleTrainer\'s', later <= bar,
-                f'{later:.3e} (no mesh run again: {spread:.3e})')
+    for i, run in enumerate(got['forced']):
+        others = [k for k in grads[i] if k != 'encoder.grid']
+        checks.true(f'{tag} step {i + 1} from SimpleTrainer\'s params: loss '
+                    'parts and every gradient but the table\'s bit-equal to '
+                    'SimpleTrainer\'s',
+                    run['losses'] == ref[i]
+                    and all(k in run['grads']
+                            and torch.equal(run['grads'][k], grads[i][k])
+                            for k in others),
+                    f'{len(ref[i])} loss parts, {len(others)} gradients')
     n = len(got['losses'])
     checks.true(f'{tag} counts its steps', got['step'] == n
                 and got['global_step'] == n,
                 f'{got["step"]}, {got["global_step"]}')
+    # what a report keeps of the forced steps: their loss parts
+    got['forced'] = [run['losses'] for run in got['forced']]
 
 
 class _Collectives:
@@ -6147,7 +6397,14 @@ def _mesh_rank(rank, init_file, work, seed, modes, pose_mode,
             record = {}
             _kernels.reset_launches()
             run = _mesh_run(trainer, inputs['batches'], inputs['draws'], dev,
-                            record)
+                            record, states=mode == interactive_mode[0])
+            if mode == interactive_mode[0]:  # (f)'s reference
+                steps = MESH_INTERACTIVE_STEPS
+                inter_ref = dict(losses=run['losses'],
+                                 states=run['states'][:steps],
+                                 grads=[{k: v for k, v in g.items()
+                                         if k != 'encoder.grid'}
+                                        for g in run['grads'][:steps]])
             report[mode] = dict(walls=run['walls'], losses=run['losses'],
                                 timed_walls=run['timed_walls'],
                                 collective_s=run['collective_s'],
@@ -6241,9 +6498,14 @@ def _mesh_rank(rank, init_file, work, seed, modes, pose_mode,
         del k2x_in, args
         torch.cuda.empty_cache()
         # (f) InteractiveTrainer, the ranks stepping together
-        report['interactive'] = _interactive_losses(
+        got = _interactive_losses(
             dev, seed, _mesh_of(interactive_mode, world), inputs['batches'],
-            inputs['draws'])
+            inputs['draws'], inter_ref['states'])
+        _interactive_checks(checks, f'mesh (f) {interactive_mode[0]} rank '
+                            f'{rank}', got, inter_ref['losses'],
+                            inter_ref['grads'])
+        report['interactive'] = got
+        del inter_ref
         torch.cuda.empty_cache()
     finally:
         report['failures'] = checks.failures
@@ -6433,7 +6695,8 @@ def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
                                            pose_in['pose_init']),
                         pose_in['batches'], pose_in['draws'], dev)
     torch.cuda.empty_cache()
-    inter_w1 = _interactive_losses(dev, seed, mesh, batches, draws)
+    inter_w1 = _interactive_losses(dev, seed, mesh, batches, draws,
+                                   runs['A']['states'])
     torch.distributed.destroy_process_group()
     p = runs['P']
     _check_launches(checks, 'mesh (e) pose world of one',
@@ -6449,9 +6712,13 @@ def _mesh_world_of_one(dev, seed, gpu, checks, batches, draws, runs, record,
     print(f'mesh (e) [{gpu}] pose world of one (nccl): {_mesh_walls(pose_w1)}'
           f'; deltas after {MESH_STEPS} steps within {delta_diff:.3e} of no '
           f'mesh\'s (K2s\'s atomics part the tables after step 1)')
-    spread = _later_spread(runs['A'], runs['A2'], MESH_INTERACTIVE_STEPS)
     _interactive_checks(checks, 'mesh (f) world of one', inter_w1,
-                        runs['A']['losses'], spread)
+                        runs['A']['losses'], runs['A']['grads'])
+    steps = MESH_INTERACTIVE_STEPS
+    inter_w1['later'] = _later_spread(a, inter_w1, steps)
+    print(f'mesh (f) [{gpu}] world of one: run on, steps 2-{steps} loss '
+          f'parts within {inter_w1["later"]:.3e} relative of no mesh\'s (no '
+          f'mesh run again: {_later_spread(a, a2, steps):.3e})')
     _check_launches(checks, 'mesh (f) world of one', inter_w1['launches'],
                     names, MESH_INTERACTIVE_STEPS)
     checks.true('mesh (a) world of one: NCCL, collectives called',
@@ -6650,19 +6917,24 @@ def _mesh_ranks(gpu, checks, work, seed, cards, runs, record, names):
         del mine
     out['e'] = _mesh_pose_checks(checks, work, pose_mode, reports, runs['P'])
     # (f) InteractiveTrainer against SimpleTrainer on the same mesh (one of
-    # (b)'s modes): step 1 bit-equal, later steps within no mesh's spread
+    # (b)'s modes), held in the ranks (_interactive_checks); run on, its
+    # later steps beside no mesh run again's
     spread = _later_spread(runs['A'], runs['A2'], MESH_INTERACTIVE_STEPS)
-    ref = reports[0][inter_mode[0]]['losses']
+    ref = reports[0][inter_mode[0]]
+    later = [_later_spread(ref, r['interactive'], MESH_INTERACTIVE_STEPS)
+             for r in reports]
+    print(f'mesh (f) [{gpu}] {inter_mode[0]}: run on, steps '
+          f'2-{MESH_INTERACTIVE_STEPS} loss parts within '
+          f'{[f"{v:.3e}" for v in later]} relative of SimpleTrainer\'s on '
+          f'the mesh (no mesh run again: {spread:.3e})')
     for r, rep in enumerate(reports):
-        _interactive_checks(checks, f'mesh (f) {inter_mode[0]} rank {r}',
-                            rep['interactive'], ref, spread)
         _check_launches(checks, f'mesh (f) {inter_mode[0]} rank {r}',
                         rep['interactive']['launches'], names,
                         MESH_INTERACTIVE_STEPS)
     checks.true(f'mesh (f) {inter_mode[0]} ranks report one loss',
                 all(r['interactive']['losses'] == reports[0]['interactive'][
                     'losses'] for r in reports))
-    out['f'] = dict(mode=inter_mode[0], spread_no_mesh=spread,
+    out['f'] = dict(mode=inter_mode[0], spread_no_mesh=spread, later=later,
                     interactive=[r['interactive'] for r in reports])
     print(f'mesh (b) [{gpu}]: {world} ranks {ranks_s:.1f} s with their '
           'checks and the spawn')
@@ -7758,6 +8030,8 @@ def main():
     g_ref = torch.randn((65536, ref_grid.out_dim), generator=g).to(dev)
     _check_k2(checks, 'K2 table gradient reference 16x2x2^19 N=65536',
               hashgrid_cuda, g_ref, x_ref, ref_grid)
+    k2_narrow = _k2_narrow(checks, gpu, hashgrid_cuda, dev,
+                           torch.Generator().manual_seed(args.seed + 25))
     k2_ms = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward(
         g2, x2, TPU_GRID), 20)
     k2_plain = _cuda_ms(lambda: hashgrid_cuda.hashgrid_encode_backward_plain(
@@ -7783,7 +8057,7 @@ def main():
           f'{k2_floor["64 MiB"]:.4f} ms into 64 MiB; K2 {k2_ms:.4f} ms')
     results['K2'] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                          bound=k2_bound, library_ms=None,
-                         atomics_floor_ms=k2_floor)
+                         atomics_floor_ms=k2_floor, narrow=k2_narrow)
     shapes['K2'] = hashgrid_cuda.encode_backward_launch_shapes(TPU_GRID, n_tr)
     shapes['K2 reference'] = hashgrid_cuda.encode_backward_launch_shapes(
         ref_grid, n_tr)
@@ -8104,6 +8378,10 @@ def main():
     stochastic = _stochastic_phase(dev, gpu, checks, results, shapes,
                                    os.path.join(WORK_DIR, 'cli', 'sphere'))
     st_launches = stochastic['launches']
+    exact_run = stochastic['exact']
+    results['K2']['narrow']['cli E step'] = exact_run['k2']
+    results['K2']['narrow']['max_abs_err'] = max(
+        results['K2']['narrow']['max_abs_err'], exact_run['k2_max_abs_err'])
 
     # ---- 12. the render CLI: dense, proposal, trilinear and baked
     torch.cuda.empty_cache()
@@ -8224,6 +8502,7 @@ def main():
         'launches_cli_pallas': cli_launches['B'].get(kernel_names[key], 0),
         'launches_cli_stochastic': st_launches['C'].get(kernel_names[key], 0),
         'launches_cli_reference': st_launches['D'].get(kernel_names[key], 0),
+        'launches_cli_exact': exact_run['launches'].get(kernel_names[key], 0),
         **{f'launches_render_cli_{path}': v.get(kernel_names[key], 0)
            for path, v in rc_launches.items()},
         'launches_preview_governed': preview['governed_launches'].get(
@@ -8276,7 +8555,8 @@ def main():
                                         'state_bound_ms', 'render_cli',
                                         'tcnn', 'eval_3d', 'forms',
                                         'loop_ms', 'loop_device_ms', 'parts',
-                                        'k', 'grid', 'bound_once_ms')
+                                        'k', 'grid', 'bound_once_ms',
+                                        'narrow')
            if k in results[key]},
     } for name, source, replaces, key in table_rows]
 

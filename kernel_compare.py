@@ -76,9 +76,24 @@ at 1, 2, 4 and 8 blocks a multiprocessor; and this tree's fused solve
 (entry 3) in parts, from copies of its source cut the same way
 (`K9_SOLVE_PARTS`), in turns with the solve itself at lam 1e-2 and 50
 iterations.
+
+K2's narrow rows (the tcnn lattice, 16 x 2^19 x 2, N = 524,288): 'K2
+reference tcnn N', 'K2 reference tcnn ray-ordered' and 'K2 reference cli
+E step' (the last of 30 steps of chip_smoke.py's Run E, the reference
+preset's exact estimator) against the parent's, each beside one
+index_add_ of the pre-weighted corner rows (chip_smoke.k2_yardstick);
+'K2 narrow parts' the parent's kernel in parts (`K2N_PARENT_PARTS`,
+copies of its source cut by macros, and its kernel on each level alone
+and on the dense and the hashed levels together), with the request
+floor (the 16-byte pieces warps of 32 points need at the least); 'K2
+narrow variants' this tree's kernel in `K2N_VARIANTS` (copies of its
+source cut the same way; one sums level 0 in each block's shared memory
+instead of merging within the warp). `--only 'K2 narrow parts'` runs the parent's
+parts alone, without building either package.
 """
 import argparse
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -87,7 +102,7 @@ import sys
 import types
 
 from chip_smoke import (_cuda_ms, _gpu_line, _k2x_forms, _k8_host_us,
-                        _kernel_ms, k7_yardstick)
+                        _kernel_ms, _ray_points, k2_yardstick, k7_yardstick)
 
 K9_PARENT_PARTS = {1: 'loads, projection and J v alone',
                    2: '+ the camera scan and its atomics',
@@ -374,6 +389,431 @@ def _k9_solve_parts(out_dir, kern, gpu, rounds):
               f' (rounds {[round(t, 4) for t in times[part]]})')
     return out
 
+
+# K2's narrow rows in parts: copies of the parent's csrc/hashgrid_bwd.cu
+# (its first-form scatter_lanes_kernel, a thread a (point, level) issuing
+# an atomic a feature and corner) cut by -DK2N_PART, each launched through
+# the copy's own hashgrid_encode_bwd (its memset included).
+K2N_PARENT_PARTS = {1: 'the kernel as it is',
+                    2: 'its atomics as plain stores',
+                    3: "x's stream and the cells alone",
+                    4: "+ g's stream",
+                    5: '+ the corner rows, weights and products, no writes'}
+_K2N_CUTS = (
+    ('// One thread per point of level blockIdx.y; any feature width.\n',
+     '__device__ int k2n_first;  // the first level launched\n'
+     'static int k2n_count = 0;  // the levels launched, 0 for all\n'
+     '// One thread per point of level blockIdx.y; any feature width.\n'),
+    ('  const int l = blockIdx.y;\n'
+     '  const long long p = (long long)blockIdx.x * blockDim.x'
+     ' + threadIdx.x;\n',
+     '  const int l = blockIdx.y + k2n_first;\n'
+     '  const long long p = (long long)blockIdx.x * blockDim.x'
+     ' + threadIdx.x;\n'),
+    ('  const float* src = g + (p * levels + l) * (long long)features;\n',
+     '  const float* src = g + (p * levels + l) * (long long)features;\n'
+     '#if K2N_PART == 3 || K2N_PART == 4\n'
+     '  float keep = cell.f[0] + cell.f[1] + cell.f[2]\n'
+     '               + (float)(cell.c[0] ^ cell.c[1] ^ cell.c[2]);\n'
+     '#if K2N_PART == 4\n'
+     '  for (int f = 0; f < features; ++f) keep += __ldg(src + f);\n'
+     '#endif\n'
+     '  if (keep == 1234.5f) level[0] = keep;\n'
+     '  return;\n'
+     '#endif\n'
+     '#if K2N_PART == 5\n'
+     '  float keep = 0.f;\n'
+     '#endif\n'),
+    ('      atomicAdd(row + f, __fmul_rn(__ldg(src + f), w));\n  }\n}\n',
+     '#if K2N_PART == 2\n'
+     '      row[f] = __fmul_rn(__ldg(src + f), w);\n'
+     '#elif K2N_PART == 5\n'
+     '      keep += __fmul_rn(__ldg(src + f), w) + (float)(idx & 7);\n'
+     '#else\n'
+     '      atomicAdd(row + f, __fmul_rn(__ldg(src + f), w));\n'
+     '#endif\n'
+     '  }\n'
+     '#if K2N_PART == 5\n'
+     '  if (keep == 1234.5f) level[0] = keep;\n'
+     '#endif\n'
+     '}\n'),
+    ('    scatter_lanes_kernel<<<grid, K2_THREADS, 0, s>>>(',
+     '    scatter_lanes_kernel<<<dim3(grid.x, k2n_count ? k2n_count'
+     ' : grid.y), K2_THREADS, 0, s>>>('),
+)
+
+
+def _k2n_inputs(seed, config, n=524288):
+    """K2 narrow's inputs on the tcnn lattice: g and, as _narrow_rows makes
+    them, uniform and ray-ordered points (on the card)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    xs = {'uniform': torch.rand((n, 3), generator=g),
+          'ray-ordered': _ray_points(n, g)}
+    cot = torch.randn((n, config.out_dim), generator=g)
+    return cot.to('cuda'), {k: v.to('cuda') for k, v in xs.items()}
+
+
+def _k2n_floor(gpu, name, x, config):
+    """K2 narrow's byte bound and its atomic request floor on x: the least
+    16-byte atomic requests a warp of 32 points makes (the distinct
+    16-byte pieces of each warp's corner rows, level by level), beside the
+    8 L N F scalar atomics of the parent's form."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    from chip_smoke import PEAK_BYTES
+    n, f = x.shape[0], config.n_features
+    pieces = hg.gather_sectors(x, config, points=32, sector=16)
+    nbytes = (x.numel() + n * config.out_dim
+              + config.n_levels * config.table_size * f) * 4
+    out = dict(byte_bound_ms=nbytes / PEAK_BYTES * 1e3,
+               warp_pieces=pieces, warp_pieces_total=sum(pieces),
+               scalar_atomics=8 * config.n_levels * n * f)
+    print(f'K2 narrow [{gpu}] tcnn N={n} {name}: byte bound '
+          f'{out["byte_bound_ms"]:.4f} ms; warps of 32 points request '
+          f'{sum(pieces)} 16-byte pieces at the least (by level {pieces}), '
+          f'against the parent\'s {out["scalar_atomics"]} scalar atomics')
+    return out
+
+
+def _k2n_build(name, src, cuts, flags, csrc):
+    """Copies of a hashgrid_bwd.cu source cut by `cuts` (each text found
+    once), built by nvcc in parallel, one a {key: extra flags} of `flags`,
+    into build/<name>/; returns {key: the library's path}, printing each
+    build's register and spill report."""
+    import subprocess
+    from autolabel_tpu_torch.ops import _kernels
+    out_dir = os.path.join(HERE, 'build', name)
+    os.makedirs(out_dir, exist_ok=True)
+    for old, new in cuts:
+        if src.count(old) != 1:
+            raise RuntimeError(f'{name}: hashgrid_bwd.cu is not the design '
+                               'these cuts were written for')
+        src = src.replace(old, new)
+    path = os.path.join(out_dir, 'cut.cu')
+    with open(path, 'w') as f:
+        f.write(src)
+    sos = {key: os.path.join(out_dir, f'cut{i}.so')
+           for i, key in enumerate(flags)}
+    procs = {key: subprocess.Popen(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *extra, '-I', csrc, '-o',
+         sos[key], path], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for key, extra in flags.items()}
+    for key, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'{name}: nvcc failed on {key}:\n{err}')
+        print(f'{name} {key}: ' + '; '.join(
+            line.split('ptxas info    : ')[-1].strip()
+            for line in err.splitlines()
+            if 'registers' in line or 'spill' in line))
+    return sos
+
+
+def _k2n_entry(so):
+    """A built copy's hashgrid_encode_bwd, its signature set."""
+    import ctypes
+    lib = ctypes.CDLL(so)
+    fn = lib.hashgrid_encode_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _k2n_launch(fn, cot, x, config, dtable, before=None):
+    """A call of a built copy's entry on (cot, x) into dtable; `before`
+    runs first (a part's level selection)."""
+    import torch
+    from autolabel_tpu_torch.ops import _kernels
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    geometry = hg._geometry(config)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        if before is not None:
+            before()
+        _kernels.check(fn(
+            x.data_ptr(), cot.data_ptr(), dtable.data_ptr(),
+            *[a.ctypes.data for a in geometry], float(config.pos_offset),
+            x.shape[0], config.n_levels, config.table_size,
+            config.n_features, stream), 'K2 narrow cut copy')
+        return dtable
+    return call
+
+
+def _k2n_turns(gpu, tag, calls, rounds, reps, kernel):
+    """calls timed in turns (forward, then backward order) for `rounds`
+    rounds, by events and by device ms a call, all kernels and memsets
+    and the one whose name holds `kernel` alone; prints the medians."""
+    import numpy as np
+    res = dict(ms={k: [] for k in calls}, device_ms={k: [] for k in calls},
+               kernel_device_ms={k: [] for k in calls})
+    for r in range(rounds):
+        for k in list(calls)[::1 if r % 2 == 0 else -1]:
+            res['ms'][k].append(_cuda_ms(calls[k], reps))
+            by_kernel = _kernel_ms(calls[k])
+            res['device_ms'][k].append(
+                None if by_kernel is None else sum(by_kernel.values()))
+            res['kernel_device_ms'][k].append(
+                None if by_kernel is None else
+                sum(v for name, v in by_kernel.items() if kernel in name))
+    for k in calls:
+        dev = [d for d in res['device_ms'][k] if d is not None]
+        kern = [d for d in res['kernel_device_ms'][k] if d is not None]
+        print(f'{tag} [{gpu}] {k}: {float(np.median(res["ms"][k])):.4f} ms '
+              f'by events, {float(np.median(dev)) if dev else None} device, '
+              f'{float(np.median(kern)) if kern else None} the kernel alone '
+              f'(rounds {[round(v, 4) for v in res["ms"][k]]})')
+    return res
+
+
+def _k2n_parts(parent, gpu, rounds, seed, reps=10):
+    """The parent's K2 narrow rows in parts (K2N_PARENT_PARTS) on the tcnn
+    lattice at N = 524,288, uniform and ray-ordered points, and part 1 (the
+    kernel) on each level alone and on the dense and the hashed levels
+    together; by events and device ms (the kernel's own and with its
+    memset), in turns, with the request floor."""
+    import ctypes
+    import torch
+    from autolabel_tpu_torch.ops import encoders
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    csrc = os.path.join(parent, PKG, 'csrc')
+    with open(os.path.join(csrc, 'hashgrid_bwd.cu')) as f:
+        src = f.read() + ('extern "C" int k2n_select(int first, int count) {\n'
+                          '  k2n_count = count;\n'
+                          '  return (int)cudaMemcpyToSymbol(k2n_first, '
+                          '&first, sizeof(int));\n}\n')
+    sos = _k2n_build('k2n_parts', src, _K2N_CUTS,
+                     {p: [f'-DK2N_PART={p}'] for p in K2N_PARENT_PARTS}, csrc)
+    entries = {p: _k2n_entry(so) for p, so in sos.items()}
+    for lib, _ in entries.values():
+        lib.k2n_select.argtypes = [ctypes.c_int, ctypes.c_int]
+    config = _reference_lattices(encoders)[' tcnn']
+    n_dense = int(sum(encoders.level_geometry(config)[3]))
+    cot, xs = _k2n_inputs(seed, config)
+    dtable = torch.empty((config.n_levels, config.table_size,
+                          config.n_features), device='cuda')
+
+    def launch(part, x, first=0, count=0):
+        lib, fn = entries[part]
+        return _k2n_launch(fn, cot, x, config, dtable, lambda: (
+            hg._kernels.check(lib.k2n_select(first, count),
+                              'K2 narrow parts')))
+
+    result = dict(dense_levels=n_dense, parts=K2N_PARENT_PARTS)
+    for name, x in xs.items():
+        floor = _k2n_floor(gpu, name, x, config)
+        same = float((launch(1, x)() - hg.hashgrid_encode_backward_plain(
+            cot, x, config)).abs().max())
+        print(f'K2 narrow parent parts [{gpu}] {name}: part 1 against the '
+              f'plain version max |d| {same:.3e}')
+        calls = {f'part {p} ({what})': launch(p, x)
+                 for p, what in K2N_PARENT_PARTS.items()}
+        calls.update({f'level {l}': launch(1, x, l, 1)
+                      for l in range(config.n_levels)})
+        calls[f'dense levels 0-{n_dense - 1}'] = launch(1, x, 0, n_dense)
+        calls[f'hashed levels {n_dense}-{config.n_levels - 1}'] = launch(
+            1, x, n_dense, config.n_levels - n_dense)
+        result[name] = dict(floor=floor, part1_max_abs_err=same,
+                            **_k2n_turns(gpu, f'K2 narrow parent {name}',
+                                         calls, rounds, reps,
+                                         'scatter_lanes'))
+    return result
+
+
+# This tree's K2 narrow rows (scatter_group_kernel) in variants: copies of
+# csrc/hashgrid_bwd.cu cut by -DK2N_VARIANT / -DK2N_GROUP, each launched
+# through the copy's own hashgrid_encode_bwd, in turns with the built one.
+K2N_VARIANTS = {'no warp merge': ['-DK2N_VARIANT=1'],
+                'warp merge every level': ['-DK2N_VARIANT=4'],
+                'level 0 privatised in shared memory': ['-DK2N_VARIANT=5'],
+                'no pair merge': ['-DK2N_VARIANT=2'],
+                'scalar atomics, no merges': ['-DK2N_VARIANT=3'],
+                'a level a thread': ['-DK2N_GROUP=1'],
+                '2 levels a thread': ['-DK2N_GROUP=2'],
+                '8 levels a thread': ['-DK2N_GROUP=8'],
+                '16 levels a thread': ['-DK2N_GROUP=16']}
+_K2N_VARIANT_CUTS = (
+    ('#include "hashgrid_common.cuh"\n',
+     '#include "hashgrid_common.cuh"\n'
+     '#ifndef K2N_VARIANT\n#define K2N_VARIANT 0\n#endif\n'
+     '#ifndef K2N_GROUP\n#define K2N_GROUP 0\n#endif\n'
+     '#define K2N_PRIV 10240  // variant 5: most floats of level 0 kept\n'
+     '__device__ int k2n_yoff;  // variant 5: the first group launched\n'),
+    # variant 5: level 0, where dense and within K2N_PRIV floats, added
+    # into shared memory by the blocks of group 0 (launched alone, with
+    # that dynamic shared memory) and flushed once a block, a float4
+    # atomic a nonzero piece; the other groups launched after, without.
+    ('// A thread per (point, slice of W features) walks levels [g0, g0 + '
+     'group)\n',
+     '#if K2N_VARIANT == 5\n'
+     '__device__ __forceinline__ void add_shared(float* priv,\n'
+     '                                           unsigned long long key,\n'
+     '                                           float4 v, int width) {\n'
+     '  if (key == K2N_NONE) return;\n'
+     '  float* d = priv + (key >> 1);\n'
+     '  atomicAdd(d, v.x);\n'
+     '  if (width > 1) atomicAdd(d + 1, v.y);\n'
+     '  if (width > 2) {\n'
+     '    atomicAdd(d + 2, v.z);\n'
+     '    atomicAdd(d + 3, v.w);\n'
+     '  }\n'
+     '}\n'
+     '#endif\n'
+     '// A thread per (point, slice of W features) walks levels [g0, g0 + '
+     'group)\n'),
+    ('  if (!__any_sync(0xffffffffu, live)) return;\n'
+     '  const int g0 = blockIdx.y * group;\n',
+     '#if K2N_VARIANT == 5\n'
+     '  const int g0 = (blockIdx.y + k2n_yoff) * group;\n'
+     '  extern __shared__ __align__(16) float priv[];\n'
+     '  const int total0 = (int)geo.l[0].size * features;\n'
+     '  const bool private0 = W == 2 && g0 == 0 && geo.l[0].dense &&\n'
+     '                        total0 <= K2N_PRIV && total0 % 4 == 0;\n'
+     '  if (private0) {\n'
+     '    for (int i = threadIdx.x; i < total0; i += K2N_THREADS)\n'
+     '      priv[i] = 0.0f;\n'
+     '    __syncthreads();\n'
+     '  }\n'
+     '#else\n'
+     '  if (!__any_sync(0xffffffffu, live)) return;\n'
+     '  const int g0 = blockIdx.y * group;\n'
+     '#endif\n'),
+    ('      scatter_round(level, k0, v0, merged ? 2 * W : W, warp_stage, '
+     'lane,\n',
+     '#if K2N_VARIANT == 5\n'
+     '      if (private0 && l == 0) {\n'
+     '        add_shared(priv, k0, v0, merged ? 2 * W : W);\n'
+     '        add_shared(priv, k1, t1, W);\n'
+     '        continue;\n'
+     '      }\n'
+     '#endif\n'
+     '      scatter_round(level, k0, v0, merged ? 2 * W : W, warp_stage, '
+     'lane,\n'),
+    ('      scatter_round(level, k1, t1, W, warp_stage, lane, merge);\n'
+     '    }\n  }\n}\n',
+     '      scatter_round(level, k1, t1, W, warp_stage, lane, merge);\n'
+     '    }\n  }\n'
+     '#if K2N_VARIANT == 5\n'
+     '  if (private0) {\n'
+     '    __syncthreads();\n'
+     '    for (int i = 4 * threadIdx.x; i < total0; i += 4 * K2N_THREADS) {\n'
+     '      const float4 v = *reinterpret_cast<const float4*>(priv + i);\n'
+     '      if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)\n'
+     '        atomicAdd(reinterpret_cast<float4*>(dtable + i), v);\n'
+     '    }\n'
+     '  }\n'
+     '#endif\n'
+     '}\n'),
+    ('    case 2:\n'
+     '      scatter_group_kernel<2><<<grid, K2N_THREADS, 0, s>>>(\n'
+     '          x, g, dtable, geo, offset, n, levels, table_size, features, '
+     'group);\n'
+     '      break;\n',
+     '    case 2:\n'
+     '#if K2N_VARIANT == 5\n'
+     '    {\n'
+     '      int yoff = 0;\n'
+     '      cudaMemcpyToSymbolAsync(k2n_yoff, &yoff, sizeof(int), 0,\n'
+     '                              cudaMemcpyHostToDevice, s);\n'
+     '      scatter_group_kernel<2><<<dim3(grid.x, 1), K2N_THREADS,\n'
+     '                                K2N_PRIV * sizeof(float), s>>>(\n'
+     '          x, g, dtable, geo, offset, n, levels, table_size, features, '
+     'group);\n'
+     '      if (grid.y > 1) {\n'
+     '        yoff = 1;\n'
+     '        cudaMemcpyToSymbolAsync(k2n_yoff, &yoff, sizeof(int), 0,\n'
+     '                                cudaMemcpyHostToDevice, s);\n'
+     '        scatter_group_kernel<2><<<dim3(grid.x, grid.y - 1), '
+     'K2N_THREADS, 0,\n'
+     '                                  s>>>(\n'
+     '            x, g, dtable, geo, offset, n, levels, table_size, '
+     'features,\n'
+     '            group);\n'
+     '      }\n'
+     '      break;\n'
+     '    }\n'
+     '#endif\n'
+     '      scatter_group_kernel<2><<<grid, K2N_THREADS, 0, s>>>(\n'
+     '          x, g, dtable, geo, offset, n, levels, table_size, features, '
+     'group);\n'
+     '      break;\n'),
+    ('__device__ __forceinline__ void add_piece(float* dst, float4 v, '
+     'int width) {\n',
+     '__device__ __forceinline__ void add_piece(float* dst, float4 v, '
+     'int width) {\n'
+     '#if K2N_VARIANT == 3\n'
+     '  atomicAdd(dst, v.x);\n'
+     '  if (width > 1) atomicAdd(dst + 1, v.y);\n'
+     '  if (width > 2) {\n'
+     '    atomicAdd(dst + 2, v.z);\n'
+     '    atomicAdd(dst + 3, v.w);\n'
+     '  }\n'
+     '  return;\n'
+     '#endif\n'),
+    ('    float* level = dtable + (long long)l * table_size * features;\n',
+     '    float* level = dtable + (long long)l * table_size * features;\n'
+     '#if K2N_VARIANT == 1 || K2N_VARIANT == 3\n'
+     '    const bool merge = false;\n'
+     '#elif K2N_VARIANT == 4\n'
+     '    const bool merge = true;\n'
+     '#else\n'),
+    ('    const bool merge = __any_sync(0xffffffffu, live && mates != '
+     '(1u << lane));\n',
+     '    const bool merge = __any_sync(0xffffffffu, live && mates != '
+     '(1u << lane));\n'
+     '#endif\n'),
+    ('  const bool pairs = slices == 1 && W < 4;\n',
+     '  const bool pairs =\n'
+     '      K2N_VARIANT != 2 && K2N_VARIANT != 3 && slices == 1 && W < 4;\n'),
+    ('  const int chosen = K2N_SECTOR / features;\n',
+     '  const int chosen = K2N_GROUP ? K2N_GROUP : K2N_SECTOR / features;\n'),
+)
+
+
+def _k2n_variants(gpu, rounds, seed, exact=None, reps=10):
+    """This tree's K2 narrow rows in K2N_VARIANTS, on the tcnn lattice at
+    N = 524,288, uniform and ray-ordered points, and on Run E's recorded
+    (g, x, config) where given, by events and device ms a call (memset
+    included), in turns with the built kernel; each held within
+    hashgrid_cuda.backward_tolerance."""
+    import torch
+    from autolabel_tpu_torch.ops import encoders
+    from autolabel_tpu_torch.ops import hashgrid_cuda as hg
+    csrc = os.path.join(HERE, PKG, 'csrc')
+    with open(os.path.join(csrc, 'hashgrid_bwd.cu')) as f:
+        src = f.read()
+    entries = {name: _k2n_entry(so)[1] for name, so in _k2n_build(
+        'k2n_variants', src, _K2N_VARIANT_CUTS, K2N_VARIANTS, csrc).items()}
+    config = _reference_lattices(encoders)[' tcnn']
+    cot, xs = _k2n_inputs(seed, config)
+    inputs = {kind: (cot, x, config) for kind, x in xs.items()}
+    if exact is not None:
+        inputs['cli E step'] = exact
+    result = {}
+    for kind, (cot, x, config) in inputs.items():
+        dtable = torch.empty((config.n_levels, config.table_size,
+                              config.n_features), device='cuda')
+        calls = {'built': lambda cot=cot, x=x, config=config:
+                 hg.hashgrid_encode_backward(cot, x, config)}
+        calls.update({name: _k2n_launch(fn, cot, x, config, dtable)
+                      for name, fn in entries.items()})
+        tol = hg.backward_tolerance(cot, x, config)
+        want = hg.hashgrid_encode_backward_plain(cot, x, config)
+        held = {k: bool(((call() - want).abs() <= tol).all())
+                for k, call in calls.items()}
+        del tol, want
+        print(f'K2 narrow variants [{gpu}] {kind}: within tolerance {held}')
+        if not all(held.values()):
+            raise RuntimeError(f'K2 narrow variants: {kind}: a variant '
+                               f'misses the tolerance: {held}')
+        result[kind] = dict(held=held, **_k2n_turns(
+            gpu, f'K2 narrow variant {kind}', calls, rounds, reps,
+            'scatter_group'))
+    return result
+
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = 'autolabel_tpu_torch'
 MODULES = ('ops._kernels', 'ops.encoders', 'ops.hashgrid_cuda',
@@ -507,6 +947,66 @@ def _stochastic_samples(iters=30):
             hashgrid_cuda._stochastic_call = call
         out[run] = rec['last']
     return out
+
+
+def _exact_samples(iters=30):
+    """(g, x, config): what the last of `iters` steps of chip_smoke.py's Run
+    E (CLI_EXACT: the reference preset's exact estimator) hands K2 (this
+    tree's package), on the sphere scene of chip_smoke.py's phase 10."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    from autolabel_tpu_torch.train import __main__ as cli
+    from autolabel_tpu_torch.utils import fixtures
+    from chip_smoke import CLI_BASE, CLI_EXACT, CLI_SCENE, WORK_DIR
+    root = os.path.join(WORK_DIR, 'compare_exact')
+    scene = os.path.join(root, 'sphere')
+    fixtures.make_synthetic_scene(scene, **CLI_SCENE)
+    rec, launch = {}, hashgrid_cuda._launch_backward
+
+    def record(g, x, config):
+        rec['last'] = (g.detach().clone(), x.detach().clone(), config)
+        return launch(g, x, config)
+
+    hashgrid_cuda._launch_backward = record
+    try:
+        cli.main([scene, *CLI_BASE, *CLI_EXACT[0], '--factor-train', '1',
+                  '--iters', str(iters), '--workspace',
+                  os.path.join(root, 'E')])
+    finally:
+        hashgrid_cuda._launch_backward = launch
+    return rec['last']
+
+
+def _lazy(make):
+    """A call that makes its function on first use (a yardstick's inputs,
+    made only for the side that times it)."""
+    made = []
+
+    def call():
+        if not made:
+            made.append(make())
+        return made[0]()
+    return call
+
+
+def _k2_narrow_cases(pkg, seed, exact):
+    """{name: (fn(pkg), reps, compare, library, library name)}: K2's narrow
+    rows on the tcnn lattice at N = 524,288 with ray-ordered points (the
+    uniform ones are _synthetic_cases' 'K2 reference tcnn'), and on Run
+    E's recorded (g, x); each with the index_add_ yardstick
+    (chip_smoke.k2_yardstick)."""
+    hg = pkg.hashgrid_cuda
+    config = _reference_lattices(pkg.encoders)[' tcnn']
+    cot, xs = _k2n_inputs(seed, config)
+    x_r = xs['ray-ordered']
+    cases = {f'K2 reference tcnn ray-ordered N={x_r.shape[0]}': (
+        lambda: hg.hashgrid_encode_backward(cot, x_r, config), 5, None,
+        _lazy(lambda: k2_yardstick(pkg.encoders, cot, x_r, config)))}
+    if exact is not None:
+        g_e, x_e, config_e = exact
+        cases[f'K2 reference cli E step N={x_e.shape[0]}'] = (
+            lambda: hg.hashgrid_encode_backward(g_e, x_e, config_e), 5, None,
+            _lazy(lambda: k2_yardstick(pkg.encoders, g_e, x_e, config_e)))
+    return cases
 
 
 def _stochastic_cases(pkg, seed, samples):
@@ -868,7 +1368,8 @@ def _synthetic_cases(pkg, seed):
             lambda: hg.hashgrid_encode_backward(g2, x2, grid), 20, None),
         f'K2 reference tcnn N={n1}': (
             lambda: hg.hashgrid_encode_backward(g_ref, x, refs[' tcnn']), 5,
-            None),
+            None, _lazy(lambda: k2_yardstick(pkg.encoders, g_ref, x,
+                                             refs[' tcnn']))),
         f'K3f N={n1}': (lambda: hd.fused_heads(packed, A, B), 10, None),
         f'K3b N={n2}': (lambda: hd.fused_heads_backward(
             packed, A2, B2, *cots, need_dB=False), 10, None),
@@ -923,23 +1424,9 @@ def _cases(pkg, step_samples, flagship, cli_samples):
 K1_GROUPS = (0, 16, 8, 4, 2, 1)
 
 
-def _ray_points(n, g, samples=32):
-    """n points as a render chunk orders them: n / samples rays, each from
-    a point of the unit cube along a random direction, its samples
-    consecutive and evenly spaced over a length of 0.5, clamped to the
-    cube."""
-    import torch
-    rays = n // samples
-    origin = torch.rand((rays, 1, 3), generator=g)
-    direction = torch.nn.functional.normalize(
-        torch.randn((rays, 1, 3), generator=g), dim=-1)
-    t = torch.linspace(0.0, 0.5, samples)[None, :, None]
-    return (origin + t * direction).clamp(0.0, 1.0).reshape(n, 3)
-
-
 def _narrow_rows(gpu, seed, rounds, reps=20):
     """This tree's K1 on the tcnn lattice at N = 524,288, uniform points
-    and ray-ordered ones (_ray_points), walking each of K1_GROUPS' level
+    and ray-ordered ones (chip_smoke._ray_points), walking each of K1_GROUPS' level
     groups in turns for `rounds` rounds, with K6's narrow kernel on a plan
     of every level exact (the same encode, its rows not written) in the
     same turns, each bit-equal to the library's choice, beside K1's byte
@@ -1027,8 +1514,11 @@ def main():
               file=sys.stderr)
         return 2
     only = re.compile(args.only)
-    if args.only == 'K9':
-        result = {'gpu': _gpu_line(), 'k9_parts': _k9_parts(
+    if args.only in ('K9', 'K2 narrow parts'):
+        parts = _k9_parts if args.only == 'K9' else functools.partial(
+            _k2n_parts, seed=args.seed)
+        key = 'k9_parts' if args.only == 'K9' else 'k2n_parts'
+        result = {'gpu': _gpu_line(), key: parts(
             os.path.abspath(args.parent), _gpu_line(), args.rounds)}
         os.makedirs(os.path.join(HERE, 'chiprun_out'), exist_ok=True)
         with open(os.path.join(HERE, 'chiprun_out', 'kernel_compare.json'),
@@ -1057,6 +1547,12 @@ def main():
         for side, pkg in sides.items():
             cases[side].update(_cases(pkg, step_samples, flagship,
                                       cli_samples))
+    exact = (_exact_samples()
+             if wanted(('K2 reference cli E', 'K2 narrow variants'))
+             else None)
+    if wanted(('K2 reference tcnn ray-ordered', 'K2 reference cli E')):
+        for side, pkg in sides.items():
+            cases[side].update(_k2_narrow_cases(pkg, args.seed, exact))
     stochastic = None
     if wanted([f'{k} cli {run} step' for k in ('K6', 'K7')
                for run in STOCHASTIC_RUNS]):
@@ -1137,6 +1633,12 @@ def main():
     torch.cuda.empty_cache()
     if wanted(['K1 reference tcnn', 'K2 reference tcnn']):
         result['narrow_rows'] = _narrow_rows(gpu, args.seed, args.rounds)
+    if wanted(['K2 narrow parts']):
+        result['k2n_parts'] = _k2n_parts(os.path.abspath(args.parent), gpu,
+                                         args.rounds, args.seed)
+    if wanted(['K2 narrow variants']):
+        result['k2n_variants'] = _k2n_variants(gpu, args.rounds, args.seed,
+                                               exact)
     if stochastic is not None:
         result['stochastic_parts'] = _stochastic_parts(gpu, stochastic,
                                                        args.seed)

@@ -114,6 +114,69 @@ def test_encode_backward_plain_on_clustered_points(variant, n_features,
     assert np.all(err <= tol + RTOL * magnitude), float(err.max())
 
 
+def _row_sums(g_abs, cell, config):
+    """Per element, the sum of |g| over the terms its row takes, unweighted,
+    for the cells (3, L, N) given: what a one-ulp change of every weight
+    can move it by, per ulp."""
+    _, _, stride, use_dense, size = encoders._grid_geometry(
+        torch.zeros((1, 3)), config)
+    f = config.n_features
+    out = torch.zeros((config.n_levels, config.table_size, f))
+    for l in range(config.n_levels):
+        for corner in encoders._CORNERS:
+            out[l].index_add_(0, encoders._corner_index(
+                cell[:, l], corner, stride[l], use_dense[l], size[l]),
+                g_abs[:, l * f:(l + 1) * f])
+    return out.numpy()
+
+
+@pytest.mark.parametrize('kind', ['uniform', 'rays'])
+def test_encode_backward_plain_on_the_full_tcnn_lattice(kind):
+    """The plain K2 on the full tcnn reference lattice (16 x 2^19 x 2:
+    three dense levels, 13 hashed) at 2,048 uniform or ray-ordered
+    points. Within the clustered test's rule, plus what the packages'
+    positions allow: XLA contracts x * scale + offset into an fma, the
+    port rounds the product first (as its kernels do), so a cell fraction
+    may differ by up to one ulp of the level's positions (2^-5 at the
+    finest level here, whose positions reach 2^19), and a corner weight,
+    a product of three factors in [0, 1], by three; a cell may differ
+    where a position lies within that of an integer, its weights then as
+    close. So each element may move by 3 ulp times the sum of |g| over
+    the terms its row takes in either package."""
+    rng = np.random.default_rng(25)
+    config = encoders.HashGridConfig(variant='tcnn')
+    jax_config = jax_encoders.HashGridConfig(variant='tcnn')
+    n = 2048
+    x = (_points(rng, n) if kind == 'uniform'
+         else _clustered_points(rng, n, 'rays'))
+    g = rng.normal(size=(n, config.out_dim)).astype(np.float32)
+    ours = hashgrid_cuda.hashgrid_encode_backward_plain(
+        torch.tensor(g), torch.tensor(x), config).numpy()
+    table = np.zeros((config.n_levels, config.table_size,
+                      config.n_features), np.float32)
+    _, vjp = jax.vjp(lambda t: jax_encoders.hashgrid_encode(t, x,
+                                                           jax_config), table)
+    (ref,) = vjp(g)
+    ref = np.asarray(ref)
+    mag = hashgrid_cuda.hashgrid_encode_backward_plain(
+        torch.tensor(np.abs(g)), torch.tensor(x), config).numpy()
+    tol = hashgrid_cuda.backward_tolerance(torch.tensor(g), torch.tensor(x),
+                                           config).numpy()
+    g_abs = torch.tensor(np.abs(g))
+    cells = (encoders._grid_geometry(torch.tensor(x), config)[0],
+             torch.tensor(np.asarray(jax.jit(
+                 lambda x: jax_encoders._grid_geometry(x, jax_config)[0])(x)
+             ).astype(np.int64)))
+    top = np.asarray(config.scales, np.float64) + config.pos_offset
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 23)  # of the level's positions
+    room = 3 * ulp[:, None, None] * sum(_row_sums(g_abs, c, config)
+                                        for c in cells)
+    assert ours.shape == ref.shape
+    err = np.abs(ours - ref)
+    assert np.all(err <= tol + RTOL * mag + room), float(
+        (err - tol - RTOL * mag - room).max())
+
+
 def _head_cotangents(rng, n, packed_ours, packed_jax):
     """Cotangents of (out1, features, logits): random in the port's
     widths, zero beyond them in the JAX package's 128-lane widths."""

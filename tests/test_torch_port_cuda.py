@@ -521,6 +521,123 @@ def test_encode_backward_kernel_ragged_tiles(cuda, variant, features, domain,
     _assert_within_sum_orders(got, want, g, x, config)
 
 
+# K2's narrow rows (scatter_group_kernel): a thread per (point, slice of W
+# = 4, 2 or 1 features), K2N_THREADS a block, walking the levels whose
+# slices of g fill a 32-byte sector; corners' atomics merged within the
+# warp.
+K2N_THREADS = 128
+
+
+def _narrow_grid(variant, features, levels=6):
+    """Dense levels (4, 8 and 16 cells a side; torch_ngp's sizes not
+    powers of two) and hashed ones on a 2^12 table."""
+    return HashGridConfig(n_levels=levels, n_features=features,
+                          log2_hashmap_size=12, base_resolution=4,
+                          per_level_scale=2.0, variant=variant)
+
+
+def _scatter_holds(config, x, seed):
+    g = torch.tensor(np.random.default_rng(seed).normal(
+        size=(x.shape[0], config.out_dim)).astype(np.float32),
+        device=x.device)
+    _kernels.reset_launches()
+    got = hashgrid_cuda.hashgrid_encode_backward(g, x, config)
+    assert _kernels.launches[hashgrid_cuda.BWD_NAME] == 1
+    want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
+    if x.shape[0] == 0:
+        assert not bool(got.any())
+    _assert_within_sum_orders(got, want, g, x, config)
+
+
+@pytest.mark.parametrize('domain', ['unit', 'outside'])
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('features', [1, 2, 3, 4, 8, 16, 24])
+def test_encode_backward_narrow_rows_widths(cuda, features, variant, domain):
+    """Every narrow width: W = 1 (F = 1, 3: x-neighbour pairs as one
+    float2 at F = 1), W = 2 (F = 2: pairs as one float4), W = 4 (F = 4,
+    8, 16, 24: a float4 a slice), points in and up to 0.05 outside [0, 1]
+    (negative dense indices wrap floor-mod the level size)."""
+    rng = np.random.default_rng(features)
+    _scatter_holds(_narrow_grid(variant, features),
+                   _points(rng, 1000, cuda, domain), 51)
+
+
+@pytest.mark.parametrize('n', [0, 1, 31, 32, 33, K2N_THREADS - 1,
+                               K2N_THREADS, K2N_THREADS + 1, 255, 257, 4099])
+@pytest.mark.parametrize('features', [1, 2, 3, 8])
+def test_encode_backward_narrow_rows_ragged(cuda, features, n):
+    """Point counts at and around a warp's and a block's points (F = 3:
+    3 threads a point, a warp ending inside a point), none and one."""
+    rng = np.random.default_rng(n + 7)
+    x = _points(rng, max(n, 4), cuda, 'outside')[:n].contiguous()
+    _scatter_holds(_narrow_grid('tcnn', features, levels=5), x, 52)
+
+
+@pytest.mark.parametrize('kind', ['one_cell', 'rays'])
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('features', [1, 2, 4])
+def test_encode_backward_narrow_rows_clustered(cuda, features, variant, kind):
+    """Same-address traffic: every point in one cell (each round of a warp
+    on one target, merged to one atomic) and ray-ordered samples."""
+    rng = np.random.default_rng(17)
+    _scatter_holds(_narrow_grid(variant, features),
+                   _clustered(rng, 3000, kind, cuda), 53)
+
+
+@pytest.mark.parametrize('features', [4097, 4100])
+def test_encode_backward_narrow_rows_beyond_the_wide_kernel(cuda, features):
+    """F beyond the wide kernel's staged g (4,096 floats): a multiple of 4
+    (float4 slices) and an odd width (a thread a feature)."""
+    rng = np.random.default_rng(features)
+    config = HashGridConfig(n_levels=2, n_features=features,
+                            log2_hashmap_size=6, base_resolution=2,
+                            per_level_scale=2.0, variant='tcnn')
+    _scatter_holds(config, _points(rng, 37, cuda, 'outside'), 54)
+
+
+@pytest.mark.parametrize('kind', ['uniform', 'rays'])
+def test_encode_backward_narrow_rows_tcnn_lattice(cuda, kind):
+    """The full tcnn lattice (16 x 2^19 x 2: three dense levels, 13
+    hashed) at N = 65,536."""
+    rng = np.random.default_rng(19)
+    x = (_points(rng, 65536, cuda, 'unit') if kind == 'uniform'
+         else _clustered(rng, 65536, 'rays', cuda))
+    _scatter_holds(HashGridConfig(variant='tcnn'), x, 55)
+
+
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+@pytest.mark.parametrize('kind', ['uniform', 'rays'])
+def test_encode_backward_narrow_rows_reference_lattices(cuda, kind, variant):
+    """The reference presets' lattices at the CLI's N = 524,288."""
+    rng = np.random.default_rng(20)
+    config = (HashGridConfig.from_desired_resolution(
+        2 ** 18, variant='torch_ngp') if variant == 'torch_ngp'
+        else HashGridConfig(variant=variant))
+    x = (_points(rng, 524288, cuda, 'unit') if kind == 'uniform'
+         else _clustered(rng, 524288, 'rays', cuda))
+    _scatter_holds(config, x, 56)
+
+
+def test_encode_backward_launch_shapes_narrow_rows(cuda):
+    """The narrow kernel's plan: 128 threads a block at most 64 registers
+    (8 blocks an SM), level groups of one 32-byte sector of g (4 at F =
+    2, 8 at F = 1, 2 at F = 3 and 4, 1 from F = 5 on), groups slowest."""
+    n = 1000
+    for features, slices, group in ((2, 1, 4), (1, 1, 8), (3, 3, 2),
+                                    (4, 1, 2), (8, 2, 1), (24, 6, 1)):
+        config = HashGridConfig(n_features=features, variant='tcnn')
+        (name, shape), = hashgrid_cuda.encode_backward_launch_shapes(
+            config, n).items()
+        assert name == 'scatter_group_kernel'
+        assert shape['threads'] == K2N_THREADS
+        assert shape['registers'] <= 64 and shape['blocks_per_sm'] >= 8
+        assert shape['levels_per_thread'] == group
+        assert shape['points_per_tile'] == (32 // slices if 32 % slices == 0
+                                            else 0)
+        assert shape['blocks'] == (-(-n * slices // K2N_THREADS)
+                                   * -(-16 // group))
+
+
 # K2x, the encode's gradient for the points, in each form: (interp,
 # features, variant, the stochastic plan's (n_samples, residual,
 # exact_levels) or None for the exact encode)

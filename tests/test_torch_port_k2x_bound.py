@@ -67,3 +67,28 @@ def test_residual_and_draws_levels():
     assert nbytes == want
     assert ms == pytest.approx(want / chip_smoke.PEAK_BYTES * 1e3,
                                rel=1e-12)
+
+
+@pytest.mark.parametrize('kind', ['uniform', 'rays'])
+@pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
+def test_k2_yardstick_is_the_plain_table_gradient(variant, kind):
+    """chip_smoke.k2_yardstick, K2's library yardstick (one index_add_ of
+    the 8 L N pre-weighted corner rows into the flattened table
+    gradient), within hashgrid_cuda.backward_tolerance of the plain
+    version: the same fp32 products summed in another order. Dense and
+    hashed levels; ray-ordered points share rows."""
+    from autolabel_tpu_torch.ops import hashgrid_cuda
+    config = HashGridConfig(n_levels=5, n_features=2, log2_hashmap_size=10,
+                            base_resolution=4, per_level_scale=2.0,
+                            variant=variant)
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.rand((1000, 3), generator=gen) if kind == 'uniform'
+         else chip_smoke._ray_points(1024, gen))
+    g = torch.randn((x.shape[0], config.out_dim), generator=gen)
+    library = chip_smoke.k2_yardstick(encoders, g, x, config)
+    got = library().view(config.n_levels, config.table_size, 2).clone()
+    want = hashgrid_cuda.hashgrid_encode_backward_plain(g, x, config)
+    tol = hashgrid_cuda.backward_tolerance(g, x, config)
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool(want.any())
+    assert torch.equal(library(), got.view(-1, 2))  # zeroed at each call

@@ -213,23 +213,46 @@ def _sectors_by_hand(x, config, points, sector=32):
     return counts
 
 
+@pytest.mark.parametrize('sector', [32, 16])
 @pytest.mark.parametrize('variant', ['native', 'tcnn', 'torch_ngp'])
 @pytest.mark.parametrize('features', [1, 2, 3, 8])
 @pytest.mark.parametrize('n,points', [(1, None), (40, None), (40, 32),
                                       (33, 5), (100, 1)])
 def test_gather_sectors_counts_each_tiles_distinct_sectors(variant, features,
-                                                           n, points):
+                                                           n, points,
+                                                           sector):
     """gather_sectors against sets of sectors: per level, the distinct
-    32-byte sectors of the points' corner rows over the launch or summed
-    over tiles (the last tile holds what is left); 12-byte rows (F = 3)
-    that straddle a sector boundary count both sectors. Points in and
-    outside [0, 1] (negative dense indices)."""
+    32-byte sectors of the points' corner rows (or 16-byte pieces, K2
+    narrow's least atomic requests) over the launch or summed over tiles
+    (the last tile holds what is left); 12-byte rows (F = 3) that straddle
+    a sector boundary count both sectors. Points in and outside [0, 1]
+    (negative dense indices)."""
     rng = np.random.default_rng(n * 10 + features)
     config = HashGridConfig(n_levels=3, n_features=features,
                             log2_hashmap_size=9, base_resolution=4,
                             per_level_scale=2.0, variant=variant)
     x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
-    got = gather_sectors(torch.from_numpy(x), config, points)
-    assert got == _sectors_by_hand(x, config, points)
+    got = gather_sectors(torch.from_numpy(x), config, points, sector)
+    assert got == _sectors_by_hand(x, config, points, sector)
     if points is None:
         assert all(0 < c <= 8 * n * 2 for c in got)
+
+
+def test_k2_narrow_variant_cuts_apply_to_the_source():
+    """kernel_compare.py times K2's narrow rows in variants from copies of
+    csrc/hashgrid_bwd.cu cut by -DK2N_VARIANT / -DK2N_GROUP: each cut finds
+    its text once, every #if it adds is closed, and the shipped kernel
+    has no switch."""
+    import os
+    import kernel_compare
+    src = open(os.path.join(os.path.dirname(encoders.__file__), '..', 'csrc',
+                            'hashgrid_bwd.cu')).read()
+    assert 'K2N_VARIANT' not in src and 'K2N_GROUP' not in src
+    endifs, ifs = src.count('#endif'), src.count('#if')
+    for old, new in kernel_compare._K2N_VARIANT_CUTS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert src.count('#if') - ifs == src.count('#endif') - endifs
+    assert 'const bool merge = false;' in src
+    assert 'K2N_GROUP ? K2N_GROUP : K2N_SECTOR / features' in src
+    assert src.count('scatter_group_kernel<2><<<') == 3  # variant 5 splits
